@@ -1,0 +1,13 @@
+"""Yi-9B [arXiv:2403.04652; hf].
+
+48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000 -- llama-arch GQA,
+RMSNorm, SwiGLU.
+"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="yi-9b", family="dense",
+    n_layers=48, d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128,
+    d_ff=11008, vocab=64000, norm="rmsnorm", act="silu", gated_ffn=True,
+    rope_theta=10000.0, pattern=("attn",),
+))

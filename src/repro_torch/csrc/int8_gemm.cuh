@@ -1,0 +1,169 @@
+// Shared-memory-tiled int8 x int8 -> exact int32 GEMM on __dp4a, with the
+// per-tensor x per-column dequant epilogue of the w8a8 kernels:
+//
+//     out[m, n] = (float)(sum_k x[m, k] * w[k, n]) * sx * sw[n]
+//
+// evaluated in exactly that order (int32 -> f32 round-to-nearest, then two
+// f32 multiplies, never fused), so the f32 output is bit-identical to the
+// plain PyTorch versions beside the wrappers.
+//
+// Layout: x (M, K) int8 row-major, K a multiple of 4 (the wrappers pad);
+// the weight side is read through a loader (`WLoad`) that turns 4
+// consecutive K rows of 4 columns into 4 dp4a operands, one int32 per
+// column.  The int8 loader transposes a 4x4 byte block in registers; the
+// 2-bit loader of split_ternary.cu unpacks one packed byte straight into one
+// operand (the 4 codes of a byte are 4 consecutive K rows of one column).
+//
+// Tiles: BN = 64 columns, BK = 64 K-bytes per stage, BM = 16 * TM rows;
+// 256 threads, each holding TM x 4 int32 accumulators.  The next stage's
+// global loads are issued into registers before the current stage is
+// computed from shared memory (one-stage register prefetch).  No atomics,
+// no split-K: the result does not depend on scheduling order.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace i8gemm {
+
+constexpr int kThreads = 256;
+constexpr int kBN = 64;
+constexpr int kBK = 64;         // K bytes per stage
+constexpr int kKW = kBK / 4;    // int32 words per tile row
+
+// 4 rows (K) x 4 columns (N) of int8, one uint32 per row -> one uint32 per
+// column holding that column's 4 K values, K-ascending from the low byte.
+__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1,
+                                             uint32_t r2, uint32_t r3,
+                                             int (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
+  const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
+  const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
+  const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
+  c[0] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
+  c[1] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
+  c[2] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
+  c[3] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
+}
+
+// Weight side of quant_matmul: w (K, N) int8 row-major, N % 4 == 0.
+struct Int8Weights {
+  const int8_t* w;
+  int n_cols;
+  int k_words;  // K / 4
+
+  // Operands of K rows [4 * kw, 4 * kw + 4) for columns [n, n + 4).
+  __device__ __forceinline__ void load(int kw, int n, int (&c)[4]) const {
+    if (kw >= k_words || n >= n_cols) {
+      c[0] = c[1] = c[2] = c[3] = 0;
+      return;
+    }
+    const size_t stride = static_cast<size_t>(n_cols) / 4;  // words per row
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(
+        w + static_cast<size_t>(4 * kw) * n_cols + n);
+    transpose4x4(__ldg(p), __ldg(p + stride), __ldg(p + 2 * stride),
+                 __ldg(p + 3 * stride), c);
+  }
+};
+
+template <int TM, class WLoad>
+__global__ void __launch_bounds__(kThreads)
+gemm_dp4a(const int8_t* __restrict__ x, WLoad wl,
+          const float* __restrict__ sx, const float* __restrict__ sw,
+          float* __restrict__ out, int M, int N, int K) {
+  constexpr int BM = 16 * TM;
+  __shared__ int xs[BM][kKW + 1];
+  __shared__ int ws[kBN][kKW + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
+  const int k_words = K / 4;
+  const int* xw = reinterpret_cast<const int*>(x);
+  // weight loads: thread -> (word row q, 4 columns starting at c4)
+  const int wq_row = tid / 16, c4 = (tid % 16) * 4;
+
+  int xr[TM];
+  int wr[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int idx = tid + kThreads * i;  // BM * kKW == kThreads * TM
+      const int r = idx / kKW, q = idx % kKW;
+      const int m = m0 + r, kw = k0 / 4 + q;
+      xr[i] = (m < M && kw < k_words)
+                  ? __ldg(xw + static_cast<size_t>(m) * k_words + kw) : 0;
+    }
+    wl.load(k0 / 4 + wq_row, n0 + c4, wr);
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int idx = tid + kThreads * i;
+      xs[idx / kKW][idx % kKW] = xr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ws[c4 + j][wq_row] = wr[j];
+  };
+
+  int acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    stash();
+    __syncthreads();
+    if (k0 + kBK < K) fetch(k0 + kBK);
+#pragma unroll
+    for (int q = 0; q < kKW; ++q) {
+      int a[TM], b[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[ty + 16 * i][q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = ws[tx + 16 * j][q];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const float s = *sx;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) {
+        const float v = static_cast<float>(acc[i][j]) * s;
+        out[static_cast<size_t>(m) * N + n] = v * sw[n];
+      }
+    }
+  }
+}
+
+// Small M (decode: M = batch) takes 16-row tiles, larger M 64-row tiles.
+template <class WLoad>
+inline int launch(const int8_t* x, WLoad wl, const float* sx, const float* sw,
+                  float* out, int M, int N, int K, cudaStream_t stream) {
+  const unsigned gx = static_cast<unsigned>((N + kBN - 1) / kBN);
+  if (M <= 16) {
+    dim3 grid(gx, static_cast<unsigned>((M + 15) / 16));
+    gemm_dp4a<1, WLoad><<<grid, kThreads, 0, stream>>>(x, wl, sx, sw, out,
+                                                       M, N, K);
+  } else {
+    dim3 grid(gx, static_cast<unsigned>((M + 63) / 64));
+    gemm_dp4a<4, WLoad><<<grid, kThreads, 0, stream>>>(x, wl, sx, sw, out,
+                                                       M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace i8gemm

@@ -1,0 +1,34 @@
+"""Public kernel entry points with the JAX ops' boundary and padding
+contract (``repro.kernels.ops``): the N-block clamp ``min(bn, max(128,
+n))`` and the boundary rounded up to that block.  The kernel wrappers pad
+K (and the packed stream's K) to a multiple of 4 themselves."""
+from __future__ import annotations
+
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.split_ternary import split_ternary
+
+
+def align_boundary(boundary: int, bn: int) -> int:
+    """Round a domain boundary UP to the N-block size (the extra columns
+    execute on the quantized domain).  `runtime.lower` records boundaries
+    aligned with exactly this function."""
+    return int(-(-int(boundary) // int(bn)) * int(bn))
+
+
+def block_n(bn: int, n: int) -> int:
+    """The effective N-block of a layer with ``n`` output columns."""
+    return min(int(bn), max(128, int(n)))
+
+
+#: w8a8 matmul, any shape (the kernel wrapper pads K and N itself)
+quant_matmul_op = quant_matmul
+
+
+def split_ternary_op(x_q, w_q, w_packed, sx, sw, boundary: int, bn=128):
+    """Fused ternary + int8 layer; ``boundary`` (the first ternary-domain
+    column) is rounded UP to the effective N-block, so straddling columns
+    execute on the int8 path (``w_q`` carries every column's codes).
+    ``w_packed`` has ``ceil(K/4)`` rows; the kernel wrapper pads K."""
+    n = w_q.shape[1]
+    b_al = min(align_boundary(boundary, block_n(bn, n)), n)
+    return split_ternary(x_q, w_q, w_packed, sx, sw, b_al)
