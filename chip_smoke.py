@@ -8,31 +8,56 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi) and the torch
    version; no CUDA device is a failure, never a CPU run.
-2. build: both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
-   in parallel).
-3. kernels vs their plain versions on the card, bit for bit, at the main
-   path's shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
-   (4096, 11008), (11008, 4096), (4096, 64000)}; split_ternary at
-   boundaries {0, 7, 128, 300, N}, with the int8 codes at and above the
-   aligned boundary overwritten by garbage (the split probe: the kernel
-   must read the packed stream there).
+2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+   each, in parallel).
+3. kernels vs their plain versions on the card at the serving paths'
+   shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
+   (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul and
+   ternary_matmul bit for bit; split_ternary bit for bit at boundaries
+   {0, 7, 128, 300, N}; split_precision at raw boundaries {0, 7, 128, 342,
+   N}, its int8 columns bit for bit and its bf16 columns within the float32
+   summation bound ``K * 2**-24 * sum_k |x w| + 2**-24 * |y|``.  Split
+   probes: the split kernels get garbage in the int8 codes at and above
+   the aligned boundary (and split_precision NaN in its bf16 weights below
+   it), which must not reach the output.
 4. times (CUDA events, after warm-up) of each kernel, its plain version and
-   torch._int_mm with the same epilogue, beside the bound
-   max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s) of the H100 SXM data
+   a library yardstick (torch._int_mm with the same epilogue; for
+   split_precision "two calls": _int_mm on the int8 columns and a bf16
+   torch.matmul on the rest), beside the bound max(bytes / 3.35 TB/s,
+   int8 ops / 1979 TOP/s + bf16 flops / 989 TFLOP/s) of the H100 SXM data
    sheet, at the M each layer has on the path (the head projects only the
    last position: M = B at prefill as at decode).
-5. serving: full-width 48-layer yi-9b with random weights from --seed,
-   mapped by the static min-cost DIANA emission, lowered and bound with
-   full coverage (quant_matmul:241 split_ternary:96), served with the
-   fixed-batch greedy loop (4 requests x 128 prompt + 16 generated
-   tokens); then served again with the plain versions
-   (``reference=True``): tokens and prefill logits must be identical.
+5. serving: full-width 48-layer yi-9b with random weights from --seed
+   (one set of params), mapped three ways and served with the fixed-batch
+   greedy loop (4 requests x 128 prompt + 16 generated tokens), one bound
+   backend at a time:
+     diana          static min-cost DIANA split: quant_matmul:241
+                    split_ternary:96
+     gpu_tc_like    static min-cost int8 + fp16 split: quant_matmul:241
+                    split_precision:96
+     diana_ternary  diana biased ("aimc", 1.0), the all-ternary baseline
+                    on the searchable layers: quant_matmul:241
+                    ternary_matmul:96
+   each at full coverage with launch counts = histogram x 16 forwards;
+   then served again with the plain versions (``reference=True``, no
+   launch): tokens and prefill logits identical on the integer paths.  On
+   gpu_tc_like, whose bf16 columns sum in another order than the plain
+   version, every split_precision call of the kernel run's prefill is
+   checked against the plain version on its own inputs (int8 columns bit
+   for bit, bf16 columns within the summation bound), and a third run,
+   plain with the bf16 columns summed in float32, measures how far another
+   valid summation order moves the prefill logits: the kernel run must lie
+   within SENSITIVITY_FACTOR times that of the float64 plain run (tokens
+   compared per row up to the first step whose plain top-2 margin is
+   below that tolerance).  Then a warm run, with the profiler's device
+   busy share on diana and gpu_tc_like.
 6. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import os
@@ -48,22 +73,57 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12           # H100 SXM data sheet, dense
+BF16_FLOPS_PER_S = 989e12          # H100 SXM data sheet, dense
 L2_BYTES = 50 * 2**20              # H100 L2 cache
 KN_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
              (4096, 64000)]
 REQUESTS, PROMPT_LEN, GEN_LEN = 4, 128, 16   # the served traffic
 DECODE_M, PREFILL_M = REQUESTS, REQUESTS * PROMPT_LEN
 M_SHAPES = [DECODE_M, PREFILL_M]
-BOUNDARIES = [0, 7, 128, 300, None]   # None = N
-# yi-9b layers per forward: (K, N) -> (kernel, count, rows at prefill);
-# every layer has M = B rows at decode
-PATH_LAYERS = {(4096, 4096): ("quant_matmul", 96, PREFILL_M),    # wq, wo
-               (4096, 512): ("split_ternary", 96, PREFILL_M),    # wk, wv
-               (4096, 11008): ("quant_matmul", 96, PREFILL_M),   # gate, up
-               (11008, 4096): ("quant_matmul", 48, PREFILL_M),   # down
-               # the head projects only each row's last position
-               (4096, 64000): ("quant_matmul", 1, DECODE_M)}
-MAIN_BOUNDARY = 7                     # raw DIANA split of wk / wv
+BOUNDARIES = [0, 7, 128, 300, None]      # split_ternary; None = N
+SP_BOUNDARIES = [0, 7, 128, 342, None]   # split_precision; None = N
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:49"),
+    "split_ternary": ("src/repro_torch/csrc/split_ternary.cu",
+                      "src/repro/kernels/split_ternary.py:91"),
+    "ternary_matmul": ("src/repro_torch/csrc/ternary_matmul.cu",
+                       "src/repro/kernels/ternary_matmul.py:44"),
+    "split_precision": ("src/repro_torch/csrc/split_precision.cu",
+                        "src/repro/kernels/split_precision.py:71"),
+}
+# serving paths: platform, emission bias, kernel of wk / wv, raw boundary
+# of wk / wv (None: one domain)
+PATHS = {
+    "diana": ("diana", None, "split_ternary", 7),
+    "gpu_tc_like": ("gpu_tc_like", None, "split_precision", 342),
+    "diana_ternary": ("diana", ("aimc", 1.0), "ternary_matmul", None),
+}
+#: path -> kernel the path's record in the JSON line takes its launches from
+LAUNCH_PATH = {"quant_matmul": "diana", "split_ternary": "diana",
+               "split_precision": "gpu_tc_like",
+               "ternary_matmul": "diana_ternary"}
+# Kernel vs plain prefill logits on gpu_tc_like.  A bf16 column of
+# split_precision differs from the plain value by ~1e-6 relative, which
+# moves a bf16-rounded wk / wv output by one bf16 step now and then; every
+# layer requantizes its activations and the KV cache to int8, where such a
+# step can move a code, so the difference cascades through the 48 layers.
+# Its size is the model's, not the kernel's: another valid summation order
+# (float32 instead of float64, in the plain version) moves the logits as
+# far.  The kernel run must stay within this factor of that distance.
+SENSITIVITY_FACTOR = 4.0
+
+
+def path_layers(path):
+    """yi-9b layers per forward on ``path``: (K, N) -> (kernel, count, rows
+    at prefill); every layer has M = B rows at decode."""
+    kv = PATHS[path][2]
+    return {(4096, 4096): ("quant_matmul", 96, PREFILL_M),    # wq, wo
+            (4096, 512): (kv, 96, PREFILL_M),                 # wk, wv
+            (4096, 11008): ("quant_matmul", 96, PREFILL_M),   # gate, up
+            (11008, 4096): ("quant_matmul", 48, PREFILL_M),   # down
+            # the head projects only each row's last position
+            (4096, 64000): ("quant_matmul", 1, DECODE_M)}
 
 
 def nvidia_smi_line() -> str:
@@ -111,124 +171,223 @@ def operands(m, k, n, raw_boundary, gen):
     return x, w_q, w_p, sx.to(torch.float32), sw.to(torch.float32)
 
 
-def bound_ms(m, k, n, weight_bytes):
+def bound_ms(m, k, n, weight_bytes, int8_cols=None, bf16_cols=0):
     """Least time of the H100 SXM for the call, and what bounds it: each
-    input read once (x, weights, sw, sx), the output written once, against
-    2*M*N*K int8 operations."""
-    nbytes = m * k + weight_bytes + 4 * n + 4 + 4 * m * n
+    input read once (the int8 activations if any column is int8, the bf16
+    ones if any is bf16, the weights, sw, sx), the output written once,
+    against 2*M*K int8 operations per int8 column plus 2*M*K bf16
+    operations per bf16 column."""
+    int8_cols = n if int8_cols is None else int8_cols
+    act = (m * k if int8_cols else 0) + (2 * m * k if bf16_cols else 0)
+    nbytes = act + weight_bytes + 4 * n + 4 + 4 * m * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
+    t_ops = (2.0 * m * k * int8_cols / INT8_OPS_PER_S +
+             2.0 * m * k * bf16_cols / BF16_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def aligned(raw, n):
+    """The boundary the ops split at: rounded up to the N-block, clamped."""
+    from repro_torch.kernels import ops
+    return min(ops.align_boundary(raw, ops.block_n(128, n)), n)
+
+
+def split_precision_case(torch, m, k, n, raw, gen):
+    """Operands of one split_precision check or timing: the clean ones and
+    the split probe (w_q 99 at and above the aligned boundary, w_bf16 NaN
+    below it); returns (args before the weights, clean w, probe w, sw,
+    aligned boundary).  The bf16 operands have yi-9b's magnitudes
+    (unit-scale activations, 0.02-scale weights)."""
+    x_q, w_q, _, sx, sw = operands(m, k, n, n, gen)
+    x = torch.randn((m, k), generator=gen, device=gen.device)
+    w_b = torch.randn((k, n), generator=gen, device=gen.device) * 0.02
+    x, w_b = x.to(torch.bfloat16), w_b.to(torch.bfloat16)
+    b_al = aligned(raw, n)
+    cols = torch.arange(n, device=x.device)[None, :]
+    probe_q = torch.where(cols < b_al, w_q, 99).to(torch.int8)
+    probe_b = torch.where(cols >= b_al, w_b,
+                          float("nan")).to(torch.bfloat16)
+    return (x, x_q, sx), (w_b, w_q), (probe_b, probe_q), sw, b_al
+
+
 def phase_kernels(torch, gen):
-    """Bit-exact checks at every listed shape; returns the max |error|."""
+    """Checks at every listed shape; returns {kernel: max |error|}."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.quant_matmul import quant_matmul_plain
+    from repro_torch.kernels.split_precision import (bf16_error_bound,
+                                                     split_precision_plain)
     from repro_torch.kernels.split_ternary import split_ternary_plain
-    worst = 0.0
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_plain
+    worst = dict.fromkeys(KERNELS, 0.0)
+
+    def exact(kernel, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst[kernel] = max(worst[kernel], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kernel} {what}: max |err| {err}")
+        print(f"[kernels] {kernel:<15s} {what} bit-identical")
+
     for m in M_SHAPES:
         for k, n in KN_SHAPES:
+            shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
             x, w_q, w_p, sx, sw = operands(m, k, n, n, gen)
-            got = ops.quant_matmul_op(x, w_q, sx, sw)
-            want = quant_matmul_plain(x, w_q, sx, sw)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            worst = max(worst, err)
-            if not torch.equal(got, want):
-                raise AssertionError(f"quant_matmul M={m} K={k} N={n}: "
-                                     f"max |err| {err}")
-            print(f"[kernels] quant_matmul  M={m:<4d} K={k:<6d} N={n:<6d} "
-                  f"bit-identical")
+            exact("quant_matmul", ops.quant_matmul_op(x, w_q, sx, sw),
+                  quant_matmul_plain(x, w_q, sx, sw), shape)
+            x, w_t, w_p, sx, sw = operands(m, k, n, 0, gen)
+            exact("ternary_matmul", ops.ternary_matmul_op(x, w_t, sx, sw),
+                  ternary_matmul_plain(x, w_t, sx, sw), shape)
             for b in BOUNDARIES:
                 raw = n if b is None else min(b, n)
                 x, w_q, w_p, sx, sw = operands(m, k, n, raw, gen)
-                b_al = min(ops.align_boundary(raw, ops.block_n(128, n)), n)
+                b_al = aligned(raw, n)
                 cols = torch.arange(n, device=x.device)[None, :]
-                garbage = torch.full_like(w_q, 99)
-                probe = torch.where(cols < b_al, w_q, garbage)
-                got = ops.split_ternary_op(x, probe, w_p, sx, sw, raw)
-                want = split_ternary_plain(x, w_q, w_p, sx, sw, b_al)
+                probe = torch.where(cols < b_al, w_q, 99).to(torch.int8)
+                exact("split_ternary",
+                      ops.split_ternary_op(x, probe, w_p, sx, sw, raw),
+                      split_ternary_plain(x, w_q, w_p, sx, sw, b_al),
+                      f"{shape} boundary={raw:<5d} (aligned {b_al}), w_q "
+                      f"garbage at cols >= {b_al}:")
+            for b in SP_BOUNDARIES:
+                raw = n if b is None else min(b, n)
+                acts, (w_b, w_q), (p_b, p_q), sw, b_al = \
+                    split_precision_case(torch, m, k, n, raw, gen)
+                got = ops.split_precision_op(*acts, p_b, p_q, sw, raw)
+                want = split_precision_plain(*acts, w_b, w_q, sw, b_al)
                 torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                if not torch.equal(got, want):
+                if not torch.equal(got[:, :b_al], want[:, :b_al]):
                     raise AssertionError(
-                        f"split_ternary M={m} K={k} N={n} boundary={raw}: "
-                        f"max |err| {err}")
-                print(f"[kernels] split_ternary M={m:<4d} K={k:<6d} "
-                      f"N={n:<6d} boundary={raw:<5d} (aligned {b_al}) "
-                      f"bit-identical, w_q garbage at cols >= {b_al}")
+                        f"split_precision {shape} boundary={raw}: int8 "
+                        f"columns differ")
+                err = (got[:, b_al:].double() - want[:, b_al:].double()).abs()
+                bound = bf16_error_bound(acts[0], w_b[:, b_al:],
+                                         want[:, b_al:])
+                ratio = (float((err / bound.clamp_min(1e-300)).max())
+                         if err.numel() else 0.0)
+                worst["split_precision"] = max(
+                    worst["split_precision"],
+                    float(err.max()) if err.numel() else 0.0)
+                if not bool((err <= bound).all()):
+                    raise AssertionError(
+                        f"split_precision {shape} boundary={raw}: bf16 "
+                        f"columns outside the summation bound (worst "
+                        f"error / bound {ratio:.3g})")
+                print(f"[kernels] split_precision {shape} boundary="
+                      f"{raw:<5d} (aligned {b_al}) int8 columns "
+                      f"bit-identical, bf16 columns max |err| "
+                      f"{float(err.max()) if err.numel() else 0.0:.3g} = "
+                      f"{ratio:.3g} of the bound; w_q garbage at cols >= "
+                      f"{b_al}, w_bf16 NaN below")
     return worst
 
 
 def phase_times(torch, gen):
-    """Times of every (M, K, N) call the path makes; returns {kernel:
-    {(m, k, n): record}}.  Each timed call reads the next of several copies
-    of the weights, whose total exceeds twice the 50 MB L2 cache, so every
-    call streams its weights from device memory as in a forward pass."""
+    """Times of every (M, K, N) call the serving paths make; returns
+    {kernel: {(m, k, n): record}}.  Each timed call reads the next of
+    several copies of the weights, whose total exceeds twice the 50 MB L2
+    cache, so every call streams its weights from device memory as in a
+    forward pass."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.quant_matmul import quant_matmul_plain
+    from repro_torch.kernels.split_precision import split_precision_plain
     from repro_torch.kernels.split_ternary import split_ternary_plain
-    times = {"quant_matmul": {}, "split_ternary": {}}
-    calls = dict.fromkeys((kernel, m if m == DECODE_M else pm, k, n)
-                          for m in M_SHAPES
-                          for (k, n), (kernel, _, pm) in PATH_LAYERS.items())
-    for kernel, m, k, n in calls:
-        raw = MAIN_BOUNDARY if kernel == "split_ternary" else n
-        x, w_q, w_p, sx, sw = operands(m, k, n, raw, gen)
-        copies = -(-2 * L2_BYTES // (k * n))
-        wqs = [w_q] + [w_q.clone() for _ in range(copies - 1)]
-        wps = [w_p] + [w_p.clone() for _ in range(copies - 1)]
-        turn = itertools.cycle(range(copies))
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_plain
+    times = {kernel: {} for kernel in KERNELS}
+    calls = {}
+    for path, (_, _, _, raw) in PATHS.items():
+        for (k, n), (kernel, _, pm) in path_layers(path).items():
+            for m in M_SHAPES:
+                key = (kernel, m if m == DECODE_M else pm, k, n)
+                calls[key] = raw if kernel == PATHS[path][2] else None
+    for (kernel, m, k, n), raw in calls.items():
+        raw = n if raw is None else raw
+        b_al = aligned(raw, n)
         iters = 20 if n * k >= 4096 * 11008 else 50
-        if kernel == "quant_matmul":
-            def run():
-                return ops.quant_matmul_op(x, wqs[next(turn)], sx, sw)
-
-            def plain():
-                return quant_matmul_plain(x, wqs[next(turn)], sx, sw)
-            wbytes = k * n
-        else:
-            b_al = ops.align_boundary(raw, ops.block_n(128, n))
-
-            def run():
-                i = next(turn)
-                return ops.split_ternary_op(x, wqs[i], wps[i], sx, sw,
-                                            raw)
-
-            def plain():
-                i = next(turn)
-                return split_ternary_plain(x, wqs[i], wps[i], sx, sw,
-                                           b_al)
-            wbytes = k * b_al + (k // 4) * (n - b_al)
-
         # torch._int_mm takes M > 16 only: fewer rows are zero-padded to 32
-        x_lib = torch.cat([x, x.new_zeros(32 - m, k)]) if m <= 16 else x
+        pad_rows = (lambda t: torch.cat([t, t.new_zeros(32 - m, k)])
+                    if m <= 16 else t)
+        if kernel == "split_precision":
+            acts, (w_b, w_q), _, sw, _ = split_precision_case(
+                torch, m, k, n, raw, gen)
+            x, x_q, sx = acts
+            wbytes = k * b_al + 2 * k * (n - b_al)
+            weights = (w_b, w_q, w_q[:, :b_al].contiguous(),
+                       w_b[:, b_al:].contiguous())
+            x_lib = pad_rows(x_q)
 
-        def lib():
-            return (torch._int_mm(x_lib, wqs[next(turn)])[:m].to(
-                torch.float32) * sx * sw[None, :])
-        rec = {"ms": cuda_ms(run, iters),
-               "plain_ms": cuda_ms(plain, max(3, iters // 5)),
-               "library_ms": cuda_ms(lib, iters)}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(m, k, n, wbytes)
+            def run(w):
+                return ops.split_precision_op(x, x_q, sx, w[0], w[1], sw,
+                                              raw)
+
+            def plain(w):
+                return split_precision_plain(x, x_q, sx, w[0], w[1], sw,
+                                             b_al)
+
+            def lib(w):   # two calls, no concatenation
+                lo = torch._int_mm(x_lib, w[2])[:m].to(torch.float32) * \
+                    sx * sw[None, :b_al]
+                return lo, torch.matmul(x, w[3]).to(torch.float32)
+            bound = bound_ms(m, k, n, wbytes, int8_cols=b_al,
+                             bf16_cols=n - b_al)
+        else:
+            x, w_q, w_p, sx, sw = operands(
+                m, k, n, 0 if kernel == "ternary_matmul" else raw, gen)
+            weights = (w_q,)
+            x_lib = pad_rows(x)
+            if kernel == "split_ternary":
+                weights = (w_q, w_p)
+                wbytes = k * b_al + (k // 4) * (n - b_al)
+
+                def run(w):
+                    return ops.split_ternary_op(x, w[0], w[1], sx, sw, raw)
+
+                def plain(w):
+                    return split_ternary_plain(x, w[0], w[1], sx, sw, b_al)
+            else:
+                wbytes = k * n
+                op, plain_fn = {
+                    "quant_matmul": (ops.quant_matmul_op,
+                                     quant_matmul_plain),
+                    "ternary_matmul": (ops.ternary_matmul_op,
+                                       ternary_matmul_plain)}[kernel]
+
+                def run(w, op=op):
+                    return op(x, w[0], sx, sw)
+
+                def plain(w, plain_fn=plain_fn):
+                    return plain_fn(x, w[0], sx, sw)
+
+            def lib(w):
+                return (torch._int_mm(x_lib, w[0])[:m].to(torch.float32) *
+                        sx * sw[None, :])
+            bound = bound_ms(m, k, n, wbytes)
+        copies = -(-2 * L2_BYTES // wbytes)
+        ring = [weights] + [tuple(t.clone() for t in weights)
+                            for _ in range(copies - 1)]
+        turn = itertools.cycle(ring)
+        rec = {"ms": cuda_ms(lambda: run(next(turn)), iters),
+               "plain_ms": cuda_ms(lambda: plain(next(turn)),
+                                   max(3, iters // 5)),
+               "library_ms": cuda_ms(lambda: lib(next(turn)), iters)}
+        rec["bound_ms"], rec["bound_by"] = bound
         times[kernel][(m, k, n)] = rec
-        del wqs, wps
-        print(f"[times] {kernel:<13s} M={m:<4d} K={k:<6d} N={n:<6d} "
+        del ring, turn, weights
+        lib_name = "two calls" if kernel == "split_precision" else "_int_mm"
+        print(f"[times] {kernel:<15s} M={m:<4d} K={k:<6d} N={n:<6d} "
               f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} "
-              f"ms  _int_mm {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']})  share "
+              f"ms  {lib_name} {rec['library_ms']:.4f} ms  bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  share "
               f"{rec['bound_ms'] / rec['ms']:.3f}")
     return times
 
 
-def forward_mix(times, kernel, phase):
+def forward_mix(times, path, kernel, phase):
     """Sum of per-layer records over one ``"prefill"`` or ``"decode"``
-    forward pass of yi-9b, each layer at the M the path gives it."""
+    forward pass of yi-9b on ``path``, each layer at the M the path gives
+    it."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "bytes_ms": 0.0}
-    for (k, n), (kern, count, prefill_m) in PATH_LAYERS.items():
+    for (k, n), (kern, count, prefill_m) in path_layers(path).items():
         if kern != kernel:
             continue
         m = prefill_m if phase == "prefill" else DECODE_M
@@ -243,126 +402,284 @@ def forward_mix(times, kernel, phase):
     return tot
 
 
-def phase_serving(torch, seed, cfg, expected, dev):
-    """Serve ``cfg`` planned on diana, then with the plain versions;
-    ``expected`` is the plan's kernel histogram."""
+def plain_margins(torch, cfg, params, prompts, tokens, backend):
+    """Top-2 logit margins of the plain-version run at each generated step,
+    with ``tokens`` (that run's own) fed back: (B, GEN_LEN)."""
+    from repro_torch.models import _backend
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    caches = T.init_cache(cfg, B, P + GEN_LEN, device=prompts.device)
+    out = []
+    with _backend.use(backend):
+        logits, caches = T.prefill(params, cfg, prompts, caches)
+        for i in range(GEN_LEN):
+            top2 = torch.topk(logits.float(), 2, dim=-1).values
+            out.append(top2[:, 0] - top2[:, 1])
+            if i + 1 < GEN_LEN:
+                logits, caches = T.decode_step(params, cfg, tokens[:, i],
+                                               caches, P + i)
+    return torch.stack(out, dim=1)
+
+
+def recording_split_precision(calls, limit):
+    """Context: `ops.split_precision_op` keeps the operands and output of
+    its first ``limit`` calls in ``calls`` (the layer check of
+    gpu_tc_like); the kernel launches as before."""
+    import contextlib
     from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = ops.split_precision_op
+
+        def recording(*args, **kw):
+            out = orig(*args, **kw)
+            if len(calls) < limit:
+                calls.append((args, kw, out))
+            return out
+        ops.split_precision_op = recording
+        try:
+            yield
+        finally:
+            ops.split_precision_op = orig
+    return ctx()
+
+
+def check_split_precision_calls(torch, calls):
+    """Each recorded call against the plain version on its own inputs;
+    returns the largest bf16-column error / bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.split_precision import (bf16_error_bound,
+                                                     split_precision_plain)
+    worst = 0.0
+    for (x, x_q, sx, w_b, w_q, sw, boundary), kw, got in calls:
+        n = w_q.shape[1]
+        b_al = min(ops.align_boundary(boundary, ops.block_n(kw["bn"], n)),
+                   n)
+        want = split_precision_plain(x, x_q, sx, w_b, w_q, sw, b_al)
+        if not torch.equal(got[:, :b_al], want[:, :b_al]):
+            raise AssertionError("split_precision on the path: int8 "
+                                 "columns differ from the plain version")
+        if b_al == n:
+            continue
+        err = (got[:, b_al:].double() - want[:, b_al:].double()).abs()
+        bound = bf16_error_bound(x, w_b[:, b_al:], want[:, b_al:])
+        if not bool((err <= bound).all()):
+            raise AssertionError("split_precision on the path: bf16 "
+                                 "columns outside the summation bound")
+        worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
+    return worst
+
+
+def plain_float32_split_precision():
+    """Context: the plain split_precision oracle sums its bf16 columns in
+    float32 (cuBLAS; TF32 is off) instead of float64 -- another valid
+    order, for the sensitivity run of gpu_tc_like."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_matmul import quant_matmul_plain
+
+    def plain32(x, x_q, sx, w_bf16, w_q, sw, boundary):
+        lo = quant_matmul_plain(x_q, w_q, sx, sw)
+        hi = x.to(torch.float32) @ w_bf16.to(torch.float32)
+        cols = torch.arange(w_q.shape[1], device=w_q.device)[None, :]
+        return torch.where(cols < boundary, lo, hi)
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = ref.split_precision_matmul_ref
+        ref.split_precision_matmul_ref = plain32
+        try:
+            yield
+        finally:
+            ref.split_precision_matmul_ref = orig
+    return ctx()
+
+
+def kernel_launches():
+    from repro_torch.kernels import ops
+    return {k: getattr(ops, k).launches for k in KERNELS}
+
+
+def reset_launches():
+    from repro_torch.kernels import ops
+    for k in KERNELS:
+        getattr(ops, k).launches = 0
+
+
+def phase_serving(torch, path, cfg, params, prompts, profile_run):
+    """Serve ``cfg`` planned on ``path`` with the kernels, then with the
+    plain versions, then warm; returns (launches of the kernel run,
+    serving record)."""
     from repro_torch.launch.serve import (check_coverage, kv_cache_for,
                                           plan_mapping_execution,
                                           serve_batch)
     from repro_torch.launch.train import emit_static_mapping
-    from repro_torch.models import transformer as T
+    platform, bias, kv_kernel, _ = PATHS[path]
+    expected = {}
+    for kernel, count, _ in path_layers(path).values():
+        expected[kernel] = expected.get(kernel, 0) + count
     torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = ROOT / "build" / "chip_smoke" / f"{cfg.name}_{path}.json"
     t0 = time.perf_counter()
-    params = T.init_lm(gen, cfg)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
-          f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
-          f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
-          f"(init {time.perf_counter() - t0:.1f} s)")
-    out = ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana.json"
-    art = emit_static_mapping(params, cfg, "diana", out, act_log_scale=2.0)
+    art = emit_static_mapping(params, cfg, platform, out, act_log_scale=2.0,
+                              bias=bias)
     plan, backend = plan_mapping_execution(params, art)
     check_coverage("serve", backend, require_full=True)
     hist = plan.kernel_histogram()
     for line in plan.histogram_lines():
-        print(f"[serve] {line}")
-    print(f"[serve] {backend.coverage()}")
+        print(f"[serve:{path}] {line}")
+    print(f"[serve:{path}] {backend.coverage()} (map, lower and bind "
+          f"{time.perf_counter() - t0:.1f} s)")
     if hist != expected:
-        raise AssertionError(f"kernel histogram {hist}, expected "
+        raise AssertionError(f"{path}: kernel histogram {hist}, expected "
                              f"{expected}")
     wk = plan["units/0/attn/wk@0"]
-    print(f"[serve] wk/wv split: counts {wk.counts}, raw boundary "
-          f"{wk.boundaries[0]}, aligned {wk.aligned_boundaries[0]}")
+    print(f"[serve:{path}] wk/wv: counts {wk.counts}, raw boundaries "
+          f"{wk.boundaries}, aligned {wk.aligned_boundaries}")
     cfg = kv_cache_for(cfg, art)
-    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
-                            generator=gen, device=dev)
 
     forwards = GEN_LEN
-    ops.quant_matmul.launches = ops.split_ternary.launches = 0
-    tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
-                                backend=backend)
-    launches = {"quant_matmul": ops.quant_matmul.launches,
-                "split_ternary": ops.split_ternary.launches}
-    want = {k: expected.get(k, 0) * forwards
-            for k in ("quant_matmul", "split_ternary")}
+    calls = []
+    reset_launches()
+    with recording_split_precision(calls, expected.get("split_precision",
+                                                       0)):
+        tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
+                                    backend=backend)
+    launches = kernel_launches()
+    want = {k: expected.get(k, 0) * forwards for k in KERNELS}
     if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want} "
-                             f"({forwards} forwards)")
+        raise AssertionError(f"{path}: launches {launches}, expected "
+                             f"{want} ({forwards} forwards)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     logits = stats["prefill_logits"]
     if tuple(tokens.shape) != (REQUESTS, GEN_LEN) or \
             tuple(logits.shape) != (REQUESTS, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
-        raise AssertionError("serving output has the wrong shape or is "
-                             "not finite")
-    print(f"[serve] {REQUESTS} requests x prompt {PROMPT_LEN} + "
+        raise AssertionError(f"{path}: serving output has the wrong shape "
+                             f"or is not finite")
+    print(f"[serve:{path}] {REQUESTS} requests x prompt {PROMPT_LEN} + "
           f"gen {GEN_LEN}, kv {cfg.kv_cache_dtype}: prefill "
           f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
           f"{stats['decode_s'] * 1e3:.3f} ms "
           f"({stats['tok_per_s']:.2f} tok/s, "
           f"{stats['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step), "
           f"peak memory {peak:.2f} GiB")
-    print(f"[serve] launches: quant_matmul {launches['quant_matmul']} "
-          f"split_ternary {launches['split_ternary']} over {forwards} "
-          f"forwards = {launches['quant_matmul'] // forwards} + "
-          f"{launches['split_ternary'] // forwards} per forward")
-    print(f"[serve] sample tokens: {tokens[:2, :8].tolist()}")
+    print(f"[serve:{path}] launches: " + " ".join(
+        f"{k} {v} ({v // forwards} per forward)"
+        for k, v in launches.items() if v))
+    print(f"[serve:{path}] sample tokens: {tokens[:2, :8].tolist()}")
 
     backend.reference = True
     ref_tokens, ref_stats = serve_batch(cfg, params, prompts, GEN_LEN,
                                         backend=backend)
-    backend.reference = False
-    if ops.quant_matmul.launches != want["quant_matmul"] or \
-            ops.split_ternary.launches != want["split_ternary"]:
-        raise AssertionError("the plain-version run launched a kernel")
+    if kernel_launches() != want:
+        raise AssertionError(f"{path}: the plain-version run launched a "
+                             f"kernel")
+    ref_logits = ref_stats["prefill_logits"]
     same_tokens = torch.equal(tokens, ref_tokens)
-    same_logits = torch.equal(logits, ref_stats["prefill_logits"])
-    print(f"[serve] plain-version run: prefill "
+    same_logits = torch.equal(logits, ref_logits)
+    diff = float((logits.float() - ref_logits.float()).abs().max())
+    print(f"[serve:{path}] plain-version run: prefill "
           f"{ref_stats['prefill_s'] * 1e3:.3f} ms, decode "
           f"{ref_stats['decode_s'] * 1e3:.3f} ms; tokens identical "
-          f"{same_tokens}, prefill logits bit-identical {same_logits}")
-    if not (same_tokens and same_logits):
-        raise AssertionError("kernel and plain-version serving disagree")
+          f"{same_tokens}, prefill logits bit-identical {same_logits} "
+          f"(max |diff| {diff:.4g})")
+    record = {"prefill_ms": stats["prefill_s"] * 1e3,
+              "decode_tok_per_s": stats["tok_per_s"],
+              "plain_prefill_ms": ref_stats["prefill_s"] * 1e3,
+              "peak_gib": peak, "kv_cache_dtype": cfg.kv_cache_dtype,
+              "tokens_identical": same_tokens,
+              "prefill_logits_identical": same_logits,
+              "prefill_logits_max_abs_diff": diff}
+    if kv_kernel != "split_precision":
+        if not (same_tokens and same_logits):
+            raise AssertionError(f"{path}: kernel and plain-version "
+                                 f"serving disagree")
+    else:
+        ratio = check_split_precision_calls(torch, calls)
+        print(f"[serve:{path}] the {len(calls)} split_precision calls of "
+              f"the prefill agree with the plain version on their own "
+              f"inputs: int8 columns bit-identical, bf16 columns within "
+              f"{ratio:.3g} of the summation bound")
+        del calls
+        with plain_float32_split_precision():
+            tok32, st32 = serve_batch(cfg, params, prompts, GEN_LEN,
+                                      backend=backend)
+        if kernel_launches() != want:
+            raise AssertionError(f"{path}: the float32 plain run launched "
+                                 f"a kernel")
+        spread = float((st32["prefill_logits"].float() -
+                        ref_logits.float()).abs().max())
+        print(f"[serve:{path}] plain run with float32 sums: prefill "
+              f"logits max |diff| {spread:.4g} from the float64 plain run, "
+              f"tokens identical {torch.equal(tok32, ref_tokens)}")
+        tol = SENSITIVITY_FACTOR * spread
+        margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
+                                backend)
+        compared = 0
+        for row in range(REQUESTS):
+            low = torch.nonzero(margins[row] < tol).flatten()
+            upto = int(low[0]) if low.numel() else GEN_LEN
+            if not torch.equal(tokens[row, :upto], ref_tokens[row, :upto]):
+                raise AssertionError(f"{path}: row {row} tokens differ "
+                                     f"before step {upto}")
+            compared += upto
+        print(f"[serve:{path}] tolerance {tol:.4g} = {SENSITIVITY_FACTOR:g}"
+              f" x {spread:.4g}: kernel prefill logits max |diff| "
+              f"{diff:.4g} (ratio {diff / max(spread, 1e-30):.3g}); tokens "
+              f"identical over {compared} of {REQUESTS * GEN_LEN} "
+              f"(row, step) pairs before the first plain top-2 margin "
+              f"below it")
+        if diff > tol:
+            raise AssertionError(f"{path}: prefill logits differ by "
+                                 f"{diff} > {tol}")
+        record.update(tolerance=tol, tokens_compared=compared,
+                      float32_plain_max_abs_diff=spread,
+                      path_calls_worst_error_over_bound=ratio)
+    backend.reference = False
 
     _, warm = serve_batch(cfg, params, prompts, GEN_LEN, backend=backend)
     warm_ms = (warm["prefill_s"] + warm["decode_s"]) * 1e3
-    print(f"[serve] warm run: prefill {warm['prefill_s'] * 1e3:.3f} ms, "
-          f"decode {warm['decode_s'] * 1e3:.3f} ms "
+    print(f"[serve:{path}] warm run: prefill {warm['prefill_s'] * 1e3:.3f} "
+          f"ms, decode {warm['decode_s'] * 1e3:.3f} ms "
           f"({warm['tok_per_s']:.2f} tok/s, "
           f"{warm['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step)")
-    busy_ms = phase_profile(torch, serve_batch, cfg, params, prompts,
-                            GEN_LEN, backend)
-    print(f"[profile] device busy {busy_ms:.3f} ms of the warm run's "
-          f"{warm_ms:.3f} ms wall: idle share "
-          f"{1.0 - busy_ms / warm_ms:.3f}")
-    return launches, {"prefill_ms": stats["prefill_s"] * 1e3,
-                      "decode_tok_per_s": stats["tok_per_s"],
-                      "warm_prefill_ms": warm["prefill_s"] * 1e3,
-                      "warm_decode_tok_per_s": warm["tok_per_s"],
-                      "device_busy_ms": busy_ms, "warm_wall_ms": warm_ms,
-                      "peak_gib": peak}
+    record.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
+                  warm_decode_tok_per_s=warm["tok_per_s"],
+                  warm_wall_ms=warm_ms)
+    if profile_run:
+        busy_ms = phase_profile(torch, path, serve_batch, cfg, params,
+                                prompts, backend)
+        print(f"[profile:{path}] device busy {busy_ms:.3f} ms of the warm "
+              f"run's {warm_ms:.3f} ms wall: idle share "
+              f"{1.0 - busy_ms / warm_ms:.3f}")
+        record["device_busy_ms"] = busy_ms
+    del plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
 
 
-def phase_profile(torch, serve_batch, cfg, params, prompts, gen_len,
-                  backend):
+def phase_profile(torch, path, serve_batch, cfg, params, prompts, backend):
     """Device time by kernel over one more serving run, from
     torch.profiler; returns the summed device time in ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, st = serve_batch(cfg, params, prompts, gen_len, backend=backend)
+        _, st = serve_batch(cfg, params, prompts, GEN_LEN, backend=backend)
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     wall_ms = (st["prefill_s"] + st["decode_s"]) * 1e3
-    print(f"[profile] profiled run: wall {wall_ms:.3f} ms, device kernels "
-          f"{busy_ms:.3f} ms in {sum(e.count for e in rows)} launches")
+    print(f"[profile:{path}] profiled run: wall {wall_ms:.3f} ms, device "
+          f"kernels {busy_ms:.3f} ms in {sum(e.count for e in rows)} "
+          f"launches")
     for e in rows[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:10.3f} ms "
-              f"{e.count:7d}x  {e.key[:90]}")
+        print(f"[profile:{path}]   {e.self_device_time_total / 1e3:10.3f} "
+              f"ms {e.count:7d}x  {e.key[:90]}")
     return busy_ms
 
 
@@ -404,41 +721,57 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(tuple(KERNELS))
     for kname, log in sorted(_build.PTXAS_REPORT.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {kname}: {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.1f} s")
-    print("kernels: quant_matmul split_ternary")
+    print("kernels: " + " ".join(KERNELS))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = phase_kernels(torch, gen)
     print(f"[times] bounds from the H100 SXM data sheet (3.35 TB/s, 1979 "
-          f"int8 TOP/s dense, at 700 W); this card: {smi}")
+          f"int8 TOP/s and 989 bf16 TFLOP/s dense, at 700 W); this card: "
+          f"{smi}")
     times = phase_times(torch, gen)
-    for kernel in ("quant_matmul", "split_ternary"):
+    for kernel in KERNELS:
+        path = LAUNCH_PATH[kernel]
         for phase in ("decode", "prefill"):
-            mix = forward_mix(times, kernel, phase)
-            print(f"[times] per {phase} forward: {kernel} kernel "
+            mix = forward_mix(times, path, kernel, phase)
+            print(f"[times] per {phase} forward on {path}: {kernel} kernel "
                   f"{mix['ms']:.4f} ms  plain {mix['plain_ms']:.4f} ms  "
-                  f"_int_mm {mix['library_ms']:.4f} ms  bound {mix['bound_ms']:.4f} ms "
-                  f"({mix['bound_by']})")
-    from repro_torch.configs import base as cfgbase
-    launches, serving = phase_serving(
-        torch, args.seed, cfgbase.get("yi-9b"),
-        {"quant_matmul": 241, "split_ternary": 96}, torch.device("cuda"))
+                  f"library {mix['library_ms']:.4f} ms  bound "
+                  f"{mix['bound_ms']:.4f} ms ({mix['bound_by']})")
 
-    sources = {"quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
-                                "src/repro/kernels/quant_matmul.py:49"),
-               "split_ternary": ("src/repro_torch/csrc/split_ternary.cu",
-                                 "src/repro/kernels/split_ternary.py:91")}
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.get("yi-9b")
+    dev = torch.device("cuda")
+    sgen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = T.init_lm(sgen, cfg)
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+          f"(init {time.perf_counter() - t0:.1f} s)")
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=sgen, device=dev)
+    launches, serving = {}, {}
+    for path in PATHS:
+        launches[path], serving[path] = phase_serving(
+            torch, path, cfg, params, prompts,
+            profile_run=path != "diana_ternary")
+
     records = []
-    for kernel, (source, replaces) in sources.items():
-        mix = forward_mix(times, kernel, "prefill")
+    for kernel, (source, replaces) in KERNELS.items():
+        path = LAUNCH_PATH[kernel]
+        mix = forward_mix(times, path, kernel, "prefill")
         records.append({"name": kernel, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[kernel],
-                        "max_abs_err": worst, "ms": mix["ms"],
+                        "replaces": replaces,
+                        "launches": launches[path][kernel],
+                        "max_abs_err": worst[kernel], "ms": mix["ms"],
                         "plain_ms": mix["plain_ms"],
                         "bound_ms": mix["bound_ms"],
                         "bound_by": mix["bound_by"],
@@ -447,6 +780,7 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "build" / "chip_smoke" / "result.json"
     out.write_text(json.dumps(result, indent=1))
+    print(f"[done] {result['seconds']:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

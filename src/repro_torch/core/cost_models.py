@@ -1,8 +1,9 @@
 """Analytical hardware cost models (``repro.core.cost_models``
 counterparts), in numpy float32 with the JAX models' arithmetic: the
-static channel split that the DIANA emission searches is priced here.
-Only what the emission needs is ported; the differentiable (search-time)
-use of these models waits for the search slice."""
+static channel split that the mapping emission searches is priced here.
+Only what the emission needs is ported (the DIANA models and the Fig. 5
+abstract model); the differentiable (search-time) use of these models and
+the TPU roofline model wait for the search slice."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +27,11 @@ class LayerGeometry:
     ox: int = 1
     oy: int = 1
     groups: int = 1
+
+    @property
+    def macs_per_out_channel(self) -> int:
+        return (self.c_in // self.groups) * self.fx * self.fy * self.ox * \
+            self.oy
 
 
 class CostModel:
@@ -82,6 +88,38 @@ class DianaCostModel(CostModel):
                         self.lat_aimc(geom, c[1])]).astype(_F)
         # a domain with zero channels contributes zero latency
         return lat * (c > 1e-6).astype(_F)
+
+    def p_act(self) -> np.ndarray:
+        return self._p_act
+
+    def p_idle(self) -> np.ndarray:
+        return self._p_idle
+
+
+class AbstractCostModel(CostModel):
+    """Fig. 5 models: latency proportional to OPs, ``macs * c_out /
+    throughput`` per domain.  ``ideal_shutdown=False`` -> P_idle = P_act,
+    ``True`` -> P_idle = 0.  ``domains`` (default: DIANA's two), ``p_act``
+    and ``throughput`` (MACs per time unit, default 1) describe any domain
+    tuple, e.g. the ``gpu_tc_like`` pair."""
+
+    def __init__(self, ideal_shutdown: bool, p_act=(10.0, 1.0),
+                 domains=None, throughput=None):
+        from repro_torch.core.quant import DIANA_DOMAINS
+        self.domains = tuple(domains) if domains is not None \
+            else tuple(DIANA_DOMAINS)
+        n = len(self.domains)
+        self.ideal_shutdown = ideal_shutdown
+        self._p_act = np.asarray(p_act, _F)
+        self._thr = (np.asarray(throughput, _F) if throughput is not None
+                     else np.ones(n, _F))
+        if self._p_act.shape[0] != n or self._thr.shape[0] != n:
+            raise ValueError(f"p_act/throughput must match {n} domains")
+        self._p_idle = np.zeros(n, _F) if ideal_shutdown else self._p_act
+
+    def latency(self, geom: LayerGeometry, c_out_per_domain) -> np.ndarray:
+        c = np.asarray(c_out_per_domain, _F)
+        return (_F(geom.macs_per_out_channel) * c / self._thr).astype(_F)
 
     def p_act(self) -> np.ndarray:
         return self._p_act

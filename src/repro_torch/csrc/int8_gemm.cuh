@@ -18,7 +18,9 @@
 // 256 threads, each holding TM x 4 int32 accumulators.  The next stage's
 // global loads are issued into registers before the current stage is
 // computed from shared memory (one-stage register prefetch).  No atomics,
-// no split-K: the result does not depend on scheduling order.
+// no split-K: the result does not depend on scheduling order.  The
+// mainloop (`dp4a_tile`) is a device function of its own, so that
+// split_precision.cu runs it on the int8 tiles of its two-domain GEMM.
 #pragma once
 
 #include <cstddef>
@@ -67,18 +69,20 @@ struct Int8Weights {
   }
 };
 
+// Exact int32 sum over all of K of the (16 * TM) x kBN output tile at
+// (m0, n0): thread (tx, ty) = (tid % 16, tid / 16) holds rows ty + 16 * i
+// and columns n0 + tx + 16 * j in acc[i][j].  Block-uniform control flow
+// (it synchronises the block).
 template <int TM, class WLoad>
-__global__ void __launch_bounds__(kThreads)
-gemm_dp4a(const int8_t* __restrict__ x, WLoad wl,
-          const float* __restrict__ sx, const float* __restrict__ sw,
-          float* __restrict__ out, int M, int N, int K) {
+__device__ __forceinline__ void dp4a_tile(const int8_t* __restrict__ x,
+                                          const WLoad& wl, int m0, int n0,
+                                          int M, int K, int (&acc)[TM][4]) {
   constexpr int BM = 16 * TM;
   __shared__ int xs[BM][kKW + 1];
   __shared__ int ws[kBN][kKW + 1];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
   const int k_words = K / 4;
   const int* xw = reinterpret_cast<const int*>(x);
   // weight loads: thread -> (word row q, 4 columns starting at c4)
@@ -107,7 +111,6 @@ gemm_dp4a(const int8_t* __restrict__ x, WLoad wl,
     for (int j = 0; j < 4; ++j) ws[c4 + j][wq_row] = wr[j];
   };
 
-  int acc[TM][4];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -132,6 +135,23 @@ gemm_dp4a(const int8_t* __restrict__ x, WLoad wl,
     }
     __syncthreads();
   }
+}
+
+// The w8a8 epilogue of one output: f32(acc) * sx, then * sw[n].
+__device__ __forceinline__ float dequant(int acc, float sx, float swn) {
+  const float v = static_cast<float>(acc) * sx;
+  return v * swn;
+}
+
+template <int TM, class WLoad>
+__global__ void __launch_bounds__(kThreads)
+gemm_dp4a(const int8_t* __restrict__ x, WLoad wl,
+          const float* __restrict__ sx, const float* __restrict__ sw,
+          float* __restrict__ out, int M, int N, int K) {
+  const int m0 = blockIdx.y * 16 * TM, n0 = blockIdx.x * kBN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  int acc[TM][4];
+  dp4a_tile<TM>(x, wl, m0, n0, M, K, acc);
 
   const float s = *sx;
 #pragma unroll
@@ -141,10 +161,8 @@ gemm_dp4a(const int8_t* __restrict__ x, WLoad wl,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) {
-        const float v = static_cast<float>(acc[i][j]) * s;
-        out[static_cast<size_t>(m) * N + n] = v * sw[n];
-      }
+      if (n < N)
+        out[static_cast<size_t>(m) * N + n] = dequant(acc[i][j], s, sw[n]);
     }
   }
 }

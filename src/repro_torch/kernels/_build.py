@@ -26,6 +26,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "split_ternary": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "split_precision": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -5,7 +5,9 @@ K (and the packed stream's K) to a multiple of 4 themselves."""
 from __future__ import annotations
 
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.split_precision import split_precision
 from repro_torch.kernels.split_ternary import split_ternary
+from repro_torch.kernels.ternary_matmul import ternary_matmul
 
 
 def align_boundary(boundary: int, bn: int) -> int:
@@ -22,6 +24,19 @@ def block_n(bn: int, n: int) -> int:
 
 #: w8a8 matmul, any shape (the kernel wrapper pads K and N itself)
 quant_matmul_op = quant_matmul
+#: ternary-code matmul, any shape (the kernel wrapper pads K and N itself)
+ternary_matmul_op = ternary_matmul
+
+
+def split_precision_op(x, x_q, sx, w_bf16, w_q, sw, boundary: int, bn=128):
+    """Fused int8 + bf16 layer (paper Fig. 3); ``boundary`` (the first
+    bf16-domain column) is rounded UP to the effective N-block, so the
+    columns in ``[boundary, aligned)`` execute on the int8 path.  Unlike
+    `split_ternary_op` this changes the numbers, so the kernel splits at
+    exactly that column, whatever its own tile width."""
+    n = w_q.shape[1]
+    b_al = min(align_boundary(boundary, block_n(bn, n)), n)
+    return split_precision(x, x_q, sx, w_bf16, w_q, sw, b_al)
 
 
 def split_ternary_op(x_q, w_q, w_packed, sx, sw, boundary: int, bn=128):

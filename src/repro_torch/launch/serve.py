@@ -10,6 +10,12 @@ lower or bind exits 2 -- there is no majority-dtype fall-back -- and
 unbound.  The artifact's activation majority decides the KV-cache dtype
 (int8 when the majority domain's activations have at most 8 bits).
 
+Every plan kernel executes on dense layers, so yi-9b serves with full
+coverage from an artifact of ``diana`` (quant_matmul + split_ternary),
+``gpu_tc_like`` (quant_matmul + split_precision) and ``diana`` emitted with
+``bias=("aimc", 1.0)`` (quant_matmul + ternary_matmul); all three ask for
+the int8 KV cache.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\
         --require-full-coverage

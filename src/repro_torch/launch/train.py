@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Iterator, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.api import MappingArtifact, Platform
@@ -28,7 +29,7 @@ def _flatten_with_path(tree, path=()) -> Iterator[Tuple[List[str], object]]:
 
 def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
                         stacked_prefixes=("units", "enc_units"),
-                        act_log_scale=None):
+                        act_log_scale=None, bias=None):
     """Write a schema-v2 mapping artifact for the model's projection
     weights: per-layer min-cost static channel split (paper Sec. IV
     baselines) under the named platform's cost model, with max-abs weight
@@ -41,6 +42,12 @@ def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
     ``max_cout`` output channels are pinned to domain 0 (the exhaustive
     split search is O(C_out) cost evaluations).  ``act_log_scale`` pins a
     static activation scale on every layer (None: dynamic per call).
+
+    ``bias=(domain_name, fraction)`` overrides the min-cost split of every
+    searchable layer: its first ``round(fraction * C_out)`` channels go to
+    that domain and the rest to domain 0 (domain 1 when the biased domain
+    is domain 0).  ``("aimc", 1.0)`` on ``diana`` is the paper's
+    all-ternary baseline on the searchable layers.
     """
     plat = Platform.get(platform)
     cm, spec = plat.cost_model(), plat.spec()
@@ -72,6 +79,23 @@ def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
                 searchable.append(leaf.shape[2] <= max_cout)
                 scales.append(w_scale(leaf[r]))
     assigns = baselines.min_cost(cm, geoms, "latency", searchable)
+    if bias is not None:
+        dom_name, frac = bias
+        dom_names = [d.name for d in spec.domains]
+        if dom_name not in dom_names:
+            raise ValueError(f"bias domain {dom_name!r} is not on platform "
+                             f"{plat.name} (domains: {dom_names})")
+        if not (0.0 <= frac <= 1.0):
+            raise ValueError(f"bias fraction must be in [0, 1], got {frac}")
+        di = dom_names.index(dom_name)
+        other = 0 if di != 0 else min(1, spec.n_domains - 1)
+        for li, a in enumerate(assigns):
+            if not searchable[li]:
+                continue
+            k = int(round(frac * a.size))
+            forced = np.full(a.size, other, dtype=np.int64)
+            forced[:k] = di
+            assigns[li] = forced
     counts = baselines.counts_from_assignments(assigns, spec.n_domains)
     plan = list(zip(names, geoms, searchable))
     art = MappingArtifact.from_search(cfg.name, spec, plan, assigns, counts,

@@ -5,7 +5,8 @@ counterpart).
 plan's channel permutation and its inverse, per-domain weight quantization
 with the plan's scales (each active quantized domain's columns carry that
 domain's own step), the 2-bit-packed ternary stream of the split_ternary
-kernel, and the static activation scale.  `execute_layer` then only
+kernel, the bf16 weight of the split_precision kernel, and the static
+activation scale.  `execute_layer` then only
 quantizes the activations and calls the kernel -- the CUDA kernel for
 tensors on the card, its plain version for tensors on the CPU -- or, with
 ``reference=True``, the oracles of `kernels.ref`; outputs come back in the
@@ -16,10 +17,11 @@ name-keyed matmul-backend protocol of `repro_torch.models._backend`.
 Stacked ``base@r`` layers bind to a list of per-repeat prepared layers,
 indexed by the repeat the model's layer loop publishes.
 
-This slice executes the ``quant_matmul`` and ``split_ternary`` kernels
-(the DIANA plans) and the ``fp`` identity; conv layers, the other kernels
-and multi-variant banks (``PlanSet``) wait for later slices and are
-refused at bind time.
+Every plan kernel executes: ``quant_matmul``, ``ternary_matmul`` and
+``split_ternary`` (the DIANA plans), ``split_precision`` (int8 + identity
+platforms such as ``gpu_tc_like``) and the ``fp`` identity, on 2-D dense
+weights.  Conv and grouped layers and multi-variant banks (``PlanSet``)
+wait for later slices; conv and grouped layers are refused at bind time.
 """
 from __future__ import annotations
 
@@ -35,12 +37,9 @@ from repro_torch.kernels.quant_matmul import _pad_to
 from repro_torch.kernels.ternary_packed import pack_ternary
 from repro_torch.models import _backend
 from repro_torch.runtime.lower import _layer_weight, _walk_path
-from repro_torch.runtime.plan import (KERNEL_FP, KERNEL_QUANT,
-                                      KERNEL_SPLIT_TERNARY, ExecutionPlan,
-                                      LayerPlan)
-
-#: plan kernels this slice executes
-EXECUTABLE = (KERNEL_FP, KERNEL_QUANT, KERNEL_SPLIT_TERNARY)
+from repro_torch.runtime.plan import (KERNEL_FP, KERNEL_QUANT, KERNEL_SPLIT,
+                                      KERNEL_SPLIT_TERNARY, KERNEL_TERNARY,
+                                      ExecutionPlan, LayerPlan)
 
 
 class ExecutionError(RuntimeError):
@@ -57,6 +56,7 @@ class PreparedLayer:
     w_q: torch.Tensor | None             # int8 codes, permuted
     sw: torch.Tensor | None              # (N,) per-column step, f32
     w_t_packed: torch.Tensor | None = None   # split_ternary packed codes
+    w_bf16: torch.Tensor | None = None       # split_precision bf16 weight
     act_scale: torch.Tensor | None = None    # exp(act_log_scale), f32
     act_sx: torch.Tensor | None = None       # activation step, f32
     boundary: int = 0                    # raw split boundary
@@ -114,14 +114,13 @@ def _pack_ternary_stream(lp: LayerPlan, w_q: torch.Tensor) -> torch.Tensor:
 def prepare_layer(lp: LayerPlan, w, b=None,
                   domain_bits: List[int] | None = None,
                   block_n: int = 128) -> PreparedLayer:
-    """Bind ``lp`` to a 2-D ``(C_in, C_out)`` weight (+ optional bias)."""
-    if lp.kernel not in EXECUTABLE:
-        raise ExecutionError(f"{lp.name}: kernel {lp.kernel!r} waits for a "
-                             f"later slice of the port")
-    if getattr(w, "ndim", 0) != 2:
-        raise ExecutionError(f"{lp.name}: planned execution covers 2-D "
-                             f"dense weights, got shape "
-                             f"{tuple(getattr(w, 'shape', ()))}")
+    """Bind ``lp`` to a 2-D ``(C_in, C_out)`` weight (+ optional bias);
+    every plan kernel binds (`LayerPlan` admits no other)."""
+    if getattr(w, "ndim", 0) != 2 or lp.groups > 1:
+        raise ExecutionError(f"{lp.name}: conv weights and grouped layers "
+                             f"wait for a later slice of the port (weight "
+                             f"shape {tuple(getattr(w, 'shape', ()))}, "
+                             f"groups={lp.groups})")
     if int(w.shape[-1]) != lp.c_out:
         raise ExecutionError(f"{lp.name}: weight has {int(w.shape[-1])} "
                              f"output channels, plan expects {lp.c_out}")
@@ -132,10 +131,12 @@ def prepare_layer(lp: LayerPlan, w, b=None,
         raise ExecutionError(f"{lp.name}: invalid kernel tuning {lp.tuning}")
     dev = w.device
     w_perm = torch.index_select(w, 1, torch.from_numpy(lp.perm).to(dev))
-    w_q = sw = w_t_packed = act_scale = act_sx = None
+    w_q = sw = w_t_packed = w_bf16 = act_scale = act_sx = None
     if lp.kernel != KERNEL_FP:
         w_q, sw = _per_column_quant(lp, w_perm.to(torch.float32),
                                     domain_bits)
+        if lp.kernel == KERNEL_SPLIT:
+            w_bf16 = w_perm.to(torch.bfloat16)
         w_perm = None          # the quantized kernels never read it
     if lp.kernel == KERNEL_SPLIT_TERNARY:
         w_t_packed = _pack_ternary_stream(lp, w_q)
@@ -145,8 +146,9 @@ def prepare_layer(lp: LayerPlan, w, b=None,
         act_sx = (act_scale / quant.qlevels(8)).to(torch.float32)
     return PreparedLayer(
         plan=lp, inv=torch.from_numpy(lp.inv_perm()).to(dev), w_perm=w_perm,
-        b=b, w_q=w_q, sw=sw, w_t_packed=w_t_packed, act_scale=act_scale,
-        act_sx=act_sx, boundary=lp.split_boundary(), bn=bn)
+        b=b, w_q=w_q, sw=sw, w_t_packed=w_t_packed, w_bf16=w_bf16,
+        act_scale=act_scale, act_sx=act_sx, boundary=lp.split_boundary(),
+        bn=bn)
 
 
 def _act_quant(xf: torch.Tensor, prep: PreparedLayer):
@@ -173,25 +175,38 @@ def execute_layer(prep: PreparedLayer, x, *,
         raise ExecutionError(f"{lp.name}: input has {int(x.shape[-1])} "
                              f"features, weight expects {int(wk.shape[0])}")
     lead = x.shape[:-1]
-    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    x2 = x.reshape(-1, x.shape[-1])
+    xf = x2.to(torch.float32)
+    # the ops clamp the N-block and round the boundary up to it; the
+    # oracles split at the same column
+    b_al = ops.align_boundary(prep.boundary, ops.block_n(prep.bn, lp.c_out))
     if lp.kernel == KERNEL_FP:
         y = xf @ prep.w_perm.to(torch.float32)
-    elif lp.kernel == KERNEL_QUANT:
+    elif lp.kernel in (KERNEL_QUANT, KERNEL_TERNARY):
         x_q, sx = _act_quant(xf, prep)
-        fn = ref.quant_matmul_ref if reference else ops.quant_matmul_op
+        if lp.kernel == KERNEL_TERNARY:
+            fn = ref.ternary_matmul_ref if reference else \
+                ops.ternary_matmul_op
+        else:
+            fn = ref.quant_matmul_ref if reference else ops.quant_matmul_op
         y = fn(x_q, prep.w_q, sx, prep.sw)
-    else:  # KERNEL_SPLIT_TERNARY (prepare_layer admits nothing else)
+    elif lp.kernel == KERNEL_SPLIT_TERNARY:
         x_q, sx = _act_quant(xf, prep)
         if reference:
-            # the ops clamp the N-block and round the boundary up to it;
-            # the oracle splits at the same column
-            b_al = ops.align_boundary(prep.boundary,
-                                      ops.block_n(prep.bn, lp.c_out))
             y = ref.split_ternary_matmul_ref(x_q, prep.w_q, prep.w_q, sx,
                                              prep.sw, b_al)
         else:
             y = ops.split_ternary_op(x_q, prep.w_q, prep.w_t_packed, sx,
                                      prep.sw, prep.boundary, bn=prep.bn)
+    else:  # KERNEL_SPLIT (prepare_layer admits nothing else)
+        x_q, sx = _act_quant(xf, prep)
+        xb = x2.to(torch.bfloat16)
+        if reference:
+            y = ref.split_precision_matmul_ref(xb, x_q, sx, prep.w_bf16,
+                                               prep.w_q, prep.sw, b_al)
+        else:
+            y = ops.split_precision_op(xb, x_q, sx, prep.w_bf16, prep.w_q,
+                                       prep.sw, prep.boundary, bn=prep.bn)
     y = torch.index_select(y, -1, prep.inv)
     if prep.b is not None:
         y = y + prep.b.to(y.dtype)

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, bit for bit (marker ``gpu``).  Each test decides inside its fixture
+card (marker ``gpu``): bit for bit for the integer contractions, within
+the float32 summation bound ``K * 2**-24 * sum_k |x * w| + 2**-24 * |y|``
+for the bf16 columns of split_precision.  Each test decides inside its fixture
 whether a card is present and skips here otherwise; run them on a machine
 with an H100 with ``PYTHONPATH=src python -m pytest -m gpu
 tests/test_torch_gpu.py``."""
@@ -11,8 +13,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.quant_matmul import (quant_matmul,  # noqa: E402
                                               quant_matmul_plain)
+from repro_torch.kernels.split_precision import (  # noqa: E402
+    bf16_error_bound, split_precision, split_precision_plain)
 from repro_torch.kernels.split_ternary import (split_ternary,  # noqa: E402
                                                split_ternary_plain)
+from repro_torch.kernels.ternary_matmul import (  # noqa: E402
+    ternary_matmul, ternary_matmul_plain)
 from repro_torch.kernels.ternary_packed import pack_ternary  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -77,3 +83,52 @@ def test_split_ternary_kernel_bit_exact(cuda, m, k, n, where):
     assert split_ternary.launches == before + 1
     want = split_ternary_plain(x4, w_q4, w_p, sx, sw, boundary)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n):
+    x, _, t, sx, sw = _operands(m, k, n, 2, cuda)
+    before = ternary_matmul.launches
+    got = ternary_matmul(x, t, sx, sw)
+    torch.cuda.synchronize()
+    assert ternary_matmul.launches == before + 1
+    assert torch.equal(got, ternary_matmul_plain(x, t, sx, sw))
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("where", ["zero", "raw", "aligned16", "all"])
+def test_split_precision_kernel(cuda, m, k, n, where):
+    """int8 columns bit for bit, bf16 columns within the summation bound;
+    the boundary lands inside a 64-column tile for ``aligned16``.  w_q
+    holds 99 at and above the boundary and w_bf16 NaN below it (the split
+    probe): neither may reach the output."""
+    x_q, w_q, _, sx, sw = _operands(m, k, n, 3, cuda)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1.5, (m, k)).astype(np.float32))
+    w_b = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32))
+    x, w_b = (a.to(cuda).to(torch.bfloat16) for a in (x, w_b))
+    raw = min(7, n)
+    boundary = {"zero": 0, "raw": raw, "all": n,
+                "aligned16": min(ops.align_boundary(raw + 40, 16), n)}[where]
+    cols = torch.arange(n, device=cuda)[None, :]
+    probe_q = torch.where(cols < boundary, w_q, 99).to(torch.int8)
+    probe_b = torch.where(cols >= boundary, w_b,
+                          float("nan")).to(torch.bfloat16)
+    before = split_precision.launches
+    got = split_precision(x, x_q, sx, probe_b, probe_q, sw, boundary)
+    torch.cuda.synchronize()
+    assert split_precision.launches == before + 1
+    want = split_precision_plain(x, x_q, sx, w_b, w_q, sw, boundary)
+    assert torch.equal(got[:, :boundary], want[:, :boundary])
+    err = (got.double() - want.double()).abs()
+    bound = bf16_error_bound(x, w_b, want)
+    assert bool((err[:, boundary:] <= bound[:, boundary:]).all())
+
+
+def test_cuda_wrappers_reject_mixed_devices(cuda):
+    x, w, t, sx, sw = _operands(4, 64, 32, 5, cuda)
+    with pytest.raises(ValueError):
+        ternary_matmul(x, t, sx, sw.cpu())
+    with pytest.raises(ValueError):
+        split_precision(x.to(torch.bfloat16).cpu(), x, sx,
+                        w.to(torch.bfloat16), w, sw, 0)

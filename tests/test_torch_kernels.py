@@ -1,7 +1,10 @@
 """Plain versions of the port's kernels against the JAX package's ops
-(Pallas in interpret mode on the CPU) and oracles, bit for bit, plus the
-2-bit packing layout.  Inputs are made with numpy from a seed and handed
-to both packages."""
+(Pallas in interpret mode on the CPU) and oracles, plus the 2-bit packing
+layout.  Integer contractions agree bit for bit; the bf16 columns of
+split_precision agree within the float32 summation bound
+``K * 2**-24 * sum_k |x * w| + 2**-24 * |y|`` (the JAX kernel sums in
+float32, the port's plain version in float64).  Inputs are made with
+numpy from a seed and handed to both packages."""
 import numpy as np
 import pytest
 
@@ -14,7 +17,10 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ternary_packed as jpacked  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.split_precision import (  # noqa: E402
+    bf16_error_bound, split_precision)
 from repro_torch.kernels.split_ternary import split_ternary  # noqa: E402
+from repro_torch.kernels.ternary_matmul import ternary_matmul  # noqa: E402
 from repro_torch.kernels.ternary_packed import (pack_ternary,  # noqa: E402
                                                 unpack_ternary)
 
@@ -134,6 +140,123 @@ def test_align_boundary_matches_jax(b, bn):
     assert ops.align_boundary(b, bn) == jops.align_boundary(b, bn)
 
 
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_ternary_matmul_plain_matches_jax_bit_exact(m, k, n):
+    x, w_t, _, sx, sw = _operands(m, k, n, 0, 4)   # every column ternary
+    want_op = np.asarray(jops.ternary_matmul_op(x, w_t, jnp.float32(sx),
+                                                sw))
+    want_ref = np.asarray(jref.ternary_matmul_ref(x, w_t, jnp.float32(sx),
+                                                  sw))
+    before = ternary_matmul.launches
+    got = ops.ternary_matmul_op(_t(x), _t(w_t), _t(sx), _t(sw)).numpy()
+    assert ternary_matmul.launches == before   # CPU tensors: plain version
+    np.testing.assert_array_equal(got, want_op)
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(
+        ref.ternary_matmul_ref(_t(x), _t(w_t), _t(sx), _t(sw)).numpy(),
+        want_ref)
+
+
+def _split_operands(m, k, n, seed):
+    """bf16 activations and weights (as exact float32 values), int8
+    activations and codes, sx, sw; the two domains' weights are
+    independent, so a split at the wrong column shows."""
+    rng = np.random.default_rng(seed)
+    bf16 = lambda a: torch.from_numpy(a.astype(np.float32)).to(
+        torch.bfloat16).float().numpy()
+    x = bf16(rng.normal(0, 1.5, (m, k)))
+    w_b = bf16(rng.normal(0, 0.05, (k, n)))
+    x_q = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    w_q = rng.integers(-127, 128, (k, n), dtype=np.int8)
+    sx = np.float32(rng.uniform(0.01, 0.1))
+    sw = rng.uniform(1e-3, 0.5, n).astype(np.float32)
+    return x, x_q, sx, w_b, w_q, sw
+
+
+def _bf16(a):
+    return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+
+
+def _assert_split_close(got, want, x, w_b, b_al):
+    """int8 columns bit for bit, bf16 columns within the float32 summation
+    bound of `bf16_error_bound` (with ``y`` = ``want``)."""
+    got, want = np.array(got), np.array(want)
+    np.testing.assert_array_equal(got[:, :b_al], want[:, :b_al])
+    bound = bf16_error_bound(_bf16(x), _bf16(w_b),
+                             torch.from_numpy(want)).numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    assert np.all(err[:, b_al:] <= bound[:, b_al:]), \
+        float((err - bound)[:, b_al:].max())
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("where", ["zero", "raw7", "raw130", "all"])
+@pytest.mark.parametrize("bn", [128, 16])
+def test_split_precision_plain_matches_jax(m, k, n, where, bn):
+    boundary = {"zero": 0, "raw7": 7, "raw130": min(130, n), "all": n}[where]
+    x, x_q, sx, w_b, w_q, sw = _split_operands(m, k, n, 5)
+    want = np.asarray(jops.split_precision_op(
+        jnp.asarray(x, jnp.bfloat16), x_q, jnp.float32(sx),
+        jnp.asarray(w_b, jnp.bfloat16), w_q, sw, boundary, bn=bn))
+    b_al = min(ops.align_boundary(boundary, ops.block_n(bn, n)), n)
+    want_ref = np.asarray(jref.split_precision_matmul_ref(
+        jnp.asarray(x, jnp.bfloat16), x_q, jnp.float32(sx),
+        jnp.asarray(w_b, jnp.bfloat16), w_q, sw, b_al))
+    before = split_precision.launches
+    got = ops.split_precision_op(_bf16(x), _t(x_q), _t(sx), _bf16(w_b),
+                                 _t(w_q), _t(sw), boundary, bn=bn).numpy()
+    assert split_precision.launches == before
+    _assert_split_close(got, want, x, w_b, b_al)
+    _assert_split_close(got, want_ref, x, w_b, b_al)
+    got_ref = ref.split_precision_matmul_ref(
+        _bf16(x), _t(x_q), _t(sx), _bf16(w_b), _t(w_q), _t(sw), b_al)
+    np.testing.assert_array_equal(got_ref.numpy(), got)
+
+
+@pytest.mark.parametrize("n,bn,boundary", [(130, 128, 7), (130, 128, 130),
+                                           (64, 16, 43), (300, 16, 130),
+                                           (300, 128, 0), (40, 16, 40),
+                                           (512, 128, 342)])
+def test_split_precision_splits_where_jax_does(n, bn, boundary):
+    """The alignment contract: the JAX op and the port's op switch from
+    int8 to bf16 at the same column, ``min(align_boundary(b, block_n(bn,
+    n)), n)``.  x = 0 and all codes 1 make int8 columns K and bf16 columns
+    0."""
+    m, k = 2, 8
+    x = np.zeros((m, k), np.float32)
+    x_q = np.ones((m, k), np.int8)
+    w_q = np.ones((k, n), np.int8)
+    w_b = np.ones((k, n), np.float32)
+    sw = np.ones(n, np.float32)
+    jout = np.asarray(jops.split_precision_op(
+        jnp.asarray(x, jnp.bfloat16), x_q, jnp.float32(1.0),
+        jnp.asarray(w_b, jnp.bfloat16), w_q, sw, boundary, bn=bn))
+    got = ops.split_precision_op(_bf16(x), _t(x_q), torch.tensor(1.0),
+                                 _bf16(w_b), _t(w_q), _t(sw), boundary,
+                                 bn=bn).numpy()
+    split = min(ops.align_boundary(boundary, ops.block_n(bn, n)), n)
+    assert ops.block_n(bn, n) == min(bn, max(128, n))
+    assert int((jout[0] == k).sum()) == split
+    np.testing.assert_array_equal(got, jout)
+
+
+def test_split_precision_reads_each_domain_on_its_side():
+    """The split probe: int8 codes at and above the aligned boundary and
+    bf16 weights below it do not reach the output."""
+    m, k, n, boundary, bn = 3, 36, 300, 130, 16
+    x, x_q, sx, w_b, w_q, sw = _split_operands(m, k, n, 6)
+    b_al = min(ops.align_boundary(boundary, ops.block_n(bn, n)), n)
+    args = (_bf16(x), _t(x_q), _t(sx))
+    clean = ops.split_precision_op(*args, _bf16(w_b), _t(w_q), _t(sw),
+                                   boundary, bn=bn)
+    probe_q, probe_b = w_q.copy(), w_b.copy()
+    probe_q[:, b_al:] = 99
+    probe_b[:, :b_al] = np.nan
+    got = ops.split_precision_op(*args, _bf16(probe_b), _t(probe_q),
+                                 _t(sw), boundary, bn=bn)
+    assert b_al == 144 and torch.equal(got, clean)
+
+
 def test_cuda_wrappers_reject_bad_operands():
     x = torch.zeros((2, 8), dtype=torch.int8)
     with pytest.raises(ValueError):
@@ -146,3 +269,16 @@ def test_cuda_wrappers_reject_bad_operands():
         split_ternary(x, torch.zeros((8, 4), dtype=torch.int8),
                       torch.zeros((1, 4), dtype=torch.uint8),
                       torch.tensor(1.0), torch.ones(4), 0)
+    with pytest.raises(TypeError):
+        ternary_matmul(x, torch.zeros((8, 4), dtype=torch.int8),
+                       torch.tensor(1.0), torch.ones(4, dtype=torch.float64))
+    xb, wb = x.to(torch.bfloat16), torch.zeros((8, 4), dtype=torch.bfloat16)
+    w_q = torch.zeros((8, 4), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        split_precision(xb.float(), x, torch.tensor(1.0), wb, w_q,
+                        torch.ones(4), 0)
+    with pytest.raises(ValueError):
+        split_precision(xb, x, torch.tensor(1.0), wb[:, :3], w_q,
+                        torch.ones(4), 0)
+    with pytest.raises(ValueError):
+        split_precision(xb, x, torch.tensor(1.0), wb, w_q, torch.ones(4), 5)

@@ -1,7 +1,15 @@
-"""The port's mapping pipeline against the JAX package: min-cost split,
-artifact emission, lowering (plan JSON) and planned layer execution, on a
-reduced yi-9b whose parameters are the JAX package's, imported through
-numpy."""
+"""The port's mapping pipeline against the JAX package: cost models,
+platforms, min-cost split, artifact emission (with and without a domain
+bias), lowering (plan JSON) and planned layer execution, on a reduced
+yi-9b whose parameters are the JAX package's, imported through numpy.
+
+The mappings are the three the port serves: ``diana`` (split_ternary),
+``gpu_tc_like`` (split_precision) and ``diana`` biased to ``("aimc",
+1.0)`` (ternary_matmul).  Reduced yi-9b's searchable layers have 64 output
+columns, which the default N-block (128) aligns entirely onto the int8
+path; plans of ``gpu_tc_like`` are therefore also lowered with ``bn=16``,
+the only way the reduced model reaches split_precision's bf16 columns."""
+import dataclasses
 import json
 
 import numpy as np
@@ -14,18 +22,26 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import base as jcfgbase  # noqa: E402
 from repro.core import baselines as jbaselines  # noqa: E402
+from repro.api.platforms import Platform as JPlatform  # noqa: E402
 from repro.core import cost_models as jcost  # noqa: E402
 from repro.launch.train import emit_static_mapping as j_emit  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro import runtime as jrt  # noqa: E402
 from repro_torch.configs import base as cfgbase  # noqa: E402
+from repro_torch.api import Platform  # noqa: E402
 from repro_torch.core import baselines, cost_models  # noqa: E402
+from repro_torch.kernels.split_precision import (  # noqa: E402
+    bf16_error_bound)
 from repro_torch.launch.train import emit_static_mapping  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch import runtime as rt  # noqa: E402
 from repro_torch.runtime.plan import ExecutionPlan  # noqa: E402
 
 MAX_COUT = 64   # layers wider than this pin to int8: both kernels appear
+#: the slice-2 mappings: platform and emission bias
+MAPPINGS = {"gpu_tc_like": ("gpu_tc_like", None),
+            "ternary": ("diana", ("aimc", 1.0))}
+BN16 = {"*": {"bn": 16}}
 
 
 @pytest.fixture(autouse=True)
@@ -57,6 +73,22 @@ def artifacts(model, tmp_path_factory):
     return ja.to_dict(), ta.to_dict()
 
 
+@pytest.fixture(scope="module")
+def mappings(model, tmp_path_factory):
+    """{key: (JAX artifact dict, port artifact dict)} of `MAPPINGS`."""
+    jcfg, jparams, cfg, params = model
+    d = tmp_path_factory.mktemp("maps")
+    out = {}
+    for key, (plat, bias) in MAPPINGS.items():
+        ja = j_emit(jparams, jcfg, plat, d / f"j_{key}.json",
+                    max_cout=MAX_COUT, act_log_scale=2.0, bias=bias)
+        ta = emit_static_mapping(params, cfg, plat, d / f"t_{key}.json",
+                                 max_cout=MAX_COUT, act_log_scale=2.0,
+                                 bias=bias)
+        out[key] = (ja.to_dict(), ta.to_dict())
+    return out
+
+
 def test_min_cost_full_width_kv_split():
     (a,) = baselines.min_cost(cost_models.DianaCostModel(),
                               [cost_models.LayerGeometry(4096, 512)])
@@ -75,22 +107,123 @@ def test_min_cost_matches_jax_on_small_geometries():
         np.testing.assert_array_equal(g, w)
 
 
+def test_min_cost_full_width_gpu_tc_split():
+    """gpu_tc_like prices int8 at twice the fp16 throughput: 342 int8 and
+    170 fp16 columns balance (4096, 512)."""
+    cm = Platform.get("gpu_tc_like").cost_model()
+    (a,) = baselines.min_cost(cm, [cost_models.LayerGeometry(4096, 512)])
+    assert int((a == 0).sum()) == 342 and int((a == 1).sum()) == 170
+
+
+@pytest.mark.parametrize("name", ["diana_abstract", "diana_ideal_shutdown",
+                                  "gpu_tc_like"])
+def test_abstract_cost_model_matches_jax(name):
+    cm, jcm = Platform.get(name).cost_model(), JPlatform.get(name).cost_model()
+    geoms = [(4096, 512), (64, 64, 3, 3, 8, 8), (300, 40, 1, 1, 1, 1, 4)]
+    for g in geoms:
+        counts = np.asarray([7.0, 33.0], np.float32)
+        np.testing.assert_array_equal(
+            cm.latency(cost_models.LayerGeometry(*g), counts),
+            np.asarray(jcm.latency(jcost.LayerGeometry(*g), counts)))
+    np.testing.assert_array_equal(cm.p_act(), np.asarray(jcm.p_act()))
+    np.testing.assert_array_equal(cm.p_idle(), np.asarray(jcm.p_idle()))
+    shapes = [(64, 64), (64, 128), (300, 40), (1200, 33)]
+    got = baselines.min_cost(cm, [cost_models.LayerGeometry(*s)
+                                  for s in shapes])
+    want = jbaselines.min_cost(jcm, [jcost.LayerGeometry(*s)
+                                     for s in shapes])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(p_act=(1.0, 2.0, 3.0)), dict(throughput=(1.0, 2.0, 3.0)),
+    dict(p_act=(1.0,), throughput=(1.0,))])
+def test_abstract_cost_model_rejects_mismatched_lengths(kw):
+    with pytest.raises(ValueError) as want:
+        jcost.AbstractCostModel(False, **kw)
+    with pytest.raises(ValueError, match="must match 2 domains") as got:
+        cost_models.AbstractCostModel(False, **kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", ["diana", "gpu_tc_like", "diana_abstract",
+                                  "diana_ideal_shutdown"])
+def test_kernel_capabilities_match_jax(name):
+    p, jp = Platform.get(name), JPlatform.get(name)
+    assert [dataclasses.astuple(d) for d in p.domains] == \
+        [dataclasses.astuple(d) for d in jp.domains]
+    assert p.kernel_capabilities() == jp.kernel_capabilities()
+
+
+def _without_scales(a):
+    """(artifact without weight scales, the scales)."""
+    a = json.loads(json.dumps(a))
+    scales = [l["scales"].pop("w_log_scales") for l in a["layers"]]
+    return a, scales
+
+
 def test_emit_static_mapping_matches_jax(artifacts):
-    ja, ta = json.loads(json.dumps(artifacts))
-    for a in (ja, ta):
-        for layer in a["layers"]:
-            layer["w_scales"] = layer["scales"].pop("w_log_scales")
+    (ja, jscales), (ta, tscales) = map(_without_scales, artifacts)
     assert len(ta["layers"]) == len(ja["layers"]) == 15
-    np.testing.assert_allclose(
-        [l["w_scales"] for l in ta["layers"]],
-        [l["w_scales"] for l in ja["layers"]], rtol=0, atol=1e-6)
-    for a in (ja, ta):
-        for layer in a["layers"]:
-            del layer["w_scales"]
+    np.testing.assert_allclose(tscales, jscales, rtol=0, atol=1e-6)
     assert ta == ja
     kinds = {l["name"]: l["counts"] for l in ja["layers"]}
     assert kinds["units/0/attn/wk@1"] == [7, 57]
     assert kinds["head"] == [128, 0]
+
+
+@pytest.mark.parametrize("key,wk_counts", [("gpu_tc_like", [43, 21]),
+                                           ("ternary", [0, 64])])
+def test_emit_new_mappings_match_jax(mappings, key, wk_counts):
+    """Artifacts of gpu_tc_like and of the ternary-biased diana equal the
+    JAX package's, JSON for JSON, weight scales within 1e-6."""
+    (ja, jscales), (ta, tscales) = map(_without_scales, mappings[key])
+    np.testing.assert_allclose(tscales, jscales, rtol=0, atol=1e-6)
+    assert ta == ja
+    counts = {l["name"]: l["counts"] for l in ta["layers"]}
+    assert counts["units/0/attn/wk@1"] == wk_counts
+    assert counts["head"] == [128, 0]
+
+
+def test_emit_bias_rejects_unknown_domain_and_fraction(model, tmp_path):
+    jcfg, jparams, cfg, params = model
+    with pytest.raises(ValueError, match="not on platform"):
+        emit_static_mapping(params, cfg, "gpu_tc_like", tmp_path / "a.json",
+                            bias=("aimc", 1.0))
+    for frac in (-0.1, 1.5):
+        with pytest.raises(ValueError, match=r"\[0, 1\]"):
+            emit_static_mapping(params, cfg, "diana", tmp_path / "b.json",
+                                bias=("aimc", frac))
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("dom", ["digital", "aimc"])
+def test_emit_bias_splits_like_jax(model, tmp_path, dom, frac):
+    jcfg, jparams, cfg, params = model
+    ja = j_emit(jparams, jcfg, "diana", tmp_path / "j.json",
+                max_cout=MAX_COUT, bias=(dom, frac))
+    ta = emit_static_mapping(params, cfg, "diana", tmp_path / "t.json",
+                             max_cout=MAX_COUT, bias=(dom, frac))
+    assert [l["assignment"] for l in ta.to_dict()["layers"]] == \
+        [l["assignment"] for l in ja.to_dict()["layers"]]
+
+
+@pytest.mark.parametrize("tuning", [None, BN16], ids=["bn128", "bn16"])
+@pytest.mark.parametrize("key,hist", [
+    ("gpu_tc_like", {"quant_matmul": 5, "split_precision": 10}),
+    ("ternary", {"quant_matmul": 5, "ternary_matmul": 10})])
+def test_lower_new_mappings_identical_plan_json(model, mappings, key, hist,
+                                                tuning):
+    jcfg, jparams, cfg, params = model
+    ja, _ = mappings[key]
+    jplan = jrt.lower(ja, params=jparams, tuning=tuning)
+    plan = rt.lower(ja, params=params, tuning=tuning)
+    assert plan.to_json() == jplan.to_json()
+    assert plan.kernel_histogram() == hist
+    if key == "gpu_tc_like":
+        want = [128, 128] if tuning is None else [48, 64]
+        assert plan["units/0/attn/wk@0"].aligned_boundaries == want
 
 
 def test_lower_gives_identical_plan_json(model, artifacts, tmp_path):
@@ -154,13 +287,86 @@ def test_execute_layer_bit_identical_to_jax(model, artifacts, layer,
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _prepared_pair(model, doc, layer, bits, tuning=None):
+    """(JAX prepared layer, port prepared layer, port LayerPlan) of
+    ``layer`` (a stacked ``name@r``) of the lowered ``doc``."""
+    jcfg, jparams, cfg, params = model
+    jlp = jrt.lower(doc, params=jparams, tuning=tuning)[layer]
+    lp = rt.lower(doc, params=params, tuning=tuning)[layer]
+    base, r = layer.split("@")
+    node_j, node_t = jparams["units"][0], params["units"][0]
+    for part in base.split("/")[2:]:
+        node_j, node_t = node_j[part], node_t[part]
+    jprep = jrt.prepare_layer(jlp, node_j["w"][int(r)], domain_bits=bits)
+    prep = rt.prepare_layer(lp, node_t["w"][int(r)], domain_bits=bits)
+    return jprep, prep, lp
+
+
+@pytest.mark.parametrize("reference", [False, True])
+@pytest.mark.parametrize("static_act", [True, False])
+def test_execute_ternary_layer_bit_identical_to_jax(model, mappings,
+                                                    reference, static_act):
+    doc = json.loads(json.dumps(mappings["ternary"][0]))
+    if not static_act:
+        for l in doc["layers"]:
+            l["scales"]["act_log_scale"] = None
+    jprep, prep, lp = _prepared_pair(model, doc, "units/0/attn/wv@1",
+                                     [8, 2])
+    assert lp.kernel == "ternary_matmul" and prep.w_perm is None
+    x = np.random.default_rng(7).normal(0, 2.5, (2, 3, lp.c_in))
+    x = x.astype(np.float32)
+    want = np.asarray(jrt.execute_layer(jprep, jnp.asarray(x),
+                                        reference=reference))
+    got = rt.execute_layer(prep, torch.from_numpy(x), reference=reference)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("reference", [False, True])
+@pytest.mark.parametrize("tuning", [None, BN16], ids=["bn128", "bn16"])
+def test_execute_split_precision_layer_matches_jax(model, mappings,
+                                                   reference, tuning):
+    """Columns below the aligned boundary bit for bit, the bf16 columns
+    (16 of 64 at bn=16, none at bn=128) within the float32 summation
+    bound; the bf16 operand is the input rounded to bf16."""
+    doc = mappings["gpu_tc_like"][0]
+    jprep, prep, lp = _prepared_pair(model, doc, "units/0/attn/wk@0",
+                                     [8, 16], tuning)
+    assert lp.kernel == "split_precision" and prep.w_q is not None
+    assert prep.w_bf16.dtype == torch.bfloat16
+    x = np.random.default_rng(8).normal(0, 2.5, (2, 3, lp.c_in))
+    x = x.astype(np.float32)
+    want = np.asarray(jrt.execute_layer(jprep, jnp.asarray(x),
+                                        reference=reference))
+    got = rt.execute_layer(prep, torch.from_numpy(x), reference=reference)
+    b_al = min(lp.aligned_boundaries[0], lp.c_out)
+    assert b_al == (48 if tuning else 64)
+    # planned (domain-contiguous) column order
+    got_p = got.numpy().reshape(-1, lp.c_out)[:, lp.perm]
+    want_p = want.reshape(-1, lp.c_out)[:, lp.perm]
+    np.testing.assert_array_equal(got_p[:, :b_al], want_p[:, :b_al])
+    xb = torch.from_numpy(x.reshape(-1, lp.c_in)).to(torch.bfloat16)
+    bound = bf16_error_bound(xb, prep.w_bf16,
+                             torch.from_numpy(np.array(want_p))).numpy()
+    err = np.abs(got_p.astype(np.float64) - want_p)
+    assert np.all(err[:, b_al:] <= bound[:, b_al:])
+
+
 def test_backend_rejects_kernels_of_later_slices(model, artifacts):
+    """Every plan kernel binds now; what waits is grouped (and conv)
+    execution: a layer with ``groups > 1`` is refused at bind time."""
     jcfg, jparams, cfg, params = model
     plan = rt.lower(artifacts[0], params=params)
-    lp = plan["units/0/ffn/up@0"]
-    lp.kernel = "ternary_matmul"
+    plan["units/0/ffn/up@0"].groups = 2
     with pytest.raises(rt.ExecutionError, match="later slice"):
         rt.PlannedBackend(plan, params)
+
+
+def test_prepare_layer_rejects_conv_weights(model, artifacts):
+    jcfg, jparams, cfg, params = model
+    lp = rt.lower(artifacts[0], params=params)["units/0/attn/wk@0"]
+    w4 = torch.zeros((3, 3, lp.c_in, lp.c_out))
+    with pytest.raises(rt.ExecutionError, match="later slice"):
+        rt.prepare_layer(lp, w4)
 
 
 def test_backend_rejects_repeat_count_mismatch(model, artifacts):
@@ -203,6 +409,15 @@ def test_serve_exits_2_when_the_artifact_does_not_lower(artifacts,
     with pytest.raises(SystemExit) as exc:
         serve.main(_serve_args(bad))
     assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("key", sorted(MAPPINGS))
+def test_serve_new_mappings_with_full_coverage(mappings, key, tmp_path):
+    from repro_torch.launch import serve
+    path = tmp_path / f"{key}.json"
+    path.write_text(json.dumps(mappings[key][1]))
+    tokens, stats = serve.main(_serve_args(path, "--require-full-coverage"))
+    assert tuple(tokens.shape) == (1, 2)
 
 
 def test_serve_planned_runs_with_full_coverage(artifacts, tmp_path):
