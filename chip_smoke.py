@@ -8,25 +8,37 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi) and the torch
    version; no CUDA device is a failure, never a CPU run.
-2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+2. build: the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel).
 3. kernels vs their plain versions on the card at the serving paths'
    shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
-   (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul and
-   ternary_matmul bit for bit; split_ternary bit for bit at boundaries
-   {0, 7, 128, 300, N}; split_precision at raw boundaries {0, 7, 128, 342,
-   N}, its int8 columns bit for bit and its bf16 columns within the float32
-   summation bound ``K * 2**-24 * sum_k |x w| + 2**-24 * |y|``.  Split
+   (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul,
+   ternary_matmul and ternary_packed bit for bit; split_ternary bit for
+   bit at boundaries {0, 7, 128, 300, N}; split_precision at raw
+   boundaries {0, 7, 128, 342, N}, its int8 columns bit for bit and its
+   bf16 columns within the float32 summation bound ``K * 2**-24 * sum_k |x w| + 2**-24 * |y|``.  Split
    probes: the split kernels get garbage in the int8 codes at and above
    the aligned boundary (and split_precision NaN in its bf16 weights below
-   it), which must not reach the output.
+   it), which must not reach the output.  flash_attention at yi-9b's head
+   shapes (B 4, H 32, KVH 4, D 128): Sq = Sk in {128, 3072}, Sq 3072
+   against Sk 4096 with kv_len 3072, a ragged Sq 3000, and one non-causal
+   case whose keys the op pads (Sk 1000 to 1024), each within
+   `flash_error_bound` (the bf16 rounding of p and of the output, and the
+   float32 sums; stated in its docstring).  Then the entry point of
+   ternary_packed, which no serving path calls, is driven once at each of
+   the ten (M, K, N) with the launch counts read around that run.
 4. times (CUDA events, after warm-up) of each kernel, its plain version and
-   a library yardstick (torch._int_mm with the same epilogue; for
-   split_precision "two calls": _int_mm on the int8 columns and a bf16
-   torch.matmul on the rest), beside the bound max(bytes / 3.35 TB/s,
-   int8 ops / 1979 TOP/s + bf16 flops / 989 TFLOP/s) of the H100 SXM data
-   sheet, at the M each layer has on the path (the head projects only the
-   last position: M = B at prefill as at decode).
+   a library yardstick (torch._int_mm with the same epilogue, on the
+   unpacked codes for ternary_packed; for split_precision "two calls":
+   _int_mm on the int8 columns and a bf16 torch.matmul on the rest; for
+   flash_attention scaled_dot_product_attention with is_causal and
+   enable_gqa), beside the bound max(bytes / 3.35 TB/s, int8 ops / 1979
+   TOP/s + bf16 flops / 989 TFLOP/s) of the H100 SXM data sheet, at the M
+   each layer has on the path (the head projects only the last position:
+   M = B at prefill as at decode), the diana layers also at the long
+   prefill's M = 4 x 3072 = 12288, and, for flash_attention, at the long
+   prefill's call (q (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal,
+   kv_len 3072).
 5. serving: full-width 48-layer yi-9b with random weights from --seed
    (one set of params), mapped three ways and served with the fixed-batch
    greedy loop (4 requests x 128 prompt + 16 generated tokens), one bound
@@ -51,6 +63,24 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    compared per row up to the first step whose plain top-2 margin is
    below that tolerance).  Then a warm run, with the profiler's device
    busy share on diana and gpu_tc_like.
+   diana_long: the same params and diana artifact, 4 requests x 3072
+   prompt + 16 generated tokens in a 4096-slot int8 cache
+   (``serve_batch(..., max_len=4096)``), so the prefill (Sq > 2048) takes
+   the chunked path: launch counts flash_attention 48 (all in prefill),
+   quant_matmul 241 x 16, split_ternary 96 x 16.  Every quant_matmul and
+   split_ternary call of the prefill (M 12288) is held bit for bit against
+   its plain version on its own inputs as it is made, and each of the 48
+   flash calls against the plain version on its own q / k / v within
+   `flash_error_bound`.  The matmul kernels being bit-exact, the kernel
+   run differs from the plain run (``reference=True``, which also selects
+   the flash kernel's plain version) only in flash's summation order; a
+   second plain run evaluates attention in float64, another valid
+   summation: the kernel run's prefill logits must lie within
+   SENSITIVITY_FACTOR times the two plain runs' distance, in max |diff| and
+   in RMS, and tokens are compared under the margin rule above (printed
+   beside the distance of another request's logits, what an unrelated
+   output would show).  Then a warm run (prefill ms, decode ms/step, peak
+   GiB).
 6. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
@@ -80,17 +110,38 @@ KN_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
 REQUESTS, PROMPT_LEN, GEN_LEN = 4, 128, 16   # the served traffic
 DECODE_M, PREFILL_M = REQUESTS, REQUESTS * PROMPT_LEN
 M_SHAPES = [DECODE_M, PREFILL_M]
+# the long-prompt traffic (diana_long): yi-9b's whole 4K context; the
+# chunked prefill needs a cache length that is a multiple of 1024
+LONG_PROMPT, LONG_CACHE = 3072, 4096
+LONG_M = REQUESTS * LONG_PROMPT          # rows of its prefill's projections
 BOUNDARIES = [0, 7, 128, 300, None]      # split_ternary; None = N
 SP_BOUNDARIES = [0, 7, 128, 342, None]   # split_precision; None = N
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+# flash_attention checks at yi-9b's heads (B, H, KVH, D) = (4, 32, 4,
+# 128): (Sq, Sk, causal, kv_len); the last one runs through the op, which
+# pads Sk to its 512-key block and masks the padded keys
+FLASH_HEADS = (REQUESTS, 32, 4, 128)
+FLASH_CASES = [(128, 128, True, None), (3072, 3072, True, None),
+               (LONG_PROMPT, LONG_CACHE, True, LONG_PROMPT),
+               (3000, 3000, True, None), (1000, 1000, False, None)]
+KERNELS = {  # name -> (source, the TPU kernel it replaces, ops attribute)
     "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
-                     "src/repro/kernels/quant_matmul.py:49"),
+                     "src/repro/kernels/quant_matmul.py:49",
+                     "quant_matmul"),
     "split_ternary": ("src/repro_torch/csrc/split_ternary.cu",
-                      "src/repro/kernels/split_ternary.py:91"),
+                      "src/repro/kernels/split_ternary.py:91",
+                      "split_ternary"),
     "ternary_matmul": ("src/repro_torch/csrc/ternary_matmul.cu",
-                       "src/repro/kernels/ternary_matmul.py:44"),
+                       "src/repro/kernels/ternary_matmul.py:44",
+                       "ternary_matmul"),
     "split_precision": ("src/repro_torch/csrc/split_precision.cu",
-                        "src/repro/kernels/split_precision.py:71"),
+                        "src/repro/kernels/split_precision.py:71",
+                        "split_precision"),
+    "ternary_packed": ("src/repro_torch/csrc/ternary_packed.cu",
+                       "src/repro/kernels/ternary_packed.py:66",
+                       "ternary_packed_matmul"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:81",
+                        "flash_attention"),
 }
 # serving paths: platform, emission bias, kernel of wk / wv, raw boundary
 # of wk / wv (None: one domain)
@@ -99,10 +150,12 @@ PATHS = {
     "gpu_tc_like": ("gpu_tc_like", None, "split_precision", 342),
     "diana_ternary": ("diana", ("aimc", 1.0), "ternary_matmul", None),
 }
-#: path -> kernel the path's record in the JSON line takes its launches from
+#: kernel -> the run its record in the JSON line takes its launches from
 LAUNCH_PATH = {"quant_matmul": "diana", "split_ternary": "diana",
                "split_precision": "gpu_tc_like",
-               "ternary_matmul": "diana_ternary"}
+               "ternary_matmul": "diana_ternary",
+               "ternary_packed": "entry point",
+               "flash_attention": "diana_long"}
 # Kernel vs plain prefill logits on gpu_tc_like.  A bf16 column of
 # split_precision differs from the plain value by ~1e-6 relative, which
 # moves a bf16-rounded wk / wv output by one bf16 step now and then; every
@@ -114,14 +167,15 @@ LAUNCH_PATH = {"quant_matmul": "diana", "split_ternary": "diana",
 SENSITIVITY_FACTOR = 4.0
 
 
-def path_layers(path):
+def path_layers(path, prefill_m=PREFILL_M):
     """yi-9b layers per forward on ``path``: (K, N) -> (kernel, count, rows
-    at prefill); every layer has M = B rows at decode."""
+    at a prefill of ``prefill_m`` tokens); every layer has M = B rows at
+    decode."""
     kv = PATHS[path][2]
-    return {(4096, 4096): ("quant_matmul", 96, PREFILL_M),    # wq, wo
-            (4096, 512): (kv, 96, PREFILL_M),                 # wk, wv
-            (4096, 11008): ("quant_matmul", 96, PREFILL_M),   # gate, up
-            (11008, 4096): ("quant_matmul", 48, PREFILL_M),   # down
+    return {(4096, 4096): ("quant_matmul", 96, prefill_m),    # wq, wo
+            (4096, 512): (kv, 96, prefill_m),                 # wk, wv
+            (4096, 11008): ("quant_matmul", 96, prefill_m),   # gate, up
+            (11008, 4096): ("quant_matmul", 48, prefill_m),   # down
             # the head projects only each row's last position
             (4096, 64000): ("quant_matmul", 1, DECODE_M)}
 
@@ -186,6 +240,56 @@ def bound_ms(m, k, n, weight_bytes, int8_cols=None, bf16_cols=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_bound_ms(B, H, KVH, Sq, kv_end, D, causal=True):
+    """Least time of the H100 SXM for one flash_attention call, and what
+    bounds it: 4 * D bf16 flops per attended (query, key) pair (``sum_i
+    min(i + 1, kv_end)`` per head when causal) against q read and o written
+    once plus the k / v rows some query reads (``min(kv_end, Sq)`` when
+    causal), all bf16."""
+    if causal:
+        full = min(Sq, kv_end)
+        pairs = full * (full + 1) // 2 + (Sq - full) * kv_end
+        rows = full
+    else:
+        pairs, rows = Sq * kv_end, kv_end
+    t_ops = 4.0 * D * B * H * pairs / BF16_FLOPS_PER_S * 1e3
+    nbytes = 2 * (2 * B * H * Sq * D + 2 * B * KVH * rows * D)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_operands(torch, B, H, KVH, Sq, Sk, D, gen, layout="bhsd"):
+    """bf16 q, k, v with q ~ N(0, 9) (so that each softmax row is peaked,
+    as a trained model's are, and a wrong key or mask moves the output by
+    far more than the bound), k, v ~ N(0, 1); ``layout`` "bhsd": q (B, H,
+    Sq, D), k / v (B, KVH, Sk, D); "model": q (B, Sq, KVH, G, D), k / v
+    (B, Sk, KVH, D)."""
+    dev = gen.device
+    shapes = ((B, H, Sq, D), (B, KVH, Sk, D)) if layout == "bhsd" else \
+        ((B, Sq, KVH, H // KVH, D), (B, Sk, KVH, D))
+    q = torch.randn(shapes[0], generator=gen, device=dev) * 3.0
+    k = torch.randn(shapes[1], generator=gen, device=dev)
+    v = torch.randn(shapes[1], generator=gen, device=dev)
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def check_flash(torch, q, k, v, got, causal, kv_len, what):
+    """One flash_attention output against the plain version on the same
+    (B, H, S, D) operands within `flash_error_bound`; returns (max |err|,
+    max err / bound)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_plain,
+                                                     flash_error_bound)
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    bound = flash_error_bound(q, k, v, want, kv_len=kv_len)
+    ratio = float((err / bound).max())
+    if not bool(torch.isfinite(got).all()) or not bool((err <= bound).all()):
+        raise AssertionError(f"flash_attention {what}: max error / bound "
+                             f"{ratio:.4g} (max |err| {float(err.max())})")
+    return float(err.max()), ratio
+
+
 def aligned(raw, n):
     """The boundary the ops split at: rounded up to the N-block, clamped."""
     from repro_torch.kernels import ops
@@ -218,6 +322,7 @@ def phase_kernels(torch, gen):
                                                      split_precision_plain)
     from repro_torch.kernels.split_ternary import split_ternary_plain
     from repro_torch.kernels.ternary_matmul import ternary_matmul_plain
+    from repro_torch.kernels.ternary_packed import ternary_packed_plain
     worst = dict.fromkeys(KERNELS, 0.0)
 
     def exact(kernel, got, want, what):
@@ -237,6 +342,9 @@ def phase_kernels(torch, gen):
             x, w_t, w_p, sx, sw = operands(m, k, n, 0, gen)
             exact("ternary_matmul", ops.ternary_matmul_op(x, w_t, sx, sw),
                   ternary_matmul_plain(x, w_t, sx, sw), shape)
+            exact("ternary_packed",
+                  ops.ternary_packed_matmul_op(x, w_p, sx, sw),
+                  ternary_packed_plain(x, w_p, sx, sw), shape)
             for b in BOUNDARIES:
                 raw = n if b is None else min(b, n)
                 x, w_q, w_p, sx, sw = operands(m, k, n, raw, gen)
@@ -278,7 +386,46 @@ def phase_kernels(torch, gen):
                       f"{float(err.max()) if err.numel() else 0.0:.3g} = "
                       f"{ratio:.3g} of the bound; w_q garbage at cols >= "
                       f"{b_al}, w_bf16 NaN below")
+    B, H, KVH, D = FLASH_HEADS
+    for Sq, Sk, causal, kv_len in FLASH_CASES:
+        q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen)
+        if causal:
+            got = ops.flash_attention(q, k, v, causal=True, kv_len=kv_len)
+        else:   # through the op, which pads the keys and masks them
+            got = ops.flash_attention_op(q, k, v, causal=False)
+        what = (f"B={B} H={H} KVH={KVH} D={D} Sq={Sq} Sk={Sk} "
+                f"causal={causal} kv_len={kv_len}")
+        err, ratio = check_flash(torch, q, k, v, got, causal, kv_len, what)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        print(f"[kernels] flash_attention {what}: max |err| {err:.4g} = "
+              f"{ratio:.4g} of the bound")
+        del q, k, v, got
     return worst
+
+
+def phase_packed_entry(torch, gen):
+    """ternary_packed's own run: its entry point (no serving path calls
+    it) once at each (M, K, N) of the serving paths, launch counts read
+    around the run; returns the launches."""
+    from repro_torch.kernels import ops
+    reset_launches()
+    for m in M_SHAPES:
+        for k, n in KN_SHAPES:
+            x, _, w_p, sx, sw = operands(m, k, n, 0, gen)
+            y = ops.ternary_packed_matmul_op(x, w_p, sx, sw)
+            if tuple(y.shape) != (m, n) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"ternary_packed entry point M={m} "
+                                     f"K={k} N={n}: wrong shape or not "
+                                     f"finite")
+    launches = kernel_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want["ternary_packed"] = len(M_SHAPES) * len(KN_SHAPES)
+    if launches != want:
+        raise AssertionError(f"ternary_packed entry point: launches "
+                             f"{launches}, expected {want}")
+    print(f"[entry] ternary_packed_matmul_op at {want['ternary_packed']} "
+          f"(M, K, N): {launches['ternary_packed']} launches")
+    return launches
 
 
 def phase_times(torch, gen):
@@ -292,6 +439,7 @@ def phase_times(torch, gen):
     from repro_torch.kernels.split_precision import split_precision_plain
     from repro_torch.kernels.split_ternary import split_ternary_plain
     from repro_torch.kernels.ternary_matmul import ternary_matmul_plain
+    from repro_torch.kernels.ternary_packed import ternary_packed_plain
     times = {kernel: {} for kernel in KERNELS}
     calls = {}
     for path, (_, _, _, raw) in PATHS.items():
@@ -299,6 +447,13 @@ def phase_times(torch, gen):
             for m in M_SHAPES:
                 key = (kernel, m if m == DECODE_M else pm, k, n)
                 calls[key] = raw if kernel == PATHS[path][2] else None
+    # the long prefill's calls (diana_long: the diana layers at LONG_M)
+    raw = PATHS["diana"][3]
+    for (k, n), (kernel, _, pm) in path_layers("diana", LONG_M).items():
+        calls[(kernel, pm, k, n)] = raw if kernel == "split_ternary" else None
+    for m in M_SHAPES:       # the calls of ternary_packed's entry-point run
+        for k, n in KN_SHAPES:
+            calls[("ternary_packed", m, k, n)] = None
     for (kernel, m, k, n), raw in calls.items():
         raw = n if raw is None else raw
         b_al = aligned(raw, n)
@@ -331,10 +486,22 @@ def phase_times(torch, gen):
                              bf16_cols=n - b_al)
         else:
             x, w_q, w_p, sx, sw = operands(
-                m, k, n, 0 if kernel == "ternary_matmul" else raw, gen)
+                m, k, n, 0 if kernel in ("ternary_matmul", "ternary_packed")
+                else raw, gen)
             weights = (w_q,)
             x_lib = pad_rows(x)
-            if kernel == "split_ternary":
+            if kernel == "ternary_packed":
+                # the library call reads the codes w[0], the kernel and
+                # its plain version the packed stream w[1]
+                weights = (w_q, w_p)
+                wbytes = (k // 4) * n
+
+                def run(w):
+                    return ops.ternary_packed_matmul_op(x, w[1], sx, sw)
+
+                def plain(w):
+                    return ternary_packed_plain(x, w[1], sx, sw)
+            elif kernel == "split_ternary":
                 weights = (w_q, w_p)
                 wbytes = k * b_al + (k // 4) * (n - b_al)
 
@@ -381,13 +548,63 @@ def phase_times(torch, gen):
     return times
 
 
-def forward_mix(times, path, kernel, phase):
-    """Sum of per-layer records over one ``"prefill"`` or ``"decode"``
-    forward pass of yi-9b on ``path``, each layer at the M the path gives
-    it."""
+def phase_flash_times(torch, gen):
+    """Times of the long prefill's flash_attention call as the path makes
+    it (`attention.chunked_attention` on the model layout: q (4, 3072, 4,
+    8, 128), k / v (4, 4096, 4, 128) bf16, causal, kv_len 3072), its plain
+    version on the same layout, and scaled_dot_product_attention (causal,
+    GQA) over the 3072 keys the call reads; returns the record."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as A
+    B, H, KVH, D = FLASH_HEADS
+    q, k, v = flash_operands(torch, B, H, KVH, LONG_PROMPT, LONG_CACHE, D,
+                             gen, layout="model")
+
+    def run():
+        return A.chunked_attention(q, k, v, kv_len=LONG_PROMPT)
+
+    def plain():
+        return A.attention_plain(q, k, v, causal=True, kv_len=LONG_PROMPT)
+    qh = q.reshape(B, LONG_PROMPT, H, D).transpose(1, 2)
+    kh = k[:, :LONG_PROMPT].transpose(1, 2)
+    vh = v[:, :LONG_PROMPT].transpose(1, 2)
+
+    def lib():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+    rec = {"ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
+           "library_ms": cuda_ms(lib, 20)}
+    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
+        B, H, KVH, LONG_PROMPT, LONG_PROMPT, D)
+    print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Sq="
+          f"{LONG_PROMPT} Sk={LONG_CACHE} kv_len={LONG_PROMPT} causal: "
+          f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+          f"sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})  share {rec['bound_ms'] / rec['ms']:.3f}")
+    return rec
+
+
+def entry_mix(times):
+    """Sum of ternary_packed's records over its entry-point run (one call
+    at each (M, K, N))."""
+    recs = [times["ternary_packed"][(m, k, n)] for m in M_SHAPES
+            for k, n in KN_SHAPES]
+    tot = {key: sum(r[key] for r in recs)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
+    tot["bound_by"] = ("bytes" if by_bytes >= tot["bound_ms"] / 2
+                       else "operations")
+    return tot
+
+
+def forward_mix(times, path, kernel, phase, prefill_m=PREFILL_M):
+    """Sum of per-layer records over one ``"prefill"`` (of ``prefill_m``
+    tokens) or ``"decode"`` forward pass of yi-9b on ``path``, each layer
+    at the M the path gives it."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "bytes_ms": 0.0}
-    for (k, n), (kern, count, prefill_m) in path_layers(path).items():
+    for (k, n), (kern, count, prefill_m) in path_layers(
+            path, prefill_m).items():
         if kern != kernel:
             continue
         m = prefill_m if phase == "prefill" else DECODE_M
@@ -402,13 +619,15 @@ def forward_mix(times, path, kernel, phase):
     return tot
 
 
-def plain_margins(torch, cfg, params, prompts, tokens, backend):
+def plain_margins(torch, cfg, params, prompts, tokens, backend,
+                  max_len=None):
     """Top-2 logit margins of the plain-version run at each generated step,
     with ``tokens`` (that run's own) fed back: (B, GEN_LEN)."""
     from repro_torch.models import _backend
     from repro_torch.models import transformer as T
     B, P = prompts.shape
-    caches = T.init_cache(cfg, B, P + GEN_LEN, device=prompts.device)
+    caches = T.init_cache(cfg, B, max_len or P + GEN_LEN,
+                          device=prompts.device)
     out = []
     with _backend.use(backend):
         logits, caches = T.prefill(params, cfg, prompts, caches)
@@ -499,13 +718,29 @@ def plain_float32_split_precision():
 
 def kernel_launches():
     from repro_torch.kernels import ops
-    return {k: getattr(ops, k).launches for k in KERNELS}
+    return {k: getattr(ops, attr).launches
+            for k, (_, _, attr) in KERNELS.items()}
 
 
 def reset_launches():
     from repro_torch.kernels import ops
-    for k in KERNELS:
-        getattr(ops, k).launches = 0
+    for _, _, attr in KERNELS.values():
+        getattr(ops, attr).launches = 0
+
+
+def compare_tokens(torch, path, tokens, ref_tokens, margins, tol):
+    """Tokens of the kernel run against the plain run's, per row up to the
+    first step whose plain top-2 margin is below ``tol``; returns the
+    number of (row, step) pairs compared."""
+    compared = 0
+    for row in range(tokens.shape[0]):
+        low = torch.nonzero(margins[row] < tol).flatten()
+        upto = int(low[0]) if low.numel() else GEN_LEN
+        if not torch.equal(tokens[row, :upto], ref_tokens[row, :upto]):
+            raise AssertionError(f"{path}: row {row} tokens differ before "
+                                 f"step {upto}")
+        compared += upto
+    return compared
 
 
 def phase_serving(torch, path, cfg, params, prompts, profile_run):
@@ -618,14 +853,8 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
         tol = SENSITIVITY_FACTOR * spread
         margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
                                 backend)
-        compared = 0
-        for row in range(REQUESTS):
-            low = torch.nonzero(margins[row] < tol).flatten()
-            upto = int(low[0]) if low.numel() else GEN_LEN
-            if not torch.equal(tokens[row, :upto], ref_tokens[row, :upto]):
-                raise AssertionError(f"{path}: row {row} tokens differ "
-                                     f"before step {upto}")
-            compared += upto
+        compared = compare_tokens(torch, path, tokens, ref_tokens, margins,
+                                  tol)
         print(f"[serve:{path}] tolerance {tol:.4g} = {SENSITIVITY_FACTOR:g}"
               f" x {spread:.4g}: kernel prefill logits max |diff| "
               f"{diff:.4g} (ratio {diff / max(spread, 1e-30):.3g}); tokens "
@@ -660,6 +889,285 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, record
+
+
+def recording_flash(calls):
+    """Context: the flash_attention calls of `attention.chunked_attention`
+    keep their operands and output in ``calls``; the kernel launches as
+    before."""
+    import contextlib
+    from repro_torch.models import attention as A
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = A.flash_attention
+
+        def recording(q, k, v, **kw):
+            out = orig(q, k, v, **kw)
+            calls.append((q, k, v, kw, out))
+            return out
+        A.flash_attention = recording
+        try:
+            yield
+        finally:
+            A.flash_attention = orig
+    return ctx()
+
+
+def checking_matmuls(checked, limits):
+    """Context: the first ``limits[kernel]`` calls of `ops.quant_matmul_op`
+    and `ops.split_ternary_op` (one forward pass: the prefill) are held bit
+    for bit against the plain version on their own inputs as they are made;
+    ``checked[kernel]`` is (calls checked, largest M).  The kernels launch
+    as before; the plain versions launch nothing."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_matmul import quant_matmul_plain
+    from repro_torch.kernels.split_ternary import split_ternary_plain
+
+    def quant_plain(x, w_q, sx, sw):
+        return quant_matmul_plain(x, w_q, sx, sw)
+
+    def split_plain(x, w_q, w_p, sx, sw, boundary, bn=128):
+        n = w_q.shape[1]
+        b_al = min(ops.align_boundary(boundary, ops.block_n(bn, n)), n)
+        return split_ternary_plain(x, w_q, w_p, sx, sw, b_al)
+    plains = {"quant_matmul": ("quant_matmul_op", quant_plain),
+              "split_ternary": ("split_ternary_op", split_plain)}
+
+    def checking(kernel, orig, plain):
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            n, rows = checked[kernel]
+            if n < limits[kernel]:
+                want = plain(*args, **kw)
+                if not torch.equal(out, want):
+                    raise AssertionError(
+                        f"{kernel} call {n} of the long prefill (M "
+                        f"{args[0].shape[0]}): max |err| "
+                        f"{float((out - want).abs().max())} against the "
+                        f"plain version")
+                checked[kernel] = (n + 1, max(rows, int(args[0].shape[0])))
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        origs = {k: getattr(ops, attr) for k, (attr, _) in plains.items()}
+        for k, (attr, plain) in plains.items():
+            checked[k] = (0, 0)
+            setattr(ops, attr, checking(k, origs[k], plain))
+        try:
+            yield
+        finally:
+            for k, (attr, _) in plains.items():
+                setattr(ops, attr, origs[k])
+    return ctx()
+
+
+def plain_float64_attention():
+    """Context: the plain attention of a ``reference=True`` run evaluates
+    the flash kernel's function in float64 (scores, exponentials, sums and
+    the PV product; ``p`` still rounded to bf16 before PV) instead of
+    float32 -- another valid summation, for the sensitivity run of
+    diana_long, as the float32 plain run is for gpu_tc_like."""
+    import contextlib
+    import torch
+    from repro_torch.kernels.flash_attention import PLAIN_Q_BLOCK
+    from repro_torch.models import attention as A
+
+    def plain64(q, k, v, *, causal, kv_len):
+        B, Sq, KVH, G, hd = q.shape
+        Sk = k.shape[1]
+        f64 = torch.float64
+        kd, vd = k.to(f64), v.to(f64)
+        out = torch.empty(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype,
+                          device=q.device)
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        for q0 in range(0, Sq, PLAIN_Q_BLOCK):
+            qb = q[:, q0:q0 + PLAIN_Q_BLOCK].to(f64)
+            n = qb.shape[1]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kd) * hd ** -0.5
+            qpos = q0 + torch.arange(n, device=q.device)[:, None]
+            mask = torch.ones((n, Sk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kpos <= qpos
+            if kv_len is not None:
+                mask &= kpos < kv_len
+            s = s.masked_fill(~mask, float("-inf"))
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+            acc = torch.einsum("bkgqs,bskd->bqkgd",
+                               p.to(v.dtype).to(f64), vd)
+            out[:, q0:q0 + n] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+            del s, p, acc
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = A.attention_plain
+        A.attention_plain = plain64
+        try:
+            yield
+        finally:
+            A.attention_plain = orig
+    return ctx()
+
+
+def logit_distance(torch, a, b):
+    """(max |a - b|, RMS of a - b) over (B, vocab) logits."""
+    d = a.double() - b.double()
+    return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+
+
+def phase_long(torch, cfg, params, prompts):
+    """diana_long: the long-prompt traffic on the diana artifact of the
+    diana phase (module docstring); returns (launches of the kernel run,
+    serving record, largest |error| of the prefill's flash calls)."""
+    from repro_torch.api import MappingArtifact
+    from repro_torch.launch.serve import (check_coverage, kv_cache_for,
+                                          plan_mapping_execution,
+                                          serve_batch)
+    path = "diana_long"
+    art = MappingArtifact.load(
+        str(ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana.json"))
+    t0 = time.perf_counter()
+    plan, backend = plan_mapping_execution(params, art)
+    check_coverage("serve", backend, require_full=True)
+    cfg = kv_cache_for(cfg, art)
+    print(f"[serve:{path}] {backend.coverage()} (lower and bind "
+          f"{time.perf_counter() - t0:.1f} s)")
+    want = dict.fromkeys(KERNELS, 0)
+    for kernel, count, _ in path_layers("diana").values():
+        want[kernel] += count * GEN_LEN
+    want["flash_attention"] = cfg.n_layers      # one per layer, in prefill
+    B, P = prompts.shape
+
+    def serve():
+        return serve_batch(cfg, params, prompts, GEN_LEN, backend=backend,
+                           max_len=LONG_CACHE)
+
+    calls, checked = [], {}
+    limits = dict.fromkeys(KERNELS, 0)
+    for kernel, count, _ in path_layers("diana").values():
+        limits[kernel] += count       # one forward pass: the prefill
+    reset_launches()
+    with recording_flash(calls), checking_matmuls(checked, limits):
+        tokens, stats = serve()
+    launches = kernel_launches()
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, expected "
+                             f"{want}")
+    logits = stats["prefill_logits"]
+    if tuple(tokens.shape) != (B, GEN_LEN) or \
+            tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{path}: serving output has the wrong shape "
+                             f"or is not finite")
+    print(f"[serve:{path}] {B} requests x prompt {P} + gen {GEN_LEN} in a "
+          f"{LONG_CACHE}-slot {cfg.kv_cache_dtype} cache: prefill "
+          f"{stats['prefill_s'] * 1e3:.3f} ms with the matmul checks inline,"
+          f" decode {stats['decode_s'] * 1e3:.3f} ms "
+          f"({stats['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step)")
+    print(f"[serve:{path}] launches: " + " ".join(
+        f"{k} {v}" for k, v in launches.items() if v))
+    for kernel, (n, rows) in checked.items():
+        if n != limits[kernel] or (n and rows != B * P):
+            raise AssertionError(f"{path}: {n} {kernel} calls of the "
+                                 f"prefill checked (largest M {rows}), "
+                                 f"expected {limits[kernel]} at M {B * P}")
+    print(f"[serve:{path}] the " + " and the ".join(
+        f"{n} {k}" for k, (n, _) in checked.items()) +
+        f" calls of the prefill (M {B * P}; the head's M {B}) are "
+        f"bit-identical to the plain version on their own inputs")
+
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"{path}: {len(calls)} flash calls recorded")
+    worst_err = worst_ratio = 0.0
+    for i, (q, k, v, kw, out) in enumerate(calls):
+        err, ratio = check_flash(torch, q, k, v, out, kw["causal"],
+                                 kw["kv_len"], f"{path} layer {i}")
+        worst_err, worst_ratio = max(worst_err, err), max(worst_ratio, ratio)
+    shapes = calls[0]
+    print(f"[serve:{path}] the {len(calls)} flash_attention calls of the "
+          f"prefill (q {tuple(shapes[0].shape)}, k {tuple(shapes[1].shape)},"
+          f" kv_len {shapes[3]['kv_len']}) agree with the plain version on "
+          f"their own inputs: max |err| {worst_err:.4g}, at most "
+          f"{worst_ratio:.4g} of the bound")
+    del calls, shapes
+    gc.collect()
+
+    # the kernel run differs from the plain run only in flash's summation
+    # order (the matmul kernels are bit-identical to their plain
+    # versions); a plain run in float64 attention differs from it by
+    # another valid one
+    backend.reference = True
+    ref_tokens, ref_stats = serve()
+    with plain_float64_attention():
+        tok64, st64 = serve()
+    if kernel_launches() != want:
+        raise AssertionError(f"{path}: a plain run launched a kernel")
+    ref_logits = ref_stats["prefill_logits"]
+    spread, spread_rms = logit_distance(torch, st64["prefill_logits"],
+                                        ref_logits)
+    diff, diff_rms = logit_distance(torch, logits, ref_logits)
+    tol, tol_rms = SENSITIVITY_FACTOR * spread, SENSITIVITY_FACTOR * spread_rms
+    # what an output unrelated to the plain run's would give: the plain
+    # logits of another request
+    other, other_rms = logit_distance(torch, ref_logits.roll(1, dims=0),
+                                      ref_logits)
+    print(f"[serve:{path}] plain run: prefill "
+          f"{ref_stats['prefill_s'] * 1e3:.3f} ms, max |logit| "
+          f"{float(ref_logits.abs().max()):.4g}; plain run in float64 "
+          f"attention: prefill logits max |diff| {spread:.4g}, RMS "
+          f"{spread_rms:.4g} from it, tokens identical "
+          f"{torch.equal(tok64, ref_tokens)}; another request's logits: max "
+          f"|diff| {other:.4g}, RMS {other_rms:.4g}")
+    margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
+                            backend, max_len=LONG_CACHE)
+    compared = compare_tokens(torch, path, tokens, ref_tokens, margins, tol)
+    print(f"[serve:{path}] tolerance {SENSITIVITY_FACTOR:g} x the float64 "
+          f"run's distance: max {tol:.4g}, RMS {tol_rms:.4g}; kernel "
+          f"prefill logits max |diff| {diff:.4g} (ratio "
+          f"{diff / max(spread, 1e-30):.3g}), RMS {diff_rms:.4g} (ratio "
+          f"{diff_rms / max(spread_rms, 1e-30):.3g}); tokens identical over "
+          f"{compared} of {B * GEN_LEN} (row, step) pairs before the first "
+          f"plain top-2 margin below the max tolerance")
+    if diff > tol or diff_rms > tol_rms:
+        raise AssertionError(f"{path}: prefill logits differ by max {diff} "
+                             f"> {tol} or RMS {diff_rms} > {tol_rms}")
+    backend.reference = False
+
+    torch.cuda.reset_peak_memory_stats()
+    _, warm = serve()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve:{path}] warm run: prefill {warm['prefill_s'] * 1e3:.3f} "
+          f"ms, decode {warm['decode_s'] * 1e3:.3f} ms "
+          f"({warm['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step), peak "
+          f"memory {peak:.2f} GiB")
+    record = {"checked_prefill_ms": stats["prefill_s"] * 1e3,
+              "decode_ms_per_step": stats["decode_s"] * 1e3 / (GEN_LEN - 1),
+              "plain_prefill_ms": ref_stats["prefill_s"] * 1e3,
+              "warm_prefill_ms": warm["prefill_s"] * 1e3,
+              "warm_decode_ms_per_step":
+                  warm["decode_s"] * 1e3 / (GEN_LEN - 1),
+              "peak_gib": peak, "kv_cache_dtype": cfg.kv_cache_dtype,
+              "matmul_calls_checked": {k: n for k, (n, _) in checked.items()},
+              "flash_calls_worst_error_over_bound": worst_ratio,
+              "max_abs_logit": float(ref_logits.abs().max()),
+              "float64_plain_max_abs_diff": spread,
+              "float64_plain_rms_diff": spread_rms,
+              "other_request_max_abs_diff": other,
+              "other_request_rms_diff": other_rms,
+              "tolerance": tol, "tolerance_rms": tol_rms,
+              "prefill_logits_max_abs_diff": diff,
+              "prefill_logits_rms_diff": diff_rms,
+              "tokens_compared": compared}
+    del plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record, worst_err
 
 
 def phase_profile(torch, path, serve_batch, cfg, params, prompts, backend):
@@ -734,9 +1242,13 @@ def main(argv=None) -> int:
     print(f"[times] bounds from the H100 SXM data sheet (3.35 TB/s, 1979 "
           f"int8 TOP/s and 989 bf16 TFLOP/s dense, at 700 W); this card: "
           f"{smi}")
+    entry_launches = phase_packed_entry(torch, gen)
     times = phase_times(torch, gen)
+    flash_rec = phase_flash_times(torch, gen)
     for kernel in KERNELS:
         path = LAUNCH_PATH[kernel]
+        if path not in PATHS:
+            continue
         for phase in ("decode", "prefill"):
             mix = forward_mix(times, path, kernel, phase)
             print(f"[times] per {phase} forward on {path}: {kernel} kernel "
@@ -758,16 +1270,50 @@ def main(argv=None) -> int:
           f"(init {time.perf_counter() - t0:.1f} s)")
     prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
                             generator=sgen, device=dev)
-    launches, serving = {}, {}
+    launches, serving = {"entry point": entry_launches}, {}
     for path in PATHS:
         launches[path], serving[path] = phase_serving(
             torch, path, cfg, params, prompts,
             profile_run=path != "diana_ternary")
+    del prompts
+    long_prompts = torch.randint(0, cfg.vocab, (REQUESTS, LONG_PROMPT),
+                                 generator=sgen, device=dev)
+    launches["diana_long"], serving["diana_long"], long_err = phase_long(
+        torch, cfg, params, long_prompts)
+    worst["flash_attention"] = max(worst["flash_attention"], long_err)
+    # one prefill forward of diana_long makes one flash call per layer
+    flash_mix = {key: flash_rec[key] * cfg.n_layers
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    flash_mix["bound_by"] = flash_rec["bound_by"]
+    print(f"[times] per prefill forward on diana_long: flash_attention "
+          f"kernel {flash_mix['ms']:.4f} ms  plain {flash_mix['plain_ms']:.4f}"
+          f" ms  library {flash_mix['library_ms']:.4f} ms  bound "
+          f"{flash_mix['bound_ms']:.4f} ms ({flash_mix['bound_by']})")
+    long_mix = {}
+    for kernel in ("quant_matmul", "split_ternary"):
+        mix = long_mix[kernel] = forward_mix(times, "diana", kernel,
+                                             "prefill", LONG_M)
+        print(f"[times] per prefill forward on diana_long: {kernel} kernel "
+              f"{mix['ms']:.4f} ms  plain {mix['plain_ms']:.4f} ms  library "
+              f"{mix['library_ms']:.4f} ms  bound {mix['bound_ms']:.4f} ms "
+              f"({mix['bound_by']})")
+    serving["diana_long"]["prefill_forward_mix"] = dict(
+        long_mix, flash_attention=flash_mix)
+    packed_mix = entry_mix(times)
+    print(f"[times] over the entry-point run: ternary_packed kernel "
+          f"{packed_mix['ms']:.4f} ms  plain {packed_mix['plain_ms']:.4f} ms"
+          f"  library {packed_mix['library_ms']:.4f} ms  bound "
+          f"{packed_mix['bound_ms']:.4f} ms ({packed_mix['bound_by']})")
 
     records = []
-    for kernel, (source, replaces) in KERNELS.items():
+    for kernel, (source, replaces, _) in KERNELS.items():
         path = LAUNCH_PATH[kernel]
-        mix = forward_mix(times, path, kernel, "prefill")
+        if kernel == "flash_attention":
+            mix = flash_mix
+        elif kernel == "ternary_packed":
+            mix = packed_mix
+        else:
+            mix = forward_mix(times, path, kernel, "prefill")
         records.append({"name": kernel, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[path][kernel],

@@ -11,8 +11,8 @@
 // the weight side is read through a loader (`WLoad`) that turns 4
 // consecutive K rows of 4 columns into 4 dp4a operands, one int32 per
 // column.  The int8 loader transposes a 4x4 byte block in registers; the
-// 2-bit loader of split_ternary.cu unpacks one packed byte straight into one
-// operand (the 4 codes of a byte are 4 consecutive K rows of one column).
+// 2-bit loader unpacks one packed byte straight into one operand (the 4
+// codes of a byte are 4 consecutive K rows of one column).
 //
 // Tiles: BN = 64 columns, BK = 64 K-bytes per stage, BM = 16 * TM rows;
 // 256 threads, each holding TM x 4 int32 accumulators.  The next stage's
@@ -66,6 +66,35 @@ struct Int8Weights {
         w + static_cast<size_t>(4 * kw) * n_cols + n);
     transpose4x4(__ldg(p), __ldg(p + stride), __ldg(p + 2 * stride),
                  __ldg(p + 3 * stride), c);
+  }
+};
+
+// One packed byte -> one dp4a operand: byte j = code(j) - 1 in {-1, 0, 1}.
+__device__ __forceinline__ int unpack_ternary_word(uint32_t b) {
+  const uint32_t t = (b & 0x3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12) |
+                     ((b & 0xC0u) << 18);
+  return static_cast<int>(__vsub4(t, 0x01010101u));
+}
+
+// Weight side of ternary_packed (and of split_ternary's ternary columns):
+// w_packed (K/4, N) uint8, N % 4 == 0 -- code c of K row 4k + c in bits
+// 2c .. 2c+1 of byte [k, n], biased by +1.  A byte holds 4 consecutive K
+// rows of one column, so it unpacks in registers into exactly one operand.
+struct PackedTernaryWeights {
+  const uint8_t* packed;
+  int n_cols;
+  int k_words;  // K / 4, the packed rows
+
+  __device__ __forceinline__ void load(int kw, int n, int (&c)[4]) const {
+    if (kw >= k_words || n >= n_cols) {
+      c[0] = c[1] = c[2] = c[3] = 0;
+      return;
+    }
+    const uint32_t b4 = __ldg(reinterpret_cast<const uint32_t*>(
+        packed + static_cast<size_t>(kw) * n_cols + n));
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[j] = unpack_ternary_word((b4 >> (8 * j)) & 0xFFu);
   }
 };
 

@@ -18,16 +18,9 @@
 
 namespace {
 
-// One packed byte -> one dp4a operand: byte j = code(j) - 1 in {-1, 0, 1}.
-__device__ __forceinline__ int unpack_ternary_word(uint32_t b) {
-  const uint32_t t = (b & 0x3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12) |
-                     ((b & 0xC0u) << 18);
-  return static_cast<int>(__vsub4(t, 0x01010101u));
-}
-
 struct SplitWeights {
-  i8gemm::Int8Weights q;    // int8 codes, read for columns < boundary
-  const uint8_t* packed;    // (K/4, N), read for columns >= boundary
+  i8gemm::Int8Weights q;                // int8 codes, columns < boundary
+  i8gemm::PackedTernaryWeights packed;  // (K/4, N), columns >= boundary
   int boundary;
 
   __device__ __forceinline__ void load(int kw, int n, int (&c)[4]) const {
@@ -35,13 +28,8 @@ struct SplitWeights {
       q.load(kw, n, c);
       return;
     }
-    int t[4] = {0, 0, 0, 0};
-    if (kw < q.k_words && n < q.n_cols) {
-      const uint32_t b4 = __ldg(reinterpret_cast<const uint32_t*>(
-          packed + static_cast<size_t>(kw) * q.n_cols + n));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t[j] = unpack_ternary_word((b4 >> (8 * j)) & 0xFFu);
-    }
+    int t[4];
+    packed.load(kw, n, t);
     if (n >= boundary) {      // ternary domain only
 #pragma unroll
       for (int j = 0; j < 4; ++j) c[j] = t[j];
@@ -60,7 +48,8 @@ extern "C" int split_ternary_launch(const void* x_q, const void* w_q,
                                     const void* sw, void* out, int M, int N,
                                     int K, int boundary, void* stream) {
   SplitWeights wl{{static_cast<const int8_t*>(w_q), N, K / 4},
-                  static_cast<const uint8_t*>(w_packed), boundary};
+                  {static_cast<const uint8_t*>(w_packed), N, K / 4},
+                  boundary};
   return i8gemm::launch(static_cast<const int8_t*>(x_q), wl,
                         static_cast<const float*>(sx),
                         static_cast<const float*>(sw),

@@ -21,13 +21,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each library's launch function
 SIGNATURES = {
     "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "split_ternary": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "split_precision": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ternary_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, o, B, H, KVH, Sq, kv_end, D, the (b, h, s) strides of q, k,
+    # v and o, causal, stream
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        *[_L] * 12, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -52,19 +52,27 @@ def check_operands(x_q, w_q, sx, sw):
     if w_q.dim() != 2 or w_q.shape[0] != k:
         raise ValueError(f"x_q {tuple(x_q.shape)} and w_q "
                          f"{tuple(w_q.shape)} do not contract")
-    n = w_q.shape[1]
-    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+    if w_q.dtype != torch.int8:
         raise TypeError(f"int8 operands expected, got {x_q.dtype} and "
                         f"{w_q.dtype}")
+    check_epilogue(x_q, w_q, sx, sw)
+    return m, k, w_q.shape[1]
+
+
+def check_epilogue(x_q, w, sx, sw):
+    """The int8 activations, the per-tensor and per-column steps of an
+    (M, K) x weight ``w`` with N columns, all on one device."""
+    n = w.shape[1]
+    if x_q.dtype != torch.int8:
+        raise TypeError(f"int8 activations expected, got {x_q.dtype}")
     if sx.dtype != torch.float32 or sx.numel() != 1:
         raise TypeError("sx must be a one-element float32 tensor")
     if sw.dtype != torch.float32 or tuple(sw.shape) != (n,):
         raise TypeError(f"sw must be float32 of shape ({n},)")
     dev = x_q.device
-    for t in (w_q, sx, sw):
+    for t in (w, sx, sw):
         if t.device != dev:
             raise ValueError(f"operands on {dev} and {t.device}")
-    return m, k, n
 
 
 def quant_matmul(x_q, w_q, sx, sw):

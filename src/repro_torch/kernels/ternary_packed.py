@@ -1,13 +1,32 @@
-"""2-bit packing of ternary weight codes, the layout the ``split_ternary``
-kernel streams for its ternary columns.
+"""Ternary matmul on 2-bit-packed weight codes: int8 ``x_q (M, K)`` @
+``unpack(w_packed)`` -> exact int32, then ``f32(acc) * sx * sw[n]``; and
+the packing itself, the layout ``split_ternary`` also streams for its
+ternary columns.
 
 ``w_packed[k, n]`` holds the codes of K rows ``4k .. 4k+3`` of column n,
 code c in bits ``2c .. 2c+1``, biased by +1 (00 -> -1, 01 -> 0, 10 -> +1):
 bit-identical to ``repro.kernels.ternary_packed``.
+
+The CUDA kernel (``csrc/ternary_packed.cu``, sm_90a) replaces the Pallas
+TPU kernel ``ternary_packed_matmul`` of ``repro/kernels/ternary_packed.py``.
+What bounds it on an H100: the packed weight stream at decode (K/4 * N
+bytes, 4x fewer than ``ternary_matmul``'s int8 codes), int8 operations at
+prefill.  It is the ``__dp4a`` GEMM of ``csrc/int8_gemm.cuh`` with the
+packed loader of ``split_ternary``: each packed byte unpacks in registers
+into one ``__dp4a`` operand, nothing is unpacked to global memory, and the
+output is bit-identical to `ternary_packed_plain`.
+
+`ternary_packed_matmul` launches the kernel for CUDA tensors and runs
+`ternary_packed_plain` only for CPU tensors.
+``ternary_packed_matmul.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.quant_matmul import (_pad_to, check_epilogue,
+                                              quant_matmul_plain)
 
 
 def pack_ternary(w_t: torch.Tensor) -> torch.Tensor:
@@ -24,3 +43,47 @@ def unpack_ternary(w_p: torch.Tensor) -> torch.Tensor:
     Kp, N = w_p.shape
     parts = [((w_p >> (2 * j)) & 3).to(torch.int8) - 1 for j in range(4)]
     return torch.stack(parts, dim=1).reshape(Kp * 4, N)
+
+
+def ternary_packed_plain(x_q, w_packed, sx, sw):
+    """Plain PyTorch version: the w8a8 oracle on the unpacked codes (their
+    rows past K dropped)."""
+    return quant_matmul_plain(x_q, unpack_ternary(w_packed)[:x_q.shape[1]],
+                              sx, sw)
+
+
+def ternary_packed_matmul(x_q, w_packed, sx, sw):
+    """x_q (M, K) int8; w_packed (ceil(K/4), N) uint8 (rows past K hold
+    code 0); sx one-element f32; sw (N,) f32 -> (M, N) f32.  K is
+    zero-padded to the packed rows and N to a multiple of 4 for the
+    kernel's 4-byte loads."""
+    m, k = x_q.shape
+    if w_packed.dtype != torch.uint8 or w_packed.dim() != 2:
+        raise TypeError(f"w_packed must be 2-d uint8, got "
+                        f"{w_packed.dtype} {tuple(w_packed.shape)}")
+    kp = w_packed.shape[0]
+    if not k <= 4 * kp <= k + 3:
+        raise ValueError(f"w_packed {tuple(w_packed.shape)} does not pack "
+                         f"the K={k} of x_q {tuple(x_q.shape)}")
+    check_epilogue(x_q, w_packed, sx, sw)
+    n = w_packed.shape[1]
+    if x_q.device.type == "cpu":
+        return ternary_packed_plain(x_q, w_packed, sx, sw)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"no ternary_packed kernel for {x_q.device}")
+    xq = _pad_to(x_q, 4, 1).contiguous()
+    wp = _pad_to(w_packed, 4, 1).contiguous()
+    swp = _pad_to(sw, 4, 0).contiguous()
+    sxc = sx.reshape(1).contiguous()
+    n4 = wp.shape[1]
+    out = torch.empty((m, n4), dtype=torch.float32, device=x_q.device)
+    if m:
+        _build.launch("ternary_packed", xq.data_ptr(), wp.data_ptr(),
+                      sxc.data_ptr(), swp.data_ptr(), out.data_ptr(),
+                      m, n4, 4 * kp, torch.cuda.current_stream(
+                          x_q.device).cuda_stream)
+        ternary_packed_matmul.launches += 1
+    return out[:, :n] if n4 != n else out
+
+
+ternary_packed_matmul.launches = 0

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.models import _backend
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 
 #: flags of the JAX serve CLI that only the serving engine reads
@@ -86,21 +87,51 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve_batch(cfg, params, prompts, gen_len: int, backend=None):
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def serve_batch(cfg, params, prompts, gen_len: int, backend=None,
+                max_len=None):
     """Greedy generation for same-length ``prompts (B, P)``: one prefill,
-    then ``gen_len - 1`` decode steps.  Returns (tokens (B, gen_len),
-    stats) with ``prefill_s``, ``decode_s``, ``tok_per_s`` and the prefill
-    logits (``prefill_logits``, (B, vocab) f32).
+    then ``gen_len - 1`` decode steps, in a KV cache of ``max_len`` slots
+    (the JAX engine's ``max_len``; default ``P + gen_len``).  Returns
+    (tokens (B, gen_len), stats) with ``prefill_s``, ``decode_s``,
+    ``tok_per_s`` and the prefill logits (``prefill_logits``, (B, vocab)
+    f32).
+
+    A prompt longer than 2048 tokens prefills through the chunked
+    attention, which takes prompts of a multiple of 512 tokens in a cache
+    of a multiple of 1024 slots.  Any other long prompt is right-padded to
+    the next multiple of 512 and prefilled with ``lengths=P``: the padded
+    slots are masked by every read and overwritten by the decode steps
+    (with dynamic activation scales, the padded rows take part in the
+    per-tensor max).  The default cache length of a long prompt is rounded
+    up to a multiple of 1024; an explicit ``max_len`` must be one.
 
     This is the fixed-shape loop that the JAX package's engine-backed
     ``serve_batch`` is token-identical to on a same-length batch."""
     B, P = prompts.shape
     dev = prompts.device
-    caches = T.init_cache(cfg, B, P + gen_len, device=dev)
+    long = P > T.CHUNKED_ABOVE
+    padded = _round_up(P, A.Q_CHUNK) if long else P
+    need = max(padded, P + gen_len)
+    if max_len is None:
+        max_len = _round_up(need, A.K_CHUNK) if long else need
+    max_len = int(max_len)
+    if max_len < need:
+        raise ValueError(f"max_len {max_len} < prompt {P} (padded to "
+                         f"{padded}) + gen_len {gen_len}")
+    lengths = None
+    if padded > P:
+        prompts = torch.nn.functional.pad(prompts, (0, padded - P))
+        lengths = torch.full((B,), P, dtype=torch.long, device=dev)
+    caches = T.init_cache(cfg, B, max_len, device=dev)
     with _backend.use(backend):
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = T.prefill(params, cfg, prompts, caches)
+        logits, caches = T.prefill(params, cfg, prompts, caches,
+                                   lengths=lengths)
         tok = torch.argmax(logits, -1)
         _sync(dev)
         t1 = time.perf_counter()

@@ -16,9 +16,14 @@ Public API:
   decode_step(params, cfg, token, caches, index) -> (logits, caches)
   init_cache(cfg, B, S_max, device)              -> caches
 
-Caches are updated in place (see `repro_torch.models.attention`).
-Hybrid, MoE, MLA, cross-attention and encoder-decoder archs, paged caches
-and chunked prefill wait for later slices.
+Caches are updated in place (see `repro_torch.models.attention`).  A
+prompt longer than 2048 tokens prefills through the chunked (flash)
+attention, as the JAX package's ``_prefill_body`` does; like the JAX
+package's, that path needs a cache length that is a multiple of
+``min(1024, S_max)`` and a prompt length that is a multiple of
+``min(512, S)``.  Hybrid, MoE, MLA, cross-attention and encoder-decoder
+archs, paged caches and the paged chunked prefill of the serving engine
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -99,11 +104,12 @@ def _repeat(tree, r: int):
 
 
 def block_apply(p, x, cfg: ArchConfig, positions, *, cache=None,
-                cache_index=None, name=None):
+                cache_index=None, name=None, chunked=False):
     """One ``attn`` block (pre-norm GQA + FFN). Returns (x, cache)."""
     h = L.norm(p["norm1"], x, cfg.norm)
     ao, nc = A.gqa(p["attn"], h, positions, _attn_cfg(cfg), cache=cache,
-                   cache_index=cache_index, name=_j(name, "attn"))
+                   cache_index=cache_index, name=_j(name, "attn"),
+                   chunked=chunked)
     x = x + ao
     if "ffn" in p:
         x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
@@ -112,8 +118,9 @@ def block_apply(p, x, cfg: ArchConfig, positions, *, cache=None,
 
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
-             cache_index=None):
-    """Run all layers; returns (final-normed hidden, caches)."""
+             cache_index=None, chunked=False):
+    """Run all layers; returns (final-normed hidden, caches).  ``chunked``:
+    attention through `attention.chunked_attention` (long prefill)."""
     (units,) = params["units"]
     unit_cache = caches["units"][0] if caches is not None else None
     repeats = units["norm1"]["scale"].shape[0]
@@ -124,7 +131,7 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
         with _backend.scan_slot(r):
             x, _ = block_apply(_repeat(units, r), x, cfg, positions,
                                cache=c, cache_index=cache_index,
-                               name="units/0")
+                               name="units/0", chunked=chunked)
     return L.norm(params["final_norm"], x, cfg.norm), caches
 
 
@@ -149,16 +156,22 @@ def init_cache(cfg: ArchConfig, B: int, S_max: int, device="cuda"):
                        "v": torch.zeros(shape, dtype=dt, device=device)},)}
 
 
+#: prompts longer than this many tokens prefill through the chunked
+#: attention (the JAX package's ``_prefill_body``: ``chunked=Sq > 2048``)
+CHUNKED_ABOVE = 2048
+
+
 def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None):
     """Process the prompts ``tokens (B, S)``, fill the caches, and return
     (logits at each row's last valid position, caches).  ``lengths`` (B,)
     marks right-padded prompts; KV written at padded positions is masked by
-    every later read."""
+    every later read.  Prompts longer than 2048 tokens take the chunked
+    attention (see the module docstring)."""
     B, Sq = tokens.shape
     x = params["emb"][tokens]
     positions = torch.arange(Sq, device=tokens.device)[None, :]
     h, caches = backbone(params, cfg, x, positions, caches=caches,
-                         cache_index=0)
+                         cache_index=0, chunked=Sq > CHUNKED_ABOVE)
     if lengths is None:
         h_last = h[:, -1]
     else:

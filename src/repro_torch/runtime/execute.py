@@ -225,7 +225,8 @@ class PlannedBackend:
     ``name`` (stacked layers: of the repeat published by
     `_backend.scan_slot`) or returns None for layers the plan does not
     cover.  ``reference=True`` executes the plain oracles instead of the
-    kernels (attribute; may be flipped between runs).  Layers the plan
+    kernels (attribute; may be flipped between runs); it also selects the
+    flash kernel's plain version in `attention.chunked_attention`.  Layers the plan
     names but the params cannot bind are listed in ``unbound``."""
 
     def __init__(self, plan: ExecutionPlan, params, *,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card (marker ``gpu``): bit for bit for the integer contractions, within
 the float32 summation bound ``K * 2**-24 * sum_k |x * w| + 2**-24 * |y|``
-for the bf16 columns of split_precision.  Each test decides inside its fixture
+for the bf16 columns of split_precision, within `flash_error_bound` (the
+bf16 rounding of ``p`` and of the output, and the float32 sums) for
+flash attention.  Each test decides inside its fixture
 whether a card is present and skips here otherwise; run them on a machine
 with an H100 with ``PYTHONPATH=src python -m pytest -m gpu
 tests/test_torch_gpu.py``."""
@@ -19,7 +21,12 @@ from repro_torch.kernels.split_ternary import (split_ternary,  # noqa: E402
                                                split_ternary_plain)
 from repro_torch.kernels.ternary_matmul import (  # noqa: E402
     ternary_matmul, ternary_matmul_plain)
-from repro_torch.kernels.ternary_packed import pack_ternary  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain, flash_error_bound)
+from repro_torch.kernels.ternary_packed import (  # noqa: E402
+    pack_ternary, ternary_packed_matmul, ternary_packed_plain)
+from repro_torch.models import _backend  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -130,5 +137,121 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
     with pytest.raises(ValueError):
         ternary_matmul(x, t, sx, sw.cpu())
     with pytest.raises(ValueError):
+        ternary_packed_matmul(x, pack_ternary(t).cpu(), sx, sw)
+    with pytest.raises(ValueError):
         split_precision(x.to(torch.bfloat16).cpu(), x, sx,
                         w.to(torch.bfloat16), w, sw, 0)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_ternary_packed_kernel_bit_exact(cuda, m, k, n):
+    x, _, t, sx, sw = _operands(m, k, n, 6, cuda)
+    k4 = -(-k // 4) * 4
+    w_p = pack_ternary(torch.nn.functional.pad(t, (0, 0, 0, k4 - k)))
+    before = ternary_packed_matmul.launches
+    got = ops.ternary_packed_matmul_op(x, w_p, sx, sw)
+    torch.cuda.synchronize()
+    assert ternary_packed_matmul.launches == before + 1
+    assert torch.equal(got, ternary_packed_plain(x, w_p, sx, sw))
+
+
+def _bhsd(B, H, KVH, Sq, Sk, D, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        dev).to(torch.bfloat16)
+        for s in ((B, H, Sq, D), (B, KVH, Sk, D), (B, KVH, Sk, D))]
+
+
+#: B, H, KVH, Sq, Sk, D, causal, kv_len: ragged Sq and Sk, G 1 and 8
+FLASH_CASES = [(2, 4, 4, 100, 100, 16, True, None),
+               (1, 8, 1, 77, 130, 128, True, 120),
+               (1, 32, 4, 300, 300, 128, True, None),
+               (2, 8, 8, 64, 1000, 128, True, 700),
+               (1, 8, 1, 33, 257, 16, False, 200),
+               (2, 16, 2, 130, 150, 128, False, 150),
+               (1, 4, 4, 1, 70, 16, False, None)]
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,kv_len", FLASH_CASES)
+def test_flash_attention_kernel_within_bound(cuda, B, H, KVH, Sq, Sk, D,
+                                             causal, kv_len):
+    q, k, v = _bhsd(B, H, KVH, Sq, Sk, D, cuda, Sq + Sk)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    err = (got.double() - want.double()).abs()
+    bound = flash_error_bound(q, k, v, want, kv_len=kv_len)
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def test_flash_op_masks_padded_keys_on_the_card(cuda):
+    q, k, v = _bhsd(1, 4, 2, 200, 200, 128, cuda, 3)
+    got = ops.flash_attention_op(q, k, v, causal=False, bq=128, bk=128)
+    want = flash_attention_plain(q, k, v, causal=False)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= flash_error_bound(q, k, v, want)).all())
+
+
+def test_chunked_attention_launches_flash_on_the_model_layout(cuda):
+    """q (B, S, KVH, G, hd) and the cache's k / v through strides: the same
+    numbers as the kernel on contiguous (B, H, S, D) copies; a planned
+    backend asking for plain versions runs none."""
+    rng = np.random.default_rng(8)
+    B, S, KVH, G, hd, Sk = 2, 1024, 2, 4, 128, 2048
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        cuda).to(torch.bfloat16) for s in ((B, S, KVH, G, hd),
+                                           (B, Sk, KVH, hd), (B, Sk, KVH, hd)))
+    before = flash_attention.launches
+    got = A.chunked_attention(q, k, v, kv_len=S)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention(
+        q.reshape(B, S, KVH * G, hd).transpose(1, 2).contiguous(),
+        k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+        kv_len=S)
+    assert torch.equal(got, want.transpose(1, 2).reshape(got.shape))
+
+    class Plain:
+        reference = True
+    with _backend.use(Plain()):
+        plain = A.chunked_attention(q, k, v, kv_len=S)
+    assert flash_attention.launches == before + 2
+    assert torch.equal(plain, A.attention_plain(q, k, v, causal=True,
+                                                kv_len=S))
+
+
+def test_flash_and_chunked_reject_what_the_kernel_does_not_take(cuda):
+    q, k, v = _bhsd(1, 4, 2, 64, 64, 128, cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v, causal=True)
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), k.float(), v.float())
+    q48, k48, v48 = _bhsd(1, 4, 2, 64, 64, 48, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q48, k48, v48)
+    qg = q.transpose(1, 2).reshape(1, 64, 2, 2, 128)
+    with pytest.raises(NotImplementedError, match="window"):
+        A.chunked_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
+                            window=16)
+    with pytest.raises(ValueError, match="multiple"):
+        A.chunked_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
+                            q_chunk=48)
+
+
+def test_long_prefill_on_the_card_launches_flash_per_layer(cuda):
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 2560), device=cuda,
+                            generator=torch.Generator(device=cuda))
+    before = flash_attention.launches
+    logits, _ = T.prefill(params, cfg, prompts,
+                          T.init_cache(cfg, 2, 3072, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    assert tuple(logits.shape) == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
