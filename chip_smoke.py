@@ -9,11 +9,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 1. device: the card's name and power limit (nvidia-smi) and the torch
    version; no CUDA device is a failure, never a CPU run.
 2. build: the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   each, in parallel).
+   each, in parallel), ptxas's registers and spills of each kernel, and
+   the ``[sass]`` line: the count of Hopper's wgmma instructions in the
+   SASS of the two wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
+   HGMMA in flash_attention, IGMMA in quant_matmul); a count of 0 or a
+   spill in either fails.
 3. kernels vs their plain versions on the card at the serving paths'
    shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
    (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul,
-   ternary_matmul and ternary_packed bit for bit; split_ternary bit for
+   ternary_matmul and ternary_packed bit for bit, quant_matmul on both
+   weight layouts (row-major, and the K-major view the serving paths
+   hold) and also at M {17, 100, 300} off its 128-row tile and at N 1000
+   off its column tiles; split_ternary bit for
    bit at boundaries {0, 7, 128, 300, N}; split_precision at raw
    boundaries {0, 7, 128, 342, N}, its int8 columns bit for bit and its
    bf16 columns within the float32 summation bound ``K * 2**-24 * sum_k |x w| + 2**-24 * |y|``.  Split
@@ -28,8 +35,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ternary_packed, which no serving path calls, is driven once at each of
    the ten (M, K, N) with the launch counts read around that run.
 4. times (CUDA events, after warm-up) of each kernel, its plain version and
-   a library yardstick (torch._int_mm with the same epilogue, on the
-   unpacked codes for ternary_packed; for split_precision "two calls":
+   a library yardstick (torch._int_mm with the same epilogue, timed on the
+   row-major and on the column-major (K-major) int8 weight, the faster
+   taken; on the unpacked codes for ternary_packed; quant_matmul's kernel
+   and plain version read the K-major weight of the serving paths; for
+   split_precision "two calls":
    _int_mm on the int8 columns and a bf16 torch.matmul on the rest; for
    flash_attention scaled_dot_product_attention with is_causal and
    enable_gqa), beside the bound max(bytes / 3.35 TB/s, int8 ops / 1979
@@ -50,7 +60,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      diana_ternary  diana biased ("aimc", 1.0), the all-ternary baseline
                     on the searchable layers: quant_matmul:241
                     ternary_matmul:96
-   each at full coverage with launch counts = histogram x 16 forwards;
+   each at full coverage with launch counts = histogram x 16 forwards,
+   and no copy of a quant_matmul weight into the kernel's K-major layout
+   (``quant_matmul.transposed_copies`` stays 0 on every serving path);
    then served again with the plain versions (``reference=True``, no
    launch): tokens and prefill logits identical on the integer paths.  On
    gpu_tc_like, whose bf16 columns sum in another order than the plain
@@ -114,6 +126,9 @@ M_SHAPES = [DECODE_M, PREFILL_M]
 # chunked prefill needs a cache length that is a multiple of 1024
 LONG_PROMPT, LONG_CACHE = 3072, 4096
 LONG_M = REQUESTS * LONG_PROMPT          # rows of its prefill's projections
+#: quant_matmul checks off its wgmma tiles (128 rows, 128 or 256 columns)
+RAGGED_M = (17, 100, 300)
+RAGGED_KN = [(4096, 4096), (11008, 1000)]
 BOUNDARIES = [0, 7, 128, 300, None]      # split_ternary; None = N
 SP_BOUNDARIES = [0, 7, 128, 342, None]   # split_precision; None = N
 # flash_attention checks at yi-9b's heads (B, H, KVH, D) = (4, 32, 4,
@@ -143,6 +158,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, ops attribute)
                         "src/repro/kernels/flash_attention.py:81",
                         "flash_attention"),
 }
+#: the wgmma instruction each wgmma kernel's SASS must hold
+SASS_OPS = {"flash_attention": "HGMMA", "quant_matmul": "IGMMA"}
 # serving paths: platform, emission bias, kernel of wk / wv, raw boundary
 # of wk / wv (None: one domain)
 PATHS = {
@@ -186,6 +203,36 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def phase_sass(torch):
+    """The ``[sass]`` line: Hopper's wgmma instructions in the SASS of the
+    flash_attention (HGMMA, bf16) and quant_matmul (IGMMA, int8) libraries
+    as built, with ptxas's registers and spills of their kernels; fails if
+    an instruction count is 0 or a kernel spills."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    paths = _build.build_all(SASS_OPS)
+    parts, counts = [], {}
+    for kernel, op in SASS_OPS.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[kernel])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts[kernel] = sass.count(op + ".")
+        log = _build.PTXAS_REPORT.get(kernel, "")
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        parts.append(f"{kernel} {op} {counts[kernel]} (ptxas: registers "
+                     f"{'/'.join(regs) or 'not rebuilt'} per kernel, spill "
+                     f"bytes {sum(spills)})")
+        if counts[kernel] == 0 or any(spills):
+            raise AssertionError(f"{kernel}: {counts[kernel]} {op} in the "
+                                 f"SASS, spill bytes {spills}")
+    print("[sass] " + "; ".join(parts))
+    return counts
 
 
 def cuda_ms(fn, iters):
@@ -333,12 +380,18 @@ def phase_kernels(torch, gen):
             raise AssertionError(f"{kernel} {what}: max |err| {err}")
         print(f"[kernels] {kernel:<15s} {what} bit-identical")
 
+    def quant_both_layouts(m, k, n):
+        shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
+        x, w_q, _, sx, sw = operands(m, k, n, n, gen)
+        for layout, w in (("row-major", w_q),
+                          ("K-major", w_q.t().contiguous().t())):
+            exact("quant_matmul", ops.quant_matmul_op(x, w, sx, sw),
+                  quant_matmul_plain(x, w, sx, sw), f"{shape} {layout:9s}")
+
     for m in M_SHAPES:
         for k, n in KN_SHAPES:
             shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
-            x, w_q, w_p, sx, sw = operands(m, k, n, n, gen)
-            exact("quant_matmul", ops.quant_matmul_op(x, w_q, sx, sw),
-                  quant_matmul_plain(x, w_q, sx, sw), shape)
+            quant_both_layouts(m, k, n)
             x, w_t, w_p, sx, sw = operands(m, k, n, 0, gen)
             exact("ternary_matmul", ops.ternary_matmul_op(x, w_t, sx, sw),
                   ternary_matmul_plain(x, w_t, sx, sw), shape)
@@ -386,6 +439,9 @@ def phase_kernels(torch, gen):
                       f"{float(err.max()) if err.numel() else 0.0:.3g} = "
                       f"{ratio:.3g} of the bound; w_q garbage at cols >= "
                       f"{b_al}, w_bf16 NaN below")
+    for m in RAGGED_M:
+        for k, n in RAGGED_KN:
+            quant_both_layouts(m, k, n)
     B, H, KVH, D = FLASH_HEADS
     for Sq, Sk, causal, kv_len in FLASH_CASES:
         q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen)
@@ -433,7 +489,10 @@ def phase_times(torch, gen):
     {kernel: {(m, k, n): record}}.  Each timed call reads the next of
     several copies of the weights, whose total exceeds twice the 50 MB L2
     cache, so every call streams its weights from device memory as in a
-    forward pass."""
+    forward pass.  quant_matmul reads the K-major weight the serving paths
+    hold; the library yardstick runs torch._int_mm on the row-major and on
+    the K-major (column-major) int8 weight, and the faster is the record's
+    ``library_ms``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.quant_matmul import quant_matmul_plain
     from repro_torch.kernels.split_precision import split_precision_plain
@@ -466,8 +525,10 @@ def phase_times(torch, gen):
                 torch, m, k, n, raw, gen)
             x, x_q, sx = acts
             wbytes = k * b_al + 2 * k * (n - b_al)
-            weights = (w_b, w_q, w_q[:, :b_al].contiguous(),
-                       w_b[:, b_al:].contiguous())
+            lo = w_q[:, :b_al].contiguous()
+            weights = (w_b, w_q, lo, w_b[:, b_al:].contiguous(),
+                       lo.t().contiguous().t())
+            lib_int8 = (2, 4)     # int8 operand: row-major, K-major
             x_lib = pad_rows(x_q)
 
             def run(w):
@@ -478,8 +539,8 @@ def phase_times(torch, gen):
                 return split_precision_plain(x, x_q, sx, w[0], w[1], sw,
                                              b_al)
 
-            def lib(w):   # two calls, no concatenation
-                lo = torch._int_mm(x_lib, w[2])[:m].to(torch.float32) * \
+            def lib(w, i):   # two calls, no concatenation
+                lo = torch._int_mm(x_lib, w[i])[:m].to(torch.float32) * \
                     sx * sw[None, :b_al]
                 return lo, torch.matmul(x, w[3]).to(torch.float32)
             bound = bound_ms(m, k, n, wbytes, int8_cols=b_al,
@@ -488,12 +549,15 @@ def phase_times(torch, gen):
             x, w_q, w_p, sx, sw = operands(
                 m, k, n, 0 if kernel in ("ternary_matmul", "ternary_packed")
                 else raw, gen)
-            weights = (w_q,)
+            w_col = w_q.t().contiguous().t()
+            # the library call reads the codes w[0] (row-major) or w[-1]
+            # (K-major); quant_matmul reads w[-1] as the serving paths
+            # hold it, the other kernels w[0] or the packed stream w[1]
+            weights = (w_q, w_col)
+            lib_int8 = (0, -1)
             x_lib = pad_rows(x)
             if kernel == "ternary_packed":
-                # the library call reads the codes w[0], the kernel and
-                # its plain version the packed stream w[1]
-                weights = (w_q, w_p)
+                weights = (w_q, w_p, w_col)
                 wbytes = (k // 4) * n
 
                 def run(w):
@@ -502,7 +566,7 @@ def phase_times(torch, gen):
                 def plain(w):
                     return ternary_packed_plain(x, w[1], sx, sw)
             elif kernel == "split_ternary":
-                weights = (w_q, w_p)
+                weights = (w_q, w_p, w_col)
                 wbytes = k * b_al + (k // 4) * (n - b_al)
 
                 def run(w):
@@ -512,20 +576,20 @@ def phase_times(torch, gen):
                     return split_ternary_plain(x, w[0], w[1], sx, sw, b_al)
             else:
                 wbytes = k * n
-                op, plain_fn = {
+                op, plain_fn, wi = {
                     "quant_matmul": (ops.quant_matmul_op,
-                                     quant_matmul_plain),
+                                     quant_matmul_plain, -1),
                     "ternary_matmul": (ops.ternary_matmul_op,
-                                       ternary_matmul_plain)}[kernel]
+                                       ternary_matmul_plain, 0)}[kernel]
 
-                def run(w, op=op):
-                    return op(x, w[0], sx, sw)
+                def run(w, op=op, wi=wi):
+                    return op(x, w[wi], sx, sw)
 
-                def plain(w, plain_fn=plain_fn):
-                    return plain_fn(x, w[0], sx, sw)
+                def plain(w, plain_fn=plain_fn, wi=wi):
+                    return plain_fn(x, w[wi], sx, sw)
 
-            def lib(w):
-                return (torch._int_mm(x_lib, w[0])[:m].to(torch.float32) *
+            def lib(w, i):
+                return (torch._int_mm(x_lib, w[i])[:m].to(torch.float32) *
                         sx * sw[None, :])
             bound = bound_ms(m, k, n, wbytes)
         copies = -(-2 * L2_BYTES // wbytes)
@@ -535,14 +599,20 @@ def phase_times(torch, gen):
         rec = {"ms": cuda_ms(lambda: run(next(turn)), iters),
                "plain_ms": cuda_ms(lambda: plain(next(turn)),
                                    max(3, iters // 5)),
-               "library_ms": cuda_ms(lambda: lib(next(turn)), iters)}
+               "library_row_ms": cuda_ms(
+                   lambda: lib(next(turn), lib_int8[0]), iters),
+               "library_col_ms": cuda_ms(
+                   lambda: lib(next(turn), lib_int8[1]), iters)}
+        rec["library_ms"] = min(rec["library_row_ms"], rec["library_col_ms"])
         rec["bound_ms"], rec["bound_by"] = bound
         times[kernel][(m, k, n)] = rec
         del ring, turn, weights
         lib_name = "two calls" if kernel == "split_precision" else "_int_mm"
-        print(f"[times] {kernel:<15s} M={m:<4d} K={k:<6d} N={n:<6d} "
+        print(f"[times] {kernel:<15s} M={m:<5d} K={k:<6d} N={n:<6d} "
               f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} "
-              f"ms  {lib_name} {rec['library_ms']:.4f} ms  bound "
+              f"ms  {lib_name} {rec['library_ms']:.4f} ms (int8 weight "
+              f"row-major {rec['library_row_ms']:.4f}, K-major "
+              f"{rec['library_col_ms']:.4f})  bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  share "
               f"{rec['bound_ms'] / rec['ms']:.3f}")
     return times
@@ -584,13 +654,17 @@ def phase_flash_times(torch, gen):
     return rec
 
 
+#: record keys summed over a forward pass or a run
+MIX_KEYS = ("ms", "plain_ms", "library_ms", "library_row_ms",
+            "library_col_ms", "bound_ms")
+
+
 def entry_mix(times):
     """Sum of ternary_packed's records over its entry-point run (one call
     at each (M, K, N))."""
     recs = [times["ternary_packed"][(m, k, n)] for m in M_SHAPES
             for k, n in KN_SHAPES]
-    tot = {key: sum(r[key] for r in recs)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    tot = {key: sum(r[key] for r in recs) for key in MIX_KEYS}
     by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
     tot["bound_by"] = ("bytes" if by_bytes >= tot["bound_ms"] / 2
                        else "operations")
@@ -601,15 +675,14 @@ def forward_mix(times, path, kernel, phase, prefill_m=PREFILL_M):
     """Sum of per-layer records over one ``"prefill"`` (of ``prefill_m``
     tokens) or ``"decode"`` forward pass of yi-9b on ``path``, each layer
     at the M the path gives it."""
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes_ms": 0.0}
+    tot = dict.fromkeys(MIX_KEYS + ("bytes_ms",), 0.0)
     for (k, n), (kern, count, prefill_m) in path_layers(
             path, prefill_m).items():
         if kern != kernel:
             continue
         m = prefill_m if phase == "prefill" else DECODE_M
         rec = times[kernel][(m, k, n)]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in MIX_KEYS:
             tot[key] += count * rec[key]
         if rec["bound_by"] == "bytes":
             tot["bytes_ms"] += count * rec["bound_ms"]
@@ -723,9 +796,21 @@ def kernel_launches():
 
 
 def reset_launches():
+    """Launch counts and quant_matmul's count of weight copies to 0."""
     from repro_torch.kernels import ops
     for _, _, attr in KERNELS.values():
         getattr(ops, attr).launches = 0
+    ops.quant_matmul.transposed_copies = 0
+
+
+def check_no_weight_copies(path):
+    """A serving path holds its quant_matmul weights K-major: no call may
+    have copied one into that layout."""
+    from repro_torch.kernels import ops
+    copies = ops.quant_matmul.transposed_copies
+    if copies:
+        raise AssertionError(f"{path}: {copies} quant_matmul weights "
+                             f"copied into the K-major layout")
 
 
 def compare_tokens(torch, path, tokens, ref_tokens, margins, tol):
@@ -787,6 +872,7 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected "
                              f"{want} ({forwards} forwards)")
+    check_no_weight_copies(path)
     peak = torch.cuda.max_memory_allocated() / 2**30
     logits = stats["prefill_logits"]
     if tuple(tokens.shape) != (REQUESTS, GEN_LEN) or \
@@ -803,7 +889,8 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
           f"peak memory {peak:.2f} GiB")
     print(f"[serve:{path}] launches: " + " ".join(
         f"{k} {v} ({v // forwards} per forward)"
-        for k, v in launches.items() if v))
+        for k, v in launches.items() if v) +
+        "; quant_matmul weights copied into the K-major layout: 0")
     print(f"[serve:{path}] sample tokens: {tokens[:2, :8].tolist()}")
 
     backend.reference = True
@@ -870,6 +957,7 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
     backend.reference = False
 
     _, warm = serve_batch(cfg, params, prompts, GEN_LEN, backend=backend)
+    check_no_weight_copies(path)    # over every run of the path
     warm_ms = (warm["prefill_s"] + warm["decode_s"]) * 1e3
     print(f"[serve:{path}] warm run: prefill {warm['prefill_s'] * 1e3:.3f} "
           f"ms, decode {warm['decode_s'] * 1e3:.3f} ms "
@@ -1059,6 +1147,7 @@ def phase_long(torch, cfg, params, prompts):
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected "
                              f"{want}")
+    check_no_weight_copies(path)
     logits = stats["prefill_logits"]
     if tuple(tokens.shape) != (B, GEN_LEN) or \
             tuple(logits.shape) != (B, cfg.vocab) or \
@@ -1071,7 +1160,8 @@ def phase_long(torch, cfg, params, prompts):
           f" decode {stats['decode_s'] * 1e3:.3f} ms "
           f"({stats['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step)")
     print(f"[serve:{path}] launches: " + " ".join(
-        f"{k} {v}" for k, v in launches.items() if v))
+        f"{k} {v}" for k, v in launches.items() if v) +
+        "; quant_matmul weights copied into the K-major layout: 0")
     for kernel, (n, rows) in checked.items():
         if n != limits[kernel] or (n and rows != B * P):
             raise AssertionError(f"{path}: {n} {kernel} calls of the "
@@ -1141,6 +1231,7 @@ def phase_long(torch, cfg, params, prompts):
 
     torch.cuda.reset_peak_memory_stats()
     _, warm = serve()
+    check_no_weight_copies(path)    # over every run of the path
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[serve:{path}] warm run: prefill {warm['prefill_s'] * 1e3:.3f} "
           f"ms, decode {warm['decode_s'] * 1e3:.3f} ms "
@@ -1236,6 +1327,7 @@ def main(argv=None) -> int:
                 print(f"[build] {kname}: {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.1f} s")
     print("kernels: " + " ".join(KERNELS))
+    phase_sass(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = phase_kernels(torch, gen)
@@ -1253,7 +1345,9 @@ def main(argv=None) -> int:
             mix = forward_mix(times, path, kernel, phase)
             print(f"[times] per {phase} forward on {path}: {kernel} kernel "
                   f"{mix['ms']:.4f} ms  plain {mix['plain_ms']:.4f} ms  "
-                  f"library {mix['library_ms']:.4f} ms  bound "
+                  f"library {mix['library_ms']:.4f} ms (int8 weight "
+                  f"row-major {mix['library_row_ms']:.4f}, K-major "
+                  f"{mix['library_col_ms']:.4f})  bound "
                   f"{mix['bound_ms']:.4f} ms ({mix['bound_by']})")
 
     from repro_torch.configs import base as cfgbase
@@ -1295,7 +1389,9 @@ def main(argv=None) -> int:
                                              "prefill", LONG_M)
         print(f"[times] per prefill forward on diana_long: {kernel} kernel "
               f"{mix['ms']:.4f} ms  plain {mix['plain_ms']:.4f} ms  library "
-              f"{mix['library_ms']:.4f} ms  bound {mix['bound_ms']:.4f} ms "
+              f"{mix['library_ms']:.4f} ms (int8 weight row-major "
+              f"{mix['library_row_ms']:.4f}, K-major "
+              f"{mix['library_col_ms']:.4f})  bound {mix['bound_ms']:.4f} ms "
               f"({mix['bound_by']})")
     serving["diana_long"]["prefill_forward_mix"] = dict(
         long_mix, flash_attention=flash_mix)

@@ -12,7 +12,9 @@
 // consecutive K rows of 4 columns into 4 dp4a operands, one int32 per
 // column.  The int8 loader transposes a 4x4 byte block in registers; the
 // 2-bit loader unpacks one packed byte straight into one operand (the 4
-// codes of a byte are 4 consecutive K rows of one column).
+// codes of a byte are 4 consecutive K rows of one column).  The K-major
+// loader (`KMajorInt8Weights`, quant_matmul's weight held as (N, K)) gives
+// 4 operands of one column, 16 consecutive K bytes, from one 16-byte load.
 //
 // Tiles: BN = 64 columns, BK = 64 K-bytes per stage, BM = 16 * TM rows;
 // 256 threads, each holding TM x 4 int32 accumulators.  The next stage's
@@ -21,11 +23,15 @@
 // no split-K: the result does not depend on scheduling order.  The
 // mainloop (`dp4a_tile`) is a device function of its own, so that
 // split_precision.cu runs it on the int8 tiles of its two-domain GEMM.
+// This is the decode GEMM of the port (M = batch, bound by the weight
+// bytes); quant_matmul.cu runs M > 16 on int8 wgmma instead.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace i8gemm {
 
@@ -98,6 +104,35 @@ struct PackedTernaryWeights {
   }
 };
 
+// Weight side of quant_matmul at decode: its K-major copy w (N, K) int8,
+// K a multiple of 16, each row 16-byte aligned.  One 16-byte load gives
+// the operands of K bytes [4 kw, 4 kw + 16) of column n, kw a multiple of 4.
+struct KMajorInt8Weights {
+  const int8_t* w;
+  int n_cols;
+  int k_words;  // K / 4
+
+  __device__ __forceinline__ void load(int kw, int n, int (&c)[4]) const {
+    if (kw >= k_words || n >= n_cols) {
+      c[0] = c[1] = c[2] = c[3] = 0;
+      return;
+    }
+    const int4 v = __ldg(reinterpret_cast<const int4*>(
+        w + (static_cast<size_t>(n) * k_words + kw) * 4));
+    c[0] = v.x;
+    c[1] = v.y;
+    c[2] = v.z;
+    c[3] = v.w;
+  }
+};
+
+// Loaders whose `load` gives 4 K words of one column, not one K word of 4
+// columns.
+template <class WLoad>
+struct loads_k_words : std::false_type {};
+template <>
+struct loads_k_words<KMajorInt8Weights> : std::true_type {};
+
 // Exact int32 sum over all of K of the (16 * TM) x kBN output tile at
 // (m0, n0): thread (tx, ty) = (tid % 16, tid / 16) holds rows ty + 16 * i
 // and columns n0 + tx + 16 * j in acc[i][j].  Block-uniform control flow
@@ -114,8 +149,11 @@ __device__ __forceinline__ void dp4a_tile(const int8_t* __restrict__ x,
   const int tx = tid % 16, ty = tid / 16;
   const int k_words = K / 4;
   const int* xw = reinterpret_cast<const int*>(x);
-  // weight loads: thread -> (word row q, 4 columns starting at c4)
-  const int wq_row = tid / 16, c4 = (tid % 16) * 4;
+  // weight loads: thread -> (word row q, 4 columns starting at c4), or for
+  // a loader of K words (4 words starting at q, column c4)
+  constexpr bool kWords = loads_k_words<WLoad>::value;
+  const int wq_row = kWords ? (tid % 4) * 4 : tid / 16;
+  const int c4 = kWords ? tid / 4 : (tid % 16) * 4;
 
   int xr[TM];
   int wr[4];
@@ -136,8 +174,13 @@ __device__ __forceinline__ void dp4a_tile(const int8_t* __restrict__ x,
       const int idx = tid + kThreads * i;
       xs[idx / kKW][idx % kKW] = xr[i];
     }
+    if constexpr (kWords) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ws[c4 + j][wq_row] = wr[j];
+      for (int j = 0; j < 4; ++j) ws[c4][wq_row + j] = wr[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ws[c4 + j][wq_row] = wr[j];
+    }
   };
 
 #pragma unroll

@@ -10,11 +10,12 @@ keys at ``kpos >= kv_len`` masked, running max and denominator in float32,
 ``p`` rounded to ``v.dtype`` before the PV product, a float32 accumulator
 and ``acc / max(l, 1e-30)`` stored as bf16.  What bounds it on an H100 at
 the prefill shapes: bf16 tensor-core operations (4 * D flops per causal
-(query, key) pair), not bytes.  Each block owns 64 query rows of one head;
-K / V tiles of 64 rows pass through shared memory and each warp runs
-``mma.sync`` m16n8k16 bf16 -> f32 for QK^T and PV with the softmax in
-registers.  Key tiles wholly above the diagonal or past ``kv_len`` are
-never loaded.
+(query, key) pair), not bytes.  Each block owns 128 query rows of one head,
+64 per consumer warpgroup; a producer thread streams K / V tiles of 128
+keys by TMA through a 2-stage ring, and the consumers run ``wgmma`` bf16 ->
+f32 for QK^T (both operands from shared memory) and PV (P from registers)
+with the softmax in registers.  Key tiles wholly above the diagonal or
+past ``kv_len`` are never loaded.
 
 `flash_attention` launches the kernel for CUDA tensors and runs
 `flash_attention_plain` only for CPU tensors.  ``flash_attention.launches``
@@ -105,8 +106,9 @@ def flash_attention_ref(q, k, v, causal=True, kv_len=None):
 
 
 def _strides_ok(t) -> bool:
-    """The kernel reads ``t`` through its strides: a unit stride in D, the
-    others multiples of 8 elements, a 16-byte-aligned base."""
+    """The kernel reads ``t`` through its strides, by TMA: a unit stride in
+    D, the others multiples of 8 elements (16 bytes), a 16-byte-aligned
+    base."""
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in t.stride()[:-1]))
 

@@ -4,13 +4,17 @@ then ``f32(acc) * sx * sw[n]``.
 The CUDA kernel (``csrc/quant_matmul.cu``, sm_90a) replaces the Pallas TPU
 kernel ``quant_matmul`` of ``repro/kernels/quant_matmul.py``.  What bounds
 it on an H100: the int8 weight stream at decode (M = batch), int8
-operations at prefill.  It tiles x and w through shared memory and
-contracts 4 K values per ``__dp4a``; the epilogue applies the scales in the
-plain version's order, so the two agree bit for bit.
+operations at prefill.  It reads the weight K-major, as the (N, K) tensor
+behind a transposed ``w_q`` view (the layout `runtime.execute.prepare_layer`
+gives the quant_matmul layers): at M <= 16 a ``__dp4a`` GEMM with 16-byte
+weight loads, above that int8 ``wgmma`` tiles fed by a TMA ring.  The
+epilogue applies the scales in the plain version's order, so the two agree
+bit for bit.
 
 `quant_matmul` launches the kernel for CUDA tensors and runs
 `quant_matmul_plain` only for CPU tensors.  ``quant_matmul.launches``
-counts kernel launches.
+counts kernel launches, ``quant_matmul.transposed_copies`` the calls that
+had to copy a row-major ``w_q`` into the K-major layout (`weight_route`).
 """
 from __future__ import annotations
 
@@ -75,28 +79,67 @@ def check_epilogue(x_q, w, sx, sw):
             raise ValueError(f"operands on {dev} and {t.device}")
 
 
+#: the kernel takes K in multiples of this: a TMA row stride is a multiple
+#: of 16 bytes
+K_ALIGN = 16
+
+
+def weight_route(shape, strides, aligned=True) -> str:
+    """How `quant_matmul` hands a ``(K, N)`` int8 weight of these strides to
+    the kernel, which reads it K-major as ``(N, K)`` with K a multiple of
+    `K_ALIGN`: ``"k_major"``, the transposed view of a contiguous ``(N, K)``
+    tensor at a 16-byte-aligned address (``aligned``), passed with no copy;
+    ``"pad"``, K-major but with K off the multiple or the address off the
+    alignment, copied with K zero-padded; ``"transpose"``, any other layout
+    (row-major), copied into the K-major layout once per call."""
+    k, n = shape
+    k_major = (strides[0] == 1 or k == 1) and (strides[1] == k or n == 1)
+    if not k_major:
+        return "transpose"
+    return "k_major" if k % K_ALIGN == 0 and aligned else "pad"
+
+
+def _k_major(w_q: torch.Tensor) -> torch.Tensor:
+    """The ``(N, K_pad)`` contiguous int8 weight the kernel reads, K
+    zero-padded to `K_ALIGN`; counts a transposed copy."""
+    route = weight_route(tuple(w_q.shape), w_q.stride(),
+                         w_q.data_ptr() % 16 == 0)
+    if route == "k_major":
+        return w_q.t()
+    if route == "transpose":
+        quant_matmul.transposed_copies += 1
+    return _pad_to(w_q.t(), K_ALIGN, 1).contiguous()
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t`` contiguous at an address aligned to ``nbytes``."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def quant_matmul(x_q, w_q, sx, sw):
-    """x_q (M, K) int8, w_q (K, N) int8, sx one-element f32, sw (N,) f32
-    -> (M, N) f32.  K and N are zero-padded to multiples of 4 for the
-    kernel's 4-byte loads."""
+    """x_q (M, K) int8, w_q (K, N) int8 (any strides; the transposed view of
+    a contiguous (N, K) tensor goes to the kernel without a copy), sx
+    one-element f32, sw (N,) f32 -> (M, N) f32.  K is zero-padded to a
+    multiple of `K_ALIGN` for the kernel."""
     m, k, n = check_operands(x_q, w_q, sx, sw)
     if x_q.device.type == "cpu":
         return quant_matmul_plain(x_q, w_q, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"no quant_matmul kernel for {x_q.device}")
-    xq = _pad_to(x_q, 4, 1).contiguous()
-    wq = _pad_to(_pad_to(w_q, 4, 0), 4, 1).contiguous()
-    swp = _pad_to(sw, 4, 0).contiguous()
+    wk = _k_major(w_q)
+    xq = _aligned(_pad_to(x_q, K_ALIGN, 1), 16)
+    swc = _aligned(sw, 8)
     sxc = sx.reshape(1).contiguous()
-    n4, k4 = wq.shape[1], wq.shape[0]
-    out = torch.empty((m, n4), dtype=torch.float32, device=x_q.device)
-    if m:
-        _build.launch("quant_matmul", xq.data_ptr(), wq.data_ptr(),
-                      sxc.data_ptr(), swp.data_ptr(), out.data_ptr(),
-                      m, n4, k4, torch.cuda.current_stream(
+    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    if m and n:
+        _build.launch("quant_matmul", xq.data_ptr(), wk.data_ptr(),
+                      sxc.data_ptr(), swc.data_ptr(), out.data_ptr(),
+                      m, n, wk.shape[1], torch.cuda.current_stream(
                           x_q.device).cuda_stream)
         quant_matmul.launches += 1
-    return out[:, :n] if n4 != n else out
+    return out
 
 
 quant_matmul.launches = 0
+quant_matmul.transposed_copies = 0

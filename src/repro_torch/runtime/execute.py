@@ -5,9 +5,10 @@ counterpart).
 plan's channel permutation and its inverse, per-domain weight quantization
 with the plan's scales (each active quantized domain's columns carry that
 domain's own step), the 2-bit-packed ternary stream of the split_ternary
-kernel, the bf16 weight of the split_precision kernel, and the static
-activation scale.  `execute_layer` then only
-quantizes the activations and calls the kernel -- the CUDA kernel for
+kernel, the bf16 weight of the split_precision kernel, the K-major layout
+of the quant_matmul kernel's codes (a ``(K, N)`` view of a contiguous
+``(N, K)`` tensor), and the static activation scale.  `execute_layer` then
+only quantizes the activations and calls the kernel -- the CUDA kernel for
 tensors on the card, its plain version for tensors on the CPU -- or, with
 ``reference=True``, the oracles of `kernels.ref`; outputs come back in the
 original channel order.
@@ -53,7 +54,7 @@ class PreparedLayer:
     inv: torch.Tensor                    # inverse channel permutation
     w_perm: torch.Tensor | None          # permuted weight (fp kernel only)
     b: torch.Tensor | None               # bias, ORIGINAL channel order
-    w_q: torch.Tensor | None             # int8 codes, permuted
+    w_q: torch.Tensor | None             # int8 codes, permuted (K, N)
     sw: torch.Tensor | None              # (N,) per-column step, f32
     w_t_packed: torch.Tensor | None = None   # split_ternary packed codes
     w_bf16: torch.Tensor | None = None       # split_precision bf16 weight
@@ -137,6 +138,10 @@ def prepare_layer(lp: LayerPlan, w, b=None,
                                     domain_bits)
         if lp.kernel == KERNEL_SPLIT:
             w_bf16 = w_perm.to(torch.bfloat16)
+        elif lp.kernel == KERNEL_QUANT:
+            # the quant_matmul kernel reads its weight K-major: one (N, K)
+            # copy, held as its (K, N) transposed view
+            w_q = w_q.t().contiguous().t()
         w_perm = None          # the quantized kernels never read it
     if lp.kernel == KERNEL_SPLIT_TERNARY:
         w_t_packed = _pack_ternary_stream(lp, w_q)

@@ -56,13 +56,28 @@ def _operands(m, k, n, seed, dev):
     return [a.to(dev) for a in (x, w, t, sx, sw)]
 
 
-@pytest.mark.parametrize("m,k,n", SHAPES)
-def test_quant_matmul_kernel_bit_exact(cuda, m, k, n):
+#: SHAPES plus M off the wgmma kernel's 128-row tile (17, 100, 300) and N
+#: off its 128- and 256-column tiles, and M 1, 4, 16 of the dp4a GEMM's
+#: K-major loader (K 1000 padded to 1008, N 700 off its 64-column tile)
+QUANT_SHAPES = SHAPES + [(17, 4096, 1000), (100, 1000, 4100),
+                         (300, 4096, 640), (300, 11008, 130),
+                         (1, 4096, 4096), (4, 11008, 4096), (16, 1000, 700)]
+
+
+@pytest.mark.parametrize("layout", ["row_major", "k_major"])
+@pytest.mark.parametrize("m,k,n", QUANT_SHAPES)
+def test_quant_matmul_kernel_bit_exact(cuda, m, k, n, layout):
+    """Both weight layouts bit for bit; only the row-major one is copied
+    into the kernel's K-major layout (one counted copy per call)."""
     x, w, _, sx, sw = _operands(m, k, n, 0, cuda)
+    if layout == "k_major":
+        w = w.t().contiguous().t()
     before = quant_matmul.launches
+    copies = quant_matmul.transposed_copies
     got = quant_matmul(x, w, sx, sw)
     torch.cuda.synchronize()
     assert quant_matmul.launches == before + 1
+    assert quant_matmul.transposed_copies == copies + (layout == "row_major")
     assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
 
 
@@ -169,7 +184,10 @@ FLASH_CASES = [(2, 4, 4, 100, 100, 16, True, None),
                (2, 8, 8, 64, 1000, 128, True, 700),
                (1, 8, 1, 33, 257, 16, False, 200),
                (2, 16, 2, 130, 150, 128, False, 150),
-               (1, 4, 4, 1, 70, 16, False, None)]
+               (1, 4, 4, 1, 70, 16, False, None),
+               # Sq and Sk off the 128-row query and key tiles
+               (2, 8, 2, 390, 517, 16, True, 450),
+               (1, 16, 2, 391, 645, 128, True, 520)]
 
 
 @pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,kv_len", FLASH_CASES)

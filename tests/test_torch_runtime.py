@@ -451,3 +451,100 @@ def test_v1_plan_json_from_jax_loads(model, artifacts):
     got = ExecutionPlan.from_json(text)
     assert got.schema_version == 1
     assert got.to_json() == want.to_json()
+
+
+@pytest.mark.parametrize("key,layer,kernel,bits", [
+    ("diana", "units/0/ffn/gate@1", "quant_matmul", [8, 2]),
+    ("diana", "units/0/attn/wq@0", "split_ternary", [8, 2]),
+    ("ternary", "units/0/attn/wv@1", "ternary_matmul", [8, 2]),
+    ("gpu_tc_like", "units/0/attn/wk@0", "split_precision", [8, 16])])
+def test_prepare_layer_lays_out_codes_per_kernel(model, artifacts, mappings,
+                                                 key, layer, kernel, bits):
+    """The quant_matmul layers hold their codes as the (K, N) transposed
+    view of a contiguous (N, K) tensor, the layout the kernel reads (one
+    copy); the other kernels keep row-major codes.  Shape and values are
+    the JAX package's either way."""
+    doc = artifacts[0] if key == "diana" else mappings[key][0]
+    tuning = BN16 if key == "gpu_tc_like" else None
+    jprep, prep, lp = _prepared_pair(model, doc, layer, bits, tuning)
+    assert lp.kernel == kernel
+    k, n = lp.c_in, lp.c_out
+    assert tuple(prep.w_q.shape) == (k, n) and prep.w_q.dtype == torch.int8
+    if kernel == "quant_matmul":
+        assert prep.w_q.stride() == (1, k) and prep.w_q.t().is_contiguous()
+    else:
+        assert prep.w_q.stride() == (n, 1)
+    np.testing.assert_array_equal(prep.w_q.numpy(), np.asarray(jprep.w_q))
+
+
+def test_planned_backend_binds_quant_layers_k_major(tmp_path):
+    """Every quant_matmul layer of a bound diana plan (stacked or not) is
+    K-major, and the planned reduced yi-9b (float32 parameters, int8 KV
+    cache) still gives the JAX package's prefill logits within the 1e-4
+    that `test_torch_model.py` holds."""
+    from repro.models.managed import matmul_backend
+    from repro_torch.models import _backend
+    jcfgbase.load_all()
+    over = dict(param_dtype="float32", kv_cache_dtype="int8")
+    jcfg = dataclasses.replace(
+        jcfgbase.reduce_for_smoke(jcfgbase.get("yi-9b")), **over)
+    cfg = dataclasses.replace(
+        cfgbase.reduce_for_smoke(cfgbase.get("yi-9b")), **over)
+    jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    art = j_emit(jparams, jcfg, "diana", tmp_path / "m.json",
+                 max_cout=MAX_COUT, act_log_scale=2.0)
+    plan = rt.lower(art.to_dict(), params=params)
+    backend = rt.PlannedBackend(plan, params)
+    quant = [p for entry in backend._by_name.values()
+             for p in (entry if isinstance(entry, list) else [entry])
+             if p.plan.kernel == "quant_matmul"]
+    assert len(quant) == plan.kernel_histogram()["quant_matmul"] > 0
+    assert all(p.w_q.t().is_contiguous() for p in quant)
+    jbackend = jrt.PlannedBackend(jrt.lower(art, params=jparams), jparams,
+                                  reference=True)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (2, 8),
+                                                dtype=np.int32)
+    jc = JT.init_cache(jcfg, 2, 9)
+    tc = T.init_cache(cfg, 2, 9, device="cpu")
+    with matmul_backend(jbackend), _backend.use(backend):
+        jl, _ = JT.prefill(jparams, jcfg, jnp.asarray(prompts), jc)
+        tl, _ = T.prefill(params, cfg, torch.from_numpy(prompts).long(), tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,strides,aligned,route", [
+    ((64, 48), (1, 64), True, "k_major"),     # (N, K).t(), K % 16 == 0
+    ((64, 48), (48, 1), True, "transpose"),   # row-major
+    ((60, 48), (1, 60), True, "pad"),         # K-major, K % 16 != 0
+    ((64, 48), (1, 64), False, "pad"),        # K-major, misaligned base
+    ((64, 48), (1, 80), True, "transpose"),   # K-major rows with a gap
+    ((64, 1), (1, 1), True, "k_major"),       # one column
+    ((1, 48), (48, 1), True, "pad"),          # one K row is K-major
+    ((32, 16), (16, 1), True, "transpose")])
+def test_quant_matmul_weight_route_from_strides(shape, strides, aligned,
+                                                route):
+    from repro_torch.kernels.quant_matmul import weight_route
+    assert weight_route(shape, strides, aligned) == route
+
+
+def test_quant_matmul_k_major_copy_counts_transposes():
+    """On CPU tensors: the K-major operand has the weight's values with K
+    zero-padded to 16; a row-major weight counts one transposed copy, the
+    prepared K-major layout none and is not copied."""
+    from repro_torch.kernels import quant_matmul as qm
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.integers(-127, 128, (40, 24), dtype=np.int8))
+    before = qm.quant_matmul.transposed_copies
+    row = qm._k_major(w)
+    assert qm.quant_matmul.transposed_copies == before + 1
+    assert tuple(row.shape) == (24, 48) and row.is_contiguous()
+    np.testing.assert_array_equal(row[:, :40].numpy(), w.t().numpy())
+    assert not row[:, 40:].any()
+    w48 = torch.from_numpy(rng.integers(-127, 128, (48, 24), dtype=np.int8))
+    col = w48.t().contiguous().t()
+    got = qm._k_major(col)
+    assert qm.quant_matmul.transposed_copies == before + 1
+    assert got.data_ptr() == col.data_ptr() and got.is_contiguous()
+    assert tuple(got.shape) == (24, 48)
