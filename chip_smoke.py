@@ -11,25 +11,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 2. build: the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel), ptxas's registers and spills of each kernel, and
    the ``[sass]`` line: the count of Hopper's wgmma instructions in the
-   SASS of the two wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
-   HGMMA in flash_attention, IGMMA in quant_matmul); a count of 0 or a
-   spill in either fails.
+   SASS of the four wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
+   HGMMA in flash_attention, IGMMA in quant_matmul, split_ternary and
+   ternary_packed); a count of 0 or a spill in any fails.
 3. kernels vs their plain versions on the card at the serving paths'
    shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
    (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul,
    ternary_matmul and ternary_packed bit for bit, quant_matmul on both
    weight layouts (row-major, and the K-major view the serving paths
    hold) and also at M {17, 100, 300} off its 128-row tile and at N 1000
-   off its column tiles; split_ternary bit for
-   bit at boundaries {0, 7, 128, 300, N}; split_precision at raw
-   boundaries {0, 7, 128, 342, N}, its int8 columns bit for bit and its
-   bf16 columns within the float32 summation bound ``K * 2**-24 * sum_k |x w| + 2**-24 * |y|``.  Split
-   probes: the split kernels get garbage in the int8 codes at and above
-   the aligned boundary (and split_precision NaN in its bf16 weights below
-   it), which must not reach the output.  flash_attention at yi-9b's head
-   shapes (B 4, H 32, KVH 4, D 128): Sq = Sk in {128, 3072}, Sq 3072
-   against Sk 4096 with kv_len 3072, a ragged Sq 3000, and one non-causal
-   case whose keys the op pads (Sk 1000 to 1024), each within
+   off its column tiles; split_ternary bit for bit at boundaries {0, 7,
+   128, 300, N} through the op (aligned to the N-block) and at 7 and 300
+   through the kernel itself (a column tile that reads both streams);
+   split_ternary and ternary_packed also on their wgmma GEMM at M {17,
+   100, 300, 512} x the five (K, N) and (11008, 1000), with the K-major
+   codes, and at the long prefill's M 12288 x (4096, 512); split_precision
+   at raw boundaries {0, 7, 128, 342, N}, its int8 columns bit for bit and
+   its bf16 columns within the float32 summation bound ``K * 2**-24 *
+   sum_k |x w| + 2**-24 * |y|``.  Split probes: the split kernels get
+   garbage in the int8 codes at and above the boundary (split_ternary also
+   0xFF in its packed bytes below it, split_precision NaN in its bf16
+   weights below it), which must not reach the output.  flash_attention at
+   yi-9b's head shapes (B 4, H 32, KVH 4, D 128): Sq = Sk in {128,
+   3072}, Sq 3072 against Sk 4096 with kv_len 3072, a ragged Sq 3000, and
+   one non-causal case whose keys the op pads (Sk 1000 to 1024), each within
    `flash_error_bound` (the bf16 rounding of p and of the output, and the
    float32 sums; stated in its docstring).  Then the entry point of
    ternary_packed, which no serving path calls, is driven once at each of
@@ -37,8 +42,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 4. times (CUDA events, after warm-up) of each kernel, its plain version and
    a library yardstick (torch._int_mm with the same epilogue, timed on the
    row-major and on the column-major (K-major) int8 weight, the faster
-   taken; on the unpacked codes for ternary_packed; quant_matmul's kernel
-   and plain version read the K-major weight of the serving paths; for
+   taken; on the unpacked codes for ternary_packed; quant_matmul's and
+   split_ternary's kernel read the K-major codes of the serving paths; for
    split_precision "two calls":
    _int_mm on the int8 columns and a bf16 torch.matmul on the rest; for
    flash_attention scaled_dot_product_attention with is_causal and
@@ -61,8 +66,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                     on the searchable layers: quant_matmul:241
                     ternary_matmul:96
    each at full coverage with launch counts = histogram x 16 forwards,
-   and no copy of a quant_matmul weight into the kernel's K-major layout
-   (``quant_matmul.transposed_copies`` stays 0 on every serving path);
+   and no per-call copy of a weight (``quant_matmul.transposed_copies``,
+   ``split_ternary.transposed_copies`` and
+   ``ternary_packed_matmul.padded_copies`` stay 0 on every serving path
+   and in ternary_packed's entry-point run);
    then served again with the plain versions (``reference=True``, no
    launch): tokens and prefill logits identical on the integer paths.  On
    gpu_tc_like, whose bf16 columns sum in another order than the plain
@@ -129,6 +136,15 @@ LONG_M = REQUESTS * LONG_PROMPT          # rows of its prefill's projections
 #: quant_matmul checks off its wgmma tiles (128 rows, 128 or 256 columns)
 RAGGED_M = (17, 100, 300)
 RAGGED_KN = [(4096, 4096), (11008, 1000)]
+#: split_ternary / ternary_packed checks on their wgmma GEMM (M > 16):
+#: every served (K, N) and N 1000 (padded to 1008), at these M beside
+#: PREFILL_M; and the long prefill's (M, K, N)
+PACKED_M = RAGGED_M
+PACKED_KN = KN_SHAPES + [(11008, 1000)]
+PACKED_LONG = (LONG_M, 4096, 512)
+#: raw boundaries the split_ternary kernel also takes unaligned (a column
+#: tile the boundary falls in reads both streams)
+RAW_BOUNDARIES = (7, 300)
 BOUNDARIES = [0, 7, 128, 300, None]      # split_ternary; None = N
 SP_BOUNDARIES = [0, 7, 128, 342, None]   # split_precision; None = N
 # flash_attention checks at yi-9b's heads (B, H, KVH, D) = (4, 32, 4,
@@ -159,7 +175,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, ops attribute)
                         "flash_attention"),
 }
 #: the wgmma instruction each wgmma kernel's SASS must hold
-SASS_OPS = {"flash_attention": "HGMMA", "quant_matmul": "IGMMA"}
+SASS_OPS = {"flash_attention": "HGMMA", "quant_matmul": "IGMMA",
+            "split_ternary": "IGMMA", "ternary_packed": "IGMMA"}
 # serving paths: platform, emission bias, kernel of wk / wv, raw boundary
 # of wk / wv (None: one domain)
 PATHS = {
@@ -207,9 +224,10 @@ def nvidia_smi_line() -> str:
 
 def phase_sass(torch):
     """The ``[sass]`` line: Hopper's wgmma instructions in the SASS of the
-    flash_attention (HGMMA, bf16) and quant_matmul (IGMMA, int8) libraries
-    as built, with ptxas's registers and spills of their kernels; fails if
-    an instruction count is 0 or a kernel spills."""
+    flash_attention (HGMMA, bf16), quant_matmul, split_ternary and
+    ternary_packed (IGMMA, int8) libraries as built, with ptxas's registers
+    and spills of their kernels; fails if an instruction count is 0 or a
+    kernel spills."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -367,18 +385,49 @@ def phase_kernels(torch, gen):
     from repro_torch.kernels.quant_matmul import quant_matmul_plain
     from repro_torch.kernels.split_precision import (bf16_error_bound,
                                                      split_precision_plain)
-    from repro_torch.kernels.split_ternary import split_ternary_plain
+    from repro_torch.kernels.split_ternary import (split_ternary,
+                                                   split_ternary_plain)
     from repro_torch.kernels.ternary_matmul import ternary_matmul_plain
     from repro_torch.kernels.ternary_packed import ternary_packed_plain
     worst = dict.fromkeys(KERNELS, 0.0)
 
-    def exact(kernel, got, want, what):
+    def exact(kernel, got, want, what, quiet=False):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst[kernel] = max(worst[kernel], err)
         if not torch.equal(got, want):
             raise AssertionError(f"{kernel} {what}: max |err| {err}")
-        print(f"[kernels] {kernel:<15s} {what} bit-identical")
+        if not quiet:
+            print(f"[kernels] {kernel:<15s} {what} bit-identical")
+
+    def split_probes(m, k, n, raw, layout, quiet=False):
+        """split_ternary through the op (boundary aligned to the N-block)
+        and, at a raw boundary of RAW_BOUNDARIES, the kernel itself at that
+        column; w_q holds 99 at and above the boundary, the packed stream
+        0xFF (a 2 in every 2-bit field) below it: neither may reach the
+        output."""
+        shape = f"M={m:<5d} K={k:<6d} N={n:<6d}"
+        x, w_q, w_p, sx, sw = operands(m, k, n, raw, gen)
+        cols = torch.arange(n, device=x.device)[None, :]
+        calls = [(aligned(raw, n), ops.split_ternary_op, raw, "aligned")]
+        if raw in RAW_BOUNDARIES:
+            calls.append((raw, split_ternary, raw, "raw"))
+        for b, fn, arg, what in calls:
+            probe = torch.where(cols < b, w_q, 99).to(torch.int8)
+            if layout == "K-major":
+                probe = probe.t().contiguous().t()
+            probe_p = torch.where(cols < b, 0xFF, w_p).to(torch.uint8)
+            exact("split_ternary", fn(x, probe, probe_p, sx, sw, arg),
+                  split_ternary_plain(x, w_q, w_p, sx, sw, b),
+                  f"{shape} {layout} boundary={raw:<5d} ({what} {b}), w_q "
+                  f"garbage at cols >= {b}, packed garbage below:",
+                  quiet)
+
+    def packed_case(m, k, n, quiet=False):
+        x, w_t, w_p, sx, sw = operands(m, k, n, 0, gen)
+        exact("ternary_packed", ops.ternary_packed_matmul_op(x, w_p, sx, sw),
+              ternary_packed_plain(x, w_p, sx, sw),
+              f"M={m:<5d} K={k:<6d} N={n:<6d}", quiet)
 
     def quant_both_layouts(m, k, n):
         shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
@@ -399,16 +448,8 @@ def phase_kernels(torch, gen):
                   ops.ternary_packed_matmul_op(x, w_p, sx, sw),
                   ternary_packed_plain(x, w_p, sx, sw), shape)
             for b in BOUNDARIES:
-                raw = n if b is None else min(b, n)
-                x, w_q, w_p, sx, sw = operands(m, k, n, raw, gen)
-                b_al = aligned(raw, n)
-                cols = torch.arange(n, device=x.device)[None, :]
-                probe = torch.where(cols < b_al, w_q, 99).to(torch.int8)
-                exact("split_ternary",
-                      ops.split_ternary_op(x, probe, w_p, sx, sw, raw),
-                      split_ternary_plain(x, w_q, w_p, sx, sw, b_al),
-                      f"{shape} boundary={raw:<5d} (aligned {b_al}), w_q "
-                      f"garbage at cols >= {b_al}:")
+                split_probes(m, k, n, n if b is None else min(b, n),
+                             "row-major")
             for b in SP_BOUNDARIES:
                 raw = n if b is None else min(b, n)
                 acts, (w_b, w_q), (p_b, p_q), sw, b_al = \
@@ -442,6 +483,24 @@ def phase_kernels(torch, gen):
     for m in RAGGED_M:
         for k, n in RAGGED_KN:
             quant_both_layouts(m, k, n)
+    # the wgmma GEMM of split_ternary and ternary_packed (M > 16) on the
+    # K-major codes the serving paths hold, one line per (M, K, N)
+    for m in PACKED_M + (PREFILL_M,):
+        for k, n in PACKED_KN:
+            if m == PREFILL_M and (k, n) in KN_SHAPES:
+                continue          # checked above
+            packed_case(m, k, n, quiet=True)
+            raws = [n if b is None else min(b, n) for b in BOUNDARIES]
+            for raw in raws:
+                split_probes(m, k, n, raw, "K-major", quiet=True)
+            print(f"[kernels] wgmma M={m:<5d} K={k:<6d} N={n:<6d}: "
+                  f"ternary_packed and split_ternary (boundaries {raws}, "
+                  f"aligned and raw {list(RAW_BOUNDARIES)}, both garbage "
+                  f"probes) bit-identical")
+    m, k, n = PACKED_LONG
+    packed_case(m, k, n)
+    for raw in (PATHS["diana"][3], 300):
+        split_probes(m, k, n, raw, "K-major")
     B, H, KVH, D = FLASH_HEADS
     for Sq, Sk, causal, kv_len in FLASH_CASES:
         q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen)
@@ -479,6 +538,7 @@ def phase_packed_entry(torch, gen):
     if launches != want:
         raise AssertionError(f"ternary_packed entry point: launches "
                              f"{launches}, expected {want}")
+    check_no_weight_copies("ternary_packed entry point")
     print(f"[entry] ternary_packed_matmul_op at {want['ternary_packed']} "
           f"(M, K, N): {launches['ternary_packed']} launches")
     return launches
@@ -489,10 +549,10 @@ def phase_times(torch, gen):
     {kernel: {(m, k, n): record}}.  Each timed call reads the next of
     several copies of the weights, whose total exceeds twice the 50 MB L2
     cache, so every call streams its weights from device memory as in a
-    forward pass.  quant_matmul reads the K-major weight the serving paths
-    hold; the library yardstick runs torch._int_mm on the row-major and on
-    the K-major (column-major) int8 weight, and the faster is the record's
-    ``library_ms``."""
+    forward pass.  quant_matmul and split_ternary read the K-major codes
+    the serving paths hold; the library yardstick runs torch._int_mm on the
+    row-major and on the K-major (column-major) int8 weight, and the faster
+    is the record's ``library_ms``."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.quant_matmul import quant_matmul_plain
     from repro_torch.kernels.split_precision import split_precision_plain
@@ -551,8 +611,9 @@ def phase_times(torch, gen):
                 else raw, gen)
             w_col = w_q.t().contiguous().t()
             # the library call reads the codes w[0] (row-major) or w[-1]
-            # (K-major); quant_matmul reads w[-1] as the serving paths
-            # hold it, the other kernels w[0] or the packed stream w[1]
+            # (K-major); quant_matmul and split_ternary read w[-1] as the
+            # serving paths hold it (split_ternary beside the packed
+            # stream w[1]), ternary_matmul w[0], ternary_packed w[1]
             weights = (w_q, w_col)
             lib_int8 = (0, -1)
             x_lib = pad_rows(x)
@@ -570,7 +631,7 @@ def phase_times(torch, gen):
                 wbytes = k * b_al + (k // 4) * (n - b_al)
 
                 def run(w):
-                    return ops.split_ternary_op(x, w[0], w[1], sx, sw, raw)
+                    return ops.split_ternary_op(x, w[2], w[1], sx, sw, raw)
 
                 def plain(w):
                     return split_ternary_plain(x, w[0], w[1], sx, sw, b_al)
@@ -795,22 +856,33 @@ def kernel_launches():
             for k, (_, _, attr) in KERNELS.items()}
 
 
+#: (ops attribute, counter) of each count of per-call weight copies
+COPY_COUNTERS = (("quant_matmul", "transposed_copies"),
+                 ("split_ternary", "transposed_copies"),
+                 ("ternary_packed_matmul", "padded_copies"))
+
+
 def reset_launches():
-    """Launch counts and quant_matmul's count of weight copies to 0."""
+    """Launch counts and the counts of per-call weight copies to 0."""
     from repro_torch.kernels import ops
     for _, _, attr in KERNELS.values():
         getattr(ops, attr).launches = 0
-    ops.quant_matmul.transposed_copies = 0
+    for attr, counter in COPY_COUNTERS:
+        setattr(getattr(ops, attr), counter, 0)
+
+
+def weight_copies():
+    from repro_torch.kernels import ops
+    return {f"{attr}.{counter}": getattr(getattr(ops, attr), counter)
+            for attr, counter in COPY_COUNTERS}
 
 
 def check_no_weight_copies(path):
-    """A serving path holds its quant_matmul weights K-major: no call may
-    have copied one into that layout."""
-    from repro_torch.kernels import ops
-    copies = ops.quant_matmul.transposed_copies
-    if copies:
-        raise AssertionError(f"{path}: {copies} quant_matmul weights "
-                             f"copied into the K-major layout")
+    """A serving path holds its quant_matmul and split_ternary codes K-major
+    and its packed streams aligned: no call may have copied a weight."""
+    copies = weight_copies()
+    if any(copies.values()):
+        raise AssertionError(f"{path}: weights copied per call {copies}")
 
 
 def compare_tokens(torch, path, tokens, ref_tokens, margins, tol):
@@ -890,7 +962,8 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
     print(f"[serve:{path}] launches: " + " ".join(
         f"{k} {v} ({v // forwards} per forward)"
         for k, v in launches.items() if v) +
-        "; quant_matmul weights copied into the K-major layout: 0")
+        "; weights copied per call: " + ", ".join(
+            f"{k} 0" for k in weight_copies()))
     print(f"[serve:{path}] sample tokens: {tokens[:2, :8].tolist()}")
 
     backend.reference = True
@@ -1161,7 +1234,8 @@ def phase_long(torch, cfg, params, prompts):
           f"({stats['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step)")
     print(f"[serve:{path}] launches: " + " ".join(
         f"{k} {v}" for k, v in launches.items() if v) +
-        "; quant_matmul weights copied into the K-major layout: 0")
+        "; weights copied per call: " + ", ".join(
+            f"{k} 0" for k in weight_copies()))
     for kernel, (n, rows) in checked.items():
         if n != limits[kernel] or (n and rows != B * P):
             raise AssertionError(f"{path}: {n} {kernel} calls of the "

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) plumbing of the port's TMA + wgmma kernels
-// (flash_attention.cu, quant_matmul.cu):
+// (flash_attention.cu, and int8_wgmma.cuh for quant_matmul.cu,
+// split_ternary.cu and ternary_packed.cu):
 //
 //   - tensor maps, encoded on the host by cuTensorMapEncodeTiled, which is
 //     reached through cudaGetDriverEntryPoint, so no library links
@@ -7,6 +8,8 @@
 //     parameters;
 //   - mbarriers: init, fence.mbarrier_init, arrive, arrive.expect_tx and a
 //     try_wait.parity loop;
+//   - the proxy fence that orders threads' shared-memory stores before
+//     wgmma (the async proxy) reads them, and named barriers;
 //   - TMA loads (cp.async.bulk.tensor, 2-D to 4-D) that complete on an
 //     mbarrier;
 //   - wgmma: shared-memory matrix descriptors, wgmma.fence / commit_group
@@ -116,6 +119,19 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // Makes the initialised barriers visible to the async proxy (TMA).
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders this thread's earlier generic-proxy stores to shared memory before
+// later async-proxy accesses (wgmma operand reads, TMA): a tile written by
+// threads must pass this fence before the barrier that hands it to wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads) for `count`
+// threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {

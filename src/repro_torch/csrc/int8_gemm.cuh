@@ -14,7 +14,9 @@
 // 2-bit loader unpacks one packed byte straight into one operand (the 4
 // codes of a byte are 4 consecutive K rows of one column).  The K-major
 // loader (`KMajorInt8Weights`, quant_matmul's weight held as (N, K)) gives
-// 4 operands of one column, 16 consecutive K bytes, from one 16-byte load.
+// 4 operands of one column, 16 consecutive K bytes, from one 16-byte load;
+// `KMajorInt8Columns` reads the same layout one K word of 4 columns at a
+// time (split_ternary's int8 columns beside its packed ones).
 //
 // Tiles: BN = 64 columns, BK = 64 K-bytes per stage, BM = 16 * TM rows;
 // 256 threads, each holding TM x 4 int32 accumulators.  The next stage's
@@ -24,7 +26,8 @@
 // mainloop (`dp4a_tile`) is a device function of its own, so that
 // split_precision.cu runs it on the int8 tiles of its two-domain GEMM.
 // This is the decode GEMM of the port (M = batch, bound by the weight
-// bytes); quant_matmul.cu runs M > 16 on int8 wgmma instead.
+// bytes); quant_matmul.cu, split_ternary.cu and ternary_packed.cu run
+// M > 16 on int8 wgmma instead (int8_wgmma.cuh).
 #pragma once
 
 #include <cstddef>
@@ -123,6 +126,26 @@ struct KMajorInt8Weights {
     c[1] = v.y;
     c[2] = v.z;
     c[3] = v.w;
+  }
+};
+
+// Weight side of split_ternary's int8 columns at decode: the K-major
+// (N, K) int8 codes, K a multiple of 4.  One K word of 4 columns, as the
+// row-major loaders give it: four 4-byte loads, one per column, no
+// transpose (each already holds 4 consecutive K bytes), each predicated
+// on its own column and without a branch (a branching form ran slower).
+struct KMajorInt8Columns {
+  const int8_t* w;
+  int n_cols;
+  int k_words;  // K / 4
+
+  __device__ __forceinline__ void load(int kw, int n, int (&c)[4]) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[j] = (kw < k_words && n + j < n_cols)
+                 ? __ldg(reinterpret_cast<const int*>(w) +
+                         static_cast<size_t>(n + j) * k_words + kw)
+                 : 0;
   }
 };
 

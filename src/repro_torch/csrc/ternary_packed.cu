@@ -2,32 +2,70 @@
 //
 // Replaces the Pallas TPU kernel `ternary_packed_matmul` (src/repro/
 // kernels/ternary_packed.py): int8 activations x_q (M, K) against ternary
-// codes packed 4 to a byte, w_packed (K/4, N) -- code c of K row 4k + c in
+// codes packed 4 to a byte, w_packed (Kp, N) -- code c of K row 4k + c in
 // bits 2c .. 2c+1 of byte [k, n], biased by +1 -- exact int32
-// accumulation, then the epilogue f32(acc) * sx * sw[n].  It is the
-// shared-memory-tiled __dp4a GEMM of int8_gemm.cuh with the packed loader
-// that split_ternary.cu runs on its ternary columns: each packed byte (4
-// consecutive K rows of one column) unpacks in registers into one dp4a
-// operand, and nothing is unpacked to global memory.
+// accumulation, then the epilogue f32(acc) * sx * sw[n], bit-identical to
+// the plain version.  Nothing is unpacked to global memory.  Two
+// mainloops, split on M:
 //
-// Bound: at decode (M = batch) by the weight stream, which is K/4 * N
-// bytes, 4x fewer than ternary_matmul's int8 codes (bytes); at prefill by
-// int8 operations.
-#include "int8_gemm.cuh"
+//   M <= 16 (decode, M = batch): bound by the weight stream, K/4 * N
+//     bytes, 4x fewer than ternary_matmul's int8 codes.  The __dp4a GEMM of
+//     int8_gemm.cuh with the packed loader split_ternary.cu runs on its
+//     ternary columns: each packed byte (4 consecutive K rows of one
+//     column) unpacks in registers into one dp4a operand.
+//   M > 16 (prefill): bound by int8 operations.  The int8 wgmma GEMM of
+//     int8_wgmma.cuh (`PackedCodes`, 128 x 128 tiles): TMA loads 32 packed
+//     rows x 128 columns per stage, the consumer warpgroups unpack them in
+//     shared memory into the K-major B tile.  No split-K.  N is a multiple
+//     of 16 here (the TMA row stride), which the wrapper pads.
+#include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "int8_gemm.cuh"
+#include "int8_wgmma.cuh"
+
+namespace {
+
+template <int BN>
+int launch_wgmma(const int8_t* x, const uint8_t* p, const float* sx,
+                 const float* sw, float* out, int M, int N, int K, int Kp,
+                 cudaStream_t stream) {
+  i8wgmma::PackedCodes src;
+  const int rc = i8wgmma::packed_map(&src.packed, p, N, Kp, BN);
+  if (rc) return rc;
+  return i8wgmma::launch<BN>(x, src, sx, sw, out, M, N, K, stream);
+}
+
+}  // namespace
+
+// x_q (M, K) int8 row-major, K a multiple of 16, rows 16-byte aligned;
+// w_packed (Kp, N) uint8 row-major, Kp = ceil(K_true / 4) <= K / 4, N a
+// multiple of 4 (of 16 at M > 16), 16-byte aligned; sx one f32, sw (N,)
+// f32; out (M, N) f32.
 extern "C" int ternary_packed_launch(const void* x_q, const void* w_packed,
                                      const void* sx, const void* sw,
-                                     void* out, int M, int N, int K,
+                                     void* out, int M, int N, int K, int Kp,
                                      void* stream) {
-  i8gemm::PackedTernaryWeights wl{static_cast<const uint8_t*>(w_packed), N,
-                                  K / 4};
-  return i8gemm::launch(static_cast<const int8_t*>(x_q), wl,
-                        static_cast<const float*>(sx),
-                        static_cast<const float*>(sw),
-                        static_cast<float*>(out), M, N, K,
-                        static_cast<cudaStream_t>(stream));
+  const int8_t* x = static_cast<const int8_t*>(x_q);
+  const uint8_t* p = static_cast<const uint8_t*>(w_packed);
+  const float* sxp = static_cast<const float*>(sx);
+  const float* swp = static_cast<const float*>(sw);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K % 16 || N % 4 || 4 * Kp > K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 16) {  // one 16-row tile of the dp4a GEMM
+    const i8gemm::PackedTernaryWeights wl{p, N, Kp};
+    const unsigned grid = (N + i8gemm::kBN - 1) / i8gemm::kBN;
+    i8gemm::gemm_dp4a<1><<<grid, i8gemm::kThreads, 0, st>>>(x, wl, sxp, swp,
+                                                            o, M, N, K);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (N % 16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wgmma<128>(x, p, sxp, swp, o, M, N, K, Kp, st);
 }
 
 extern "C" const char* ternary_packed_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

@@ -14,7 +14,9 @@ bit for bit.
 `quant_matmul` launches the kernel for CUDA tensors and runs
 `quant_matmul_plain` only for CPU tensors.  ``quant_matmul.launches``
 counts kernel launches, ``quant_matmul.transposed_copies`` the calls that
-had to copy a row-major ``w_q`` into the K-major layout (`weight_route`).
+had to copy ``w_q`` into the kernel's layout: a row-major weight
+transposed, or a K-major one whose K or address is off the alignment
+padded (`weight_route`).
 """
 from __future__ import annotations
 
@@ -84,31 +86,39 @@ def check_epilogue(x_q, w, sx, sw):
 K_ALIGN = 16
 
 
-def weight_route(shape, strides, aligned=True) -> str:
-    """How `quant_matmul` hands a ``(K, N)`` int8 weight of these strides to
-    the kernel, which reads it K-major as ``(N, K)`` with K a multiple of
-    `K_ALIGN`: ``"k_major"``, the transposed view of a contiguous ``(N, K)``
-    tensor at a 16-byte-aligned address (``aligned``), passed with no copy;
-    ``"pad"``, K-major but with K off the multiple or the address off the
-    alignment, copied with K zero-padded; ``"transpose"``, any other layout
-    (row-major), copied into the K-major layout once per call."""
+def weight_route(shape, strides, aligned=True, n_align=1) -> str:
+    """How a ``(K, N)`` int8 weight of these strides reaches a kernel that
+    reads it K-major as ``(N, K)`` with K a multiple of `K_ALIGN` and N one
+    of ``n_align``: ``"k_major"``, the transposed view of a contiguous
+    ``(N, K)`` tensor at a 16-byte-aligned address (``aligned``), passed
+    with no copy; ``"pad"``, K-major but with K or N off its multiple or
+    the address off the alignment, copied zero-padded; ``"transpose"``, any
+    other layout (row-major), copied into the K-major layout.  Either copy
+    is made once per call."""
     k, n = shape
     k_major = (strides[0] == 1 or k == 1) and (strides[1] == k or n == 1)
     if not k_major:
         return "transpose"
-    return "k_major" if k % K_ALIGN == 0 and aligned else "pad"
+    return ("k_major" if k % K_ALIGN == 0 and n % n_align == 0 and aligned
+            else "pad")
+
+
+def k_major_weight(w_q: torch.Tensor, owner, n_align: int = 1):
+    """The ``(N_pad, K_pad)`` contiguous int8 weight a kernel reads, K
+    zero-padded to `K_ALIGN` and N to ``n_align``: ``w_q.t()`` itself on
+    the ``"k_major"`` route, else a copy, counted in
+    ``owner.transposed_copies``."""
+    route = weight_route(tuple(w_q.shape), w_q.stride(),
+                         w_q.data_ptr() % 16 == 0, n_align)
+    if route == "k_major":
+        return w_q.t()
+    owner.transposed_copies += 1
+    return _aligned(_pad_to(_pad_to(w_q.t(), K_ALIGN, 1), n_align, 0), 16)
 
 
 def _k_major(w_q: torch.Tensor) -> torch.Tensor:
-    """The ``(N, K_pad)`` contiguous int8 weight the kernel reads, K
-    zero-padded to `K_ALIGN`; counts a transposed copy."""
-    route = weight_route(tuple(w_q.shape), w_q.stride(),
-                         w_q.data_ptr() % 16 == 0)
-    if route == "k_major":
-        return w_q.t()
-    if route == "transpose":
-        quant_matmul.transposed_copies += 1
-    return _pad_to(w_q.t(), K_ALIGN, 1).contiguous()
+    """`k_major_weight` of quant_matmul (any N)."""
+    return k_major_weight(w_q, quant_matmul)
 
 
 def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:

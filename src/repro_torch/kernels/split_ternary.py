@@ -7,23 +7,33 @@ The CUDA kernel (``csrc/split_ternary.cu``, sm_90a) replaces the Pallas TPU
 kernel ``split_ternary_matmul`` of ``repro/kernels/split_ternary.py``.
 What bounds it on an H100: the weight stream at decode (the ternary side is
 4x smaller than int8, which is the kernel's point), int8 operations at
-prefill.  Each packed byte (4 consecutive K rows of one column) unpacks in
-registers into one ``__dp4a`` operand; ``w_q`` is never read for ternary
-columns and nothing is unpacked to global memory.  The choice between the
+prefill.  It reads ``w_q`` K-major, as the (N, K) tensor behind a
+transposed view (the layout `runtime.execute.prepare_layer` gives the
+split_ternary layers), and the packed stream as it is stored.  At M <= 16
+a ``__dp4a`` GEMM unpacks each packed byte in registers into one operand;
+above that int8 ``wgmma`` tiles are fed by a TMA ring, with the packed
+tiles unpacked in shared memory.  ``w_q`` is never read for ternary
+columns, nothing is unpacked to global memory, and the choice between the
 two streams is made per column, so any boundary is exact.
 
 `split_ternary` launches the kernel for CUDA tensors and runs
 `split_ternary_plain` only for CPU tensors.  ``split_ternary.launches``
-counts kernel launches.
+counts kernel launches, ``split_ternary.transposed_copies`` the weight
+copies calls had to make (`weight_route`; a packed stream whose N or
+address is off the alignment, padded, counts one too).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_matmul import (_pad_to, check_operands,
-                                              dequant, int_matmul_exact)
-from repro_torch.kernels.ternary_packed import unpack_ternary
+from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.kernels.quant_matmul import (K_ALIGN, _aligned, _pad_to,
+                                              check_operands, dequant,
+                                              int_matmul_exact,
+                                              k_major_weight)
+from repro_torch.kernels.ternary_packed import (n_align, packed_stream,
+                                                unpack_ternary)
 
 
 def split_ternary_matmul_ref(x_q, w_q, w_t, sx, sw, boundary: int):
@@ -42,14 +52,38 @@ def split_ternary_plain(x_q, w_q, w_packed, sx, sw, boundary: int):
     return split_ternary_matmul_ref(x_q, w_q, w_t, sx, sw, boundary)
 
 
+def weight_route(shape, strides, m, aligned=True) -> str:
+    """How `split_ternary` hands a ``(K, N)`` ``w_q`` of these strides to
+    the kernel at M = ``m`` (``"k_major"``, ``"pad"`` or ``"transpose"``,
+    as `quant_matmul.weight_route`), N aligned to `n_align` (m)."""
+    return _qm.weight_route(shape, strides, aligned, n_align(m))
+
+
+def kernel_operands(x_q, w_q, w_packed, sw):
+    """The operands the kernel takes, on any device: x_q with K padded to
+    `K_ALIGN`, ``w_q`` as the K-major ``(N_pad, K_pad)`` codes, the packed
+    stream and ``sw`` with N padded to `n_align` (M) (zeros); copies of a
+    weight are counted in ``split_ternary.transposed_copies``."""
+    m = x_q.shape[0]
+    na = n_align(m)
+    wk = k_major_weight(w_q, split_ternary, na)
+    wp, copied = packed_stream(w_packed, na)
+    split_ternary.transposed_copies += copied
+    xq = _aligned(_pad_to(x_q, K_ALIGN, 1), 16)
+    swp = _aligned(_pad_to(sw, na, 0), 16)
+    return xq, wk, wp, swp
+
+
 def split_ternary(x_q, w_q, w_packed, sx, sw, boundary: int):
-    """x_q (M, K) int8; w_q (K, N) int8 codes; w_packed (ceil(K/4), N)
-    uint8 (rows past K hold code 0); sx one-element f32; sw (N,) f32;
-    boundary: first column read from the packed stream."""
+    """x_q (M, K) int8; w_q (K, N) int8 codes (any strides; the transposed
+    view of a contiguous (N, K) tensor goes to the kernel without a copy);
+    w_packed (ceil(K/4), N) uint8 (rows past K hold code 0); sx one-element
+    f32; sw (N,) f32; boundary: first column read from the packed
+    stream."""
     m, k, n = check_operands(x_q, w_q, sx, sw)
-    k4 = 4 * w_packed.shape[0]
+    kp = w_packed.shape[0]
     if w_packed.dtype != torch.uint8 or w_packed.dim() != 2 or \
-            w_packed.shape[1] != n or not k <= k4 <= k + 3:
+            w_packed.shape[1] != n or not k <= 4 * kp <= k + 3:
         raise ValueError(f"w_packed {tuple(w_packed.shape)} "
                          f"{w_packed.dtype} does not pack w_q "
                          f"{tuple(w_q.shape)}")
@@ -61,20 +95,19 @@ def split_ternary(x_q, w_q, w_packed, sx, sw, boundary: int):
         raise ValueError(f"no split_ternary kernel for {x_q.device}")
     if w_packed.device != x_q.device:
         raise ValueError(f"operands on {x_q.device} and {w_packed.device}")
-    xq = _pad_to(x_q, 4, 1).contiguous()
-    wq = _pad_to(_pad_to(w_q, 4, 0), 4, 1).contiguous()
-    wp = _pad_to(w_packed, 4, 1).contiguous()
-    swp = _pad_to(sw, 4, 0).contiguous()
+    xq, wk, wp, swp = kernel_operands(x_q, w_q, w_packed, sw)
     sxc = sx.reshape(1).contiguous()
-    n4 = wq.shape[1]
-    out = torch.empty((m, n4), dtype=torch.float32, device=x_q.device)
+    n_pad = wk.shape[0]
+    out = torch.empty((m, n_pad), dtype=torch.float32, device=x_q.device)
     if m:
-        _build.launch("split_ternary", xq.data_ptr(), wq.data_ptr(),
+        _build.launch("split_ternary", xq.data_ptr(), wk.data_ptr(),
                       wp.data_ptr(), sxc.data_ptr(), swp.data_ptr(),
-                      out.data_ptr(), m, n4, k4, int(boundary),
+                      out.data_ptr(), m, n_pad, wk.shape[1], kp,
+                      int(boundary),
                       torch.cuda.current_stream(x_q.device).cuda_stream)
         split_ternary.launches += 1
-    return out[:, :n] if n4 != n else out
+    return out[:, :n] if n_pad != n else out
 
 
 split_ternary.launches = 0
+split_ternary.transposed_copies = 0

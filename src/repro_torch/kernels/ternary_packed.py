@@ -11,22 +11,43 @@ The CUDA kernel (``csrc/ternary_packed.cu``, sm_90a) replaces the Pallas
 TPU kernel ``ternary_packed_matmul`` of ``repro/kernels/ternary_packed.py``.
 What bounds it on an H100: the packed weight stream at decode (K/4 * N
 bytes, 4x fewer than ``ternary_matmul``'s int8 codes), int8 operations at
-prefill.  It is the ``__dp4a`` GEMM of ``csrc/int8_gemm.cuh`` with the
-packed loader of ``split_ternary``: each packed byte unpacks in registers
-into one ``__dp4a`` operand, nothing is unpacked to global memory, and the
-output is bit-identical to `ternary_packed_plain`.
+prefill.  At M <= 16 it is the ``__dp4a`` GEMM of ``csrc/int8_gemm.cuh``
+with the packed loader of ``split_ternary``, each packed byte unpacked in
+registers into one operand; above that the int8 ``wgmma`` GEMM of
+``csrc/int8_wgmma.cuh``, TMA loading the stream as it is stored and the
+consumer warpgroups unpacking it in shared memory.  Nothing is unpacked to
+global memory, and the output is bit-identical to `ternary_packed_plain`.
 
 `ternary_packed_matmul` launches the kernel for CUDA tensors and runs
 `ternary_packed_plain` only for CPU tensors.
-``ternary_packed_matmul.launches`` counts kernel launches.
+``ternary_packed_matmul.launches`` counts kernel launches,
+``ternary_packed_matmul.padded_copies`` the calls that copied the stream
+to pad its N or align its address (`packed_stream`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_matmul import (_pad_to, check_epilogue,
+from repro_torch.kernels.quant_matmul import (K_ALIGN, _aligned, _pad_to,
+                                              check_epilogue,
                                               quant_matmul_plain)
+
+
+def n_align(m: int) -> int:
+    """The multiple of N the packed kernels take at M = ``m``: 16 for the
+    wgmma GEMM (M > 16; a TMA row stride of the stream is a multiple of 16
+    bytes), 4 for the dp4a GEMM (its 4-byte loads)."""
+    return 16 if m > 16 else 4
+
+
+def packed_stream(w_packed: torch.Tensor, align: int):
+    """(``w_packed`` as the kernels read it: contiguous, 16-byte aligned, N
+    zero-padded to ``align``; whether that took a copy)."""
+    if w_packed.is_contiguous() and w_packed.shape[1] % align == 0 and \
+            w_packed.data_ptr() % 16 == 0:
+        return w_packed, False
+    return _aligned(_pad_to(w_packed, align, 1), 16), True
 
 
 def pack_ternary(w_t: torch.Tensor) -> torch.Tensor:
@@ -52,11 +73,21 @@ def ternary_packed_plain(x_q, w_packed, sx, sw):
                               sx, sw)
 
 
+def kernel_operands(x_q, w_packed, sw):
+    """The operands the kernel takes, on any device: x_q with K padded to
+    `K_ALIGN`, the packed stream and ``sw`` with N padded to `n_align` (M)
+    (zeros; a copy of the stream is counted)."""
+    na = n_align(x_q.shape[0])
+    wp, copied = packed_stream(w_packed, na)
+    ternary_packed_matmul.padded_copies += copied
+    return (_aligned(_pad_to(x_q, K_ALIGN, 1), 16), wp,
+            _aligned(_pad_to(sw, na, 0), 16))
+
+
 def ternary_packed_matmul(x_q, w_packed, sx, sw):
     """x_q (M, K) int8; w_packed (ceil(K/4), N) uint8 (rows past K hold
     code 0); sx one-element f32; sw (N,) f32 -> (M, N) f32.  K is
-    zero-padded to the packed rows and N to a multiple of 4 for the
-    kernel's 4-byte loads."""
+    zero-padded to `K_ALIGN` and N to `n_align` (M) for the kernel."""
     m, k = x_q.shape
     if w_packed.dtype != torch.uint8 or w_packed.dim() != 2:
         raise TypeError(f"w_packed must be 2-d uint8, got "
@@ -71,19 +102,18 @@ def ternary_packed_matmul(x_q, w_packed, sx, sw):
         return ternary_packed_plain(x_q, w_packed, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"no ternary_packed kernel for {x_q.device}")
-    xq = _pad_to(x_q, 4, 1).contiguous()
-    wp = _pad_to(w_packed, 4, 1).contiguous()
-    swp = _pad_to(sw, 4, 0).contiguous()
+    xq, wp, swp = kernel_operands(x_q, w_packed, sw)
     sxc = sx.reshape(1).contiguous()
-    n4 = wp.shape[1]
-    out = torch.empty((m, n4), dtype=torch.float32, device=x_q.device)
+    n_pad = wp.shape[1]
+    out = torch.empty((m, n_pad), dtype=torch.float32, device=x_q.device)
     if m:
         _build.launch("ternary_packed", xq.data_ptr(), wp.data_ptr(),
                       sxc.data_ptr(), swp.data_ptr(), out.data_ptr(),
-                      m, n4, 4 * kp, torch.cuda.current_stream(
+                      m, n_pad, xq.shape[1], kp, torch.cuda.current_stream(
                           x_q.device).cuda_stream)
         ternary_packed_matmul.launches += 1
-    return out[:, :n] if n4 != n else out
+    return out[:, :n] if n_pad != n else out
 
 
 ternary_packed_matmul.launches = 0
+ternary_packed_matmul.padded_copies = 0

@@ -138,13 +138,13 @@ def prepare_layer(lp: LayerPlan, w, b=None,
                                     domain_bits)
         if lp.kernel == KERNEL_SPLIT:
             w_bf16 = w_perm.to(torch.bfloat16)
-        elif lp.kernel == KERNEL_QUANT:
-            # the quant_matmul kernel reads its weight K-major: one (N, K)
-            # copy, held as its (K, N) transposed view
-            w_q = w_q.t().contiguous().t()
         w_perm = None          # the quantized kernels never read it
     if lp.kernel == KERNEL_SPLIT_TERNARY:
         w_t_packed = _pack_ternary_stream(lp, w_q)
+    if lp.kernel in (KERNEL_QUANT, KERNEL_SPLIT_TERNARY):
+        # the quant_matmul and split_ternary kernels read their int8 codes
+        # K-major: one (N, K) copy, held as its (K, N) transposed view
+        w_q = w_q.t().contiguous().t()
     if lp.act_log_scale is not None:
         act_scale = torch.tensor(np.exp(lp.act_log_scale),
                                  dtype=torch.float32, device=dev)

@@ -67,8 +67,9 @@ QUANT_SHAPES = SHAPES + [(17, 4096, 1000), (100, 1000, 4100),
 @pytest.mark.parametrize("layout", ["row_major", "k_major"])
 @pytest.mark.parametrize("m,k,n", QUANT_SHAPES)
 def test_quant_matmul_kernel_bit_exact(cuda, m, k, n, layout):
-    """Both weight layouts bit for bit; only the row-major one is copied
-    into the kernel's K-major layout (one counted copy per call)."""
+    """Both weight layouts bit for bit; the row-major one is copied into
+    the kernel's K-major layout, a K-major one with K off the multiple of
+    16 copied zero-padded (one counted copy per call either way)."""
     x, w, _, sx, sw = _operands(m, k, n, 0, cuda)
     if layout == "k_major":
         w = w.t().contiguous().t()
@@ -77,13 +78,28 @@ def test_quant_matmul_kernel_bit_exact(cuda, m, k, n, layout):
     got = quant_matmul(x, w, sx, sw)
     torch.cuda.synchronize()
     assert quant_matmul.launches == before + 1
-    assert quant_matmul.transposed_copies == copies + (layout == "row_major")
+    assert quant_matmul.transposed_copies == copies + (
+        layout == "row_major" or k % 16 != 0)
     assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
 
 
-@pytest.mark.parametrize("m,k,n", SHAPES)
+#: SHAPES plus the wgmma GEMM's M (17, 100, 300, 512) at N 1000 (padded to
+#: 1008) and K 1000 (padded to 1008)
+PACKED_SHAPES = SHAPES + [(17, 4096, 1000), (100, 1000, 512),
+                          (300, 4096, 1000), (512, 4096, 512),
+                          (512, 1000, 1000)]
+
+
+@pytest.mark.parametrize("layout", ["row_major", "k_major"])
+@pytest.mark.parametrize("m,k,n", PACKED_SHAPES)
 @pytest.mark.parametrize("where", ["zero", "raw", "aligned", "all"])
-def test_split_ternary_kernel_bit_exact(cuda, m, k, n, where):
+def test_split_ternary_kernel_bit_exact(cuda, m, k, n, where, layout):
+    """Both layouts of w_q bit for bit, with the split probes: w_q holds 99
+    at and above the boundary, the packed stream 0xFF (a 2 in every 2-bit
+    field) below it, and neither may reach the output.  A copy of w_q
+    (row-major, or K or N off the kernel's alignment) or of the stream (N
+    off it) is counted once per copied weight."""
+    from repro_torch.kernels.split_ternary import weight_route
     x, w, t, sx, sw = _operands(m, k, n, 1, cuda)
     raw = min(7, n)
     boundary = {"zero": 0, "raw": raw, "all": n,
@@ -94,16 +110,22 @@ def test_split_ternary_kernel_bit_exact(cuda, m, k, n, where):
     w_t = torch.nn.functional.pad(torch.where(cols >= boundary, t, 0),
                                   (0, 0, 0, k4 - k))
     w_p = pack_ternary(w_t)
-    x4 = torch.nn.functional.pad(x, (0, k4 - k))
-    w_q4 = torch.nn.functional.pad(w_q, (0, 0, 0, k4 - k))
-    # columns read from the packed stream hold garbage in w_q: the kernel
-    # must not read them
-    probe = torch.where(cols < boundary, w_q4, 99)
+    # columns read from the packed stream hold garbage in w_q, columns
+    # read from w_q garbage in the stream: the kernel must read neither
+    probe = torch.where(cols < boundary, w_q, 99).to(torch.int8)
+    probe_p = torch.where(cols < boundary, 0xFF, w_p).to(torch.uint8)
+    if layout == "k_major":
+        probe = probe.t().contiguous().t()
+    align = 16 if m > 16 else 4
+    route = weight_route(tuple(probe.shape), probe.stride(), m)
+    copies = (route != "k_major") + (n % align != 0)
     before = split_ternary.launches
-    got = split_ternary(x4, probe, w_p, sx, sw, boundary)
+    copied = split_ternary.transposed_copies
+    got = split_ternary(x, probe, probe_p, sx, sw, boundary)
     torch.cuda.synchronize()
     assert split_ternary.launches == before + 1
-    want = split_ternary_plain(x4, w_q4, w_p, sx, sw, boundary)
+    assert split_ternary.transposed_copies == copied + copies
+    want = split_ternary_plain(x, w_q, w_p, sx, sw, boundary)
     assert torch.equal(got, want)
 
 
@@ -158,15 +180,18 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
                         w.to(torch.bfloat16), w, sw, 0)
 
 
-@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("m,k,n", PACKED_SHAPES)
 def test_ternary_packed_kernel_bit_exact(cuda, m, k, n):
     x, _, t, sx, sw = _operands(m, k, n, 6, cuda)
     k4 = -(-k // 4) * 4
     w_p = pack_ternary(torch.nn.functional.pad(t, (0, 0, 0, k4 - k)))
     before = ternary_packed_matmul.launches
+    copied = ternary_packed_matmul.padded_copies
     got = ops.ternary_packed_matmul_op(x, w_p, sx, sw)
     torch.cuda.synchronize()
     assert ternary_packed_matmul.launches == before + 1
+    assert ternary_packed_matmul.padded_copies == copied + (
+        n % (16 if m > 16 else 4) != 0)
     assert torch.equal(got, ternary_packed_plain(x, w_p, sx, sw))
 
 

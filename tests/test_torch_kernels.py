@@ -120,6 +120,33 @@ def test_split_ternary_reads_packed_stream_above_boundary():
     assert torch.equal(got, clean)
 
 
+@pytest.mark.parametrize("m", [3, 20])
+@pytest.mark.parametrize("n", [130, 200])
+@pytest.mark.parametrize("where", ["zero", "raw7", "all"])
+def test_split_ternary_kernel_operands_match_jax(m, n, where):
+    """The operands the wrapper hands the kernel at N off 16 (x and the
+    K-major codes with K padded to 16, both streams and sw with N padded to
+    16 for the wgmma GEMM at M 20, to 4 for the dp4a one at M 3), through
+    the plain version's arithmetic, give the JAX op's output bit for bit on
+    the first N columns."""
+    from repro_torch.kernels import split_ternary as st
+    from repro_torch.kernels.quant_matmul import _pad_to
+    boundary = {"zero": 0, "raw7": 7, "all": n}[where]
+    k = 37
+    x, w_q, w_t4, sx, sw = _operands(m, k, n, boundary, 5)
+    w_p = np.asarray(jpacked.pack_ternary(jnp.asarray(w_t4)))
+    want = np.asarray(jops.split_ternary_op(x, w_q, w_p, jnp.float32(sx),
+                                            sw, boundary))
+    xq, wk, wp, swp = st.kernel_operands(_t(x), _t(w_q), _t(w_p), _t(sw))
+    n_pad = -(-n // (16 if m > 16 else 4)) * (16 if m > 16 else 4)
+    assert tuple(xq.shape) == (m, 48) and tuple(wk.shape) == (n_pad, 48)
+    assert tuple(wp.shape) == (10, n_pad) and tuple(swp.shape) == (n_pad,)
+    b_al = min(ops.align_boundary(boundary, ops.block_n(128, n)), n)
+    w_t = _pad_to(unpack_ternary(wp), 16, 0)    # rows past 4 Kp: zero
+    got = ref.split_ternary_matmul_ref(xq, wk.t(), w_t, _t(sx), swp, b_al)
+    np.testing.assert_array_equal(got[:, :n].numpy(), want)
+
+
 @pytest.mark.parametrize("k,n", [(4, 1), (36, 130), (64, 7)])
 def test_pack_ternary_bit_identical_to_jax(k, n):
     rng = np.random.default_rng(k * n)

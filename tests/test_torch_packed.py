@@ -11,8 +11,11 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ternary_packed as jpacked  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    quant_matmul_plain)
 from repro_torch.kernels.ternary_matmul import (  # noqa: E402
     ternary_matmul_plain)
 from repro_torch.kernels.ternary_packed import (  # noqa: E402
@@ -74,6 +77,46 @@ def test_ragged_shapes_match_ternary_matmul_on_unpacked_codes(m, k, n):
     assert torch.equal(got, want)
     assert torch.equal(ternary_packed_plain(_t(x), w_p, _t(sx), _t(sw)),
                        want)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 37, 130), (20, 37, 130),
+                                   (40, 64, 200), (17, 100, 8)])
+def test_kernel_operands_match_jax_oracle(m, k, n):
+    """The operands the wrapper hands the kernel at N off 16 (x with K
+    padded to 16; the stream and sw with N padded to 16 for the wgmma GEMM
+    at M > 16, to 4 for the dp4a one), through the plain version's
+    arithmetic, give the JAX oracle's output bit for bit on the first N
+    columns; padding the stream counts one copy."""
+    from repro_torch.kernels import ternary_packed as tp
+    from repro_torch.kernels.quant_matmul import _pad_to
+    x, w_t, sx, sw = _operands(m, k, n, 3 * m + k)
+    w_p = np.asarray(jpacked.pack_ternary(jnp.asarray(w_t)))
+    # the Pallas kernel takes only whole blocks: at these shapes the JAX
+    # package's oracle on its own unpacking of the stream is the reference
+    want = np.asarray(jref.ternary_matmul_ref(
+        jnp.asarray(x), jpacked.unpack_ternary(jnp.asarray(w_p))[:k],
+        jnp.float32(sx), jnp.asarray(sw)))
+    before = tp.ternary_packed_matmul.padded_copies
+    xq, wp, swp = tp.kernel_operands(_t(x), _t(w_p), _t(sw))
+    align = 16 if m > 16 else 4
+    n_pad = -(-n // align) * align
+    assert tp.ternary_packed_matmul.padded_copies == before + (n_pad != n)
+    assert tuple(xq.shape) == (m, -(-k // 16) * 16)
+    assert tuple(wp.shape) == (w_p.shape[0], n_pad)
+    assert tuple(swp.shape) == (n_pad,) and not swp[n:].any()
+    w_u = _pad_to(unpack_ternary(wp), 16, 0)     # rows past 4 Kp: zero
+    got = quant_matmul_plain(xq, w_u, _t(sx), swp)
+    np.testing.assert_array_equal(got[:, :n].numpy(), want)
+
+
+def test_packed_stream_copies_only_off_alignment():
+    from repro_torch.kernels.ternary_packed import packed_stream
+    w_p = torch.zeros((4, 32), dtype=torch.uint8)
+    assert packed_stream(w_p, 16) == (w_p, False)
+    got, copied = packed_stream(w_p[:, :20], 4)       # strided view
+    assert copied and got.is_contiguous() and tuple(got.shape) == (4, 20)
+    got, copied = packed_stream(w_p[:, :20], 16)      # N 20 -> 32
+    assert copied and tuple(got.shape) == (4, 32)
 
 
 def test_rejects_bad_operands():

@@ -460,28 +460,30 @@ def test_v1_plan_json_from_jax_loads(model, artifacts):
     ("gpu_tc_like", "units/0/attn/wk@0", "split_precision", [8, 16])])
 def test_prepare_layer_lays_out_codes_per_kernel(model, artifacts, mappings,
                                                  key, layer, kernel, bits):
-    """The quant_matmul layers hold their codes as the (K, N) transposed
-    view of a contiguous (N, K) tensor, the layout the kernel reads (one
-    copy); the other kernels keep row-major codes.  Shape and values are
-    the JAX package's either way."""
+    """The quant_matmul and split_ternary layers hold their codes as the
+    (K, N) transposed view of a contiguous (N, K) tensor, the layout their
+    kernels read (one copy); the other kernels keep row-major codes.  Shape
+    and values are the JAX package's either way."""
     doc = artifacts[0] if key == "diana" else mappings[key][0]
     tuning = BN16 if key == "gpu_tc_like" else None
     jprep, prep, lp = _prepared_pair(model, doc, layer, bits, tuning)
     assert lp.kernel == kernel
     k, n = lp.c_in, lp.c_out
     assert tuple(prep.w_q.shape) == (k, n) and prep.w_q.dtype == torch.int8
-    if kernel == "quant_matmul":
+    if kernel in ("quant_matmul", "split_ternary"):
         assert prep.w_q.stride() == (1, k) and prep.w_q.t().is_contiguous()
     else:
         assert prep.w_q.stride() == (n, 1)
     np.testing.assert_array_equal(prep.w_q.numpy(), np.asarray(jprep.w_q))
 
 
-def test_planned_backend_binds_quant_layers_k_major(tmp_path):
-    """Every quant_matmul layer of a bound diana plan (stacked or not) is
-    K-major, and the planned reduced yi-9b (float32 parameters, int8 KV
-    cache) still gives the JAX package's prefill logits within the 1e-4
-    that `test_torch_model.py` holds."""
+@pytest.fixture(scope="module")
+def bound_diana(tmp_path_factory):
+    """(plan, backend) of a bound diana plan of reduced yi-9b (float32
+    parameters, int8 KV cache), after checking that the planned prefill
+    logits equal the JAX package's within the 1e-4 that
+    `test_torch_model.py` holds."""
+    tmp_path = tmp_path_factory.mktemp("bound")
     from repro.models.managed import matmul_backend
     from repro_torch.models import _backend
     jcfgbase.load_all()
@@ -496,11 +498,6 @@ def test_planned_backend_binds_quant_layers_k_major(tmp_path):
                  max_cout=MAX_COUT, act_log_scale=2.0)
     plan = rt.lower(art.to_dict(), params=params)
     backend = rt.PlannedBackend(plan, params)
-    quant = [p for entry in backend._by_name.values()
-             for p in (entry if isinstance(entry, list) else [entry])
-             if p.plan.kernel == "quant_matmul"]
-    assert len(quant) == plan.kernel_histogram()["quant_matmul"] > 0
-    assert all(p.w_q.t().is_contiguous() for p in quant)
     jbackend = jrt.PlannedBackend(jrt.lower(art, params=jparams), jparams,
                                   reference=True)
     prompts = np.random.default_rng(5).integers(0, cfg.vocab, (2, 8),
@@ -512,6 +509,39 @@ def test_planned_backend_binds_quant_layers_k_major(tmp_path):
         tl, _ = T.prefill(params, cfg, torch.from_numpy(prompts).long(), tc)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=1e-4)
+    return plan, backend
+
+
+def _bound_layers(bound, kernel):
+    """The prepared layers of ``kernel`` (stacked or not) of `bound_diana`."""
+    plan, backend = bound
+    layers = [p for entry in backend._by_name.values()
+              for p in (entry if isinstance(entry, list) else [entry])
+              if p.plan.kernel == kernel]
+    assert len(layers) == plan.kernel_histogram()[kernel] > 0
+    return layers
+
+
+def test_planned_backend_binds_quant_layers_k_major(bound_diana):
+    """Every quant_matmul layer of a bound diana plan (stacked or not) is
+    K-major, and the planned reduced yi-9b (float32 parameters, int8 KV
+    cache) still gives the JAX package's prefill logits within the 1e-4
+    that `test_torch_model.py` holds."""
+    quant = _bound_layers(bound_diana, "quant_matmul")
+    assert all(p.w_q.t().is_contiguous() for p in quant)
+
+
+def test_planned_backend_binds_split_ternary_layers_k_major(bound_diana):
+    """Every split_ternary layer of a bound diana plan holds its codes as
+    the (K, N) transposed view of a contiguous (N, K) tensor (strides
+    (1, K)) beside its row-major packed stream, and the planned prefill
+    logits stay the JAX package's."""
+    split = _bound_layers(bound_diana, "split_ternary")
+    for p in split:
+        k = p.plan.c_in
+        assert p.w_q.stride() == (1, k) and p.w_q.t().is_contiguous()
+        assert p.w_t_packed.is_contiguous()
+        assert tuple(p.w_t_packed.shape) == (-(-k // 4), p.plan.c_out)
 
 
 @pytest.mark.parametrize("shape,strides,aligned,route", [
@@ -548,3 +578,81 @@ def test_quant_matmul_k_major_copy_counts_transposes():
     assert qm.quant_matmul.transposed_copies == before + 1
     assert got.data_ptr() == col.data_ptr() and got.is_contiguous()
     assert tuple(got.shape) == (24, 48)
+
+
+@pytest.mark.parametrize("shape,strides,m,aligned,route", [
+    ((64, 512), (1, 64), 512, True, "k_major"),    # prepared, N % 16 == 0
+    ((64, 512), (512, 1), 512, True, "transpose"),  # row-major
+    ((64, 130), (1, 64), 4, False, "pad"),         # misaligned base
+    ((64, 132), (1, 64), 4, True, "k_major"),      # decode: N % 4 == 0
+    ((64, 132), (1, 64), 17, True, "pad"),         # wgmma: N % 16 != 0
+    ((60, 512), (1, 60), 512, True, "pad"),        # K % 16 != 0
+    ((64, 512), (1, 80), 300, True, "transpose"),  # rows with a gap
+    ((64, 1), (1, 1), 16, True, "pad")])           # one column, N % 4
+def test_split_ternary_weight_route_from_strides(shape, strides, m, aligned,
+                                                 route):
+    from repro_torch.kernels.split_ternary import weight_route
+    assert weight_route(shape, strides, m, aligned) == route
+
+
+@pytest.mark.parametrize("m", [4, 300])
+def test_split_ternary_kernel_operands_count_weight_copies(m):
+    """On CPU tensors: the prepared layout (K-major codes, N % 16 == 0)
+    reaches the kernel uncopied; a row-major w_q counts one copy; at N off
+    the alignment of M (16 for the wgmma GEMM, 4 at decode) both streams
+    are padded with zeros, one count each."""
+    from repro_torch.kernels import split_ternary as st
+    from repro_torch.kernels.ternary_packed import pack_ternary
+    rng = np.random.default_rng(m)
+    k = 40
+
+    def ops_for(n):
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+        w_p = pack_ternary(torch.from_numpy(
+            rng.integers(-1, 2, (k, n), dtype=np.int8)))
+        x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+        return x, w, w_p, torch.ones(n)
+
+    x, w, w_p, sw = ops_for(64)
+    col = w.t().contiguous().t()
+    before = st.split_ternary.transposed_copies
+    xq, wk, wp, swp = st.kernel_operands(x, col, w_p, sw)
+    assert st.split_ternary.transposed_copies == before + 1   # K 40 -> 48
+    assert tuple(xq.shape) == (m, 48) and tuple(wk.shape) == (64, 48)
+    assert wp.data_ptr() == w_p.data_ptr() and swp.data_ptr() == \
+        sw.data_ptr()
+    np.testing.assert_array_equal(wk[:, :k].numpy(), w.t().numpy())
+    assert not wk[:, k:].any() and not xq[:, k:].any()
+    x, w, w_p, sw = ops_for(48)
+    w48 = torch.from_numpy(rng.integers(-127, 128, (48, 48), dtype=np.int8))
+    x48 = torch.from_numpy(rng.integers(-127, 128, (m, 48), dtype=np.int8))
+    before = st.split_ternary.transposed_copies
+    got = st.kernel_operands(x48, w48.t().contiguous().t(),
+                             pack_ternary(w48.clamp(-1, 1)), sw)[1]
+    assert st.split_ternary.transposed_copies == before
+    st.kernel_operands(x48, w48, pack_ternary(w48.clamp(-1, 1)), sw)
+    assert st.split_ternary.transposed_copies == before + 1   # row-major
+    assert got.is_contiguous() and tuple(got.shape) == (48, 48)
+    x, w, w_p, sw = ops_for(12)
+    before = st.split_ternary.transposed_copies
+    xq, wk, wp, swp = st.kernel_operands(x, w, w_p, sw)
+    n_pad = 16 if m > 16 else 12
+    assert st.split_ternary.transposed_copies == before + 1 + (m > 16)
+    assert tuple(wk.shape) == (n_pad, 48) and tuple(wp.shape) == (10, n_pad)
+    assert tuple(swp.shape) == (n_pad,) and not swp[12:].any()
+    np.testing.assert_array_equal(wp[:, :12].numpy(), w_p.numpy())
+
+
+def test_quant_matmul_k_major_copy_counts_pads():
+    """A K-major weight whose K is off the multiple of 16 is copied
+    zero-padded, and that copy is counted as a transposed one is."""
+    from repro_torch.kernels import quant_matmul as qm
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(rng.integers(-127, 128, (24, 40), dtype=np.int8))
+    col = w.t()                           # (K 40, N 24), K-major
+    before = qm.quant_matmul.transposed_copies
+    got = qm._k_major(col)
+    assert qm.quant_matmul.transposed_copies == before + 1
+    assert tuple(got.shape) == (24, 48) and got.is_contiguous()
+    np.testing.assert_array_equal(got[:, :40].numpy(), w.numpy())
+    assert not got[:, 40:].any()
