@@ -9,11 +9,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 1. device: the card's name and power limit (nvidia-smi) and the torch
    version; no CUDA device is a failure, never a CPU run.
 2. build: the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   each, in parallel), ptxas's registers and spills of each kernel, and
-   the ``[sass]`` line: the count of Hopper's wgmma instructions in the
-   SASS of the four wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
+   each, in parallel), ptxas's registers and spills of each kernel, a
+   ``[ptxas]`` line per instantiation of the decode GEMM, and the
+   ``[sass]`` line: the count of Hopper's wgmma instructions in the SASS
+   of the five wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
    HGMMA in flash_attention, IGMMA in quant_matmul, split_ternary and
-   ternary_packed); a count of 0 or a spill in any fails.
+   ternary_packed, both in split_precision); a count of 0 or a spill in
+   any kernel fails.
 3. kernels vs their plain versions on the card at the serving paths'
    shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
    (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul,
@@ -28,32 +30,44 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    codes, and at the long prefill's M 12288 x (4096, 512); split_precision
    at raw boundaries {0, 7, 128, 342, N}, its int8 columns bit for bit and
    its bf16 columns within the float32 summation bound ``K * 2**-24 *
-   sum_k |x w| + 2**-24 * |y|``.  Split probes: the split kernels get
-   garbage in the int8 codes at and above the boundary (split_ternary also
-   0xFF in its packed bytes below it, split_precision NaN in its bf16
-   weights below it), which must not reach the output.  flash_attention at
-   yi-9b's head shapes (B 4, H 32, KVH 4, D 128): Sq = Sk in {128,
-   3072}, Sq 3072 against Sk 4096 with kv_len 3072, a ragged Sq 3000, and
-   one non-causal case whose keys the op pads (Sk 1000 to 1024), each within
-   `flash_error_bound` (the bf16 rounding of p and of the output, and the
-   float32 sums; stated in its docstring).  Then the entry point of
-   ternary_packed, which no serving path calls, is driven once at each of
-   the ten (M, K, N) with the launch counts read around that run.
-4. times (CUDA events, after warm-up) of each kernel, its plain version and
-   a library yardstick (torch._int_mm with the same epilogue, timed on the
+   sum_k |x w| + 2**-24 * |y|``, also at M {16, 17, 100, 300} on the
+   K-major codes.  The decode GEMM (M <= 16) of all five int8 kernels at M
+   {1, 2, 4, 8, 16} x the five (K, N) and (11008, 1000) on the layouts the
+   serving paths hold (split_ternary at every boundary above,
+   split_precision at every one of its own), and at K 1000, where the
+   K-major codes take the counted pad route.  Split probes: the split
+   kernels get garbage in the int8 codes at and above the boundary
+   (split_ternary also 0xFF in its packed bytes below it, split_precision
+   NaN in its bf16 weights below it), which must not reach the output.
+   flash_attention at yi-9b's head shapes (B 4, H 32, KVH 4, D 128): Sq =
+   Sk in {128, 3072}, Sq 3072 against Sk 4096 with kv_len 3072, a ragged
+   Sq 3000, and one non-causal case whose keys the op pads (Sk 1000 to
+   1024), each within `flash_error_bound` (the bf16 rounding of p and of
+   the output, and the float32 sums; stated in its docstring).  Then the
+   entry point of ternary_packed, which no serving path calls, is driven
+   once at each of the ten (M, K, N) with the launch counts read around
+   that run.
+4. times of each kernel and its library yardstick in ROUNDS = 5
+   interleaved rounds (kernel, library, kernel, library, ...; the median
+   and the range of each printed, share and the factor kernel / library
+   from the medians), each round the replay of a CUDA graph of the calls
+   between two CUDA events (device time without the host's time between
+   launches, which at decode shapes exceeds the kernels'; the eager,
+   host-paced time per call is printed beside it), and of its plain
+   version once (eager): the
+   yardstick is torch._int_mm with the same epilogue, timed on the
    row-major and on the column-major (K-major) int8 weight, the faster
-   taken; on the unpacked codes for ternary_packed; quant_matmul's and
-   split_ternary's kernel read the K-major codes of the serving paths; for
-   split_precision "two calls":
-   _int_mm on the int8 columns and a bf16 torch.matmul on the rest; for
-   flash_attention scaled_dot_product_attention with is_causal and
-   enable_gqa), beside the bound max(bytes / 3.35 TB/s, int8 ops / 1979
-   TOP/s + bf16 flops / 989 TFLOP/s) of the H100 SXM data sheet, at the M
-   each layer has on the path (the head projects only the last position:
-   M = B at prefill as at decode), the diana layers also at the long
-   prefill's M = 4 x 3072 = 12288, and, for flash_attention, at the long
-   prefill's call (q (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal,
-   kv_len 3072).
+   median taken; on the unpacked codes for ternary_packed; the int8
+   kernels read the K-major codes of the serving paths; for
+   split_precision "two calls": _int_mm on the int8 columns and a bf16
+   torch.matmul on the rest; for flash_attention
+   scaled_dot_product_attention with is_causal and enable_gqa.  Beside
+   the bound max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s + bf16 flops /
+   989 TFLOP/s) of the H100 SXM data sheet, at the M each layer has on
+   the path (the head projects only the last position: M = B at prefill
+   as at decode), the diana layers also at the long prefill's M = 4 x
+   3072 = 12288, and, for flash_attention, at the long prefill's call (q
+   (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal, kv_len 3072).
 5. serving: full-width 48-layer yi-9b with random weights from --seed
    (one set of params), mapped three ways and served with the fixed-batch
    greedy loop (4 requests x 128 prompt + 16 generated tokens), one bound
@@ -66,8 +80,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                     on the searchable layers: quant_matmul:241
                     ternary_matmul:96
    each at full coverage with launch counts = histogram x 16 forwards,
-   and no per-call copy of a weight (``quant_matmul.transposed_copies``,
-   ``split_ternary.transposed_copies`` and
+   and no per-call copy of a weight (the ``transposed_copies`` of
+   quant_matmul, split_ternary, ternary_matmul and split_precision and
    ``ternary_packed_matmul.padded_copies`` stay 0 on every serving path
    and in ternary_packed's entry-point run);
    then served again with the plain versions (``reference=True``, no
@@ -147,6 +161,15 @@ PACKED_LONG = (LONG_M, 4096, 512)
 RAW_BOUNDARIES = (7, 300)
 BOUNDARIES = [0, 7, 128, 300, None]      # split_ternary; None = N
 SP_BOUNDARIES = [0, 7, 128, 342, None]   # split_precision; None = N
+#: the decode GEMM (M <= 16) of the five int8 kernels, checked bit for bit
+#: at these M on the layouts the serving paths hold, at every served (K, N)
+#: and N 1000 off its column tiles; and its K-padding route at K 1000
+DECODE_MS = (1, 2, 4, 8, 16)
+DECODE_KN = KN_SHAPES + [(11008, 1000)]
+PAD_KN = (1000, 1000)
+#: split_precision also at these M (its decode GEMM at 16, its wgmma GEMM
+#: above), on the K-major codes, beside M_SHAPES
+SP_MS = (16, 17, 100, 300)
 # flash_attention checks at yi-9b's heads (B, H, KVH, D) = (4, 32, 4,
 # 128): (Sq, Sk, causal, kv_len); the last one runs through the op, which
 # pads Sk to its 512-key block and masks the padded keys
@@ -174,9 +197,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, ops attribute)
                         "src/repro/kernels/flash_attention.py:81",
                         "flash_attention"),
 }
-#: the wgmma instruction each wgmma kernel's SASS must hold
-SASS_OPS = {"flash_attention": "HGMMA", "quant_matmul": "IGMMA",
-            "split_ternary": "IGMMA", "ternary_packed": "IGMMA"}
+#: the wgmma instructions each wgmma kernel's SASS must hold
+SASS_OPS = {"flash_attention": ("HGMMA",), "quant_matmul": ("IGMMA",),
+            "split_ternary": ("IGMMA",), "ternary_packed": ("IGMMA",),
+            "split_precision": ("IGMMA", "HGMMA")}
 # serving paths: platform, emission bias, kernel of wk / wv, raw boundary
 # of wk / wv (None: one domain)
 PATHS = {
@@ -222,39 +246,86 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_entries(log):
+    """[(entry function, registers, spill bytes)] of one ``nvcc -Xptxas -v``
+    report, in the order ptxas compiled them."""
+    import re
+    out, fn, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    return out
+
+
+def entry_name(mangled):
+    """A short name of a kernel entry: ``gemv<MT, Src>`` for the decode
+    GEMM's instantiations, else the mangled name's first 48 characters."""
+    import re
+    if "i8gemv4gemv" in mangled:
+        mt = re.search(r"gemvILi(\d+)E", mangled)
+        src = re.search(r"(KMajorCodes|PackedStream|SplitTernary|"
+                        r"SplitPrecision)", mangled)
+        return (f"gemv<{mt.group(1) if mt else '?'}, "
+                f"{src.group(1) if src else '?'}>")
+    return mangled[:48]
+
+
 def phase_sass(torch):
     """The ``[sass]`` line: Hopper's wgmma instructions in the SASS of the
-    flash_attention (HGMMA, bf16), quant_matmul, split_ternary and
-    ternary_packed (IGMMA, int8) libraries as built, with ptxas's registers
-    and spills of their kernels; fails if an instruction count is 0 or a
-    kernel spills."""
-    import re
+    wgmma kernels' libraries as built (HGMMA in flash_attention, IGMMA in
+    quant_matmul, split_ternary and ternary_packed, both in
+    split_precision), with ptxas's registers and spills of their kernels,
+    and a ``[ptxas]`` line per decode GEMM instantiation (registers,
+    spills); fails if an instruction count is 0 or any kernel of any
+    library spills."""
     import shutil
     from repro_torch.kernels import _build
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    paths = _build.build_all(SASS_OPS)
-    parts, counts = [], {}
-    for kernel, op in SASS_OPS.items():
+    paths = _build.build_all(tuple(KERNELS))
+    parts, counts, spilled = [], {}, []
+    for kernel in KERNELS:
+        entries = ptxas_entries(_build.PTXAS_REPORT.get(kernel, ""))
+        spilled += [(kernel, entry_name(f), b) for f, _, b in entries if b]
+        for fn, regs, spill in entries:
+            if "i8gemv4gemv" in fn:
+                print(f"[ptxas] {kernel:<15s} {entry_name(fn):<28s} "
+                      f"registers {regs}, spill bytes {spill}")
+        if kernel not in SASS_OPS:
+            continue
         sass = subprocess.run([cuobjdump, "-sass", str(paths[kernel])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        counts[kernel] = sass.count(op + ".")
-        log = _build.PTXAS_REPORT.get(kernel, "")
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = [int(a) + int(b) for a, b in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-        parts.append(f"{kernel} {op} {counts[kernel]} (ptxas: registers "
-                     f"{'/'.join(regs) or 'not rebuilt'} per kernel, spill "
-                     f"bytes {sum(spills)})")
-        if counts[kernel] == 0 or any(spills):
-            raise AssertionError(f"{kernel}: {counts[kernel]} {op} in the "
-                                 f"SASS, spill bytes {spills}")
+        counts[kernel] = {op: sass.count(op + ".") for op in SASS_OPS[kernel]}
+        parts.append(f"{kernel} " + " ".join(
+            f"{op} {n}" for op, n in counts[kernel].items()) +
+            f" (ptxas: registers "
+            f"{'/'.join(str(r) for _, r, _ in entries) or 'not rebuilt'} "
+            f"per kernel, spill bytes {sum(b for _, _, b in entries)})")
+        if not all(counts[kernel].values()):
+            raise AssertionError(f"{kernel}: {counts[kernel]} in the SASS")
     print("[sass] " + "; ".join(parts))
+    if spilled:
+        raise AssertionError(f"kernels spill: {spilled}")
     return counts
 
 
+#: phase 4 times each kernel and its yardstick in this many interleaved
+#: rounds (kernel, library, kernel, library, ...) and keeps the medians
+ROUNDS = 5
+
+
 def cuda_ms(fn, iters):
-    """Mean ms of ``fn()`` over ``iters`` launches, after 3 warm-up calls."""
+    """Mean ms of ``fn()`` over ``iters`` launches, after 3 warm-up calls
+    (eager: the host's time between launches included)."""
     import torch
     for _ in range(3):
         fn()
@@ -267,6 +338,63 @@ def cuda_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_timer(fn, calls):
+    """``(timer, graph)``: ``calls`` calls of ``fn`` captured as one CUDA
+    graph (after two warm-up calls); ``timer()`` replays it between two
+    CUDA events and returns the ms per call -- the device time of the
+    calls' launches back to back, without the host's time between them,
+    which at small shapes exceeds the kernels' (the eager times).  The
+    warm-up runs on the current stream: PyTorch keeps a cuBLAS workspace
+    for every stream that runs a matmul, so a side stream per timer would
+    hold memory through the serving phases (their peak)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+
+    def timer():
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / calls
+    timer()
+    return timer, graph
+
+
+def graph_rounds(fns, calls):
+    """``{name: [ms per call of each round]}``: each ``fns[name]`` captured
+    once (`graph_timer`), then ROUNDS rounds replaying every graph in turn
+    (kernel, library, kernel, library, ...)."""
+    timers = {name: graph_timer(fn, calls) for name, fn in fns.items()}
+    out = {name: [] for name in fns}
+    for _ in range(ROUNDS):
+        for name, (timer, _) in timers.items():
+            out[name].append(timer())
+    del timers
+    return out
+
+
+def median(xs):
+    ys = sorted(xs)
+    return ys[len(ys) // 2] if len(ys) % 2 else \
+        (ys[len(ys) // 2 - 1] + ys[len(ys) // 2]) / 2
+
+
+def spread(rec, key, xs):
+    """rec[key] = the median of ``xs``; its range under the key with "ms"
+    replaced by "min_ms" / "max_ms"."""
+    pre = key[:-len("ms")]
+    rec[key] = median(xs)
+    rec[pre + "min_ms"], rec[pre + "max_ms"] = min(xs), max(xs)
 
 
 def operands(m, k, n, raw_boundary, gen):
@@ -429,6 +557,44 @@ def phase_kernels(torch, gen):
               ternary_packed_plain(x, w_p, sx, sw),
               f"M={m:<5d} K={k:<6d} N={n:<6d}", quiet)
 
+    def split_precision_check(m, k, n, raw, layout, quiet=False):
+        """split_precision through the op (boundary aligned to the N-block)
+        with the split probe (w_q 99 at and above the aligned boundary,
+        w_bf16 NaN below it): int8 columns bit for bit, bf16 columns within
+        the summation bound."""
+        shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
+        acts, (w_b, w_q), (p_b, p_q), sw, b_al = \
+            split_precision_case(torch, m, k, n, raw, gen)
+        if layout == "K-major":
+            p_q = p_q.t().contiguous().t()
+        got = ops.split_precision_op(*acts, p_b, p_q, sw, raw)
+        want = split_precision_plain(*acts, w_b, w_q, sw, b_al)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, :b_al], want[:, :b_al]):
+            raise AssertionError(
+                f"split_precision {shape} {layout} boundary={raw}: int8 "
+                f"columns differ")
+        err = (got[:, b_al:].double() - want[:, b_al:].double()).abs()
+        bound = bf16_error_bound(acts[0], w_b[:, b_al:], want[:, b_al:])
+        ratio = (float((err / bound.clamp_min(1e-300)).max())
+                 if err.numel() else 0.0)
+        worst["split_precision"] = max(
+            worst["split_precision"],
+            float(err.max()) if err.numel() else 0.0)
+        if not bool((err <= bound).all()):
+            raise AssertionError(
+                f"split_precision {shape} {layout} boundary={raw}: bf16 "
+                f"columns outside the summation bound (worst error / bound "
+                f"{ratio:.3g})")
+        if not quiet:
+            print(f"[kernels] split_precision {shape} boundary="
+                  f"{raw:<5d} (aligned {b_al}) int8 columns "
+                  f"bit-identical, bf16 columns max |err| "
+                  f"{float(err.max()) if err.numel() else 0.0:.3g} = "
+                  f"{ratio:.3g} of the bound; w_q garbage at cols >= "
+                  f"{b_al}, w_bf16 NaN below")
+        return ratio
+
     def quant_both_layouts(m, k, n):
         shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
         x, w_q, _, sx, sw = operands(m, k, n, n, gen)
@@ -451,35 +617,8 @@ def phase_kernels(torch, gen):
                 split_probes(m, k, n, n if b is None else min(b, n),
                              "row-major")
             for b in SP_BOUNDARIES:
-                raw = n if b is None else min(b, n)
-                acts, (w_b, w_q), (p_b, p_q), sw, b_al = \
-                    split_precision_case(torch, m, k, n, raw, gen)
-                got = ops.split_precision_op(*acts, p_b, p_q, sw, raw)
-                want = split_precision_plain(*acts, w_b, w_q, sw, b_al)
-                torch.cuda.synchronize()
-                if not torch.equal(got[:, :b_al], want[:, :b_al]):
-                    raise AssertionError(
-                        f"split_precision {shape} boundary={raw}: int8 "
-                        f"columns differ")
-                err = (got[:, b_al:].double() - want[:, b_al:].double()).abs()
-                bound = bf16_error_bound(acts[0], w_b[:, b_al:],
-                                         want[:, b_al:])
-                ratio = (float((err / bound.clamp_min(1e-300)).max())
-                         if err.numel() else 0.0)
-                worst["split_precision"] = max(
-                    worst["split_precision"],
-                    float(err.max()) if err.numel() else 0.0)
-                if not bool((err <= bound).all()):
-                    raise AssertionError(
-                        f"split_precision {shape} boundary={raw}: bf16 "
-                        f"columns outside the summation bound (worst "
-                        f"error / bound {ratio:.3g})")
-                print(f"[kernels] split_precision {shape} boundary="
-                      f"{raw:<5d} (aligned {b_al}) int8 columns "
-                      f"bit-identical, bf16 columns max |err| "
-                      f"{float(err.max()) if err.numel() else 0.0:.3g} = "
-                      f"{ratio:.3g} of the bound; w_q garbage at cols >= "
-                      f"{b_al}, w_bf16 NaN below")
+                split_precision_check(m, k, n, n if b is None else min(b, n),
+                                      "row-major")
     for m in RAGGED_M:
         for k, n in RAGGED_KN:
             quant_both_layouts(m, k, n)
@@ -497,6 +636,70 @@ def phase_kernels(torch, gen):
                   f"ternary_packed and split_ternary (boundaries {raws}, "
                   f"aligned and raw {list(RAW_BOUNDARIES)}, both garbage "
                   f"probes) bit-identical")
+    # the decode GEMM of the five int8 kernels on the layouts the serving
+    # paths hold (K-major codes, the packed stream as stored)
+    for m in DECODE_MS:
+        for k, n in DECODE_KN:
+            shape = f"M={m} K={k} N={n} K-major"
+            x, w_q, w_p, sx, sw = operands(m, k, n, n, gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw), shape, quiet=True)
+            x, w_t, w_p, sx, sw = operands(m, k, n, 0, gen)
+            exact("ternary_matmul", ops.ternary_matmul_op(
+                x, w_t.t().contiguous().t(), sx, sw),
+                ternary_matmul_plain(x, w_t, sx, sw), shape, quiet=True)
+            packed_case(m, k, n, quiet=True)
+            raws = [n if b is None else min(b, n) for b in BOUNDARIES]
+            for raw in raws:
+                split_probes(m, k, n, raw, "K-major", quiet=True)
+            ratio = max(split_precision_check(
+                m, k, n, n if b is None else min(b, n), "K-major", quiet=True)
+                for b in SP_BOUNDARIES)
+            print(f"[kernels] decode M={m:<3d} K={k:<6d} N={n:<6d}: "
+                  f"quant_matmul, ternary_matmul, ternary_packed, "
+                  f"split_ternary (boundaries {raws}, aligned and raw "
+                  f"{list(RAW_BOUNDARIES)}, both garbage probes) "
+                  f"bit-identical; split_precision int8 columns "
+                  f"bit-identical, bf16 columns at most {ratio:.3g} of the "
+                  f"bound (both probes)")
+    # K off 16: the K-major codes take the counted pad route (one copy)
+    m, (k, n) = DECODE_M, PAD_KN
+    reset_launches()
+    shape = f"M={m} K={k} N={n} K-major"
+    x, w_q, w_p, sx, sw = operands(m, k, n, 7, gen)
+    exact("quant_matmul", ops.quant_matmul_op(
+        x, w_q.t().contiguous().t(), sx, sw),
+        quant_matmul_plain(x, w_q, sx, sw), shape, quiet=True)
+    x, w_t, w_p, sx, sw = operands(m, k, n, 0, gen)
+    exact("ternary_matmul", ops.ternary_matmul_op(
+        x, w_t.t().contiguous().t(), sx, sw),
+        ternary_matmul_plain(x, w_t, sx, sw), shape, quiet=True)
+    packed_case(m, k, n, quiet=True)
+    split_probes(m, k, n, 7, "K-major", quiet=True)
+    split_precision_check(m, k, n, 7, "K-major", quiet=True)
+    copies = weight_copies()
+    want = {"quant_matmul.transposed_copies": 1,
+            "split_ternary.transposed_copies": 2,   # aligned and raw calls
+            "ternary_packed_matmul.padded_copies": 0,
+            "ternary_matmul.transposed_copies": 1,
+            "split_precision.transposed_copies": 2}  # w_q and w_bf16
+    if copies != want:
+        raise AssertionError(f"K {k}: weight copies {copies}, expected "
+                             f"{want}")
+    print(f"[kernels] decode M={m} K={k} N={n} (K off 16): the five kernels "
+          f"bit-identical (split_precision's bf16 columns within the "
+          f"bound), weight copies {copies}")
+    # split_precision at more M (16: decode GEMM; above: wgmma GEMM)
+    for m in SP_MS:
+        for k, n in KN_SHAPES:
+            raws = [n if b is None else min(b, n) for b in SP_BOUNDARIES]
+            ratio = max(split_precision_check(m, k, n, raw, "K-major",
+                                              quiet=True) for raw in raws)
+            print(f"[kernels] split_precision M={m:<4d} K={k:<6d} "
+                  f"N={n:<6d} K-major, boundaries {raws}: int8 columns "
+                  f"bit-identical, bf16 columns at most {ratio:.3g} of the "
+                  f"bound (both probes)")
     m, k, n = PACKED_LONG
     packed_case(m, k, n)
     for raw in (PATHS["diana"][3], 300):
@@ -586,8 +789,9 @@ def phase_times(torch, gen):
             x, x_q, sx = acts
             wbytes = k * b_al + 2 * k * (n - b_al)
             lo = w_q[:, :b_al].contiguous()
-            weights = (w_b, w_q, lo, w_b[:, b_al:].contiguous(),
-                       lo.t().contiguous().t())
+            # the kernel reads the K-major codes the layers hold
+            weights = (w_b, w_q.t().contiguous().t(), lo,
+                       w_b[:, b_al:].contiguous(), lo.t().contiguous().t())
             lib_int8 = (2, 4)     # int8 operand: row-major, K-major
             x_lib = pad_rows(x_q)
 
@@ -611,9 +815,9 @@ def phase_times(torch, gen):
                 else raw, gen)
             w_col = w_q.t().contiguous().t()
             # the library call reads the codes w[0] (row-major) or w[-1]
-            # (K-major); quant_matmul and split_ternary read w[-1] as the
-            # serving paths hold it (split_ternary beside the packed
-            # stream w[1]), ternary_matmul w[0], ternary_packed w[1]
+            # (K-major); quant_matmul, ternary_matmul and split_ternary read
+            # w[-1] as the serving paths hold it (split_ternary beside the
+            # packed stream w[1]), ternary_packed w[1]
             weights = (w_q, w_col)
             lib_int8 = (0, -1)
             x_lib = pad_rows(x)
@@ -641,7 +845,7 @@ def phase_times(torch, gen):
                     "quant_matmul": (ops.quant_matmul_op,
                                      quant_matmul_plain, -1),
                     "ternary_matmul": (ops.ternary_matmul_op,
-                                       ternary_matmul_plain, 0)}[kernel]
+                                       ternary_matmul_plain, -1)}[kernel]
 
                 def run(w, op=op, wi=wi):
                     return op(x, w[wi], sx, sw)
@@ -657,26 +861,75 @@ def phase_times(torch, gen):
         ring = [weights] + [tuple(t.clone() for t in weights)
                             for _ in range(copies - 1)]
         turn = itertools.cycle(ring)
-        rec = {"ms": cuda_ms(lambda: run(next(turn)), iters),
-               "plain_ms": cuda_ms(lambda: plain(next(turn)),
+        # a graph holds at least one call per weight copy: each replay
+        # streams its weights from device memory
+        rounds = graph_rounds(
+            {"ms": lambda: run(next(turn)),
+             "library_row_ms": lambda: lib(next(turn), lib_int8[0]),
+             "library_col_ms": lambda: lib(next(turn), lib_int8[1])},
+            max(iters, copies))
+        rec = {"plain_ms": cuda_ms(lambda: plain(next(turn)),
                                    max(3, iters // 5)),
-               "library_row_ms": cuda_ms(
-                   lambda: lib(next(turn), lib_int8[0]), iters),
-               "library_col_ms": cuda_ms(
-                   lambda: lib(next(turn), lib_int8[1]), iters)}
-        rec["library_ms"] = min(rec["library_row_ms"], rec["library_col_ms"])
+               "eager_ms": cuda_ms(lambda: run(next(turn)), iters)}
+        for key, xs in rounds.items():
+            spread(rec, key, xs)
+        lib_key = min(("library_row_ms", "library_col_ms"),
+                      key=lambda key: rec[key])
+        spread(rec, "library_ms", rounds[lib_key])
         rec["bound_ms"], rec["bound_by"] = bound
         times[kernel][(m, k, n)] = rec
         del ring, turn, weights
         lib_name = "two calls" if kernel == "split_precision" else "_int_mm"
         print(f"[times] {kernel:<15s} M={m:<5d} K={k:<6d} N={n:<6d} "
-              f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} "
-              f"ms  {lib_name} {rec['library_ms']:.4f} ms (int8 weight "
-              f"row-major {rec['library_row_ms']:.4f}, K-major "
-              f"{rec['library_col_ms']:.4f})  bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  share "
-              f"{rec['bound_ms'] / rec['ms']:.3f}")
+              f"kernel {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
+              f"{rec['max_ms']:.4f}; eager {rec['eager_ms']:.4f})  plain "
+              f"{rec['plain_ms']:.4f} ms  "
+              f"{lib_name} {rec['library_ms']:.4f} ms "
+              f"({rec['library_min_ms']:.4f}-{rec['library_max_ms']:.4f}; "
+              f"int8 weight row-major {rec['library_row_ms']:.4f}, K-major "
+              f"{rec['library_col_ms']:.4f})  bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})  share {rec['bound_ms'] / rec['ms']:.3f}"
+              f"  factor {rec['ms'] / rec['library_ms']:.3f}")
     return times
+
+
+#: the K splits split_precision's wgmma GEMM is timed at (the sweep)
+SWEEP_SPLITS = (1, 2, 4, 8)
+
+
+def phase_split_sweep(torch, gen):
+    """split_precision's wgmma GEMM at the served prefill call (M 512, K
+    4096, N 512, raw boundary 342) with each K split of SWEEP_SPLITS in
+    place of the wrapper's plan: each checked against the plain version
+    (int8 columns bit for bit, bf16 columns within the bound) and timed as
+    the kernels of phase 4 (graph replays, ROUNDS rounds, weights cold in
+    L2); returns {split: median ms}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import split_precision as sp
+    m, (k, n), raw = PREFILL_M, (4096, 512), PATHS["gpu_tc_like"][3]
+    acts, (w_b, w_q), _, sw, b_al = split_precision_case(torch, m, k, n, raw,
+                                                         gen)
+    weights = (w_b, w_q.t().contiguous().t())
+    copies = -(-2 * L2_BYTES // (k * b_al + 2 * k * (n - b_al)))
+    ring = itertools.cycle([weights] + [tuple(t.clone() for t in weights)
+                                        for _ in range(copies - 1)])
+    plan, out = sp.wgmma_split, {}
+    try:
+        for split in SWEEP_SPLITS:
+            sp.wgmma_split = lambda *_, split=split: split
+            got = ops.split_precision_op(*acts, *weights, sw, raw)
+            ratio = check_split_precision_calls(
+                torch, [((*acts, *weights, sw, raw), {"bn": 128}, got)])
+            xs = graph_rounds({"ms": lambda: ops.split_precision_op(
+                *acts, *next(ring), sw, raw)}, copies)["ms"]
+            out[split] = median(xs)
+            print(f"[times] split_precision M={m} K={k} N={n} wgmma K split "
+                  f"{split}: kernel {out[split]:.4f} ms ({min(xs):.4f}-"
+                  f"{max(xs):.4f}); int8 columns bit-identical, bf16 columns "
+                  f"{ratio:.3g} of the bound")
+    finally:
+        sp.wgmma_split = plan
+    return out
 
 
 def phase_flash_times(torch, gen):
@@ -703,28 +956,34 @@ def phase_flash_times(torch, gen):
     def lib():
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                               enable_gqa=True)
-    rec = {"ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
-           "library_ms": cuda_ms(lib, 20)}
+    rec = {"plain_ms": cuda_ms(plain, 3)}
+    for key, xs in graph_rounds({"ms": run, "library_ms": lib}, 5).items():
+        spread(rec, key, xs)
     rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
         B, H, KVH, LONG_PROMPT, LONG_PROMPT, D)
     print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Sq="
           f"{LONG_PROMPT} Sk={LONG_CACHE} kv_len={LONG_PROMPT} causal: "
-          f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-          f"sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})  share {rec['bound_ms'] / rec['ms']:.3f}")
+          f"kernel {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
+          f"{rec['max_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  sdpa "
+          f"{rec['library_ms']:.4f} ms ({rec['library_min_ms']:.4f}-"
+          f"{rec['library_max_ms']:.4f})  bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})  share {rec['bound_ms'] / rec['ms']:.3f}"
+          f"  factor {rec['ms'] / rec['library_ms']:.3f}")
     return rec
 
 
-#: record keys summed over a forward pass or a run
-MIX_KEYS = ("ms", "plain_ms", "library_ms", "library_row_ms",
+#: record keys summed over a forward pass or a run (medians, and the
+#: rounds' extremes summed: the range of a forward's time)
+MIX_KEYS = ("ms", "min_ms", "max_ms", "eager_ms", "plain_ms", "library_ms",
+            "library_min_ms", "library_max_ms", "library_row_ms",
             "library_col_ms", "bound_ms")
 
 
-def entry_mix(times):
+def entry_mix(times, only_m=None):
     """Sum of ternary_packed's records over its entry-point run (one call
-    at each (M, K, N))."""
+    at each (M, K, N)), or over its calls at M = ``only_m``."""
     recs = [times["ternary_packed"][(m, k, n)] for m in M_SHAPES
-            for k, n in KN_SHAPES]
+            for k, n in KN_SHAPES if only_m in (None, m)]
     tot = {key: sum(r[key] for r in recs) for key in MIX_KEYS}
     by_bytes = sum(r["bound_ms"] for r in recs if r["bound_by"] == "bytes")
     tot["bound_by"] = ("bytes" if by_bytes >= tot["bound_ms"] / 2
@@ -751,6 +1010,22 @@ def forward_mix(times, path, kernel, phase, prefill_m=PREFILL_M):
                        else "operations")
     del tot["bytes_ms"]
     return tot
+
+
+def print_mix(what, kernel, mix):
+    """The ``[times]`` line of a sum over a forward pass or a run: medians
+    (the rounds' extremes summed), share and the rule-2 factor kernel /
+    library from the medians."""
+    row = (f" (int8 weight row-major {mix['library_row_ms']:.4f}, K-major "
+           f"{mix['library_col_ms']:.4f})" if "library_row_ms" in mix else "")
+    eager = f"; eager {mix['eager_ms']:.4f}" if "eager_ms" in mix else ""
+    print(f"[times] {what}: {kernel} kernel {mix['ms']:.4f} ms "
+          f"({mix['min_ms']:.4f}-{mix['max_ms']:.4f}{eager})  plain "
+          f"{mix['plain_ms']:.4f} ms  library {mix['library_ms']:.4f} ms "
+          f"({mix['library_min_ms']:.4f}-{mix['library_max_ms']:.4f}){row}"
+          f"  bound {mix['bound_ms']:.4f} ms ({mix['bound_by']})  share "
+          f"{mix['bound_ms'] / mix['ms']:.3f}  factor "
+          f"{mix['ms'] / mix['library_ms']:.3f}")
 
 
 def plain_margins(torch, cfg, params, prompts, tokens, backend,
@@ -859,7 +1134,9 @@ def kernel_launches():
 #: (ops attribute, counter) of each count of per-call weight copies
 COPY_COUNTERS = (("quant_matmul", "transposed_copies"),
                  ("split_ternary", "transposed_copies"),
-                 ("ternary_packed_matmul", "padded_copies"))
+                 ("ternary_packed_matmul", "padded_copies"),
+                 ("ternary_matmul", "transposed_copies"),
+                 ("split_precision", "transposed_copies"))
 
 
 def reset_launches():
@@ -878,8 +1155,9 @@ def weight_copies():
 
 
 def check_no_weight_copies(path):
-    """A serving path holds its quant_matmul and split_ternary codes K-major
-    and its packed streams aligned: no call may have copied a weight."""
+    """A serving path holds every int8 kernel's codes K-major and its
+    packed streams and bf16 weights aligned: no call may have copied a
+    weight."""
     copies = weight_copies()
     if any(copies.values()):
         raise AssertionError(f"{path}: weights copied per call {copies}")
@@ -1410,19 +1688,15 @@ def main(argv=None) -> int:
           f"{smi}")
     entry_launches = phase_packed_entry(torch, gen)
     times = phase_times(torch, gen)
+    sweep = phase_split_sweep(torch, gen)
     flash_rec = phase_flash_times(torch, gen)
     for kernel in KERNELS:
         path = LAUNCH_PATH[kernel]
         if path not in PATHS:
             continue
         for phase in ("decode", "prefill"):
-            mix = forward_mix(times, path, kernel, phase)
-            print(f"[times] per {phase} forward on {path}: {kernel} kernel "
-                  f"{mix['ms']:.4f} ms  plain {mix['plain_ms']:.4f} ms  "
-                  f"library {mix['library_ms']:.4f} ms (int8 weight "
-                  f"row-major {mix['library_row_ms']:.4f}, K-major "
-                  f"{mix['library_col_ms']:.4f})  bound "
-                  f"{mix['bound_ms']:.4f} ms ({mix['bound_by']})")
+            print_mix(f"per {phase} forward on {path}", kernel,
+                      forward_mix(times, path, kernel, phase))
 
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import transformer as T
@@ -1451,29 +1725,25 @@ def main(argv=None) -> int:
     worst["flash_attention"] = max(worst["flash_attention"], long_err)
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                 for key in ("ms", "min_ms", "max_ms", "plain_ms",
+                             "library_ms", "library_min_ms",
+                             "library_max_ms", "bound_ms")}
     flash_mix["bound_by"] = flash_rec["bound_by"]
-    print(f"[times] per prefill forward on diana_long: flash_attention "
-          f"kernel {flash_mix['ms']:.4f} ms  plain {flash_mix['plain_ms']:.4f}"
-          f" ms  library {flash_mix['library_ms']:.4f} ms  bound "
-          f"{flash_mix['bound_ms']:.4f} ms ({flash_mix['bound_by']})")
+    print_mix("per prefill forward on diana_long", "flash_attention",
+              flash_mix)
     long_mix = {}
     for kernel in ("quant_matmul", "split_ternary"):
-        mix = long_mix[kernel] = forward_mix(times, "diana", kernel,
-                                             "prefill", LONG_M)
-        print(f"[times] per prefill forward on diana_long: {kernel} kernel "
-              f"{mix['ms']:.4f} ms  plain {mix['plain_ms']:.4f} ms  library "
-              f"{mix['library_ms']:.4f} ms (int8 weight row-major "
-              f"{mix['library_row_ms']:.4f}, K-major "
-              f"{mix['library_col_ms']:.4f})  bound {mix['bound_ms']:.4f} ms "
-              f"({mix['bound_by']})")
+        long_mix[kernel] = forward_mix(times, "diana", kernel, "prefill",
+                                       LONG_M)
+        print_mix("per prefill forward on diana_long", kernel,
+                  long_mix[kernel])
     serving["diana_long"]["prefill_forward_mix"] = dict(
         long_mix, flash_attention=flash_mix)
     packed_mix = entry_mix(times)
-    print(f"[times] over the entry-point run: ternary_packed kernel "
-          f"{packed_mix['ms']:.4f} ms  plain {packed_mix['plain_ms']:.4f} ms"
-          f"  library {packed_mix['library_ms']:.4f} ms  bound "
-          f"{packed_mix['bound_ms']:.4f} ms ({packed_mix['bound_by']})")
+    print_mix("over the entry-point run", "ternary_packed", packed_mix)
+    for m in M_SHAPES:
+        print_mix(f"over the entry-point run's M {m} calls",
+                  "ternary_packed", entry_mix(times, m))
 
     records = []
     for kernel, (source, replaces, _) in KERNELS.items():
@@ -1493,6 +1763,7 @@ def main(argv=None) -> int:
                         "bound_by": mix["bound_by"],
                         "library_ms": mix["library_ms"]})
     result = {"kernels": records, "serving": serving,
+              "split_precision_split_sweep_ms": sweep,
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "build" / "chip_smoke" / "result.json"
     out.write_text(json.dumps(result, indent=1))

@@ -119,7 +119,8 @@ def time_variant(name: str) -> None:
 
         def call():
             rc = fn(x.data_ptr(), w_p.data_ptr(), sx.data_ptr(),
-                    sw.data_ptr(), out.data_ptr(), m, n, k, k // 4, stream)
+                    sw.data_ptr(), out.data_ptr(), m, n, k, k // 4, 0, 0,
+                    stream)   # no decode plan: M > 16
             if rc:
                 raise RuntimeError(f"{name}: launch returned {rc}")
         for _ in range(3):

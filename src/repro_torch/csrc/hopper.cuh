@@ -1,6 +1,6 @@
 // Hopper (sm_90a) plumbing of the port's TMA + wgmma kernels
 // (flash_attention.cu, and int8_wgmma.cuh for quant_matmul.cu,
-// split_ternary.cu and ternary_packed.cu):
+// split_ternary.cu, ternary_packed.cu and split_precision.cu):
 //
 //   - tensor maps, encoded on the host by cuTensorMapEncodeTiled, which is
 //     reached through cudaGetDriverEntryPoint, so no library links
@@ -20,7 +20,7 @@
 //     consumer warpgroups.
 //
 // Swizzle and descriptor must agree.  A tile that TMA writes with an
-// S-byte swizzle (S = 128 or 32: rows of S bytes, 16-byte chunks XORed
+// S-byte swizzle (S = 128, 64 or 32: rows of S bytes, 16-byte chunks XORed
 // with the row index within each group of 8 rows) is read by wgmma with
 // the same layout type, from a base aligned to 8 * S bytes:
 //   K-major   (rows are M or N, each row S contiguous bytes of K):
@@ -200,6 +200,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 
 // wgmma layout types of a descriptor
 constexpr int kSwizzle128 = 1;
+constexpr int kSwizzle64 = 2;
 constexpr int kSwizzle32 = 3;
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
@@ -258,9 +259,9 @@ __device__ __forceinline__ void reg_dealloc() {
 // warp w holding rows 16 w .. 16 w + 15; lane l holds, for each group j of
 // 8 columns, d[4 j + i] at row 16 w + l / 4 + 8 (i / 2), column
 // 8 j + 2 (l % 4) + i % 2.  scale_d = 0 overwrites D, 1 accumulates.
-// `_ss`: A and B from shared memory, both K-major.  `_rs_tb`: A from
-// registers (the m16n8k16 A fragment of each warp's 16 rows), B MN-major
-// (transpose bit set).
+// `_ss`: A and B from shared memory, both K-major; `_ss_tb`: the same with
+// B MN-major (transpose bit set).  `_rs_tb`: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B MN-major.
 
 __device__ __forceinline__ void mma_bf16_m64n128k16_ss(float (&d)[64],
     uint64_t desc_a, uint64_t desc_b, int scale_d) {
@@ -273,6 +274,34 @@ __device__ __forceinline__ void mma_bf16_m64n128k16_ss(float (&d)[64],
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1,"
       " 1, 0, 0;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_bf16_m64n128k16_ss_tb(float (&d)[64],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1,"
+      " 1, 0, 1;"
       "\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),

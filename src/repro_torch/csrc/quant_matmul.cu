@@ -7,10 +7,12 @@
 // whose transposed view the layers hold (x (M, K) row-major; K a multiple
 // of 16, which the wrapper pads).  Two mainloops, split on M:
 //
-//   M <= 16 (decode, M = batch): bound by the weight bytes.  The __dp4a
-//     GEMM of int8_gemm.cuh streams each weight byte once per 16-row tile
-//     of x through shared memory, reading the K-major weight with one
-//     16-byte load per 4 operands of one column (`KMajorInt8Weights`).
+//   M <= 16 (decode, M = batch): bound by the weight bytes.  The decode
+//     GEMM of int8_gemv.cuh (`KMajorCodes`): 16-byte loads along each
+//     column's K run, 4 KB in flight per warp, the K
+//     slices of a column tile spread over the blocks of a cluster, which
+//     sum their int32 partials through distributed shared memory, and
+//     mma.sync int8 products (the weights as operand A).
 //   M > 16 (prefill, M = batch * prompt): bound by int8 operations.  The
 //     int8 wgmma GEMM of int8_wgmma.cuh (128 x BN output tiles, a 4-stage
 //     TMA ring, two consumer warpgroups) with its B tiles loaded by TMA
@@ -24,6 +26,7 @@
 #include <cstdint>
 
 #include "int8_gemm.cuh"
+#include "int8_gemv.cuh"
 #include "int8_wgmma.cuh"
 
 namespace {
@@ -42,10 +45,11 @@ int launch_wgmma(const int8_t* x, const int8_t* w, const float* sx,
 
 // x_q (M, K) int8 row-major, w_q the K-major weight (N, K) int8, both with
 // K a multiple of 16 and 16-byte-aligned rows; sx one f32, sw (N,) f32;
-// out (M, N) f32.
+// out (M, N) f32; bn, split: the decode GEMM's plan (M <= 16 only).
 extern "C" int quant_matmul_launch(const void* x_q, const void* w_q,
                                    const void* sx, const void* sw, void* out,
-                                   int M, int N, int K, void* stream) {
+                                   int M, int N, int K, int bn, int split,
+                                   void* stream) {
   const int8_t* x = static_cast<const int8_t*>(x_q);
   const int8_t* w = static_cast<const int8_t*>(w_q);
   const float* sxp = static_cast<const float*>(sx);
@@ -53,13 +57,9 @@ extern "C" int quant_matmul_launch(const void* x_q, const void* w_q,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 16) {  // one 16-row tile of the dp4a GEMM
-    const i8gemm::KMajorInt8Weights wl{w, N, K / 4};
-    const unsigned grid = (N + i8gemm::kBN - 1) / i8gemm::kBN;
-    i8gemm::gemm_dp4a<1><<<grid, i8gemm::kThreads, 0, st>>>(x, wl, sxp, swp,
-                                                            o, M, N, K);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (M <= 16)
+    return i8gemv::launch(x, nullptr, i8gemv::KMajorCodes{w, K, N}, sxp, swp,
+                          o, M, N, K, bn, split, st);
   return i8wgmma::pick_bn(M, N) == 256
              ? launch_wgmma<256>(x, w, sxp, swp, o, M, N, K, st)
              : launch_wgmma<128>(x, w, sxp, swp, o, M, N, K, st);

@@ -13,10 +13,12 @@
 // global memory.  Two mainloops, split on M:
 //
 //   M <= 16 (decode, M = batch): bound by the weight stream, whose ternary
-//     side is 4x smaller than int8 (bytes).  The __dp4a GEMM of
-//     int8_gemm.cuh: a packed byte (4 consecutive K rows of one column)
-//     unpacks in registers into one dp4a operand, an int8 column gives one
-//     by a 4-byte load of its K-major row (`SplitWeights`).
+//     side is 4x smaller than int8 (bytes).  The decode GEMM of
+//     int8_gemv.cuh (`SplitTernary`): per column, 16-byte loads of the
+//     K-major codes below the boundary, or the packed bytes at or above it
+//     (each unpacked in registers into one operand word), into mma.sync
+//     int8 products; the K slices of a column tile spread over the blocks
+//     of a cluster.
 //   M > 16 (prefill): bound by int8 operations.  The int8 wgmma GEMM of
 //     int8_wgmma.cuh (`SplitCodes`, 128 x 128 tiles): column tiles below
 //     the boundary load their int8 B tiles by TMA, tiles above it load 32
@@ -29,33 +31,10 @@
 
 #include <cstdint>
 
-#include "int8_gemm.cuh"
+#include "int8_gemv.cuh"
 #include "int8_wgmma.cuh"
 
 namespace {
-
-struct SplitWeights {
-  i8gemm::KMajorInt8Columns q;          // int8 codes, columns < boundary
-  i8gemm::PackedTernaryWeights packed;  // (Kp, N), columns >= boundary
-  int boundary;
-
-  __device__ __forceinline__ void load(int kw, int n, int (&c)[4]) const {
-    if (n + 4 <= boundary) {  // int8 domain only
-      q.load(kw, n, c);
-      return;
-    }
-    int t[4];
-    packed.load(kw, n, t);
-    if (n >= boundary) {      // ternary domain only
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = t[j];
-      return;
-    }
-    q.load(kw, n, c);         // the group straddles the boundary
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = (n + j < boundary) ? c[j] : t[j];
-  }
-};
 
 template <int BN>
 int launch_wgmma(const int8_t* x, const int8_t* w, const uint8_t* p,
@@ -74,12 +53,13 @@ int launch_wgmma(const int8_t* x, const int8_t* w, const uint8_t* p,
 // x_q (M, K) int8 row-major and w_q the K-major codes (N, K) int8, K a
 // multiple of 16, rows 16-byte aligned; w_packed (Kp, N) uint8 row-major,
 // Kp = ceil(K_true / 4) <= K / 4, N a multiple of 4 (of 16 at M > 16),
-// 16-byte aligned; sx one f32, sw (N,) f32; out (M, N) f32.
+// 16-byte aligned; sx one f32, sw (N,) f32; out (M, N) f32; bn, split:
+// the decode GEMM's plan (M <= 16 only).
 extern "C" int split_ternary_launch(const void* x_q, const void* w_q,
                                     const void* w_packed, const void* sx,
                                     const void* sw, void* out, int M, int N,
-                                    int K, int Kp, int boundary,
-                                    void* stream) {
+                                    int K, int Kp, int boundary, int bn,
+                                    int split, void* stream) {
   const int8_t* x = static_cast<const int8_t*>(x_q);
   const int8_t* w = static_cast<const int8_t*>(w_q);
   const uint8_t* p = static_cast<const uint8_t*>(w_packed);
@@ -89,12 +69,11 @@ extern "C" int split_ternary_launch(const void* x_q, const void* w_q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 16 || N % 4 || 4 * Kp > K)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 16) {  // one 16-row tile of the dp4a GEMM
-    const SplitWeights wl{{w, N, K / 4}, {p, N, Kp}, boundary};
-    const unsigned grid = (N + i8gemm::kBN - 1) / i8gemm::kBN;
-    i8gemm::gemm_dp4a<1><<<grid, i8gemm::kThreads, 0, st>>>(x, wl, sxp, swp,
-                                                            o, M, N, K);
-    return static_cast<int>(cudaGetLastError());
+  if (M <= 16) {
+    const i8gemv::SplitTernary src{{w, K, boundary < N ? boundary : N},
+                                   {p, N, Kp, boundary}, boundary};
+    return i8gemv::launch(x, nullptr, src, sxp, swp, o, M, N, K, bn, split,
+                          st);
   }
   if (N % 16) return static_cast<int>(cudaErrorInvalidValue);
   return launch_wgmma<128>(x, w, p, sxp, swp, o, M, N, K, Kp, boundary, st);

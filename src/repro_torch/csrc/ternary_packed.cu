@@ -9,10 +9,11 @@
 // mainloops, split on M:
 //
 //   M <= 16 (decode, M = batch): bound by the weight stream, K/4 * N
-//     bytes, 4x fewer than ternary_matmul's int8 codes.  The __dp4a GEMM of
-//     int8_gemm.cuh with the packed loader split_ternary.cu runs on its
-//     ternary columns: each packed byte (4 consecutive K rows of one
-//     column) unpacks in registers into one dp4a operand.
+//     bytes, 4x fewer than ternary_matmul's int8 codes.  The decode GEMM of
+//     int8_gemv.cuh (`PackedStream`): each lane reads four packed rows of
+//     two columns, unpacks each byte in registers into one operand word of
+//     mma.sync int8 products; the K slices of a column tile spread over the
+//     blocks of a cluster.
 //   M > 16 (prefill): bound by int8 operations.  The int8 wgmma GEMM of
 //     int8_wgmma.cuh (`PackedCodes`, 128 x 128 tiles): TMA loads 32 packed
 //     rows x 128 columns per stage, the consumer warpgroups unpack them in
@@ -22,7 +23,7 @@
 
 #include <cstdint>
 
-#include "int8_gemm.cuh"
+#include "int8_gemv.cuh"
 #include "int8_wgmma.cuh"
 
 namespace {
@@ -42,11 +43,11 @@ int launch_wgmma(const int8_t* x, const uint8_t* p, const float* sx,
 // x_q (M, K) int8 row-major, K a multiple of 16, rows 16-byte aligned;
 // w_packed (Kp, N) uint8 row-major, Kp = ceil(K_true / 4) <= K / 4, N a
 // multiple of 4 (of 16 at M > 16), 16-byte aligned; sx one f32, sw (N,)
-// f32; out (M, N) f32.
+// f32; out (M, N) f32; bn, split: the decode GEMM's plan (M <= 16 only).
 extern "C" int ternary_packed_launch(const void* x_q, const void* w_packed,
                                      const void* sx, const void* sw,
                                      void* out, int M, int N, int K, int Kp,
-                                     void* stream) {
+                                     int bn, int split, void* stream) {
   const int8_t* x = static_cast<const int8_t*>(x_q);
   const uint8_t* p = static_cast<const uint8_t*>(w_packed);
   const float* sxp = static_cast<const float*>(sx);
@@ -55,13 +56,9 @@ extern "C" int ternary_packed_launch(const void* x_q, const void* w_packed,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % 16 || N % 4 || 4 * Kp > K)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 16) {  // one 16-row tile of the dp4a GEMM
-    const i8gemm::PackedTernaryWeights wl{p, N, Kp};
-    const unsigned grid = (N + i8gemm::kBN - 1) / i8gemm::kBN;
-    i8gemm::gemm_dp4a<1><<<grid, i8gemm::kThreads, 0, st>>>(x, wl, sxp, swp,
-                                                            o, M, N, K);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (M <= 16)
+    return i8gemv::launch(x, nullptr, i8gemv::PackedStream{p, N, Kp, 0}, sxp,
+                          swp, o, M, N, K, bn, split, st);
   if (N % 16) return static_cast<int>(cudaErrorInvalidValue);
   return launch_wgmma<128>(x, p, sxp, swp, o, M, N, K, Kp, st);
 }

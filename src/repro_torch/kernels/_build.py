@@ -24,13 +24,20 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each library's launch function
 SIGNATURES = {
-    "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, w_q (K-major), w_packed, sx, sw, out, M, N, K, Kp, boundary, stream
-    "split_ternary": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "split_precision": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w_packed, sx, sw, out, M, N, K, Kp, stream
-    "ternary_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w_q (K-major), sx, sw, out, M, N, K, then the decode GEMM's plan
+    # (bn, split; M <= 16) and the stream, as every int8 kernel ends
+    "quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w_q (K-major), w_packed, sx, sw, out, M, N, K, Kp, boundary, ...
+    "split_ternary": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
+    # x, w_t (K-major), sx, sw, out, M, N, K, ...
+    "ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x_bf16, x_q, w_bf16, w_q (K-major), sx, sw, out, M, N, K, boundary,
+    # ...
+    "split_precision": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
+    # x, w_packed, sx, sw, out, M, N, K, Kp, ...
+    "ternary_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, H, KVH, Sq, kv_end, D, the (b, h, s) strides of q, k,
     # v and o, causal, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -6,10 +6,12 @@ kernel ``quant_matmul`` of ``repro/kernels/quant_matmul.py``.  What bounds
 it on an H100: the int8 weight stream at decode (M = batch), int8
 operations at prefill.  It reads the weight K-major, as the (N, K) tensor
 behind a transposed ``w_q`` view (the layout `runtime.execute.prepare_layer`
-gives the quant_matmul layers): at M <= 16 a ``__dp4a`` GEMM with 16-byte
-weight loads, above that int8 ``wgmma`` tiles fed by a TMA ring.  The
-epilogue applies the scales in the plain version's order, so the two agree
-bit for bit.
+gives the quant_matmul layers): at M <= 16 the decode GEMM of
+``csrc/int8_gemv.cuh`` (each column tile's K slices spread over the blocks
+of a cluster, ``mma.sync`` int8 products, the partial sums reduced through
+distributed shared memory; `decode_plan` picks the tile and the split),
+above that int8 ``wgmma`` tiles fed by a TMA ring.  The epilogue applies
+the scales in the plain version's order, so the two agree bit for bit.
 
 `quant_matmul` launches the kernel for CUDA tensors and runs
 `quant_matmul_plain` only for CPU tensors.  ``quant_matmul.launches``
@@ -19,6 +21,8 @@ transposed, or a K-major one whose K or address is off the alignment
 padded (`weight_route`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -127,6 +131,83 @@ def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
+#: the decode GEMM (``csrc/int8_gemv.cuh``): its column tiles, its K
+#: splits (the cluster sizes), the K bytes of a chunk and the most chunks
+#: of K one block stages, and its warps per block
+DECODE_BN = (128, 64, 32, 16)
+DECODE_SPLITS = (1, 2, 4, 8)
+DECODE_CHUNK = 64
+DECODE_SPAN = 32
+DECODE_WARPS = 8
+#: the decode GEMM takes M up to this
+DECODE_M = 16
+
+
+def decode_plan(m: int, k: int, n: int, sms: int):
+    """``(bn, split)`` of the decode GEMM at M = ``m`` (1 .. 16): a grid of
+    ``ceil(n / bn)`` column tiles x ``split`` K slices (one cluster per
+    column tile) on a card of ``sms`` SMs.  The widest tile, then the
+    fewest splits, whose grid holds at least two blocks per SM; where none
+    does, the largest grid.  ``split`` is at least ``ceil(chunks /
+    DECODE_SPAN)``, so that a block's slice of x fits its shared memory."""
+    if not 1 <= m <= DECODE_M:
+        raise ValueError(f"the decode GEMM takes M 1 .. {DECODE_M}, not {m}")
+    chunks = -(-k // DECODE_CHUNK)
+    least = -(-chunks // DECODE_SPAN)
+    best = None
+    for bn in DECODE_BN:
+        for split in DECODE_SPLITS:
+            if split < least:
+                continue
+            blocks = -(-n // bn) * split
+            if blocks >= 2 * sms:
+                return bn, split
+            if best is None or blocks > best[0]:
+                best = (blocks, bn, split)
+    if best is None:
+        raise ValueError(f"K {k} needs more than {DECODE_SPLITS[-1]} "
+                         f"splits of {DECODE_SPAN * DECODE_CHUNK} bytes")
+    return best[1], best[2]
+
+
+def decode_k_slices(k: int, bn: int, split: int):
+    """The K-byte ranges the decode GEMM's blocks and warps read, as the
+    kernel computes them: ``{(rank, part): (lo, hi)}`` for each cluster
+    rank and each of its ``DECODE_WARPS // (bn // 16)`` warps of one
+    16-column group, chunks split evenly, clipped to ``k``."""
+    chunks = -(-k // DECODE_CHUNK)
+    wpg = DECODE_WARPS // (bn // 16)
+    parts = split * wpg
+    out = {}
+    for rank in range(split):
+        for wk in range(wpg):
+            p = rank * wpg + wk
+            lo, hi = p * chunks // parts, (p + 1) * chunks // parts
+            out[(rank, wk)] = (min(lo * DECODE_CHUNK, k),
+                               min(hi * DECODE_CHUNK, k))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card of ``device`` (the current card if it names
+    none)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def decode_args(m: int, k: int, n: int, device: torch.device):
+    """The plan arguments of a launch: `decode_plan` on the card of
+    ``device`` at M <= 16, (0, 0) above (the prefill GEMMs take none)."""
+    if m > DECODE_M:
+        return 0, 0
+    return decode_plan(m, k, n, sm_count(device))
+
+
 def quant_matmul(x_q, w_q, sx, sw):
     """x_q (M, K) int8, w_q (K, N) int8 (any strides; the transposed view of
     a contiguous (N, K) tensor goes to the kernel without a copy), sx
@@ -145,8 +226,9 @@ def quant_matmul(x_q, w_q, sx, sw):
     if m and n:
         _build.launch("quant_matmul", xq.data_ptr(), wk.data_ptr(),
                       sxc.data_ptr(), swc.data_ptr(), out.data_ptr(),
-                      m, n, wk.shape[1], torch.cuda.current_stream(
-                          x_q.device).cuda_stream)
+                      m, n, wk.shape[1],
+                      *decode_args(m, wk.shape[1], n, x_q.device),
+                      torch.cuda.current_stream(x_q.device).cuda_stream)
         quant_matmul.launches += 1
     return out
 

@@ -7,28 +7,43 @@ The CUDA kernel (``csrc/split_precision.cu``, sm_90a) replaces the Pallas
 TPU kernel ``split_precision_matmul`` of ``repro/kernels/
 split_precision.py``.  What bounds it on an H100: the weight stream at
 decode (int8 codes below the boundary, bf16 above), operations at prefill.
-The int8 columns run the ``__dp4a`` mainloop of ``csrc/int8_gemm.cuh``,
-the bf16 columns an FMA mainloop over bf16 tiles in shared memory; the
-choice is made per column, and ``w_q`` is read only below the boundary,
-``w_bf16`` only at or above it.
+It reads ``w_q`` K-major, as the (N, K) tensor behind a transposed view
+(the layout `runtime.execute.prepare_layer` gives the split_precision
+layers), and ``w_bf16`` row-major as held.  At M <= 16 the decode GEMM of
+``csrc/int8_gemv.cuh`` runs ``mma.sync`` int8 products on the int8 columns
+and fmaf on the bf16 ones; above that one ``wgmma`` GEMM
+(``csrc/int8_wgmma.cuh``) runs int8 tensor-core tiles below the boundary
+and bf16 tensor-core tiles (f32 accumulators) at or above it, both in the
+tile the boundary falls in.  The choice is made per column, ``w_q`` is read
+only below the boundary and ``w_bf16`` only at or above it (per column
+tile on the wgmma path).
 
 The int8 columns are bit-identical to `split_precision_plain`.  The bf16
 columns sum K products in another order than the plain version (which
-contracts in float64 and rounds once), so they agree within the float32
-summation bound ``K * 2**-24 * sum_k |x * w| + 2**-24 * |y|``
-(`bf16_error_bound`).
+contracts in float64 and rounds once): at decode each lane sums its K rows
+in order, then lanes, warps and cluster blocks are summed in a fixed order;
+on the wgmma path the tensor cores sum each 16-wide K step in an order of
+their own.  Either way they agree within the float32 summation bound ``K *
+2**-24 * sum_k |x * w| + 2**-24 * |y|`` (`bf16_error_bound`).
 
 `split_precision` launches the kernel for CUDA tensors and runs
 `split_precision_plain` only for CPU tensors.  ``split_precision.launches``
-counts kernel launches.
+counts kernel launches, ``split_precision.transposed_copies`` the calls
+that copied a weight into the kernel's layout: ``w_q`` not K-major or off
+the alignment (`weight_route`), or ``w_bf16`` not contiguous or with K or N
+off it (each copied weight counts one).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_matmul import (_pad_to, check_operands,
-                                              quant_matmul_plain)
+from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.kernels.quant_matmul import (DECODE_M, K_ALIGN, _aligned,
+                                              _pad_to, check_operands,
+                                              decode_args, k_major_weight,
+                                              quant_matmul_plain, sm_count)
+from repro_torch.kernels.ternary_packed import n_align
 
 
 def split_precision_plain(x, x_q, sx, w_bf16, w_q, sw, boundary: int):
@@ -49,10 +64,79 @@ def bf16_error_bound(x, w_bf16, y):
     return x.shape[1] * 2.0**-24 * mag + 2.0**-24 * y.to(torch.float64).abs()
 
 
+#: the K splits (cluster sizes) of the wgmma GEMM (M > 16), its K values
+#: per stage and the fewest stages a split keeps.  The kernel takes 8 too,
+#: but at the served M 512 x N 512 a split of 8 ran slower than 4
+#: (chip_smoke.py's split sweep)
+WGMMA_SPLITS = (1, 2, 4)
+WGMMA_STAGE_K = 64
+WGMMA_MIN_STAGES = 4
+
+
+def wgmma_split(m: int, k: int, n: int, sms: int) -> int:
+    """The K split of the wgmma GEMM at (M, K, N) on ``sms`` SMs: the
+    fewest of `WGMMA_SPLITS` whose grid (128 x 128 tiles x split) holds a
+    block per SM, else the most, without leaving a split fewer than
+    `WGMMA_MIN_STAGES` stages of `WGMMA_STAGE_K`."""
+    tiles = -(-m // 128) * -(-n // 128)
+    stages = -(-k // WGMMA_STAGE_K)
+    best = 1
+    for split in WGMMA_SPLITS:
+        if stages < WGMMA_MIN_STAGES * split:
+            break
+        best = split
+        if tiles * split >= sms:
+            break
+    return best
+
+
+def launch_args(m: int, k: int, n: int, device: torch.device):
+    """The plan arguments of a launch: the decode GEMM's ``(bn, split)`` at
+    M <= 16, ``(0, wgmma_split)`` above."""
+    if m <= DECODE_M:
+        return decode_args(m, k, n, device)
+    return 0, wgmma_split(m, k, n, sm_count(device))
+
+
+def weight_route(shape, strides, m, aligned=True) -> str:
+    """How `split_precision` hands a ``(K, N)`` ``w_q`` of these strides to
+    the kernel at M = ``m`` (``"k_major"``, ``"pad"`` or ``"transpose"``,
+    as `quant_matmul.weight_route`), N aligned to `n_align` (m)."""
+    return _qm.weight_route(shape, strides, aligned, n_align(m))
+
+
+def bf16_weight(w_bf16, align: int):
+    """(``w_bf16`` as the kernel reads it: contiguous (K, N) row-major,
+    16-byte aligned, K zero-padded to `K_ALIGN` and N to ``align``; whether
+    that took a copy)."""
+    k, n = w_bf16.shape
+    if w_bf16.is_contiguous() and k % K_ALIGN == 0 and n % align == 0 and \
+            w_bf16.data_ptr() % 16 == 0:
+        return w_bf16, False
+    return _aligned(_pad_to(_pad_to(w_bf16, K_ALIGN, 0), align, 1), 16), True
+
+
+def kernel_operands(x, x_q, w_bf16, w_q, sw):
+    """The operands the kernel takes, on any device: x and x_q with K padded
+    to `K_ALIGN`, ``w_bf16`` (K_pad, N_pad) row-major, ``w_q`` as the
+    K-major ``(N_pad, K_pad)`` codes and ``sw`` with N padded to `n_align`
+    (M) (zeros); each copied weight is counted in
+    ``split_precision.transposed_copies``."""
+    na = n_align(x_q.shape[0])
+    wk = k_major_weight(w_q, split_precision, na)
+    wb, copied = bf16_weight(w_bf16, na)
+    split_precision.transposed_copies += copied
+    return (_aligned(_pad_to(x, K_ALIGN, 1), 16),
+            _aligned(_pad_to(x_q, K_ALIGN, 1), 16), wb, wk,
+            _aligned(_pad_to(sw, na, 0), 16))
+
+
 def split_precision(x, x_q, sx, w_bf16, w_q, sw, boundary: int):
     """x (M, K) bf16, x_q (M, K) int8, sx one-element f32, w_bf16 (K, N)
-    bf16, w_q (K, N) int8, sw (N,) f32; boundary: first bf16-domain column
-    -> (M, N) f32.  K and N are zero-padded to multiples of 4."""
+    bf16, w_q (K, N) int8 (any strides; the transposed view of a
+    contiguous (N, K) tensor goes to the kernel without a copy), sw (N,)
+    f32; boundary: first bf16-domain column -> (M, N) f32.  K is
+    zero-padded to `K_ALIGN` and N to `n_align` (M) for the kernel."""
     m, k, n = check_operands(x_q, w_q, sx, sw)
     if x.dtype != torch.bfloat16 or w_bf16.dtype != torch.bfloat16:
         raise TypeError(f"bf16 operands expected, got {x.dtype} and "
@@ -70,22 +154,19 @@ def split_precision(x, x_q, sx, w_bf16, w_q, sw, boundary: int):
         return split_precision_plain(x, x_q, sx, w_bf16, w_q, sw, boundary)
     if x_q.device.type != "cuda":
         raise ValueError(f"no split_precision kernel for {x_q.device}")
-    xb = _pad_to(x, 4, 1).contiguous()
-    xq = _pad_to(x_q, 4, 1).contiguous()
-    wb = _pad_to(_pad_to(w_bf16, 4, 0), 4, 1).contiguous()
-    wq = _pad_to(_pad_to(w_q, 4, 0), 4, 1).contiguous()
-    swp = _pad_to(sw, 4, 0).contiguous()
+    xb, xq, wb, wk, swp = kernel_operands(x, x_q, w_bf16, w_q, sw)
     sxc = sx.reshape(1).contiguous()
-    n4, k4 = wq.shape[1], wq.shape[0]
-    out = torch.empty((m, n4), dtype=torch.float32, device=x_q.device)
-    if m:
+    n_pad, k_pad = wk.shape
+    out = torch.empty((m, n_pad), dtype=torch.float32, device=x_q.device)
+    if m and n_pad:
         _build.launch("split_precision", xb.data_ptr(), xq.data_ptr(),
-                      wb.data_ptr(), wq.data_ptr(), sxc.data_ptr(),
-                      swp.data_ptr(), out.data_ptr(), m, n4, k4,
-                      int(boundary), torch.cuda.current_stream(
-                          x_q.device).cuda_stream)
+                      wb.data_ptr(), wk.data_ptr(), sxc.data_ptr(),
+                      swp.data_ptr(), out.data_ptr(), m, n_pad, k_pad,
+                      int(boundary), *launch_args(m, k_pad, n_pad, x_q.device),
+                      torch.cuda.current_stream(x_q.device).cuda_stream)
         split_precision.launches += 1
-    return out[:, :n] if n4 != n else out
+    return out[:, :n] if n_pad != n else out
 
 
 split_precision.launches = 0
+split_precision.transposed_copies = 0

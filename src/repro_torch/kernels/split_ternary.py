@@ -10,9 +10,11 @@ What bounds it on an H100: the weight stream at decode (the ternary side is
 prefill.  It reads ``w_q`` K-major, as the (N, K) tensor behind a
 transposed view (the layout `runtime.execute.prepare_layer` gives the
 split_ternary layers), and the packed stream as it is stored.  At M <= 16
-a ``__dp4a`` GEMM unpacks each packed byte in registers into one operand;
-above that int8 ``wgmma`` tiles are fed by a TMA ring, with the packed
-tiles unpacked in shared memory.  ``w_q`` is never read for ternary
+the decode GEMM of ``csrc/int8_gemv.cuh`` unpacks each packed byte in
+registers into one operand word of ``mma.sync`` int8 products, its K
+slices spread over the blocks of a cluster; above that int8 ``wgmma``
+tiles are fed by a TMA ring, with the packed tiles unpacked in shared
+memory.  ``w_q`` is never read for ternary
 columns, nothing is unpacked to global memory, and the choice between the
 two streams is made per column, so any boundary is exact.
 
@@ -29,8 +31,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels.quant_matmul import (K_ALIGN, _aligned, _pad_to,
-                                              check_operands, dequant,
-                                              int_matmul_exact,
+                                              check_operands, decode_args,
+                                              dequant, int_matmul_exact,
                                               k_major_weight)
 from repro_torch.kernels.ternary_packed import (n_align, packed_stream,
                                                 unpack_ternary)
@@ -104,6 +106,7 @@ def split_ternary(x_q, w_q, w_packed, sx, sw, boundary: int):
                       wp.data_ptr(), sxc.data_ptr(), swp.data_ptr(),
                       out.data_ptr(), m, n_pad, wk.shape[1], kp,
                       int(boundary),
+                      *decode_args(m, wk.shape[1], n_pad, x_q.device),
                       torch.cuda.current_stream(x_q.device).cuda_stream)
         split_ternary.launches += 1
     return out[:, :n] if n_pad != n else out

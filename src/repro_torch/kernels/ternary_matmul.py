@@ -5,20 +5,27 @@ int32, then ``f32(acc) * sx * sw[n]``.
 The CUDA kernel (``csrc/ternary_matmul.cu``, sm_90a) replaces the Pallas
 TPU kernel ``ternary_matmul`` of ``repro/kernels/ternary_matmul.py``.  What
 bounds it on an H100: the int8 code stream at decode (M = batch), int8
-operations at prefill.  It is the shared-memory-tiled ``__dp4a`` GEMM of
-``csrc/int8_gemm.cuh`` with its own entry point, so the output is
-bit-identical to `ternary_matmul_plain`.
+operations at prefill.  It reads the codes K-major, as the (N, K) tensor
+behind a transposed ``w_t`` view (the layout `runtime.execute.
+prepare_layer` gives the ternary_matmul layers): at M <= 16 the decode GEMM
+of ``csrc/int8_gemv.cuh``, as quant_matmul's, above that the
+shared-memory-tiled ``__dp4a`` GEMM of ``csrc/int8_gemm.cuh``.  The output
+is bit-identical to `ternary_matmul_plain`.
 
 `ternary_matmul` launches the kernel for CUDA tensors and runs
 `ternary_matmul_plain` only for CPU tensors.  ``ternary_matmul.launches``
-counts kernel launches.
+counts kernel launches, ``ternary_matmul.transposed_copies`` the calls that
+copied ``w_t`` into the kernel's layout (`weight_route`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.quant_matmul import (_pad_to, check_operands,
+from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.kernels.quant_matmul import (K_ALIGN, _aligned, _pad_to,
+                                              check_operands, decode_args,
+                                              k_major_weight,
                                               quant_matmul_plain)
 
 #: plain PyTorch version: the codes contract like int8 codes (float64,
@@ -26,28 +33,44 @@ from repro_torch.kernels.quant_matmul import (_pad_to, check_operands,
 ternary_matmul_plain = quant_matmul_plain
 
 
+def weight_route(shape, strides, aligned=True) -> str:
+    """How `ternary_matmul` hands a ``(K, N)`` ``w_t`` of these strides to
+    the kernel (``"k_major"``, ``"pad"`` or ``"transpose"``, as
+    `quant_matmul.weight_route`)."""
+    return _qm.weight_route(shape, strides, aligned)
+
+
+def kernel_operands(x_q, w_t):
+    """The operands the kernel takes, on any device: x_q with K padded to
+    `K_ALIGN` and ``w_t`` as the K-major ``(N, K_pad)`` codes (a copy is
+    counted in ``ternary_matmul.transposed_copies``)."""
+    return (_aligned(_pad_to(x_q, K_ALIGN, 1), 16),
+            k_major_weight(w_t, ternary_matmul))
+
+
 def ternary_matmul(x_q, w_t, sx, sw):
-    """x_q (M, K) int8, w_t (K, N) int8 codes in {-1, 0, 1}, sx
-    one-element f32, sw (N,) f32 -> (M, N) f32.  K and N are zero-padded
-    to multiples of 4 for the kernel's 4-byte loads."""
+    """x_q (M, K) int8, w_t (K, N) int8 codes in {-1, 0, 1} (any strides;
+    the transposed view of a contiguous (N, K) tensor goes to the kernel
+    without a copy), sx one-element f32, sw (N,) f32 -> (M, N) f32.  K is
+    zero-padded to a multiple of `K_ALIGN` for the kernel."""
     m, k, n = check_operands(x_q, w_t, sx, sw)
     if x_q.device.type == "cpu":
         return ternary_matmul_plain(x_q, w_t, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"no ternary_matmul kernel for {x_q.device}")
-    xq = _pad_to(x_q, 4, 1).contiguous()
-    wt = _pad_to(_pad_to(w_t, 4, 0), 4, 1).contiguous()
-    swp = _pad_to(sw, 4, 0).contiguous()
+    xq, wk = kernel_operands(x_q, w_t)
+    swc = sw.contiguous()
     sxc = sx.reshape(1).contiguous()
-    n4, k4 = wt.shape[1], wt.shape[0]
-    out = torch.empty((m, n4), dtype=torch.float32, device=x_q.device)
-    if m:
-        _build.launch("ternary_matmul", xq.data_ptr(), wt.data_ptr(),
-                      sxc.data_ptr(), swp.data_ptr(), out.data_ptr(),
-                      m, n4, k4, torch.cuda.current_stream(
-                          x_q.device).cuda_stream)
+    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    if m and n:
+        _build.launch("ternary_matmul", xq.data_ptr(), wk.data_ptr(),
+                      sxc.data_ptr(), swc.data_ptr(), out.data_ptr(),
+                      m, n, wk.shape[1],
+                      *decode_args(m, wk.shape[1], n, x_q.device),
+                      torch.cuda.current_stream(x_q.device).cuda_stream)
         ternary_matmul.launches += 1
-    return out[:, :n] if n4 != n else out
+    return out
 
 
 ternary_matmul.launches = 0
+ternary_matmul.transposed_copies = 0

@@ -11,9 +11,10 @@ The CUDA kernel (``csrc/ternary_packed.cu``, sm_90a) replaces the Pallas
 TPU kernel ``ternary_packed_matmul`` of ``repro/kernels/ternary_packed.py``.
 What bounds it on an H100: the packed weight stream at decode (K/4 * N
 bytes, 4x fewer than ``ternary_matmul``'s int8 codes), int8 operations at
-prefill.  At M <= 16 it is the ``__dp4a`` GEMM of ``csrc/int8_gemm.cuh``
-with the packed loader of ``split_ternary``, each packed byte unpacked in
-registers into one operand; above that the int8 ``wgmma`` GEMM of
+prefill.  At M <= 16 it is the decode GEMM of ``csrc/int8_gemv.cuh``, each
+packed byte unpacked in registers into one operand word of ``mma.sync``
+int8 products, K slices spread over the blocks of a cluster; above that
+the int8 ``wgmma`` GEMM of
 ``csrc/int8_wgmma.cuh``, TMA loading the stream as it is stored and the
 consumer warpgroups unpacking it in shared memory.  Nothing is unpacked to
 global memory, and the output is bit-identical to `ternary_packed_plain`.
@@ -30,14 +31,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_matmul import (K_ALIGN, _aligned, _pad_to,
-                                              check_epilogue,
+                                              check_epilogue, decode_args,
                                               quant_matmul_plain)
 
 
 def n_align(m: int) -> int:
-    """The multiple of N the packed kernels take at M = ``m``: 16 for the
-    wgmma GEMM (M > 16; a TMA row stride of the stream is a multiple of 16
-    bytes), 4 for the dp4a GEMM (its 4-byte loads)."""
+    """The multiple of N the packed and split kernels take at M = ``m``: 16
+    for the wgmma GEMM (M > 16; a TMA row stride is a multiple of 16
+    bytes), 4 for the decode GEMM (2-byte loads of packed column pairs,
+    8-byte loads of 4 bf16 columns)."""
     return 16 if m > 16 else 4
 
 
@@ -109,8 +111,9 @@ def ternary_packed_matmul(x_q, w_packed, sx, sw):
     if m:
         _build.launch("ternary_packed", xq.data_ptr(), wp.data_ptr(),
                       sxc.data_ptr(), swp.data_ptr(), out.data_ptr(),
-                      m, n_pad, xq.shape[1], kp, torch.cuda.current_stream(
-                          x_q.device).cuda_stream)
+                      m, n_pad, xq.shape[1], kp,
+                      *decode_args(m, xq.shape[1], n_pad, x_q.device),
+                      torch.cuda.current_stream(x_q.device).cuda_stream)
         ternary_packed_matmul.launches += 1
     return out[:, :n] if n_pad != n else out
 

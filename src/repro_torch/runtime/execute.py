@@ -6,8 +6,8 @@ plan's channel permutation and its inverse, per-domain weight quantization
 with the plan's scales (each active quantized domain's columns carry that
 domain's own step), the 2-bit-packed ternary stream of the split_ternary
 kernel, the bf16 weight of the split_precision kernel, the K-major layout
-of the quant_matmul kernel's codes (a ``(K, N)`` view of a contiguous
-``(N, K)`` tensor), and the static activation scale.  `execute_layer` then
+of every int8 kernel's codes (a ``(K, N)`` view of a contiguous ``(N, K)``
+tensor), and the static activation scale.  `execute_layer` then
 only quantizes the activations and calls the kernel -- the CUDA kernel for
 tensors on the card, its plain version for tensors on the CPU -- or, with
 ``reference=True``, the oracles of `kernels.ref`; outputs come back in the
@@ -141,9 +141,9 @@ def prepare_layer(lp: LayerPlan, w, b=None,
         w_perm = None          # the quantized kernels never read it
     if lp.kernel == KERNEL_SPLIT_TERNARY:
         w_t_packed = _pack_ternary_stream(lp, w_q)
-    if lp.kernel in (KERNEL_QUANT, KERNEL_SPLIT_TERNARY):
-        # the quant_matmul and split_ternary kernels read their int8 codes
-        # K-major: one (N, K) copy, held as its (K, N) transposed view
+    if w_q is not None:
+        # every int8 kernel reads its codes K-major: one (N, K) copy, held
+        # as its (K, N) transposed view
         w_q = w_q.t().contiguous().t()
     if lp.act_log_scale is not None:
         act_scale = torch.tensor(np.exp(lp.act_log_scale),

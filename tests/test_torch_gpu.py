@@ -129,44 +129,147 @@ def test_split_ternary_kernel_bit_exact(cuda, m, k, n, where, layout):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("layout", ["row_major", "k_major"])
 @pytest.mark.parametrize("m,k,n", SHAPES)
-def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n):
+def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n, layout):
+    """Both layouts bit for bit; a row-major weight, or a K-major one with
+    K off 16, is copied into the kernel's layout (one counted copy)."""
     x, _, t, sx, sw = _operands(m, k, n, 2, cuda)
+    if layout == "k_major":
+        t = t.t().contiguous().t()
     before = ternary_matmul.launches
+    copies = ternary_matmul.transposed_copies
     got = ternary_matmul(x, t, sx, sw)
     torch.cuda.synchronize()
     assert ternary_matmul.launches == before + 1
+    assert ternary_matmul.transposed_copies == copies + (
+        layout == "row_major" or k % 16 != 0)
     assert torch.equal(got, ternary_matmul_plain(x, t, sx, sw))
 
 
-@pytest.mark.parametrize("m,k,n", SHAPES)
-@pytest.mark.parametrize("where", ["zero", "raw", "aligned16", "all"])
-def test_split_precision_kernel(cuda, m, k, n, where):
-    """int8 columns bit for bit, bf16 columns within the summation bound;
-    the boundary lands inside a 64-column tile for ``aligned16``.  w_q
-    holds 99 at and above the boundary and w_bf16 NaN below it (the split
-    probe): neither may reach the output."""
-    x_q, w_q, _, sx, sw = _operands(m, k, n, 3, cuda)
+def _split_precision_case(cuda, m, k, n, where, layout, seed=3):
+    """One split_precision call against the plain version: int8 columns
+    bit for bit, bf16 columns within the summation bound.  w_q holds 99 at
+    and above the boundary and w_bf16 NaN below it (the split probe):
+    neither may reach the output.  Weight copies (w_q row-major or off the
+    kernel's alignment, w_bf16 off it) are counted once per weight."""
+    from repro_torch.kernels.split_precision import weight_route
+    x_q, w_q, _, sx, sw = _operands(m, k, n, seed, cuda)
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(0, 1.5, (m, k)).astype(np.float32))
     w_b = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(np.float32))
     x, w_b = (a.to(cuda).to(torch.bfloat16) for a in (x, w_b))
     raw = min(7, n)
     boundary = {"zero": 0, "raw": raw, "all": n,
-                "aligned16": min(ops.align_boundary(raw + 40, 16), n)}[where]
+                "aligned16": min(ops.align_boundary(raw + 40, 16), n),
+                "aligned": min(ops.align_boundary(raw, 128), n)}[where]
     cols = torch.arange(n, device=cuda)[None, :]
     probe_q = torch.where(cols < boundary, w_q, 99).to(torch.int8)
     probe_b = torch.where(cols >= boundary, w_b,
                           float("nan")).to(torch.bfloat16)
+    if layout == "k_major":
+        probe_q = probe_q.t().contiguous().t()
+    align = 16 if m > 16 else 4
+    copies = (weight_route(tuple(probe_q.shape), probe_q.stride(), m) !=
+              "k_major") + (k % 16 != 0 or n % align != 0)
     before = split_precision.launches
+    copied = split_precision.transposed_copies
     got = split_precision(x, x_q, sx, probe_b, probe_q, sw, boundary)
     torch.cuda.synchronize()
     assert split_precision.launches == before + 1
+    assert split_precision.transposed_copies == copied + copies
     want = split_precision_plain(x, x_q, sx, w_b, w_q, sw, boundary)
     assert torch.equal(got[:, :boundary], want[:, :boundary])
     err = (got.double() - want.double()).abs()
     bound = bf16_error_bound(x, w_b, want)
     assert bool((err[:, boundary:] <= bound[:, boundary:]).all())
+
+
+@pytest.mark.parametrize("layout", ["row_major", "k_major"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("where", ["zero", "raw", "aligned16", "all"])
+def test_split_precision_kernel(cuda, m, k, n, where, layout):
+    """``raw`` (7) falls inside a 16-column group of the decode GEMM and
+    inside a 128-column tile of the wgmma GEMM, ``aligned16`` (48) on a
+    group edge and inside a tile."""
+    _split_precision_case(cuda, m, k, n, where, layout)
+
+
+@pytest.mark.parametrize("m", [17, 100, 512])
+@pytest.mark.parametrize("k,n", [(4096, 512), (1000, 1000), (256, 200)])
+@pytest.mark.parametrize("where", ["zero", "raw", "aligned", "all"])
+def test_split_precision_wgmma_path(cuda, m, k, n, where):
+    """The wgmma path (M > 16) on the K-major codes the layers hold: int8
+    tiles below the boundary, bf16 tiles at or above it, both in the tile
+    a raw boundary falls in; N 1000 and 200 padded to 16, K 1000 to 1008."""
+    _split_precision_case(cuda, m, k, n, where, "k_major", seed=11)
+
+
+#: the decode GEMM (M <= 16) at the served wk / wv shape, N and K off its
+#: tiles (1000), the down projection's K and a wide N
+DECODE_SHAPES = [(4096, 512), (1000, 1000), (4096, 1000), (11008, 4096),
+                 (4096, 11008)]
+DECODE_M = [1, 3, 4, 16]
+
+
+@pytest.mark.parametrize("m", DECODE_M)
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+@pytest.mark.parametrize("kernel", ["quant_matmul", "ternary_matmul",
+                                    "ternary_packed", "split_ternary"])
+def test_decode_gemm_bit_exact(cuda, kernel, m, k, n):
+    """The decode GEMM of the four integer kernels bit for bit on the
+    layouts the serving paths hold (K-major codes, the packed stream as
+    stored): no weight copy at K % 16 == 0, one (the K pad) otherwise;
+    split_ternary at raw boundary 7 (a 16-column group reads both streams)
+    and the aligned 128, with both garbage probes."""
+    x, w, t, sx, sw = _operands(m, k, n, 13, cuda)
+    k4 = -(-k // 4) * 4
+    pad_copy = int(k % 16 != 0)
+    if kernel == "quant_matmul":
+        wk = w.t().contiguous().t()
+        copies = quant_matmul.transposed_copies
+        got = ops.quant_matmul_op(x, wk, sx, sw)
+        torch.cuda.synchronize()
+        assert quant_matmul.transposed_copies == copies + pad_copy
+        assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
+    elif kernel == "ternary_matmul":
+        tk = t.t().contiguous().t()
+        copies = ternary_matmul.transposed_copies
+        got = ops.ternary_matmul_op(x, tk, sx, sw)
+        torch.cuda.synchronize()
+        assert ternary_matmul.transposed_copies == copies + pad_copy
+        assert torch.equal(got, ternary_matmul_plain(x, t, sx, sw))
+    elif kernel == "ternary_packed":
+        w_p = pack_ternary(torch.nn.functional.pad(t, (0, 0, 0, k4 - k)))
+        copies = ternary_packed_matmul.padded_copies
+        got = ops.ternary_packed_matmul_op(x, w_p, sx, sw)
+        torch.cuda.synchronize()
+        assert ternary_packed_matmul.padded_copies == copies
+        assert torch.equal(got, ternary_packed_plain(x, w_p, sx, sw))
+    else:
+        cols = torch.arange(n, device=cuda)[None, :]
+        for boundary in (7, min(128, n)):
+            w_q = torch.where(cols < boundary, w, t)
+            w_p = pack_ternary(torch.nn.functional.pad(
+                torch.where(cols >= boundary, t, 0), (0, 0, 0, k4 - k)))
+            probe = torch.where(cols < boundary, w_q, 99).to(torch.int8)
+            probe_p = torch.where(cols < boundary, 0xFF, w_p).to(torch.uint8)
+            copies = split_ternary.transposed_copies
+            got = split_ternary(x, probe.t().contiguous().t(), probe_p, sx,
+                                sw, boundary)
+            torch.cuda.synchronize()
+            assert split_ternary.transposed_copies == copies + pad_copy
+            assert torch.equal(got, split_ternary_plain(x, w_q, w_p, sx, sw,
+                                                        boundary))
+
+
+@pytest.mark.parametrize("m", DECODE_M)
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+@pytest.mark.parametrize("where", ["zero", "raw", "aligned", "all"])
+def test_decode_gemm_split_precision(cuda, m, k, n, where):
+    """split_precision's decode GEMM on the K-major codes: int8 columns bit
+    for bit (mma.sync), bf16 columns (fmaf) within the bound, both probes."""
+    _split_precision_case(cuda, m, k, n, where, "k_major", seed=14)
 
 
 def test_cuda_wrappers_reject_mixed_devices(cuda):
@@ -298,3 +401,25 @@ def test_long_prefill_on_the_card_launches_flash_per_layer(cuda):
     assert flash_attention.launches == before + cfg.n_layers
     assert tuple(logits.shape) == (2, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("first", ["quant_matmul", "ternary_matmul"])
+def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first):
+    """quant_matmul and ternary_matmul build the same decode-GEMM
+    instantiation into two libraries.  At M 16, K 4096, N 17024 (plan 128
+    x 2: a 2 KB x slice of 16 rows) a block needs more than 48 KB of
+    shared memory, which each library must allow for its own kernel,
+    whichever launches first; both then agree with the plain version."""
+    from repro_torch.kernels.quant_matmul import decode_plan
+    m, k, n = 16, 4096, 17024
+    assert decode_plan(m, k, n, 132) == (128, 2)
+    x, w, t, sx, sw = _operands(m, k, n, 15, cuda)
+    calls = {"quant_matmul": (ops.quant_matmul_op, w, quant_matmul_plain),
+             "ternary_matmul": (ops.ternary_matmul_op, t,
+                                ternary_matmul_plain)}
+    order = [first] + [c for c in calls if c != first]
+    for name in order + order:
+        op, weight, plain = calls[name]
+        got = op(x, weight.t().contiguous().t(), sx, sw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(x, weight, sx, sw)), name

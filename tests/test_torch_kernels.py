@@ -309,3 +309,114 @@ def test_cuda_wrappers_reject_bad_operands():
                         torch.ones(4), 0)
     with pytest.raises(ValueError):
         split_precision(xb, x, torch.tensor(1.0), wb, w_q, torch.ones(4), 5)
+
+
+#: the (K, N) of every decode call on the served paths (yi-9b's layers;
+#: ternary_packed's entry-point run takes the same), and N / K off them
+SERVED_KN = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096),
+             (4096, 64000)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", SERVED_KN + [(11008, 1000), (1000, 1000)])
+def test_decode_plan_fills_the_card_and_covers_k(m, k, n):
+    """The decode GEMM's plan on an H100's 132 SMs: at least one block per
+    SM at every served shape; its blocks' and warps' K slices cover K
+    exactly, in order, and a block's slice fits its staged x."""
+    from repro_torch.kernels.quant_matmul import (DECODE_CHUNK, DECODE_SPAN,
+                                                  DECODE_WARPS,
+                                                  decode_k_slices,
+                                                  decode_plan)
+    sms = 132
+    bn, split = decode_plan(m, k, n, sms)
+    assert bn in (16, 32, 64, 128) and split in (1, 2, 4, 8)
+    assert -(-n // bn) * split >= sms
+    slices = decode_k_slices(k, bn, split)
+    wpg = DECODE_WARPS // (bn // 16)
+    assert len(slices) == split * wpg
+    ordered = [slices[(r, w)] for r in range(split) for w in range(wpg)]
+    assert ordered[0][0] == 0 and ordered[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ordered, ordered[1:]))
+    for r in range(split):
+        lo, hi = slices[(r, 0)][0], slices[(r, wpg - 1)][1]
+        assert hi - lo <= DECODE_SPAN * DECODE_CHUNK
+
+
+def test_decode_plan_prefers_wide_tiles_and_few_splits():
+    """Two blocks per SM with the widest tile and then the fewest splits;
+    where no plan reaches that, the largest grid; M outside 1 .. 16 and K
+    past 8 splits of the staged slice are refused."""
+    from repro_torch.kernels.quant_matmul import decode_plan
+    assert decode_plan(4, 4096, 64000, 132) == (128, 2)
+    assert decode_plan(4, 4096, 11008, 132) == (128, 4)
+    assert decode_plan(4, 4096, 4096, 132) == (64, 8)
+    assert decode_plan(4, 4096, 512, 132) == (16, 8)
+    assert decode_plan(4, 64, 64000, 132) == (128, 1)
+    with pytest.raises(ValueError):
+        decode_plan(17, 4096, 4096, 132)
+    with pytest.raises(ValueError):
+        decode_plan(4, 32768, 4096, 132)
+
+
+@pytest.mark.parametrize("m", [3, 20])
+@pytest.mark.parametrize("n", [130, 200])
+@pytest.mark.parametrize("where", ["zero", "raw7", "all"])
+def test_split_precision_kernel_operands_match_jax(m, n, where):
+    """The operands the wrapper hands the kernel (x, x_q and w_bf16 with K
+    37 padded to 48, the K-major codes, w_bf16 and sw with N padded to 16
+    for the wgmma GEMM at M 20, to 4 for the decode GEMM at M 3), through
+    the plain version's arithmetic, give the JAX op's output on the first
+    N columns: int8 columns bit for bit, bf16 columns within the bound."""
+    from repro_torch.kernels import split_precision as sp
+    boundary = {"zero": 0, "raw7": 7, "all": n}[where]
+    k = 37
+    x, x_q, sx, w_b, w_q, sw = _split_operands(m, k, n, 9)
+    want = np.asarray(jops.split_precision_op(
+        jnp.asarray(x, jnp.bfloat16), x_q, jnp.float32(sx),
+        jnp.asarray(w_b, jnp.bfloat16), w_q, sw, boundary, bn=16))
+    b_al = min(ops.align_boundary(boundary, ops.block_n(16, n)), n)
+    xb, xq, wb, wk, swp = sp.kernel_operands(_bf16(x), _t(x_q), _bf16(w_b),
+                                             _t(w_q), _t(sw))
+    na = 16 if m > 16 else 4
+    n_pad = -(-n // na) * na
+    assert tuple(xb.shape) == (m, 48) and tuple(xq.shape) == (m, 48)
+    assert tuple(wk.shape) == (n_pad, 48) and tuple(wb.shape) == (48, n_pad)
+    assert tuple(swp.shape) == (n_pad,)
+    got = sp.split_precision_plain(xb, xq, _t(sx), wb, wk.t(), swp, b_al)
+    _assert_split_close(got[:, :n].numpy(), want, x, w_b, b_al)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_ternary_matmul_kernel_operands_match_jax(m, k, n):
+    """x_q with K padded to 16 and the K-major codes the kernel reads,
+    through the plain version, give the JAX op's output bit for bit."""
+    from repro_torch.kernels import ternary_matmul as tm
+    x, w_t, _, sx, sw = _operands(m, k, n, 0, 10)
+    want = np.asarray(jops.ternary_matmul_op(x, w_t, jnp.float32(sx), sw))
+    xq, wk = tm.kernel_operands(_t(x), _t(w_t))
+    assert tuple(xq.shape) == (m, -(-k // 16) * 16) and wk.is_contiguous()
+    got = tm.ternary_matmul_plain(xq, wk.t(), _t(sx), _t(sw))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 4096, 512), (17, 4096, 512),
+                                   (300, 4096, 1008), (12288, 4096, 512),
+                                   (100, 256, 208), (512, 1008, 1008)])
+def test_split_precision_wgmma_split(m, k, n):
+    """split_precision's wgmma GEMM (M > 16) splits K over a cluster of
+    at most 4 until its grid holds a block per SM of an H100 (132), never
+    leaving a split fewer than 4 stages of 64 K; the served prefill (M 512
+    x N 512, 16 tiles) takes 4."""
+    from repro_torch.kernels.split_precision import (WGMMA_MIN_STAGES,
+                                                     WGMMA_STAGE_K,
+                                                     wgmma_split)
+    sms = 132
+    split = wgmma_split(m, k, n, sms)
+    tiles = -(-m // 128) * -(-n // 128)
+    stages = -(-k // WGMMA_STAGE_K)
+    assert split in (1, 2, 4)
+    assert split == 1 or stages >= WGMMA_MIN_STAGES * split
+    if split < 4 and stages >= WGMMA_MIN_STAGES * 2 * split:
+        assert tiles * split >= sms
+    if (m, k, n) == (512, 4096, 512):
+        assert split == 4

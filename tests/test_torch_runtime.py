@@ -460,30 +460,27 @@ def test_v1_plan_json_from_jax_loads(model, artifacts):
     ("gpu_tc_like", "units/0/attn/wk@0", "split_precision", [8, 16])])
 def test_prepare_layer_lays_out_codes_per_kernel(model, artifacts, mappings,
                                                  key, layer, kernel, bits):
-    """The quant_matmul and split_ternary layers hold their codes as the
-    (K, N) transposed view of a contiguous (N, K) tensor, the layout their
-    kernels read (one copy); the other kernels keep row-major codes.  Shape
-    and values are the JAX package's either way."""
+    """Every int8 kernel's layer holds its codes as the (K, N) transposed
+    view of a contiguous (N, K) tensor, the layout the kernels read (one
+    copy); split_precision's bf16 weight stays row-major.  Shape and values
+    are the JAX package's."""
     doc = artifacts[0] if key == "diana" else mappings[key][0]
     tuning = BN16 if key == "gpu_tc_like" else None
     jprep, prep, lp = _prepared_pair(model, doc, layer, bits, tuning)
     assert lp.kernel == kernel
     k, n = lp.c_in, lp.c_out
     assert tuple(prep.w_q.shape) == (k, n) and prep.w_q.dtype == torch.int8
-    if kernel in ("quant_matmul", "split_ternary"):
-        assert prep.w_q.stride() == (1, k) and prep.w_q.t().is_contiguous()
-    else:
-        assert prep.w_q.stride() == (n, 1)
+    assert prep.w_q.stride() == (1, k) and prep.w_q.t().is_contiguous()
+    if kernel == "split_precision":
+        assert prep.w_bf16.stride() == (n, 1)
     np.testing.assert_array_equal(prep.w_q.numpy(), np.asarray(jprep.w_q))
 
 
-@pytest.fixture(scope="module")
-def bound_diana(tmp_path_factory):
-    """(plan, backend) of a bound diana plan of reduced yi-9b (float32
-    parameters, int8 KV cache), after checking that the planned prefill
+def _bind_planned(tmp_path, platform="diana", bias=None, tuning=None):
+    """(plan, backend) of reduced yi-9b (float32 parameters, int8 KV cache)
+    planned on ``platform``, after checking that the planned prefill
     logits equal the JAX package's within the 1e-4 that
     `test_torch_model.py` holds."""
-    tmp_path = tmp_path_factory.mktemp("bound")
     from repro.models.managed import matmul_backend
     from repro_torch.models import _backend
     jcfgbase.load_all()
@@ -494,11 +491,12 @@ def bound_diana(tmp_path_factory):
         cfgbase.reduce_for_smoke(cfgbase.get("yi-9b")), **over)
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
     params = T.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
-    art = j_emit(jparams, jcfg, "diana", tmp_path / "m.json",
-                 max_cout=MAX_COUT, act_log_scale=2.0)
-    plan = rt.lower(art.to_dict(), params=params)
+    art = j_emit(jparams, jcfg, platform, tmp_path / "m.json",
+                 max_cout=MAX_COUT, act_log_scale=2.0, bias=bias)
+    plan = rt.lower(art.to_dict(), params=params, tuning=tuning)
     backend = rt.PlannedBackend(plan, params)
-    jbackend = jrt.PlannedBackend(jrt.lower(art, params=jparams), jparams,
+    jbackend = jrt.PlannedBackend(jrt.lower(art, params=jparams,
+                                            tuning=tuning), jparams,
                                   reference=True)
     prompts = np.random.default_rng(5).integers(0, cfg.vocab, (2, 8),
                                                 dtype=np.int32)
@@ -510,6 +508,14 @@ def bound_diana(tmp_path_factory):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=1e-4)
     return plan, backend
+
+
+@pytest.fixture(scope="module")
+def bound_diana(tmp_path_factory):
+    """(plan, backend) of a bound diana plan of reduced yi-9b (float32
+    parameters, int8 KV cache), its prefill logits checked against the
+    JAX package's (`_bind_planned`)."""
+    return _bind_planned(tmp_path_factory.mktemp("bound"))
 
 
 def _bound_layers(bound, kernel):
@@ -542,6 +548,25 @@ def test_planned_backend_binds_split_ternary_layers_k_major(bound_diana):
         assert p.w_q.stride() == (1, k) and p.w_q.t().is_contiguous()
         assert p.w_t_packed.is_contiguous()
         assert tuple(p.w_t_packed.shape) == (-(-k // 4), p.plan.c_out)
+
+
+@pytest.mark.parametrize("key,kernel", [("gpu_tc_like", "split_precision"),
+                                        ("ternary", "ternary_matmul")])
+def test_planned_backend_binds_new_mappings_k_major(key, kernel, tmp_path):
+    """Every split_precision layer of a bound gpu_tc_like plan (bn 16, so
+    that bf16 columns exist) and every ternary_matmul layer of a bound
+    diana_ternary plan holds its codes as the (K, N) transposed view of a
+    contiguous (N, K) tensor (strides (1, K)), split_precision's bf16
+    weight row-major, and the planned prefill logits stay the JAX
+    package's."""
+    plat, bias = MAPPINGS[key]
+    bound = _bind_planned(tmp_path, plat, bias,
+                          BN16 if key == "gpu_tc_like" else None)
+    for p in _bound_layers(bound, kernel):
+        k, n = p.plan.c_in, p.plan.c_out
+        assert p.w_q.stride() == (1, k) and p.w_q.t().is_contiguous()
+        if kernel == "split_precision":
+            assert p.w_bf16.stride() == (n, 1)
 
 
 @pytest.mark.parametrize("shape,strides,aligned,route", [
@@ -656,3 +681,97 @@ def test_quant_matmul_k_major_copy_counts_pads():
     assert tuple(got.shape) == (24, 48) and got.is_contiguous()
     np.testing.assert_array_equal(got[:, :40].numpy(), w.numpy())
     assert not got[:, 40:].any()
+
+
+@pytest.mark.parametrize("shape,strides,aligned,route", [
+    ((64, 512), (1, 64), True, "k_major"),    # prepared layout
+    ((64, 512), (512, 1), True, "transpose"),  # row-major
+    ((60, 512), (1, 60), True, "pad"),         # K % 16 != 0
+    ((64, 130), (1, 64), True, "k_major"),     # any N
+    ((64, 512), (1, 64), False, "pad"),        # misaligned base
+    ((64, 512), (1, 80), True, "transpose")])  # rows with a gap
+def test_ternary_matmul_weight_route_from_strides(shape, strides, aligned,
+                                                  route):
+    from repro_torch.kernels.ternary_matmul import weight_route
+    assert weight_route(shape, strides, aligned) == route
+
+
+@pytest.mark.parametrize("shape,strides,m,aligned,route", [
+    ((64, 512), (1, 64), 4, True, "k_major"),      # prepared, decode
+    ((64, 512), (1, 64), 512, True, "k_major"),    # prepared, wgmma
+    ((64, 512), (512, 1), 4, True, "transpose"),   # row-major
+    ((64, 132), (1, 64), 4, True, "k_major"),      # decode: N % 4 == 0
+    ((64, 132), (1, 64), 17, True, "pad"),         # wgmma: N % 16 != 0
+    ((64, 130), (1, 64), 16, True, "pad"),         # decode: N % 4 != 0
+    ((40, 512), (1, 40), 300, True, "pad"),        # K % 16 != 0
+    ((64, 512), (1, 64), 8, False, "pad")])        # misaligned base
+def test_split_precision_weight_route_from_strides(shape, strides, m,
+                                                   aligned, route):
+    from repro_torch.kernels.split_precision import weight_route
+    assert weight_route(shape, strides, m, aligned) == route
+
+
+def test_ternary_matmul_kernel_operands_count_weight_copies():
+    """On CPU tensors: the prepared K-major codes reach the kernel
+    uncopied; a row-major weight, or a K-major one with K off 16, counts
+    one copy, zero-padded in K, with the weight's values."""
+    from repro_torch.kernels import ternary_matmul as tm
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.integers(-127, 128, (3, 48), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-1, 2, (48, 20), dtype=np.int8))
+    before = tm.ternary_matmul.transposed_copies
+    col = w.t().contiguous().t()
+    xq, wk = tm.kernel_operands(x, col)
+    assert tm.ternary_matmul.transposed_copies == before
+    assert wk.data_ptr() == col.data_ptr() and tuple(wk.shape) == (20, 48)
+    xq, wk = tm.kernel_operands(x, w)
+    assert tm.ternary_matmul.transposed_copies == before + 1
+    np.testing.assert_array_equal(wk.numpy(), w.t().numpy())
+    x40, w40 = x[:, :40], w[:40].t().contiguous().t()
+    xq, wk = tm.kernel_operands(x40, w40)
+    assert tm.ternary_matmul.transposed_copies == before + 2
+    assert tuple(xq.shape) == (3, 48) and tuple(wk.shape) == (20, 48)
+    assert not wk[:, 40:].any() and not xq[:, 40:].any()
+
+
+@pytest.mark.parametrize("m", [4, 20])
+def test_split_precision_kernel_operands_count_weight_copies(m):
+    """On CPU tensors: the prepared layout (K-major codes, contiguous bf16
+    weight, K % 16 == 0, N on the alignment of M) reaches the kernel
+    uncopied; a row-major w_q counts one copy; at N off the alignment (16
+    for the wgmma GEMM at M 20, 4 for the decode GEMM at M 4) and K off 16
+    both weights are copied zero-padded, one count each."""
+    from repro_torch.kernels import split_precision as sp
+    rng = np.random.default_rng(m)
+
+    def ops_for(k, n):
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+        wb = torch.from_numpy(rng.normal(0, 0.05, (k, n)).astype(
+            np.float32)).to(torch.bfloat16)
+        x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(
+            np.float32)).to(torch.bfloat16)
+        xq = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+        return x, xq, wb, w, torch.ones(n)
+
+    x, xq, wb, w, sw = ops_for(48, 64)
+    col = w.t().contiguous().t()
+    before = sp.split_precision.transposed_copies
+    xb_, xq_, wb_, wk_, sw_ = sp.kernel_operands(x, xq, wb, col, sw)
+    assert sp.split_precision.transposed_copies == before
+    assert wk_.data_ptr() == col.data_ptr() and wb_.data_ptr() == \
+        wb.data_ptr()
+    sp.kernel_operands(x, xq, wb, w, sw)
+    assert sp.split_precision.transposed_copies == before + 1
+    x, xq, wb, w, sw = ops_for(40, 12)
+    before = sp.split_precision.transposed_copies
+    xb_, xq_, wb_, wk_, sw_ = sp.kernel_operands(x, xq, wb,
+                                                 w.t().contiguous().t(), sw)
+    n_pad = 16 if m > 16 else 12
+    assert sp.split_precision.transposed_copies == before + 1 + 1
+    assert tuple(wk_.shape) == (n_pad, 48) and tuple(wb_.shape) == (48, n_pad)
+    assert tuple(xb_.shape) == (m, 48) and tuple(xq_.shape) == (m, 48)
+    assert tuple(sw_.shape) == (n_pad,) and not sw_[12:].any()
+    np.testing.assert_array_equal(wk_[:12, :40].numpy(), w.t().numpy())
+    np.testing.assert_array_equal(wb_[:40, :12].float().numpy(),
+                                  wb.float().numpy())
+    assert not wk_[:, 40:].any() and not wb_[40:].float().any()
