@@ -12,10 +12,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    each, in parallel), ptxas's registers and spills of each kernel, a
    ``[ptxas]`` line per instantiation of the decode GEMM, and the
    ``[sass]`` line: the count of Hopper's wgmma instructions in the SASS
-   of the five wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
-   HGMMA in flash_attention, IGMMA in quant_matmul, split_ternary and
-   ternary_packed, both in split_precision); a count of 0 or a spill in
-   any kernel fails.
+   of the six wgmma kernels (cuobjdump -sass of ``build/torch_ext/``:
+   HGMMA in flash_attention, IGMMA in quant_matmul, ternary_matmul,
+   split_ternary and ternary_packed, both in split_precision); a count of
+   0 or a spill in any kernel fails.
 3. kernels vs their plain versions on the card at the serving paths'
    shapes: M in {4, 512} x (K, N) in {(4096, 4096), (4096, 512),
    (4096, 11008), (11008, 4096), (4096, 64000)}.  quant_matmul,
@@ -25,9 +25,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    off its column tiles; split_ternary bit for bit at boundaries {0, 7,
    128, 300, N} through the op (aligned to the N-block) and at 7 and 300
    through the kernel itself (a column tile that reads both streams);
-   split_ternary and ternary_packed also on their wgmma GEMM at M {17,
-   100, 300, 512} x the five (K, N) and (11008, 1000), with the K-major
-   codes, and at the long prefill's M 12288 x (4096, 512); split_precision
+   ternary_matmul, split_ternary and ternary_packed also on their wgmma
+   GEMM at M {17, 100, 300, 512} x the five (K, N) and (11008, 1000), with
+   the K-major codes (ternary_matmul at the K split its plan gives), and
+   at the long prefill's M 12288 x (4096, 512); split_precision
    at raw boundaries {0, 7, 128, 342, N}, its int8 columns bit for bit and
    its bf16 columns within the float32 summation bound ``K * 2**-24 *
    sum_k |x w| + 2**-24 * |y|``, also at M {16, 17, 100, 300} on the
@@ -68,6 +69,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    as at decode), the diana layers also at the long prefill's M = 4 x
    3072 = 12288, and, for flash_attention, at the long prefill's call (q
    (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal, kv_len 3072).
+   Then the split sweep: the wgmma GEMM of split_precision and of
+   ternary_matmul at M 512 x (4096, 512) at each K split of SWEEP_SPLITS,
+   each checked against the plain version and timed as above.
 5. serving: full-width 48-layer yi-9b with random weights from --seed
    (one set of params), mapped three ways and served with the fixed-batch
    greedy loop (4 requests x 128 prompt + 16 generated tokens), one bound
@@ -94,8 +98,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    valid summation order moves the prefill logits: the kernel run must lie
    within SENSITIVITY_FACTOR times that of the float64 plain run (tokens
    compared per row up to the first step whose plain top-2 margin is
-   below that tolerance).  Then a warm run, with the profiler's device
-   busy share on diana and gpu_tc_like.
+   below that tolerance).  Then a warm run, and a profiled one: the
+   device busy time and idle share of each path.
    diana_long: the same params and diana artifact, 4 requests x 3072
    prompt + 16 generated tokens in a 4096-slot int8 cache
    (``serve_batch(..., max_len=4096)``), so the prefill (Sq > 2048) takes
@@ -150,9 +154,10 @@ LONG_M = REQUESTS * LONG_PROMPT          # rows of its prefill's projections
 #: quant_matmul checks off its wgmma tiles (128 rows, 128 or 256 columns)
 RAGGED_M = (17, 100, 300)
 RAGGED_KN = [(4096, 4096), (11008, 1000)]
-#: split_ternary / ternary_packed checks on their wgmma GEMM (M > 16):
-#: every served (K, N) and N 1000 (padded to 1008), at these M beside
-#: PREFILL_M; and the long prefill's (M, K, N)
+#: ternary_matmul / split_ternary / ternary_packed checks on their wgmma
+#: GEMM (M > 16): every served (K, N) and N 1000 (padded to 1008 for the
+#: packed ones), at these M beside PREFILL_M; and the long prefill's (M, K,
+#: N)
 PACKED_M = RAGGED_M
 PACKED_KN = KN_SHAPES + [(11008, 1000)]
 PACKED_LONG = (LONG_M, 4096, 512)
@@ -199,7 +204,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, ops attribute)
 }
 #: the wgmma instructions each wgmma kernel's SASS must hold
 SASS_OPS = {"flash_attention": ("HGMMA",), "quant_matmul": ("IGMMA",),
-            "split_ternary": ("IGMMA",), "ternary_packed": ("IGMMA",),
+            "ternary_matmul": ("IGMMA",), "split_ternary": ("IGMMA",),
+            "ternary_packed": ("IGMMA",),
             "split_precision": ("IGMMA", "HGMMA")}
 # serving paths: platform, emission bias, kernel of wk / wv, raw boundary
 # of wk / wv (None: one domain)
@@ -282,7 +288,7 @@ def entry_name(mangled):
 def phase_sass(torch):
     """The ``[sass]`` line: Hopper's wgmma instructions in the SASS of the
     wgmma kernels' libraries as built (HGMMA in flash_attention, IGMMA in
-    quant_matmul, split_ternary and ternary_packed, both in
+    quant_matmul, ternary_matmul, split_ternary and ternary_packed, both in
     split_precision), with ptxas's registers and spills of their kernels,
     and a ``[ptxas]`` line per decode GEMM instantiation (registers,
     spills); fails if an instruction count is 0 or any kernel of any
@@ -595,6 +601,18 @@ def phase_kernels(torch, gen):
                   f"{b_al}, w_bf16 NaN below")
         return ratio
 
+    def ternary_split(m, k, n):
+        from repro_torch.kernels.ternary_matmul import launch_args
+        return launch_args(m, -(-k // 16) * 16, n, gen.device)[1]
+
+    def ternary_k_major(m, k, n, quiet=True):
+        x, w_t, _, sx, sw = operands(m, k, n, 0, gen)
+        exact("ternary_matmul", ops.ternary_matmul_op(
+            x, w_t.t().contiguous().t(), sx, sw),
+            ternary_matmul_plain(x, w_t, sx, sw),
+            f"M={m:<5d} K={k:<6d} N={n:<6d} K-major, K split "
+            f"{ternary_split(m, k, n)}", quiet)
+
     def quant_both_layouts(m, k, n):
         shape = f"M={m:<4d} K={k:<6d} N={n:<6d}"
         x, w_q, _, sx, sw = operands(m, k, n, n, gen)
@@ -622,17 +640,23 @@ def phase_kernels(torch, gen):
     for m in RAGGED_M:
         for k, n in RAGGED_KN:
             quant_both_layouts(m, k, n)
-    # the wgmma GEMM of split_ternary and ternary_packed (M > 16) on the
-    # K-major codes the serving paths hold, one line per (M, K, N)
+    # the wgmma GEMM of ternary_matmul, split_ternary and ternary_packed (M
+    # > 16) on the K-major codes the serving paths hold (ternary_matmul at
+    # the split its plan gives), one line per (M, K, N)
     for m in PACKED_M + (PREFILL_M,):
         for k, n in PACKED_KN:
+            ternary_k_major(m, k, n)
             if m == PREFILL_M and (k, n) in KN_SHAPES:
-                continue          # checked above
+                print(f"[kernels] wgmma M={m:<5d} K={k:<6d} N={n:<6d}: "
+                      f"ternary_matmul (K split {ternary_split(m, k, n)}) "
+                      f"bit-identical")
+                continue          # the others checked above
             packed_case(m, k, n, quiet=True)
             raws = [n if b is None else min(b, n) for b in BOUNDARIES]
             for raw in raws:
                 split_probes(m, k, n, raw, "K-major", quiet=True)
             print(f"[kernels] wgmma M={m:<5d} K={k:<6d} N={n:<6d}: "
+                  f"ternary_matmul (K split {ternary_split(m, k, n)}), "
                   f"ternary_packed and split_ternary (boundaries {raws}, "
                   f"aligned and raw {list(RAW_BOUNDARIES)}, both garbage "
                   f"probes) bit-identical")
@@ -701,6 +725,7 @@ def phase_kernels(torch, gen):
                   f"bit-identical, bf16 columns at most {ratio:.3g} of the "
                   f"bound (both probes)")
     m, k, n = PACKED_LONG
+    ternary_k_major(m, k, n, quiet=False)
     packed_case(m, k, n)
     for raw in (PATHS["diana"][3], 300):
         split_probes(m, k, n, raw, "K-major")
@@ -893,42 +918,68 @@ def phase_times(torch, gen):
     return times
 
 
-#: the K splits split_precision's wgmma GEMM is timed at (the sweep)
+#: the K splits the wgmma GEMM of split_precision and ternary_matmul is
+#: timed at (the sweep)
 SWEEP_SPLITS = (1, 2, 4, 8)
 
 
 def phase_split_sweep(torch, gen):
-    """split_precision's wgmma GEMM at the served prefill call (M 512, K
-    4096, N 512, raw boundary 342) with each K split of SWEEP_SPLITS in
-    place of the wrapper's plan: each checked against the plain version
-    (int8 columns bit for bit, bf16 columns within the bound) and timed as
-    the kernels of phase 4 (graph replays, ROUNDS rounds, weights cold in
-    L2); returns {split: median ms}."""
+    """The wgmma GEMM of split_precision and of ternary_matmul at their
+    served prefill call (M 512, K 4096, N 512; split_precision at raw
+    boundary 342) with each K split of SWEEP_SPLITS in place of the
+    wrapper's plan: each checked against the plain version (ternary_matmul
+    and split_precision's int8 columns bit for bit, its bf16 columns within
+    the bound) and timed as the kernels of phase 4 (graph replays, ROUNDS
+    rounds, weights cold in L2); returns {kernel: {split: median ms}}."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import split_precision as sp
+    from repro_torch.kernels import ternary_matmul as tm
     m, (k, n), raw = PREFILL_M, (4096, 512), PATHS["gpu_tc_like"][3]
-    acts, (w_b, w_q), _, sw, b_al = split_precision_case(torch, m, k, n, raw,
-                                                         gen)
-    weights = (w_b, w_q.t().contiguous().t())
-    copies = -(-2 * L2_BYTES // (k * b_al + 2 * k * (n - b_al)))
-    ring = itertools.cycle([weights] + [tuple(t.clone() for t in weights)
-                                        for _ in range(copies - 1)])
-    plan, out = sp.wgmma_split, {}
-    try:
-        for split in SWEEP_SPLITS:
-            sp.wgmma_split = lambda *_, split=split: split
-            got = ops.split_precision_op(*acts, *weights, sw, raw)
-            ratio = check_split_precision_calls(
-                torch, [((*acts, *weights, sw, raw), {"bn": 128}, got)])
-            xs = graph_rounds({"ms": lambda: ops.split_precision_op(
-                *acts, *next(ring), sw, raw)}, copies)["ms"]
-            out[split] = median(xs)
-            print(f"[times] split_precision M={m} K={k} N={n} wgmma K split "
-                  f"{split}: kernel {out[split]:.4f} ms ({min(xs):.4f}-"
-                  f"{max(xs):.4f}); int8 columns bit-identical, bf16 columns "
-                  f"{ratio:.3g} of the bound")
-    finally:
-        sp.wgmma_split = plan
+    acts, (w_b, w_q), _, sw_p, b_al = split_precision_case(torch, m, k, n,
+                                                           raw, gen)
+    x, w_t, _, sx, sw = operands(m, k, n, 0, gen)
+    cases = {
+        "split_precision": (sp, (w_b, w_q.t().contiguous().t()),
+                            k * b_al + 2 * k * (n - b_al)),
+        "ternary_matmul": (tm, (w_t.t().contiguous().t(),), k * n)}
+    out = {}
+    for kernel, (module, weights, wbytes) in cases.items():
+        copies = -(-2 * L2_BYTES // wbytes)
+        ring = itertools.cycle([weights] + [
+            tuple(t.clone() for t in weights) for _ in range(copies - 1)])
+        if kernel == "split_precision":
+            def call(w):
+                return ops.split_precision_op(*acts, *w, sw_p, raw)
+        else:
+            def call(w):
+                return ops.ternary_matmul_op(x, w[0], sx, sw)
+        plan, out[kernel] = module.wgmma_split, {}
+        try:
+            for split in SWEEP_SPLITS:
+                module.wgmma_split = lambda *_, split=split: split
+                got = call(weights)
+                if kernel == "split_precision":
+                    ratio = check_split_precision_calls(
+                        torch, [((*acts, *weights, sw_p, raw), {"bn": 128},
+                                 got)])
+                    check = (f"int8 columns bit-identical, bf16 columns "
+                             f"{ratio:.3g} of the bound")
+                else:
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, tm.ternary_matmul_plain(
+                            x, w_t, sx, sw)):
+                        raise AssertionError(f"ternary_matmul K split "
+                                             f"{split}: differs")
+                    check = "bit-identical"
+                xs = graph_rounds({"ms": lambda: call(next(ring))},
+                                  copies)["ms"]
+                out[kernel][split] = median(xs)
+                print(f"[times] {kernel} M={m} K={k} N={n} wgmma K split "
+                      f"{split}: kernel {out[kernel][split]:.4f} ms "
+                      f"({min(xs):.4f}-{max(xs):.4f}); {check}")
+        finally:
+            module.wgmma_split = plan
+        del ring
     return out
 
 
@@ -1178,7 +1229,7 @@ def compare_tokens(torch, path, tokens, ref_tokens, margins, tol):
     return compared
 
 
-def phase_serving(torch, path, cfg, params, prompts, profile_run):
+def phase_serving(torch, path, cfg, params, prompts):
     """Serve ``cfg`` planned on ``path`` with the kernels, then with the
     plain versions, then warm; returns (launches of the kernel run,
     serving record)."""
@@ -1317,13 +1368,12 @@ def phase_serving(torch, path, cfg, params, prompts, profile_run):
     record.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
                   warm_decode_tok_per_s=warm["tok_per_s"],
                   warm_wall_ms=warm_ms)
-    if profile_run:
-        busy_ms = phase_profile(torch, path, serve_batch, cfg, params,
-                                prompts, backend)
-        print(f"[profile:{path}] device busy {busy_ms:.3f} ms of the warm "
-              f"run's {warm_ms:.3f} ms wall: idle share "
-              f"{1.0 - busy_ms / warm_ms:.3f}")
-        record["device_busy_ms"] = busy_ms
+    busy_ms = phase_profile(torch, path, serve_batch, cfg, params, prompts,
+                            backend)
+    print(f"[profile:{path}] device busy {busy_ms:.3f} ms of the warm "
+          f"run's {warm_ms:.3f} ms wall: idle share "
+          f"{1.0 - busy_ms / warm_ms:.3f}")
+    record["device_busy_ms"] = busy_ms
     del plan, backend
     gc.collect()
     torch.cuda.empty_cache()
@@ -1615,10 +1665,11 @@ def phase_long(torch, cfg, params, prompts):
 
 def phase_profile(torch, path, serve_batch, cfg, params, prompts, backend):
     """Device time by kernel over one more serving run, from
-    torch.profiler; returns the summed device time in ms."""
+    torch.profiler's device activity (kernels, copies; the host's
+    operators are not recorded, which keeps the profiler's own cost low);
+    returns the summed device time in ms."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, st = serve_batch(cfg, params, prompts, GEN_LEN, backend=backend)
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1681,8 +1732,13 @@ def main(argv=None) -> int:
     print("kernels: " + " ".join(KERNELS))
     phase_sass(torch)
 
+    def mark(what):
+        print(f"[phase] {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = phase_kernels(torch, gen)
+    mark("kernel checks")
     print(f"[times] bounds from the H100 SXM data sheet (3.35 TB/s, 1979 "
           f"int8 TOP/s and 989 bf16 TFLOP/s dense, at 700 W); this card: "
           f"{smi}")
@@ -1690,6 +1746,7 @@ def main(argv=None) -> int:
     times = phase_times(torch, gen)
     sweep = phase_split_sweep(torch, gen)
     flash_rec = phase_flash_times(torch, gen)
+    mark("kernel times")
     for kernel in KERNELS:
         path = LAUNCH_PATH[kernel]
         if path not in PATHS:
@@ -1715,13 +1772,14 @@ def main(argv=None) -> int:
     launches, serving = {"entry point": entry_launches}, {}
     for path in PATHS:
         launches[path], serving[path] = phase_serving(
-            torch, path, cfg, params, prompts,
-            profile_run=path != "diana_ternary")
+            torch, path, cfg, params, prompts)
+        mark(f"serving {path}")
     del prompts
     long_prompts = torch.randint(0, cfg.vocab, (REQUESTS, LONG_PROMPT),
                                  generator=sgen, device=dev)
     launches["diana_long"], serving["diana_long"], long_err = phase_long(
         torch, cfg, params, long_prompts)
+    mark("serving diana_long")
     worst["flash_attention"] = max(worst["flash_attention"], long_err)
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
@@ -1763,7 +1821,7 @@ def main(argv=None) -> int:
                         "bound_by": mix["bound_by"],
                         "library_ms": mix["library_ms"]})
     result = {"kernels": records, "serving": serving,
-              "split_precision_split_sweep_ms": sweep,
+              "split_sweep_ms": sweep,
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "build" / "chip_smoke" / "result.json"
     out.write_text(json.dumps(result, indent=1))

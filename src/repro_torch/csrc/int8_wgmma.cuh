@@ -3,13 +3,14 @@
 //
 //     out[m, n] = (float)(sum_k x[m, k] * w[k, n]) * sx * sw[n]
 //
-// shared by quant_matmul.cu, split_ternary.cu, ternary_packed.cu and
-// split_precision.cu, which differ only in how the weight (B) tile of a
-// stage is filled, the `Src` template parameter:
+// shared by quant_matmul.cu, ternary_matmul.cu, split_ternary.cu,
+// ternary_packed.cu and split_precision.cu, which differ only in how the
+// weight (B) tile of a stage is filled, the `Src` template parameter:
 //
 //   Int8Codes     TMA of BN rows x 128 K-bytes of the K-major (N, K) int8
-//                 codes (quant_matmul; split_ternary's column tiles
-//                 entirely below the boundary);
+//                 codes (quant_matmul and ternary_matmul, `launch_codes`;
+//                 split_ternary's column tiles entirely below the
+//                 boundary);
 //   PackedCodes   TMA of 32 rows x BN columns of the row-major (K/4, N)
 //                 2-bit stream, as it is stored (4 KB per stage at BN 128
 //                 against 16 KB of int8 codes), unpacked in shared memory
@@ -51,20 +52,24 @@
 //     and the two warpgroups meet at a named barrier before either issues
 //     the stage's wgmma;
 //   - blocks walk the tiles in groups of 8 row tiles, so that neighbouring
-//     blocks share x and weight tiles in L2.
+//     blocks share x and weight tiles in L2;
+//   - the consumers stage the block's BN steps sw[n] in shared memory
+//     while the first stage loads, so the epilogue reads sw from shared
+//     memory, not through a chain of global round trips.
 // Rows past M and N, and bytes past K, arrive as zeros from TMA; a packed
 // zero byte decodes to -1, which meets only zero activations (K) or
 // masked outputs (N).  A launch may split K over the blocks of a cluster
-// (`ksplit`, chosen by the wrapper; split_precision's only): each sums its
-// stages, and the cluster adds the partial tiles through distributed
-// shared memory (`split_epilogue`).  int32 accumulation is exact (|acc| <=
-// 127 * 127 * K) in any order, and the epilogue is int8_gemm.cuh's
-// `dequant` (f32(acc) * sx, then * sw[n], never fused), so the int8
-// output is bit-identical to the plain versions.  bf16 columns: each
-// wgmma sums its 16 products in f32 in an order of its own, into
-// accumulators carried over K in ascending stages (with split-K: per
-// slice, then the slices in order) -- another order than the plain
-// version's, within its float32 summation bound.
+// (`ksplit`, 1 to 8, chosen by the wrapper: split_precision's and
+// ternary_matmul's plans, kernels/split_precision.py `wgmma_split`; 1 for
+// the others): each sums its stages, and the cluster adds the partial
+// tiles through distributed shared memory (`split_epilogue`).  int32
+// accumulation is exact (|acc| <= 127 * 127 * K) in any order, and the
+// epilogue is int8_gemm.cuh's `dequant` (f32(acc) * sx, then * sw[n],
+// never fused), so the int8 output is bit-identical to the plain
+// versions.  bf16 columns: each wgmma sums its 16 products in f32 in an
+// order of its own, into accumulators carried over K in ascending stages
+// (with split-K: per slice, then the slices in order) -- another order
+// than the plain version's, within its float32 summation bound.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -170,10 +175,15 @@ struct Tile {
   static constexpr int kStageBytes =
       kABytes + kBBytes + kPBytes + kXHBytes + kWHBytes;
   static constexpr int kBarOffset = kStages * kStageBytes;
-  static constexpr int kSmem = kBarOffset + 2 * kStages * 8 + 1024;
+  // the block's BN steps sw[n0 ..], staged once for the epilogue
+  static constexpr int kSwOffset = kBarOffset + 2 * kStages * 8;
+  static constexpr int kSmem = kSwOffset + BN * 4 + 1024;
   // a split-K block's partial tile (int32, + f32 for bf16 tiles), written
-  // over the ring once its stages are consumed
-  static constexpr int kPartialBytes = kBM * BN * 4 * (Src::kBf16Tiles ? 2 : 1);
+  // over the ring once its stages are consumed; rows of BN + 8 words, so
+  // the 8 rows of a warp's 32-byte row segments fall in distinct banks
+  static constexpr int kPartialStride = BN + 8;
+  static constexpr int kPartialBytes =
+      kBM * kPartialStride * 4 * (Src::kBf16Tiles ? 2 : 1);
   static_assert(kPartialBytes <= kBarOffset, "partial tile overflows the ring");
   // wgmma layout type of the int8 tiles: one swizzle row is BK bytes
   static constexpr int kLayout =
@@ -244,17 +254,19 @@ __device__ __forceinline__ void unpack_tile(const uint8_t* __restrict__ p,
 // first); after a cluster barrier, rank r sums rows [r, r + 1) * kBM /
 // ksplit of the cluster's partials through distributed shared memory,
 // ranks in order (int32: exact; f32: another order of the same sums),
-// and writes them through the epilogue; a second barrier keeps every
-// block's shared memory until all have read it.
+// and writes them through the epilogue with the block's steps `sws`; a
+// second barrier keeps every block's shared memory until all have read
+// it.
 template <int BN, class Src, class Acc, class HAcc>
 __device__ __forceinline__ void split_epilogue(
     const Src& src, const Acc& acc, const HAcc& hacc, uint8_t* smem,
-    const float* __restrict__ sw, float s, float* __restrict__ out, int M,
-    int N, int m0, int n0, int rank, int ksplit) {
+    const float* sws, float s, float* __restrict__ out, int M, int N,
+    int m0, int n0, int rank, int ksplit) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
+  constexpr int S = Tile<BN, Src>::kPartialStride;
   int* pi = reinterpret_cast<int*>(smem);
-  float* pf = reinterpret_cast<float*>(smem + kBM * BN * 4);
+  float* pf = reinterpret_cast<float*>(smem + kBM * S * 4);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   hopper::named_barrier_sync(kConsumerBarrier, kConsumers);
@@ -264,10 +276,10 @@ __device__ __forceinline__ void split_epilogue(
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<int2*>(pi + row * BN + col) =
+      *reinterpret_cast<int2*>(pi + row * S + col) =
           make_int2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       if constexpr (Src::kBf16Tiles)
-        *reinterpret_cast<float2*>(pf + row * BN + col) =
+        *reinterpret_cast<float2*>(pf + row * S + col) =
             make_float2(hacc[4 * j + 2 * r], hacc[4 * j + 2 * r + 1]);
     }
   }
@@ -281,28 +293,34 @@ __device__ __forceinline__ void split_epilogue(
     float f[4] = {0.f, 0.f, 0.f, 0.f};
     for (int q = 0; q < ksplit; ++q) {
       const int4 v = *cluster.map_shared_rank(
-          reinterpret_cast<int4*>(pi + row * BN + col), q);
+          reinterpret_cast<int4*>(pi + row * S + col), q);
       t[0] += v.x;
       t[1] += v.y;
       t[2] += v.z;
       t[3] += v.w;
       if constexpr (Src::kBf16Tiles) {
         const float4 h = *cluster.map_shared_rank(
-            reinterpret_cast<float4*>(pf + row * BN + col), q);
+            reinterpret_cast<float4*>(pf + row * S + col), q);
         f[0] += h.x;
         f[1] += h.y;
         f[2] += h.z;
         f[3] += h.w;
       }
     }
+    float y[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int n = n0 + col + c;
-      if (n >= N) continue;
       bool half = false;  // a bf16 column (PrecisionCodes)
-      if constexpr (Src::kBf16Tiles) half = n >= src.boundary;
-      out[static_cast<size_t>(m) * N + n] =
-          half ? f[c] : i8gemm::dequant(t[c], s, sw[n]);
+      if constexpr (Src::kBf16Tiles) half = n0 + col + c >= src.boundary;
+      y[c] = half ? f[c] : i8gemm::dequant(t[c], s, sws[col + c]);
+    }
+    float* orow = out + static_cast<size_t>(m) * N + n0 + col;
+    if (N % 4 == 0 && n0 + col + 3 < N) {
+      *reinterpret_cast<float4*>(orow) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (n0 + col + c < N) orow[c] = y[c];
     }
   }
   cluster.sync();
@@ -395,8 +413,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // consumers
+  // consumers; the block's steps go to shared memory while the first
+  // stage loads (the epilogue reads them after a consumer barrier)
   hopper::reg_alloc<kConsumerRegs>();
+  float* sws = reinterpret_cast<float*>(smem + T::kSwOffset);
+  for (int i = threadIdx.x; i < BN; i += kConsumers)
+    sws[i] = n0 + i < N ? sw[n0 + i] : 0.f;
   int acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -455,10 +477,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const float s = *sx;
   if (ksplit > 1) {
-    split_epilogue<BN, Src>(src, acc, hacc, smem, sw, s, out, M, N, m0, n0,
+    split_epilogue<BN, Src>(src, acc, hacc, smem, sws, s, out, M, N, m0, n0,
                             rank, ksplit);
     return;
   }
+  hopper::named_barrier_sync(kConsumerBarrier, kConsumers);  // sws
   // output i of a column: int8 products dequantised, or a bf16 column's
   // f32 sum (PrecisionCodes at or above the boundary)
   auto value = [&](int i, int n, float swn) {
@@ -475,14 +498,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * (lane % 4);
+      const float2 sw2 = *reinterpret_cast<const float2*>(sws + n - n0);
       if (n + 1 < N && (N % 2) == 0) {
-        const float2 sw2 = *reinterpret_cast<const float2*>(sw + n);
         *reinterpret_cast<float2*>(orow + n) =
             make_float2(value(4 * j + 2 * r, n, sw2.x),
                         value(4 * j + 2 * r + 1, n + 1, sw2.y));
       } else {
-        if (n < N) orow[n] = value(4 * j + 2 * r, n, sw[n]);
-        if (n + 1 < N) orow[n + 1] = value(4 * j + 2 * r + 1, n + 1, sw[n + 1]);
+        if (n < N) orow[n] = value(4 * j + 2 * r, n, sw2.x);
+        if (n + 1 < N) orow[n + 1] = value(4 * j + 2 * r + 1, n + 1, sw2.y);
       }
     }
   }
@@ -595,6 +618,27 @@ int launch(const int8_t* x, const Src& src, const float* sx, const float* sw,
                                              ksplit);
   const cudaError_t last = cudaGetLastError();  // also clears a refusal
   return static_cast<int>(lrc != cudaSuccess ? lrc : last);
+}
+
+template <int BN>
+int launch_codes_bn(const int8_t* x, const int8_t* w, const float* sx,
+                    const float* sw, float* out, int M, int N, int K,
+                    cudaStream_t stream, int ksplit) {
+  Int8Codes src;
+  const int rc = codes_map(&src.codes, w, N, K, BN);
+  if (rc) return rc;
+  return launch<BN>(x, src, sx, sw, out, M, N, K, stream, ksplit);
+}
+
+// The GEMM on the K-major (N, K) int8 codes `w` (`Int8Codes`, rows
+// 16-byte aligned), tiles of the width `pick_bn` gives, K split `ksplit`.
+inline int launch_codes(const int8_t* x, const int8_t* w, const float* sx,
+                        const float* sw, float* out, int M, int N, int K,
+                        cudaStream_t stream, int ksplit = 1) {
+  return pick_bn(M, N) == 256
+             ? launch_codes_bn<256>(x, w, sx, sw, out, M, N, K, stream, ksplit)
+             : launch_codes_bn<128>(x, w, sx, sw, out, M, N, K, stream,
+                                    ksplit);
 }
 
 }  // namespace

@@ -29,20 +29,6 @@
 #include "int8_gemv.cuh"
 #include "int8_wgmma.cuh"
 
-namespace {
-
-template <int BN>
-int launch_wgmma(const int8_t* x, const int8_t* w, const float* sx,
-                 const float* sw, float* out, int M, int N, int K,
-                 cudaStream_t stream) {
-  i8wgmma::Int8Codes src;
-  const int rc = i8wgmma::codes_map(&src.codes, w, N, K, BN);
-  if (rc) return rc;
-  return i8wgmma::launch<BN>(x, src, sx, sw, out, M, N, K, stream);
-}
-
-}  // namespace
-
 // x_q (M, K) int8 row-major, w_q the K-major weight (N, K) int8, both with
 // K a multiple of 16 and 16-byte-aligned rows; sx one f32, sw (N,) f32;
 // out (M, N) f32; bn, split: the decode GEMM's plan (M <= 16 only).
@@ -60,9 +46,7 @@ extern "C" int quant_matmul_launch(const void* x_q, const void* w_q,
   if (M <= 16)
     return i8gemv::launch(x, nullptr, i8gemv::KMajorCodes{w, K, N}, sxp, swp,
                           o, M, N, K, bn, split, st);
-  return i8wgmma::pick_bn(M, N) == 256
-             ? launch_wgmma<256>(x, w, sxp, swp, o, M, N, K, st)
-             : launch_wgmma<128>(x, w, sxp, swp, o, M, N, K, st);
+  return i8wgmma::launch_codes(x, w, sxp, swp, o, M, N, K, st);
 }
 
 extern "C" const char* quant_matmul_error_string(int code) {

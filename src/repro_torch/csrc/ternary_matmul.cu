@@ -9,17 +9,28 @@
 //
 //   M <= 16 (decode, M = batch): bound by the int8 code stream (bytes).
 //     The decode GEMM of int8_gemv.cuh (`KMajorCodes`), as quant_matmul's.
-//   M > 16 (prefill): the shared-memory-tiled __dp4a GEMM of int8_gemm.cuh
-//     (64-row tiles), one 16-byte load per 16 K bytes of a column.
+//   M > 16 (prefill): the int8 wgmma GEMM of int8_wgmma.cuh on TMA tiles
+//     of the K-major codes (`Int8Codes`), as quant_matmul's, with K split
+//     over the blocks of a cluster: the served wk / wv shape (M 512, N
+//     512) has 16 output tiles of 128 x 128 for 132 SMs, so the wrapper's
+//     plan (`wgmma_split`) spreads each tile's K over up to 8 blocks,
+//     whose int32 partials are summed through distributed shared memory.
 //
-// The 2-bit-packed stream that would read 4x fewer bytes is
-// split_ternary's and ternary_packed's.
-#include "int8_gemm.cuh"
+// Both end in int8_gemm.cuh's `dequant` (f32(acc) * sx, then * sw[n],
+// never fused): the output is bit-identical to the plain version.  The
+// 2-bit-packed stream that would read 4x fewer bytes is split_ternary's
+// and ternary_packed's.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
 #include "int8_gemv.cuh"
+#include "int8_wgmma.cuh"
 
 // x_q (M, K) int8 row-major, w_k the K-major codes (N, K) int8, both with K
-// a multiple of 16 and 16-byte-aligned rows; sx one f32, sw (N,) f32; out
-// (M, N) f32; bn, split: the decode GEMM's plan (M <= 16 only).
+// a multiple of 16 and 16-byte-aligned rows; sx one f32, sw (N,) f32
+// (8-byte aligned); out (M, N) f32; bn, split: the decode GEMM's plan at M
+// <= 16, the K split of the wgmma GEMM above (bn unused).
 extern "C" int ternary_matmul_launch(const void* x_q, const void* w_k,
                                      const void* sx, const void* sw,
                                      void* out, int M, int N, int K, int bn,
@@ -34,12 +45,9 @@ extern "C" int ternary_matmul_launch(const void* x_q, const void* w_k,
   if (M <= 16)
     return i8gemv::launch(x, nullptr, i8gemv::KMajorCodes{w, K, N}, sxp, swp,
                           o, M, N, K, bn, split, st);
-  const dim3 grid((N + i8gemm::kBN - 1) / i8gemm::kBN, (M + 63) / 64);
-  i8gemm::gemm_dp4a<4><<<grid, i8gemm::kThreads, 0, st>>>(
-      x, i8gemm::KMajorInt8Weights{w, N, K / 4}, sxp, swp, o, M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return i8wgmma::launch_codes(x, w, sxp, swp, o, M, N, K, st, split);
 }
 
 extern "C" const char* ternary_matmul_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

@@ -64,22 +64,28 @@ def bf16_error_bound(x, w_bf16, y):
     return x.shape[1] * 2.0**-24 * mag + 2.0**-24 * y.to(torch.float64).abs()
 
 
-#: the K splits (cluster sizes) of the wgmma GEMM (M > 16), its K values
-#: per stage and the fewest stages a split keeps.  The kernel takes 8 too,
-#: but at the served M 512 x N 512 a split of 8 ran slower than 4
-#: (chip_smoke.py's split sweep)
+#: the K splits (cluster sizes) of the wgmma GEMM (M > 16) of
+#: split_precision and ternary_matmul, split_precision's K values per stage
+#: (`PrecisionCodes`) and the fewest stages a split keeps.  The kernel takes
+#: up to 8, but at the served M 512 x N 512 a split of 8 ran slower than 4
+#: for both (chip_smoke.py's split sweep): 16 clusters of 8 blocks of over
+#: 128 KB of shared memory do not fit the card at once
 WGMMA_SPLITS = (1, 2, 4)
 WGMMA_STAGE_K = 64
 WGMMA_MIN_STAGES = 4
 
 
-def wgmma_split(m: int, k: int, n: int, sms: int) -> int:
-    """The K split of the wgmma GEMM at (M, K, N) on ``sms`` SMs: the
-    fewest of `WGMMA_SPLITS` whose grid (128 x 128 tiles x split) holds a
-    block per SM, else the most, without leaving a split fewer than
-    `WGMMA_MIN_STAGES` stages of `WGMMA_STAGE_K`."""
+def wgmma_split(m: int, k: int, n: int, sms: int,
+                stage_k: int = WGMMA_STAGE_K) -> int:
+    """The K split of the wgmma GEMM (``csrc/int8_wgmma.cuh``) at (M, K, N)
+    on ``sms`` SMs, for a source of ``stage_k`` K values per stage
+    (split_precision's by default): the fewest of `WGMMA_SPLITS` whose grid
+    (128 x 128 tiles x split) holds a block per SM, else the most, without
+    leaving a split fewer than `WGMMA_MIN_STAGES` stages.  (A source of
+    128- or 256-column tiles runs 128 wherever the tiles leave SMs idle:
+    `pick_bn` takes 256 only past one wave of 128-column tiles.)"""
     tiles = -(-m // 128) * -(-n // 128)
-    stages = -(-k // WGMMA_STAGE_K)
+    stages = -(-k // stage_k)
     best = 1
     for split in WGMMA_SPLITS:
         if stages < WGMMA_MIN_STAGES * split:
@@ -88,6 +94,17 @@ def wgmma_split(m: int, k: int, n: int, sms: int) -> int:
         if tiles * split >= sms:
             break
     return best
+
+
+def wgmma_k_slices(k: int, split: int, stage_k: int):
+    """The K ranges the ``split`` ranks of a cluster of the wgmma GEMM sum,
+    as the kernel computes them: rank r takes stages ``[r * S // split,
+    (r + 1) * S // split)`` of the ``S = ceil(k / stage_k)``, clipped to
+    ``k``."""
+    stages = -(-k // stage_k)
+    return [(min(r * stages // split * stage_k, k),
+             min((r + 1) * stages // split * stage_k, k))
+            for r in range(split)]
 
 
 def launch_args(m: int, k: int, n: int, device: torch.device):

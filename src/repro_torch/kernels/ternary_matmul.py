@@ -7,10 +7,12 @@ TPU kernel ``ternary_matmul`` of ``repro/kernels/ternary_matmul.py``.  What
 bounds it on an H100: the int8 code stream at decode (M = batch), int8
 operations at prefill.  It reads the codes K-major, as the (N, K) tensor
 behind a transposed ``w_t`` view (the layout `runtime.execute.
-prepare_layer` gives the ternary_matmul layers): at M <= 16 the decode GEMM
-of ``csrc/int8_gemv.cuh``, as quant_matmul's, above that the
-shared-memory-tiled ``__dp4a`` GEMM of ``csrc/int8_gemm.cuh``.  The output
-is bit-identical to `ternary_matmul_plain`.
+prepare_layer` gives the ternary_matmul layers), through quant_matmul's two
+GEMMs: at M <= 16 the decode GEMM of ``csrc/int8_gemv.cuh``, above that
+the int8 ``wgmma`` GEMM of ``csrc/int8_wgmma.cuh`` on TMA tiles of the
+codes, with K split over the blocks of a cluster where the output tiles
+leave SMs idle (`launch_args`: the served M 512 x N 512 has 16 tiles for
+132 SMs).  The output is bit-identical to `ternary_matmul_plain`.
 
 `ternary_matmul` launches the kernel for CUDA tensors and runs
 `ternary_matmul_plain` only for CPU tensors.  ``ternary_matmul.launches``
@@ -23,14 +25,27 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant_matmul as _qm
-from repro_torch.kernels.quant_matmul import (K_ALIGN, _aligned, _pad_to,
-                                              check_operands, decode_args,
-                                              k_major_weight,
-                                              quant_matmul_plain)
+from repro_torch.kernels.quant_matmul import (DECODE_M, K_ALIGN, _aligned,
+                                              _pad_to, check_operands,
+                                              decode_args, k_major_weight,
+                                              quant_matmul_plain, sm_count)
+from repro_torch.kernels.split_precision import wgmma_split
 
 #: plain PyTorch version: the codes contract like int8 codes (float64,
 #: exact), then the w8a8 epilogue
 ternary_matmul_plain = quant_matmul_plain
+
+
+#: the K bytes of a stage of the wgmma GEMM on the codes (`Int8Codes`)
+WGMMA_STAGE_K = 128
+
+
+def launch_args(m: int, k: int, n: int, device: torch.device):
+    """The plan arguments of a launch: the decode GEMM's ``(bn, split)`` at
+    M <= 16, ``(0, wgmma_split)`` above (stages of `WGMMA_STAGE_K`)."""
+    if m <= DECODE_M:
+        return decode_args(m, k, n, device)
+    return 0, wgmma_split(m, k, n, sm_count(device), WGMMA_STAGE_K)
 
 
 def weight_route(shape, strides, aligned=True) -> str:
@@ -59,14 +74,14 @@ def ternary_matmul(x_q, w_t, sx, sw):
     if x_q.device.type != "cuda":
         raise ValueError(f"no ternary_matmul kernel for {x_q.device}")
     xq, wk = kernel_operands(x_q, w_t)
-    swc = sw.contiguous()
+    swc = _aligned(sw, 8)
     sxc = sx.reshape(1).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m and n:
         _build.launch("ternary_matmul", xq.data_ptr(), wk.data_ptr(),
                       sxc.data_ptr(), swc.data_ptr(), out.data_ptr(),
                       m, n, wk.shape[1],
-                      *decode_args(m, wk.shape[1], n, x_q.device),
+                      *launch_args(m, wk.shape[1], n, x_q.device),
                       torch.cuda.current_stream(x_q.device).cuda_stream)
         ternary_matmul.launches += 1
     return out

@@ -57,7 +57,7 @@ def _operands(m, k, n, seed, dev):
 
 
 #: SHAPES plus M off the wgmma kernel's 128-row tile (17, 100, 300) and N
-#: off its 128- and 256-column tiles, and M 1, 4, 16 of the dp4a GEMM's
+#: off its 128- and 256-column tiles, and M 1, 4, 16 of the decode GEMM's
 #: K-major loader (K 1000 padded to 1008, N 700 off its 64-column tile)
 QUANT_SHAPES = SHAPES + [(17, 4096, 1000), (100, 1000, 4100),
                          (300, 4096, 640), (300, 11008, 130),
@@ -129,11 +129,27 @@ def test_split_ternary_kernel_bit_exact(cuda, m, k, n, where, layout):
     assert torch.equal(got, want)
 
 
+#: SHAPES (split None: the plan's) plus the wgmma GEMM's M (17, 100,
+#: 300, 512, 12288) at the served wk / wv shape, N 1000 off its column
+#: tiles and K 1000 (padded to 1008), and the served prefill call at each
+#: K split of chip_smoke.py's sweep
+TERNARY_CASES = [(m, k, n, None) for m, k, n in SHAPES + [
+    (17, 4096, 512), (100, 4096, 512), (300, 4096, 512), (512, 4096, 512),
+    (12288, 4096, 512), (300, 4096, 1000), (100, 1000, 512)]] + [
+    (512, 4096, 512, split) for split in (1, 2, 4, 8)] + [
+    (300, 1000, 1000, 8)]
+
+
 @pytest.mark.parametrize("layout", ["row_major", "k_major"])
-@pytest.mark.parametrize("m,k,n", SHAPES)
-def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n, layout):
-    """Both layouts bit for bit; a row-major weight, or a K-major one with
-    K off 16, is copied into the kernel's layout (one counted copy)."""
+@pytest.mark.parametrize("m,k,n,split", TERNARY_CASES)
+def test_ternary_matmul_kernel_bit_exact(cuda, monkeypatch, m, k, n, split,
+                                         layout):
+    """Both layouts bit for bit, at the plan's K split or a forced one; a
+    row-major weight, or a K-major one with K off 16, is copied into the
+    kernel's layout (one counted copy)."""
+    from repro_torch.kernels import ternary_matmul as tm
+    if split is not None:
+        monkeypatch.setattr(tm, "wgmma_split", lambda *_: split)
     x, _, t, sx, sw = _operands(m, k, n, 2, cuda)
     if layout == "k_major":
         t = t.t().contiguous().t()
@@ -144,6 +160,32 @@ def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n, layout):
     assert ternary_matmul.launches == before + 1
     assert ternary_matmul.transposed_copies == copies + (
         layout == "row_major" or k % 16 != 0)
+    assert torch.equal(got, ternary_matmul_plain(x, t, sx, sw))
+
+
+@pytest.mark.parametrize("m,route", [(512, ("igemm_wgmma", "Int8Codes")),
+                                     (4, ("gemv", "KMajorCodes"))])
+def test_ternary_matmul_launches_its_route(cuda, m, route):
+    """One launch per call, of the int8 wgmma GEMM on the K-major codes
+    (`Int8Codes`) above 16 rows and of the decode GEMM at M <= 16, by the
+    kernel names the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    k, n = 4096, 512
+    x, _, t, sx, sw = _operands(m, k, n, 16, cuda)
+    tk = t.t().contiguous().t()
+    ternary_matmul(x, tk, sx, sw)
+    torch.cuda.synchronize()
+    before = ternary_matmul.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ternary_matmul(x, tk, sx, sw)
+        torch.cuda.synchronize()
+    assert ternary_matmul.launches == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    hits = [nm for nm in names if all(part in nm for part in route)]
+    assert len(hits) == 1, names
+    assert sum(e.count for e in prof.key_averages()
+               if e.key == hits[0]) == 1
     assert torch.equal(got, ternary_matmul_plain(x, t, sx, sw))
 
 
@@ -403,16 +445,22 @@ def test_long_prefill_on_the_card_launches_flash_per_layer(cuda):
     assert bool(torch.isfinite(logits).all())
 
 
+@pytest.mark.parametrize("m,n", [(16, 17024), (512, 512)])
 @pytest.mark.parametrize("first", ["quant_matmul", "ternary_matmul"])
-def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first):
-    """quant_matmul and ternary_matmul build the same decode-GEMM
-    instantiation into two libraries.  At M 16, K 4096, N 17024 (plan 128
-    x 2: a 2 KB x slice of 16 rows) a block needs more than 48 KB of
-    shared memory, which each library must allow for its own kernel,
-    whichever launches first; both then agree with the plain version."""
+def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first, m,
+                                                           n):
+    """quant_matmul and ternary_matmul build the same instantiations into
+    two libraries: the decode GEMM's, and the wgmma GEMM's
+    ``igemm_wgmma<128, Int8Codes>``.  At M 16, K 4096, N 17024 (decode
+    plan 128 x 2: a 2 KB x slice of 16 rows), and on the wgmma GEMM at M
+    512 x N 512 (over 128 KB of ring; ternary_matmul K-split over a
+    cluster), a block needs more than 48 KB of shared memory, which each
+    library must allow for its own kernel, whichever launches first; both
+    then agree with the plain version."""
     from repro_torch.kernels.quant_matmul import decode_plan
-    m, k, n = 16, 4096, 17024
-    assert decode_plan(m, k, n, 132) == (128, 2)
+    k = 4096
+    if m == 16:
+        assert decode_plan(m, k, n, 132) == (128, 2)
     x, w, t, sx, sw = _operands(m, k, n, 15, cuda)
     calls = {"quant_matmul": (ops.quant_matmul_op, w, quant_matmul_plain),
              "ternary_matmul": (ops.ternary_matmul_op, t,

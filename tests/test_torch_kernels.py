@@ -126,7 +126,7 @@ def test_split_ternary_reads_packed_stream_above_boundary():
 def test_split_ternary_kernel_operands_match_jax(m, n, where):
     """The operands the wrapper hands the kernel at N off 16 (x and the
     K-major codes with K padded to 16, both streams and sw with N padded to
-    16 for the wgmma GEMM at M 20, to 4 for the dp4a one at M 3), through
+    16 for the wgmma GEMM at M 20, to 4 for the decode one at M 3), through
     the plain version's arithmetic, give the JAX op's output bit for bit on
     the first N columns."""
     from repro_torch.kernels import split_ternary as st
@@ -420,3 +420,64 @@ def test_split_precision_wgmma_split(m, k, n):
         assert tiles * split >= sms
     if (m, k, n) == (512, 4096, 512):
         assert split == 4
+
+
+#: every M > 16 of ternary_matmul on the served paths (prefill 512, the long
+#: prefill's 12288) and of chip_smoke.py's checks (17, 100, 300)
+TERNARY_WGMMA_M = [17, 100, 300, 512, 12288]
+
+
+@pytest.mark.parametrize("m", TERNARY_WGMMA_M)
+@pytest.mark.parametrize("k,n", SERVED_KN + [(11008, 1000), (1008, 1000)])
+def test_ternary_matmul_wgmma_split(m, k, n):
+    """ternary_matmul's wgmma GEMM (M > 16, 128 K bytes per stage) on an
+    H100's 132 SMs: an allowed split, at least `WGMMA_MIN_STAGES` stages
+    per rank, the ranks' K slices (as the kernel computes them) covering K
+    exactly in order; the fewest splits whose grid holds a block per SM,
+    else the largest; the served prefill (M 512 x N 512, 16 tiles) splits
+    4 ways, the fastest in chip_smoke.py's sweep."""
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.kernels.split_precision import (WGMMA_MIN_STAGES,
+                                                     WGMMA_SPLITS,
+                                                     wgmma_k_slices,
+                                                     wgmma_split)
+    sms = 132
+    split = wgmma_split(m, k, n, sms, tm.WGMMA_STAGE_K)
+    assert split in WGMMA_SPLITS
+    stages = -(-k // tm.WGMMA_STAGE_K)
+    slices = wgmma_k_slices(k, split, tm.WGMMA_STAGE_K)
+    assert len(slices) == split
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    per_rank = [-(-hi // tm.WGMMA_STAGE_K) - lo // tm.WGMMA_STAGE_K
+                for lo, hi in slices]
+    assert sum(per_rank) == stages
+    assert split == 1 or min(per_rank) >= WGMMA_MIN_STAGES
+    tiles = -(-m // 128) * -(-n // 128)
+    if split < max(WGMMA_SPLITS):
+        bigger = [s for s in WGMMA_SPLITS if s > split]
+        assert tiles * split >= sms or \
+            stages < WGMMA_MIN_STAGES * bigger[0]
+    if (m, k, n) == (512, 4096, 512):
+        assert tiles * split >= sms or split == max(WGMMA_SPLITS)
+        assert split == 4
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 512])
+@pytest.mark.parametrize("k,n", [(4096, 512), (4096, 64000), (1008, 1000)])
+def test_launch_args_keep_the_decode_plan(monkeypatch, m, k, n):
+    """ternary_matmul's launch arguments at M <= 16 are the decode GEMM's
+    plan (`decode_args`), above it ``(0, wgmma_split)``; quant_matmul's
+    above 16 rows stay ``(0, 0)`` (no K split)."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.kernels.split_precision import wgmma_split
+    monkeypatch.setattr(qm, "_sm_count", lambda index: 132)
+    dev = torch.device("cuda", 0)
+    args = tm.launch_args(m, k, n, dev)
+    if m <= qm.DECODE_M:
+        assert args == qm.decode_args(m, k, n, dev) == \
+            qm.decode_plan(m, k, n, 132)
+    else:
+        assert qm.decode_args(m, k, n, dev) == (0, 0)
+        assert args == (0, wgmma_split(m, k, n, 132, tm.WGMMA_STAGE_K))

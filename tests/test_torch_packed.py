@@ -84,7 +84,7 @@ def test_ragged_shapes_match_ternary_matmul_on_unpacked_codes(m, k, n):
 def test_kernel_operands_match_jax_oracle(m, k, n):
     """The operands the wrapper hands the kernel at N off 16 (x with K
     padded to 16; the stream and sw with N padded to 16 for the wgmma GEMM
-    at M > 16, to 4 for the dp4a one), through the plain version's
+    at M > 16, to 4 for the decode one), through the plain version's
     arithmetic, give the JAX oracle's output bit for bit on the first N
     columns; padding the stream counts one copy."""
     from repro_torch.kernels import ternary_packed as tp
