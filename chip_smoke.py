@@ -118,7 +118,32 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    beside the distance of another request's logits, what an unrelated
    output would show).  Then a warm run (prefill ms, decode ms/step, peak
    GiB).
-6. one JSON line of kernel records, the nvidia-smi line, and the contract
+6. engine: the continuous-batching engine (``repro_torch.serving.Engine``,
+   dense KV layout) on the same params and diana artifact, two legs
+   (`ENGINE_MIXED`, `ENGINE_LONG`):
+     engine_mixed  ``synthetic_trace(12, vocab=64000, min_prompt=64,
+                   max_prompt=512, min_new=4, max_new=16, seed=--seed)``
+                   restamped by ``poisson_arrivals(rate=0.5)``, 4 slots of
+                   1024 positions: slots retire and refill while others
+                   decode;
+     engine_long   2 requests of 3000 prompt tokens and 2 of 200, 8 new
+                   each, all at step 0, 4 slots of 4096: one admission
+                   group whose prefill pads to 4096 tokens and takes the
+                   chunked (flash) attention with an int kv_len.
+   Each leg: every request finishes with its max_new_tokens (or eos);
+   launches = histogram x (prefill calls + decode steps), flash 48 per
+   long prefill group; 0 weight copies; the same run with the plain
+   versions (``reference=True``) gives identical tokens for every request
+   on engine_mixed, and on engine_long agrees under the margin rule (flash
+   sums in another order); each request alone through ``serve_batch`` (B
+   1, the same max_len) agrees under the margin rule.  The margin rule
+   compares each request up to its first step whose reference top-2 logit
+   margin is below SENSITIVITY_FACTOR times the distance of its prefill
+   logits from the reference's (every step where they are bit-identical),
+   prints how many tokens it compared, and fails below half of them.  Then
+   a warm run (TTFT p50 / p95, decode tok/s, decode steps, prefill calls,
+   wall, peak GiB) and a profiled one (device busy time, idle share).
+7. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -220,6 +245,14 @@ LAUNCH_PATH = {"quant_matmul": "diana", "split_ternary": "diana",
                "ternary_matmul": "diana_ternary",
                "ternary_packed": "entry point",
                "flash_attention": "diana_long"}
+#: the engine phase's traffic on the diana artifact (engine_mixed: mixed
+#: prompt lengths and Poisson arrivals, slots retire and refill while
+#: others decode; engine_long: one admission group whose prefill pads to
+#: 4096 tokens and takes the chunked (flash) attention)
+ENGINE_MIXED = dict(requests=12, min_prompt=64, max_prompt=512, min_new=4,
+                    max_new=16, rate=0.5, max_batch=4, max_len=1024)
+ENGINE_LONG = dict(prompts=(3000, 3000, 200, 200), new=8, max_batch=4,
+                   max_len=4096)
 # Kernel vs plain prefill logits on gpu_tc_like.  A bf16 column of
 # split_precision differs from the plain value by ~1e-6 relative, which
 # moves a bf16-rounded wk / wv output by one bf16 step now and then; every
@@ -1214,21 +1247,6 @@ def check_no_weight_copies(path):
         raise AssertionError(f"{path}: weights copied per call {copies}")
 
 
-def compare_tokens(torch, path, tokens, ref_tokens, margins, tol):
-    """Tokens of the kernel run against the plain run's, per row up to the
-    first step whose plain top-2 margin is below ``tol``; returns the
-    number of (row, step) pairs compared."""
-    compared = 0
-    for row in range(tokens.shape[0]):
-        low = torch.nonzero(margins[row] < tol).flatten()
-        upto = int(low[0]) if low.numel() else GEN_LEN
-        if not torch.equal(tokens[row, :upto], ref_tokens[row, :upto]):
-            raise AssertionError(f"{path}: row {row} tokens differ before "
-                                 f"step {upto}")
-        compared += upto
-    return compared
-
-
 def phase_serving(torch, path, cfg, params, prompts):
     """Serve ``cfg`` planned on ``path`` with the kernels, then with the
     plain versions, then warm; returns (launches of the kernel run,
@@ -1342,8 +1360,9 @@ def phase_serving(torch, path, cfg, params, prompts):
         tol = SENSITIVITY_FACTOR * spread
         margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
                                 backend)
-        compared = compare_tokens(torch, path, tokens, ref_tokens, margins,
-                                  tol)
+        compared, _ = compare_requests(path, tokens.tolist(),
+                                       ref_tokens.tolist(), margins.tolist(),
+                                       [tol] * len(tokens))
         print(f"[serve:{path}] tolerance {tol:.4g} = {SENSITIVITY_FACTOR:g}"
               f" x {spread:.4g}: kernel prefill logits max |diff| "
               f"{diff:.4g} (ratio {diff / max(spread, 1e-30):.3g}); tokens "
@@ -1368,8 +1387,10 @@ def phase_serving(torch, path, cfg, params, prompts):
     record.update(warm_prefill_ms=warm["prefill_s"] * 1e3,
                   warm_decode_tok_per_s=warm["tok_per_s"],
                   warm_wall_ms=warm_ms)
-    busy_ms = phase_profile(torch, path, serve_batch, cfg, params, prompts,
-                            backend)
+    def profiled():
+        _, st = serve_batch(cfg, params, prompts, GEN_LEN, backend=backend)
+        return (st["prefill_s"] + st["decode_s"]) * 1e3
+    busy_ms = profile_device(torch, path, profiled)
     print(f"[profile:{path}] device busy {busy_ms:.3f} ms of the warm "
           f"run's {warm_ms:.3f} ms wall: idle share "
           f"{1.0 - busy_ms / warm_ms:.3f}")
@@ -1618,7 +1639,8 @@ def phase_long(torch, cfg, params, prompts):
           f"|diff| {other:.4g}, RMS {other_rms:.4g}")
     margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
                             backend, max_len=LONG_CACHE)
-    compared = compare_tokens(torch, path, tokens, ref_tokens, margins, tol)
+    compared, _ = compare_requests(path, tokens.tolist(), ref_tokens.tolist(),
+                                   margins.tolist(), [tol] * B)
     print(f"[serve:{path}] tolerance {SENSITIVITY_FACTOR:g} x the float64 "
           f"run's distance: max {tol:.4g}, RMS {tol_rms:.4g}; kernel "
           f"prefill logits max |diff| {diff:.4g} (ratio "
@@ -1663,26 +1685,423 @@ def phase_long(torch, cfg, params, prompts):
     return launches, record, worst_err
 
 
-def phase_profile(torch, path, serve_batch, cfg, params, prompts, backend):
-    """Device time by kernel over one more serving run, from
-    torch.profiler's device activity (kernels, copies; the host's
-    operators are not recorded, which keeps the profiler's own cost low);
-    returns the summed device time in ms."""
+def profile_device(torch, tag, run):
+    """Device time by kernel over one call of ``run`` (which returns its
+    wall ms), from torch.profiler's device activity (kernels, copies; the
+    host's operators are not recorded, which keeps the profiler's own cost
+    low), summed straight from the profiler's raw events (its per-event
+    Python objects cost minutes at the engine's 400k launches); returns
+    the summed device time in ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, st = serve_batch(cfg, params, prompts, GEN_LEN, backend=backend)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    wall_ms = (st["prefill_s"] + st["decode_s"]) * 1e3
-    print(f"[profile:{path}] profiled run: wall {wall_ms:.3f} ms, device "
-          f"kernels {busy_ms:.3f} ms in {sum(e.count for e in rows)} "
-          f"launches")
-    for e in rows[:12]:
-        print(f"[profile:{path}]   {e.self_device_time_total / 1e3:10.3f} "
-              f"ms {e.count:7d}x  {e.key[:90]}")
+        wall_ms = run()
+    t0 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    print(f"[profile:{tag}] profiled run: wall {wall_ms:.3f} ms, device "
+          f"kernels {busy_ms:.3f} ms in "
+          f"{sum(n for _, n in by_name.values())} launches (events read in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    for name, (ns, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile:{tag}]   {ns / 1e6:10.3f} ms {n:7d}x  {name[:90]}")
     return busy_ms
+
+
+def recording_logits(calls):
+    """Context: `transformer.prefill` and `transformer.decode_step` keep
+    the logits of every call in ``calls`` as ``(kind, logits)``; the
+    engine and ``serve_batch`` look both up on the module, so every call
+    of theirs goes through."""
+    import contextlib
+    from repro_torch.models import transformer as T
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = T.prefill, T.decode_step
+
+        def wrap(kind, fn):
+            def recording(*args, **kw):
+                logits, caches = fn(*args, **kw)
+                calls.append((kind, logits.float()))
+                return logits, caches
+            return recording
+        T.prefill = wrap("prefill", orig[0])
+        T.decode_step = wrap("decode", orig[1])
+        try:
+            yield
+        finally:
+            T.prefill, T.decode_step = orig
+    return ctx()
+
+
+def top2_margin(torch, logits):
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def engine_first_logits(torch, results, calls):
+    """Each request's prefill logits in an engine run, from its recorded
+    prefill calls: one per admission step, whose rows are the group's
+    requests in trace order (the continuous policy admits FCFS)."""
+    prefills = [lg for kind, lg in calls if kind == "prefill"]
+    steps = sorted({r.admitted_step for r in results})
+    if len(prefills) != len(steps):
+        raise AssertionError(f"{len(prefills)} prefill calls for "
+                             f"{len(steps)} admission steps")
+    first = [None] * len(results)
+    for step, lg in zip(steps, prefills):
+        members = [i for i, r in enumerate(results)
+                   if r.admitted_step == step]
+        for row, i in enumerate(members):
+            first[i] = lg[row]
+            if int(torch.argmax(lg[row])) != results[i].tokens[0]:
+                raise AssertionError(f"request {results[i].rid}: first "
+                                     f"token is not its prefill argmax")
+    return first
+
+
+def compare_requests(what, tokens, ref_tokens, ref_margins, tols):
+    """Each request's tokens against the reference run's, up to its first
+    step whose reference top-2 margin is below the request's tolerance in
+    ``tols``; returns (pairs compared, pairs in all)."""
+    compared = total = 0
+    for i, (got, want, margins, tol) in enumerate(zip(
+            tokens, ref_tokens, ref_margins, tols)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: request {i} made {len(got)} "
+                                 f"tokens, the reference {len(want)}")
+        low = [t for t, m in enumerate(margins) if m < tol]
+        upto = low[0] if low else len(want)
+        if got[:upto] != want[:upto]:
+            raise AssertionError(f"{what}: request {i} tokens differ "
+                                 f"before step {upto}")
+        compared += upto
+        total += len(want)
+    return compared, total
+
+
+def margin_rule(torch, what, tokens, first, ref_tokens, ref_first,
+                ref_margins):
+    """The margin rule against a reference run: each request's tolerance
+    is SENSITIVITY_FACTOR times the distance of its prefill logits from
+    the reference's (0 where they are bit-identical: then every token must
+    agree); fails when fewer than half of all tokens were compared.
+    Returns (pairs compared, pairs in all, largest distance)."""
+    dists = [float((a - b).abs().max()) for a, b in zip(first, ref_first)]
+    tols = [SENSITIVITY_FACTOR * d for d in dists]
+    compared, total = compare_requests(what, tokens, ref_tokens,
+                                       ref_margins, tols)
+    print(f"[engine:{what}] prefill logits max |diff| per request "
+          f"{' '.join(f'{d:.4g}' for d in dists)}; tolerance "
+          f"{SENSITIVITY_FACTOR:g} x each; tokens identical over {compared} "
+          f"of {total} (request, step) pairs before each request's first "
+          f"reference top-2 margin below its tolerance (identical "
+          f"everywhere: {tokens == ref_tokens})")
+    if 2 * compared < total:
+        raise AssertionError(f"{what}: only {compared} of {total} tokens "
+                             f"compared, too few for the check to say "
+                             f"anything")
+    return compared, total, max(dists)
+
+
+def per_request_serving(torch, cfg, params, requests, backend, max_len):
+    """Each request alone through the fixed-batch loop (B = 1, the
+    engine's cache length): (tokens, per-step top-2 margins, prefill
+    logits) per request."""
+    from repro_torch.launch.serve import serve_batch
+    tokens, margins, first = [], [], []
+    for r in requests:
+        calls = []
+        prompt = torch.from_numpy(r.prompt).long()[None].to(
+            params["emb"].device)
+        with recording_logits(calls):
+            toks, st = serve_batch(cfg, params, prompt, r.max_new_tokens,
+                                   backend=backend, max_len=max_len)
+        tokens.append(toks[0].tolist())
+        margins.append([float(top2_margin(torch, lg)[0])
+                        for _, lg in calls])
+        first.append(st["prefill_logits"][0].float())
+    return tokens, margins, first
+
+
+def engine_run(torch, cfg, params, backend, trace, leg, calls=None):
+    """One engine run of ``trace`` (logits recorded into ``calls`` when
+    given); returns (engine, results, launches)."""
+    import contextlib
+    from repro_torch.serving import Engine
+    engine = Engine(cfg, params, max_batch=leg["max_batch"],
+                    max_len=leg["max_len"], backend=backend)
+    reset_launches()
+    with (recording_logits(calls) if calls is not None
+          else contextlib.nullcontext()):
+        results = engine.run(trace)
+    return engine, results, kernel_launches()
+
+
+def print_engine_run(tag, engine, results, smi):
+    """TTFT p50/p95, decode tok/s, steps, prefill calls, wall; returns the
+    record."""
+    from repro_torch.serving import summarize
+    st = engine.stats
+    summ = summarize(results, st["wall_s"])
+    decoded = sum(r.n_tokens - 1 for r in results)
+    rec = {"ttft_p50_s": summ["ttft_p50_s"], "ttft_p95_s": summ["ttft_p95_s"],
+           "decode_tok_s_p50": summ["decode_tok_s_p50"],
+           "decode_tok_s": decoded / max(st["decode_s"], 1e-9),
+           "total_tok_s": summ["total_tok_s"],
+           "decode_steps": st["decode_steps"],
+           "prefill_calls": st["prefill_calls"], "wall_s": st["wall_s"],
+           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+           "tokens": summ["total_tokens"]}
+    print(f"[engine:{tag}] {len(results)} requests, {rec['tokens']} tokens: "
+          f"TTFT p50 {rec['ttft_p50_s'] * 1e3:.3f} ms / p95 "
+          f"{rec['ttft_p95_s'] * 1e3:.3f} ms, decode {rec['decode_tok_s']:.3f}"
+          f" tok/s over all slots (per-request p50 "
+          f"{rec['decode_tok_s_p50']:.3f}), {rec['decode_steps']} decode "
+          f"steps ({st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.3f} "
+          f"ms/step), {rec['prefill_calls']} prefill calls "
+          f"({st['prefill_s'] * 1e3:.3f} ms), wall {st['wall_s']:.3f} s "
+          f"({smi})")
+    return rec
+
+
+def phase_engine(torch, cfg, params, seed, smi):
+    """The continuous-batching engine (dense KV layout) on the diana
+    artifact of phase 5: legs engine_mixed and engine_long (module
+    docstring); returns {leg: record}."""
+    from repro_torch.api import MappingArtifact
+    from repro_torch.launch.serve import (check_coverage, kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.serving import (Request, poisson_arrivals,
+                                     synthetic_trace)
+    import numpy as np
+    art = MappingArtifact.load(
+        str(ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana.json"))
+    plan, backend = plan_mapping_execution(params, art)
+    check_coverage("engine", backend, require_full=True)
+    cfg = kv_cache_for(cfg, art)
+    hist = plan.kernel_histogram()
+    print(f"[engine] diana artifact: {backend.coverage()}, kernels "
+          f"{hist}, kv {cfg.kv_cache_dtype}")
+    mixed = dict(ENGINE_MIXED)
+    trace = poisson_arrivals(synthetic_trace(
+        mixed["requests"], vocab=cfg.vocab, min_prompt=mixed["min_prompt"],
+        max_prompt=mixed["max_prompt"], min_new=mixed["min_new"],
+        max_new=mixed["max_new"], seed=seed), mixed["rate"], seed=seed)
+    rng = np.random.default_rng(seed)
+    long = dict(ENGINE_LONG)
+    long_trace = [Request(rid=f"l{i}", prompt=rng.integers(0, cfg.vocab, n),
+                          max_new_tokens=long["new"])
+                  for i, n in enumerate(long["prompts"])]
+    out = {}
+    for tag, leg, reqs in (("engine_mixed", mixed, trace),
+                           ("engine_long", long, long_trace)):
+        print(f"[engine:{tag}] {len(reqs)} requests, prompts "
+              f"{sorted(r.prompt_len for r in reqs)}, new "
+              f"{sorted(r.max_new_tokens for r in reqs)}, arrival steps "
+              f"{sorted(r.arrival_step for r in reqs)}; max_batch "
+              f"{leg['max_batch']}, max_len {leg['max_len']}")
+        out[tag] = engine_leg(torch, tag, cfg, params, backend, hist, reqs,
+                              leg, smi)
+    del plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def engine_leg(torch, tag, cfg, params, backend, hist, trace, leg, smi):
+    """One leg: the kernel run (launch counts, weight copies, finish
+    reasons), the plain run (``reference=True``), each request alone
+    through ``serve_batch``, a warm run and a profiled one; returns the
+    leg's record.  Without flash on the path the plain run must give
+    identical tokens and ``serve_batch`` agree under the per-request margin
+    rule (`margin_rule`).  With flash, whose sums run in another order
+    than its plain version's, the check is diana_long's: a plain run with
+    float64 attention measures how far another valid summation moves the
+    prefill logits, and the kernel run must lie within SENSITIVITY_FACTOR
+    times that of the plain run and of ``serve_batch`` (max and RMS),
+    tokens compared under the margin rule at that tolerance."""
+    from repro_torch.models import transformer as T
+    t_leg = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_leg:.1f} s into the leg"
+    calls = []
+    engine, results, launches = engine_run(torch, cfg, params, backend,
+                                           trace, leg, calls)
+    st = dict(engine.stats)
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    # admission groups whose padded prompt takes the chunked attention
+    group_prompt = {}
+    for r in results:
+        group_prompt[r.admitted_step] = max(
+            group_prompt.get(r.admitted_step, 0), r.prompt_len)
+    long_groups = sum(engine._bucket(p) > T.CHUNKED_ABOVE
+                      for p in group_prompt.values())
+    want = dict.fromkeys(KERNELS, 0)
+    for kernel, count in hist.items():
+        want[kernel] += count * forwards
+    want["flash_attention"] = cfg.n_layers * long_groups
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want} "
+                             f"({st['prefill_calls']} prefill calls + "
+                             f"{st['decode_steps']} decode steps)")
+    check_no_weight_copies(tag)
+    for req, res in zip(trace, results):
+        if res.finish_reason not in ("max_new_tokens", "eos") or \
+                (res.finish_reason == "max_new_tokens"
+                 and res.n_tokens != req.max_new_tokens):
+            raise AssertionError(f"{tag}: request {res.rid} finished "
+                                 f"{res.finish_reason} with {res.n_tokens} "
+                                 f"tokens")
+    print(f"[engine:{tag}] first run {st['wall_s']:.3f} s: every request "
+          f"finished ({sorted({r.finish_reason for r in results})}); "
+          f"launches " + " ".join(f"{k} {v} ({v // forwards} per forward)"
+                                  for k, v in launches.items()
+                                  if v and k != "flash_attention") +
+          (f" flash_attention {launches['flash_attention']} "
+           f"({cfg.n_layers} per long prefill group x {long_groups})"
+           if long_groups else "") +
+          f" over {st['prefill_calls']} prefill calls + {st['decode_steps']}"
+          f" decode steps; weights copied per call: " +
+          ", ".join(f"{k} 0" for k in weight_copies()))
+    if long_groups:
+        print(f"[engine:{tag}] {long_groups} admission group(s) prefilled "
+              f"through the chunked (flash) attention with an int kv_len; "
+              f"no engine path reached the per-slot kv_len "
+              f"NotImplementedError")
+    first = engine_first_logits(torch, results, calls)
+    tokens = [r.tokens for r in results]
+    del calls
+    rec = {"first_run_s": st["wall_s"], "launches": launches,
+           "forwards": forwards, "long_prefill_groups": long_groups}
+
+    backend.reference = True
+    ref_calls = []
+    ref_engine, ref_results, ref_launches = engine_run(
+        torch, cfg, params, backend, trace, leg, ref_calls)
+    if any(ref_launches.values()):
+        raise AssertionError(f"{tag}: the plain run launched a kernel "
+                             f"{ref_launches}")
+    ref_tokens = [r.tokens for r in ref_results]
+    ref_first = engine_first_logits(torch, ref_results, ref_calls)
+    print(f"[engine:{tag}] plain-version run "
+          f"({ref_engine.stats['wall_s']:.3f} s; {at()}): tokens identical "
+          f"for every request {tokens == ref_tokens}")
+    rec["tokens_identical_to_plain"] = tokens == ref_tokens
+    tol = tol_rms = None
+    if long_groups:
+        # margins of the plain run: all its requests sit in slots 0..B-1
+        # from step 0 and decode every step
+        decodes = [lg for kind, lg in ref_calls if kind == "decode"]
+        ref_margins = [[float(top2_margin(torch, ref_first[i]))] +
+                       [float(top2_margin(torch, lg[i]))
+                        for lg in decodes[:len(ref_tokens[i]) - 1]]
+                       for i in range(len(ref_tokens))]
+        f64_calls = []
+        with plain_float64_attention():
+            _, f64_results, _ = engine_run(torch, cfg, params, backend,
+                                           trace, leg, f64_calls)
+        f64_first = engine_first_logits(torch, f64_results, f64_calls)
+        del f64_calls
+        ref_stack = torch.stack(ref_first)
+        spread, spread_rms = logit_distance(torch, torch.stack(f64_first),
+                                            ref_stack)
+        other, other_rms = logit_distance(torch, ref_stack.roll(1, dims=0),
+                                          ref_stack)
+        tol, tol_rms = SENSITIVITY_FACTOR * spread, \
+            SENSITIVITY_FACTOR * spread_rms
+        print(f"[engine:{tag}] plain run in float64 attention ({at()}): "
+              f"prefill logits max |diff| {spread:.4g}, RMS "
+              f"{spread_rms:.4g} from the plain run's; another request's "
+              f"logits: max |diff| {other:.4g}, RMS {other_rms:.4g}; "
+              f"tolerance {SENSITIVITY_FACTOR:g} x: max {tol:.4g}, RMS "
+              f"{tol_rms:.4g}")
+        diff, diff_rms = logit_distance(torch, torch.stack(first),
+                                        ref_stack)
+        compared, total = compare_requests(f"{tag} vs plain", tokens,
+                                           ref_tokens, ref_margins,
+                                           [tol] * len(tokens))
+        print(f"[engine:{tag}] kernel run vs plain run: prefill logits max "
+              f"|diff| {diff:.4g} (ratio {diff / max(spread, 1e-30):.3g}),"
+              f" RMS {diff_rms:.4g} (ratio "
+              f"{diff_rms / max(spread_rms, 1e-30):.3g}); tokens identical "
+              f"over {compared} of {total} (request, step) pairs before the "
+              f"first plain top-2 margin below the max tolerance")
+        if diff > tol or diff_rms > tol_rms:
+            raise AssertionError(f"{tag}: prefill logits differ from the "
+                                 f"plain run's by max {diff} > {tol} or RMS "
+                                 f"{diff_rms} > {tol_rms}")
+        rec.update(float64_plain_max_abs_diff=spread,
+                   float64_plain_rms_diff=spread_rms,
+                   other_request_max_abs_diff=other,
+                   other_request_rms_diff=other_rms,
+                   plain_prefill_logits_max_abs_diff=diff,
+                   plain_prefill_logits_rms_diff=diff_rms,
+                   plain_tokens_compared=compared)
+    elif tokens != ref_tokens:
+        # the integer kernels are bit-exact and the plain run has the same
+        # schedule and shapes: every request's tokens must be identical
+        raise AssertionError(f"{tag}: kernel and plain-version engine runs "
+                             f"disagree")
+    backend.reference = False
+    del ref_calls
+
+    sb_tokens, sb_margins, sb_first = per_request_serving(
+        torch, cfg, params, trace, backend, leg["max_len"])
+    print(f"[engine:{tag}] each request alone through serve_batch (B 1, "
+          f"max_len {leg['max_len']}; {at()}):")
+    if long_groups:
+        diff, diff_rms = logit_distance(torch, torch.stack(first),
+                                        torch.stack(sb_first))
+        dists = [float((a - b).abs().max()) for a, b in zip(first, sb_first)]
+        compared, total = compare_requests(f"{tag} vs serve_batch", tokens,
+                                           sb_tokens, sb_margins,
+                                           [tol] * len(tokens))
+        print(f"[engine:{tag} vs serve_batch] prefill logits max |diff| "
+              f"{diff:.4g} (per request {' '.join(f'{d:.4g}' for d in dists)}"
+              f"), RMS {diff_rms:.4g}; tolerance max {tol:.4g}, RMS "
+              f"{tol_rms:.4g}; tokens identical over {compared} of {total} "
+              f"(request, step) pairs before the first top-2 margin below "
+              f"the max tolerance (identical everywhere: "
+              f"{tokens == sb_tokens})")
+        if diff > tol or diff_rms > tol_rms:
+            raise AssertionError(f"{tag}: prefill logits differ from "
+                                 f"serve_batch's by max {diff} > {tol} or "
+                                 f"RMS {diff_rms} > {tol_rms}")
+    else:
+        compared, total, diff = margin_rule(
+            torch, f"{tag} vs serve_batch", tokens, first, sb_tokens,
+            sb_first, sb_margins)
+    rec.update(serve_batch_prefill_logits_max_abs_diff=diff,
+               serve_batch_tokens_compared=compared, tokens_total=total)
+
+    torch.cuda.reset_peak_memory_stats()
+    engine, results, _ = engine_run(torch, cfg, params, backend, trace, leg)
+    check_no_weight_copies(tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if [r.tokens for r in results] != tokens:
+        raise AssertionError(f"{tag}: the warm run's tokens differ from "
+                             f"the first run's")
+    rec.update(print_engine_run(tag, engine, results, smi), peak_gib=peak)
+    print(f"[engine:{tag}] warm run peak memory {peak:.2f} GiB ({smi})")
+
+    def profiled():
+        eng, _, _ = engine_run(torch, cfg, params, backend, trace, leg)
+        return eng.stats["wall_s"] * 1e3
+    busy_ms = profile_device(torch, tag, profiled)
+    wall_ms = rec["wall_s"] * 1e3
+    rec.update(device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms)
+    print(f"[profile:{tag}] device busy {busy_ms:.3f} ms of the warm run's "
+          f"{wall_ms:.3f} ms wall: idle share {rec['idle_share']:.3f} "
+          f"({at()})")
+    return rec
 
 
 def _leaves(tree):
@@ -1781,6 +2200,8 @@ def main(argv=None) -> int:
         torch, cfg, params, long_prompts)
     mark("serving diana_long")
     worst["flash_attention"] = max(worst["flash_attention"], long_err)
+    serving.update(phase_engine(torch, cfg, params, args.seed, smi))
+    mark("engine")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

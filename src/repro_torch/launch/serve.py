@@ -20,8 +20,19 @@ the int8 KV cache.
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\
         --require-full-coverage
 
-The continuous-batching engine (``--engine`` and its flags) waits for the
-next slice of the port and raises NotImplementedError.
+``--engine`` replays a mixed-length request trace (``--trace`` JSONL, or a
+seeded synthetic trace sized by ``--requests/--prompt-len/--gen-len``)
+through the continuous-batching engine (`repro_torch.serving.Engine`,
+dense KV layout) and prints one line per request (TTFT, decode tok/s) and
+the run summary, as the JAX package's CLI does:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --engine --requests 8 --max-batch 4 --poisson 0.5 --mapping m.json
+
+The engine flags of the paged layout and of the multi-plan features raise
+NotImplementedError naming the roadmap item that brings them
+(`UNPORTED_FLAGS`).  ``serve_batch`` stays the fixed-batch loop until the
+paged engine lands.
 """
 from __future__ import annotations
 
@@ -37,16 +48,21 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.models import _backend
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
+from repro_torch.serving.engine import PAGED_ITEM, PLANSET_ITEM
 
-#: flags of the JAX serve CLI that only the serving engine reads
-ENGINE_FLAGS = (
-    "--trace", "--max-batch", "--max-len", "--policy", "--kv-layout",
-    "--page-size", "--num-pages", "--prefill-chunk", "--shared-prefix",
-    "--speculate", "--draft-k", "--check-spec-parity", "--slo-variant",
-    "--temperature", "--top-p", "--priorities", "--deadlines-ms",
-    "--poisson", "--max-queue-depth", "--page-watermark",
-    "--request-timeout", "--fault-spec", "--degrade-to", "--ttft-target-s",
-    "--check-preempt-parity", "--mapping-fallback")
+#: flags of the JAX serve CLI the port does not take yet -> the roadmap
+#: item that brings them
+UNPORTED_FLAGS = {
+    "--page-size": PAGED_ITEM, "--num-pages": PAGED_ITEM,
+    "--prefill-chunk": PAGED_ITEM, "--shared-prefix": PAGED_ITEM,
+    "--page-watermark": PAGED_ITEM,
+    "--speculate": PLANSET_ITEM, "--draft-k": PLANSET_ITEM,
+    "--check-spec-parity": PLANSET_ITEM, "--slo-variant": PLANSET_ITEM,
+    "--fault-spec": PLANSET_ITEM, "--degrade-to": PLANSET_ITEM,
+    "--ttft-target-s": PLANSET_ITEM, "--check-preempt-parity": PLANSET_ITEM,
+    "--mapping-fallback": ("ROADMAP.md Queue 3 (no majority-dtype "
+                           "fall-back, by choice)"),
+}
 
 
 def plan_mapping_execution(params, artifact):
@@ -159,6 +175,89 @@ def kv_cache_for(cfg, art):
     return cfg
 
 
+def serve_engine(args, cfg, params, backend=None):
+    """``--engine``: replay a mixed-length request trace through the
+    continuous-batching engine and report per-request latency (TTFT,
+    decode tok/s) + the run summary.  The trace comes from ``--trace``
+    (JSONL, see `repro_torch.serving.trace`) or a seeded synthetic trace
+    sized by ``--requests/--prompt-len/--gen-len`` (the JAX package's
+    trace for the same seed).  Returns (results, summary)."""
+    from repro_torch.serving import (Engine, SamplingParams, Scheduler,
+                                     ShedResult, load_trace,
+                                     poisson_arrivals, summarize,
+                                     synthetic_trace)
+    sampling = None
+    if args.temperature is not None or args.top_p < 1.0:
+        sampling = SamplingParams(
+            temperature=(args.temperature if args.temperature is not None
+                         else 1.0),
+            top_p=args.top_p, seed=args.seed)
+    if args.trace:
+        try:
+            trace = load_trace(args.trace, vocab=cfg.vocab)
+        except FileNotFoundError:
+            print(f"[serve] ERROR: trace file not found: {args.trace}",
+                  file=sys.stderr)
+            sys.exit(2)
+        except (ValueError, OSError) as e:
+            print(f"[serve] ERROR: bad trace: {e}", file=sys.stderr)
+            sys.exit(2)
+        print(f"[serve] trace {args.trace}: {len(trace)} requests")
+    else:
+        priorities = ([int(p) for p in args.priorities.split(",")]
+                      if args.priorities else None)
+        deadlines = ([None if d in ("", "none") else float(d)
+                      for d in args.deadlines_ms.split(",")]
+                     if args.deadlines_ms else None)
+        trace = synthetic_trace(
+            args.requests, vocab=cfg.vocab,
+            min_prompt=max(2, args.prompt_len // 4),
+            max_prompt=args.prompt_len,
+            min_new=max(2, args.gen_len // 4), max_new=args.gen_len,
+            seed=args.seed, priorities=priorities, deadlines_ms=deadlines)
+        print(f"[serve] synthetic trace: {len(trace)} mixed-length requests "
+              f"(prompts <= {args.prompt_len}, gen <= {args.gen_len})")
+    if args.poisson:
+        trace = poisson_arrivals(trace, args.poisson, seed=args.seed)
+        print(f"[serve] open-loop arrivals: Poisson at {args.poisson} "
+              f"req/step (last arrival step "
+              f"{max(r.arrival_step for r in trace)})")
+    max_len = args.max_len or max(r.prompt_len + r.max_new_tokens
+                                  for r in trace)
+    engine = Engine(cfg, params, max_batch=args.max_batch, max_len=max_len,
+                    backend=backend, scheduler=Scheduler(args.policy),
+                    kv_layout=args.kv_layout, sampling=sampling,
+                    max_queue_depth=args.max_queue_depth,
+                    request_timeout_s=args.request_timeout)
+    results = engine.run(trace)
+    for r in results:
+        if isinstance(r, ShedResult):
+            print(f"[serve]  {r.rid}: SHED ({r.reason}) at step "
+                  f"{r.shed_step} after {r.waited_s * 1e3:.0f}ms")
+            continue
+        print(f"[serve]  {r.rid}: prompt={r.prompt_len} "
+              f"gen={r.n_tokens} ({r.finish_reason}) "
+              f"ttft={r.ttft_s * 1e3:.0f}ms "
+              f"decode={r.decode_tok_s:.1f} tok/s")
+    summ = summarize(results, engine.stats["wall_s"])
+    st = engine.stats
+    print(f"[serve] engine[{args.policy}] B={args.max_batch} "
+          f"max_len={max_len}: {summ['total_tokens']} tokens in "
+          f"{summ['wall_s'] * 1e3:.0f}ms ({summ['total_tok_s']} tok/s, "
+          f"ttft p50 {summ['ttft_p50_s'] * 1e3:.0f}ms / "
+          f"p95 {summ['ttft_p95_s'] * 1e3:.0f}ms, "
+          f"{st['decode_steps']} decode steps)")
+    if (st["shed_requests"] or st["timeouts"] or args.policy == "deadline"
+            or args.max_queue_depth or args.request_timeout):
+        print(f"[serve] robustness: sheds={st['shed_requests']} "
+              f"shed_rate={summ['shed_rate']} timeouts={st['timeouts']}")
+        if "shed_reasons" in summ:
+            print(f"[serve] shed reasons: "
+                  + " ".join(f"{k}:{v}" for k, v in
+                             sorted(summ["shed_reasons"].items())))
+    return results, summ
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="yi-9b")
@@ -176,18 +275,70 @@ def main(argv=None):
     ap.add_argument("--require-full-coverage", action="store_true",
                     help="exit 2 unless every planned layer binds")
     ap.add_argument("--engine", action="store_true",
-                    help="continuous-batching engine (next slice)")
-    for flag in ENGINE_FLAGS:
+                    help="serve through the continuous-batching engine "
+                         "(repro_torch.serving): mixed-length trace replay "
+                         "with slot admission/retirement + per-request "
+                         "TTFT")
+    ap.add_argument("--trace", default=None,
+                    help="JSONL request trace for --engine "
+                         "(repro_torch.serving.trace format); default: a "
+                         "seeded synthetic mixed-length trace")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="engine slot-pool size (concurrent requests)")
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="engine per-slot sequence capacity (default: "
+                         "longest prompt+gen in the trace)")
+    ap.add_argument("--policy", default="continuous",
+                    choices=["continuous", "static", "deadline"],
+                    help="engine admission policy (static = gang batching "
+                         "baseline; deadline = priority/slack ordering)")
+    ap.add_argument("--priorities", default=None,
+                    help="synthetic trace: comma-separated ints assigned "
+                         "round-robin as request priorities (higher = more "
+                         "urgent, used by --policy deadline)")
+    ap.add_argument("--deadlines-ms", default=None,
+                    help="synthetic trace: comma-separated per-request "
+                         "deadlines in ms assigned round-robin ('none' "
+                         "for no deadline)")
+    ap.add_argument("--poisson", type=float, default=None, metavar="RATE",
+                    help="restamp arrivals as a seeded open-loop Poisson "
+                         "process at RATE requests per engine step")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="shed the newest waiting requests once the "
+                         "admission queue exceeds this depth")
+    ap.add_argument("--request-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="per-request wall-clock budget: queued requests "
+                         "shed, running requests retire with their partial "
+                         "tokens (finish_reason='timeout')")
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="enable non-greedy sampling at this temperature "
+                         "(default: greedy argmax)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (enables sampling when "
+                         "< 1.0)")
+    ap.add_argument("--kv-layout", default="dense",
+                    choices=["paged", "dense"],
+                    help="engine KV-cache layout: dense (B x max_len "
+                         "slots); paged waits for the paged engine")
+    for flag, item in UNPORTED_FLAGS.items():
         ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help="engine-only (next slice)")
+                        help=f"not ported yet ({item})")
     args = ap.parse_args(argv)
 
-    used = [f for f in ENGINE_FLAGS
-            if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.engine or used:
-        raise NotImplementedError(
-            f"{'--engine' if args.engine else used[0]}: the serving engine "
-            f"(repro.serving.Engine) waits for slice 2 of the port")
+    for flag, item in UNPORTED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(f"{flag}: waits for {item}")
+    if args.kv_layout == "paged":
+        raise NotImplementedError(f"--kv-layout paged: waits for "
+                                  f"{PAGED_ITEM}")
+    robust_flags = (args.policy == "deadline" or args.poisson
+                    or args.max_queue_depth or args.request_timeout
+                    or args.priorities or args.deadlines_ms)
+    if robust_flags and not args.engine:
+        ap.error("robustness flags (--policy deadline / --poisson / "
+                 "--max-queue-depth / --request-timeout / --priorities / "
+                 "--deadlines-ms) need --engine")
     if args.require_full_coverage and not args.mapping:
         ap.error("--require-full-coverage needs --mapping")
 
@@ -215,6 +366,13 @@ def main(argv=None):
               f"platform={art.platform} kv={cfg.kv_cache_dtype}")
         print_plan_coverage("serve", plan, backend)
         check_coverage("serve", backend, args.require_full_coverage)
+
+    if args.engine:
+        try:
+            return serve_engine(args, cfg, params, backend=backend)
+        except ExecutionError as e:
+            print(f"[serve] ERROR: {e}", file=sys.stderr)
+            sys.exit(2)
 
     prompts = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
                             generator=gen, device=dev)

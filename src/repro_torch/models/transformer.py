@@ -13,8 +13,12 @@ Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
   params_from_jax(tree, device)                  -> params
   prefill(params, cfg, tokens, caches, lengths=) -> (last_logits, caches)
-  decode_step(params, cfg, token, caches, index) -> (logits, caches)
+  decode_step(params, cfg, token, caches, index, active=)
+                                                 -> (logits, caches)
+  cache_specs(cfg, B, S_max)                     -> tree of meta tensors
   init_cache(cfg, B, S_max, device)              -> caches
+  cache_batch_axes(caches)                       -> batch axis per leaf
+  scatter_cache(caches, sub, slots)              -> caches (in place)
 
 Caches are updated in place (see `repro_torch.models.attention`).  A
 prompt longer than 2048 tokens prefills through the chunked (flash)
@@ -23,7 +27,10 @@ package's, that path needs a cache length that is a multiple of
 ``min(1024, S_max)`` and a prompt length that is a multiple of
 ``min(512, S)``.  Hybrid, MoE, MLA, cross-attention and encoder-decoder
 archs, paged caches and the paged chunked prefill of the serving engine
-wait for later slices.
+wait for later slices; the dense serving engine
+(`repro_torch.serving.Engine`) prefills admission groups with
+``prefill(lengths=)``, moves them into its slot pool with `scatter_cache`
+and decodes all slots with a per-slot ``index``.
 """
 from __future__ import annotations
 
@@ -146,14 +153,58 @@ def _project_logits(params, cfg: ArchConfig, h):
     return L.matmul(h, params["head"]["w"]).to(torch.float32)
 
 
-def init_cache(cfg: ArchConfig, B: int, S_max: int, device="cuda"):
-    """Dense KV cache: int8 codes when ``cfg.kv_cache_dtype == "int8"``,
-    else bfloat16 (whatever the parameter dtype, as in the JAX package)."""
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of equally shaped dict / tuple trees."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, (list, tuple)):
+        return type(head)(_tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def cache_specs(cfg: ArchConfig, B: int, S_max: int):
+    """The dense KV cache's shapes and dtypes, as a tree of ``meta``
+    tensors (no storage): int8 codes when ``cfg.kv_cache_dtype ==
+    "int8"``, else bfloat16 (whatever the parameter dtype, as in the JAX
+    package)."""
     _check_supported(cfg)
     dt = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     shape = (cfg.pattern_repeats, B, S_max, cfg.n_kv_heads, cfg.hd)
-    return {"units": ({"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)},)}
+    return {"units": ({"k": torch.empty(shape, dtype=dt, device="meta"),
+                       "v": torch.empty(shape, dtype=dt, device="meta")},)}
+
+
+def init_cache(cfg: ArchConfig, B: int, S_max: int, device="cuda"):
+    """Dense KV cache of `cache_specs`, zeroed."""
+    return _tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                           device=device),
+                     cache_specs(cfg, B, S_max))
+
+
+def cache_batch_axes(caches):
+    """Tree (matching ``caches``) of each leaf's BATCH axis: the
+    ``"units"`` leaves are stacked with a leading repeats axis, so batch
+    is axis 1.  This is the layout knowledge `scatter_cache` needs to
+    address slots."""
+    return {"units": _tree_map(lambda _: 1, caches["units"])}
+
+
+def scatter_cache(caches, sub, slots):
+    """Write the first k rows of the cache ``sub`` into the B-slot pool
+    ``caches`` at slot indices ``slots`` (k,) int64 on the caches' device,
+    in place (``index_copy_`` along each leaf's batch axis) — the
+    continuous-batching admission step: freshly prefilled per-request
+    caches land in the slots the scheduler assigned, replacing whatever a
+    retired request left there.  Rows of ``sub`` past k (the padding rows
+    of an admission group) are not written, and ``slots`` must not repeat
+    a slot: which of two writes to one slot lands is undefined on the
+    card.  Returns ``caches``."""
+    k = slots.numel()
+    _tree_map(lambda buf, s, axis: buf.index_copy_(
+        axis, slots, s.narrow(axis, 0, k).to(buf.dtype)),
+        caches, sub, cache_batch_axes(caches))
+    return caches
 
 
 #: prompts longer than this many tokens prefill through the chunked
@@ -180,9 +231,13 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None):
     return _project_logits(params, cfg, h_last), caches
 
 
-def decode_step(params, cfg: ArchConfig, token, caches, index):
+def decode_step(params, cfg: ArchConfig, token, caches, index, active=None):
     """One decode step for ``token (B,)`` at position ``index``: an int
-    (same-length batch) or a (B,) tensor of per-slot cache lengths."""
+    (same-length batch) or a (B,) tensor of per-slot cache lengths.
+    ``active`` (B,) bool marks live slots; it keeps the JAX package's
+    signature and changes nothing here: an attention-only model has no
+    cross-slot coupling or recurrent state to suppress, and the logits of
+    an inactive slot are garbage by contract."""
     x = params["emb"][token][:, None, :]
     B = x.shape[0]
     if isinstance(index, torch.Tensor) and index.dim() == 1:

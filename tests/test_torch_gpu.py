@@ -471,3 +471,69 @@ def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first, m,
         got = op(x, weight.t().contiguous().t(), sx, sw)
         torch.cuda.synchronize()
         assert torch.equal(got, plain(x, weight, sx, sw)), name
+
+
+def _engine_trace(vocab):
+    """Mixed lengths and staggered arrivals in two 16-position slots;
+    request 2 (14 prompt tokens, 8 new) retires at the length cap while
+    request 3 keeps decoding and nothing waits for the freed slot until
+    request 4 arrives at step 8."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(11)
+    specs = [(4, 1, 0), (5, 2, 0), (14, 8, 0), (3, 9, 0), (3, 3, 8)]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=p),
+                    max_new_tokens=n, arrival_step=a)
+            for i, (p, n, a) in enumerate(specs)]
+
+
+def test_engine_planned_on_diana_launches_kernels_like_the_plain_run(
+        cuda, tmp_path):
+    """The dense engine on reduced yi-9b planned on diana (static scales):
+    every forward launches each planned layer's kernel, and the tokens
+    equal those of the plain versions (``reference=True``) bit for bit."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    art = emit_static_mapping(params, cfg, "diana", tmp_path / "m.json",
+                              max_cout=64, act_log_scale=2.0)
+    plan, backend = plan_mapping_execution(params, art)
+    assert not backend.unbound
+    cfg = kv_cache_for(cfg, art)
+    hist = plan.kernel_histogram()
+    assert hist == {"quant_matmul": 5, "split_ternary": 10}
+    trace = _engine_trace(cfg.vocab)
+    engine = Engine(cfg, params, max_batch=2, max_len=16, backend=backend)
+    before = {k: getattr(ops, k).launches for k in hist}
+    got = engine.run(trace)
+    torch.cuda.synchronize()
+    forwards = engine.stats["prefill_calls"] + engine.stats["decode_steps"]
+    assert {k: getattr(ops, k).launches - before[k] for k in hist} == \
+        {k: n * forwards for k, n in hist.items()}
+    backend.reference = True
+    want = engine.run(trace)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert "length_cap" in {r.finish_reason for r in got}
+
+
+def test_engine_length_cap_retirement_on_the_card(cuda):
+    """A slot retired at the length cap keeps ``lengths == max_len``; the
+    next decode step must not write its KV there (an out-of-range index
+    would fire a device-side assert and poison the context)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Engine
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    engine = Engine(cfg, params, max_batch=2, max_len=16)
+    res = {r.rid: r for r in engine.run(_engine_trace(cfg.vocab))}
+    torch.cuda.synchronize()
+    assert res[2].finish_reason == "length_cap"
+    assert res[2].finished_step + 1 < min(res[3].finished_step,
+                                          res[4].admitted_step)
+    assert all(r.n_tokens >= 1 for r in res.values())
+    assert bool(torch.isfinite(torch.ones(1, device=cuda)).all())

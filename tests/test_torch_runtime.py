@@ -428,13 +428,17 @@ def test_serve_planned_runs_with_full_coverage(artifacts, tmp_path):
     assert tuple(tokens.shape) == (1, 2)
 
 
-@pytest.mark.parametrize("flag", [["--engine"], ["--kv-layout", "paged"],
+@pytest.mark.parametrize("flag", [["--engine", "--speculate", "d.json"],
+                                  ["--kv-layout", "paged"],
                                   ["--check-spec-parity"]])
 def test_serve_engine_flags_wait_for_slice_2(flag, artifacts, tmp_path):
+    """The engine flags of the paged layout and of the multi-plan features
+    raise NotImplementedError naming the roadmap item that brings them
+    (``--engine`` itself serves since the dense engine was ported)."""
     from repro_torch.launch import serve
     good = tmp_path / "good.json"
     good.write_text(json.dumps(artifacts[0]))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         serve.main(_serve_args(good, *flag))
 
 
