@@ -40,6 +40,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    kernels get garbage in the int8 codes at and above the boundary
    (split_ternary also 0xFF in its packed bytes below it, split_precision
    NaN in its bf16 weights below it), which must not reach the output.
+   At the paged engine's chunk rows (`CHUNK_MS`: M 4 x 32 and 4 x 512) x
+   the five (K, N) on the K-major codes: quant_matmul, ternary_matmul and
+   split_ternary (boundary 7, both probes) bit for bit, split_precision
+   (boundary 342) within its bound.
    flash_attention at yi-9b's head shapes (B 4, H 32, KVH 4, D 128): Sq =
    Sk in {128, 3072}, Sq 3072 against Sk 4096 with kv_len 3072, a ragged
    Sq 3000, and one non-causal case whose keys the op pads (Sk 1000 to
@@ -73,9 +77,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ternary_matmul at M 512 x (4096, 512) at each K split of SWEEP_SPLITS,
    each checked against the plain version and timed as above.
 5. serving: full-width 48-layer yi-9b with random weights from --seed
-   (one set of params), mapped three ways and served with the fixed-batch
-   greedy loop (4 requests x 128 prompt + 16 generated tokens), one bound
-   backend at a time:
+   (one set of params), mapped three ways and served with ``serve_batch``
+   (4 requests x 128 prompt + 16 generated tokens, greedy), which runs the
+   paged engine: 4 chunk calls of 4 x 32 tokens, then 15 decode steps;
+   one bound backend at a time:
      diana          static min-cost DIANA split: quant_matmul:241
                     split_ternary:96
      gpu_tc_like    static min-cost int8 + fp16 split: quant_matmul:241
@@ -83,15 +88,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      diana_ternary  diana biased ("aimc", 1.0), the all-ternary baseline
                     on the searchable layers: quant_matmul:241
                     ternary_matmul:96
-   each at full coverage with launch counts = histogram x 16 forwards,
+   each at full coverage with launch counts = histogram x 19 forwards,
    and no per-call copy of a weight (the ``transposed_copies`` of
    quant_matmul, split_ternary, ternary_matmul and split_precision and
    ``ternary_packed_matmul.padded_copies`` stay 0 on every serving path
    and in ternary_packed's entry-point run);
    then served again with the plain versions (``reference=True``, no
-   launch): tokens and prefill logits identical on the integer paths.  On
+   launch): tokens and prefill logits identical on the integer paths (the
+   logits of every forward are recorded by wrapping the model's
+   ``prefill`` / ``prefill_chunk`` / ``decode_step``; the prefill logits
+   are those of the chunk call that completes the prompts).  On
    gpu_tc_like, whose bf16 columns sum in another order than the plain
-   version, every split_precision call of the kernel run's prefill is
+   version, every split_precision call of the kernel run's first chunk is
    checked against the plain version on its own inputs (int8 columns bit
    for bit, bf16 columns within the summation bound), and a third run,
    plain with the bf16 columns summed in float32, measures how far another
@@ -101,9 +109,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    below that tolerance).  Then a warm run, and a profiled one: the
    device busy time and idle share of each path.
    diana_long: the same params and diana artifact, 4 requests x 3072
-   prompt + 16 generated tokens in a 4096-slot int8 cache
-   (``serve_batch(..., max_len=4096)``), so the prefill (Sq > 2048) takes
-   the chunked path: launch counts flash_attention 48 (all in prefill),
+   prompt + 16 generated tokens in a 4096-slot int8 cache, through the
+   dense engine (``Engine(kv_layout="dense", max_batch=4, max_len=4096,
+   prefill_bucket=3072)``: one admission group, one prefill at M 12288),
+   so the prefill (Sq > 2048) takes the chunked path: launch counts
+   flash_attention 48 (all in prefill),
    quant_matmul 241 x 16, split_ternary 96 x 16.  Every quant_matmul and
    split_ternary call of the prefill (M 12288) is held bit for bit against
    its plain version on its own inputs as it is made, and each of the 48
@@ -135,15 +145,49 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    long prefill group; 0 weight copies; the same run with the plain
    versions (``reference=True``) gives identical tokens for every request
    on engine_mixed, and on engine_long agrees under the margin rule (flash
-   sums in another order); each request alone through ``serve_batch`` (B
-   1, the same max_len) agrees under the margin rule.  The margin rule
+   sums in another order); each request alone through a one-slot dense
+   engine (the same max_len) agrees under the margin rule.  The margin rule
    compares each request up to its first step whose reference top-2 logit
    margin is below SENSITIVITY_FACTOR times the distance of its prefill
    logits from the reference's (every step where they are bit-identical),
    prints how many tokens it compared, and fails below half of them.  Then
    a warm run (TTFT p50 / p95, decode tok/s, decode steps, prefill calls,
    wall, peak GiB) and a profiled one (device busy time, idle share).
-7. one JSON line of kernel records, the nvidia-smi line, and the contract
+7. paged engine: ``Engine(kv_layout="paged")`` (page_size 16, the prefix
+   cache on) on the same params and diana artifact, three legs
+   (`ENGINE_PAGED_MIXED`, `ENGINE_PAGED_PREFIX`, `ENGINE_PAGED_LONG`):
+     engine_paged_mixed   engine_mixed's trace, 4 slots of 1024, chunks
+                          of 32: prefill interleaves with decode;
+     engine_paged_prefix  ``synthetic_trace(8, vocab=64000,
+                          min_prompt=64, max_prompt=256, min_new=4,
+                          max_new=16, seed, shared_prefix=512)`` at step
+                          0, 4 slots of 1024, run cold and then warm on
+                          one engine (the pool resident), and once with
+                          the prefix cache off;
+     engine_paged_long    engine_long's requests in chunks of 512 (M
+                          2048): the short prompts complete in the first
+                          chunk call and decode while the long ones
+                          stream in.
+   Each recorded run: launches = histogram x (chunk calls + decode steps),
+   flash 0 (chunks attend through full attention, as in the JAX package);
+   0 weight copies; every request finishes; each request's prefill logits
+   and per-step margins are read from the recorded chunk and decode
+   calls (its slot is the row whose chunk completes its prompt; every
+   token is checked to be its logits' argmax); one `paged_update` call
+   (`CAPTURE_CALL`) and its `paged_gather` are repeated on the CPU on the
+   same inputs: the pool outside the trash page and the gathered mapped
+   rows equal.  Tokens: engine_paged_mixed against engine_mixed's (dense)
+   under the margin rule, with the one-slot runs' margins; the prefix
+   runs against the prefix-cache-off run under the margin rule; the cold
+   run must hit the prefix; engine_paged_long against engine_long's
+   kernel run by its distance rule (prefill logits within engine_long's
+   tolerance, max and RMS; tokens under the margin rule with its plain
+   run's margins), and each short request's first token before each
+   long one's.  Then an unrecorded warm run (TTFT, tok/s, chunk calls,
+   decode steps x ms/step, kv_peak_bytes against kv_capacity_bytes, peak
+   GiB; engine_paged_mixed also profiled: idle share), printed beside the
+   dense leg of this run.
+8. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -200,6 +244,12 @@ PAD_KN = (1000, 1000)
 #: split_precision also at these M (its decode GEMM at 16, its wgmma GEMM
 #: above), on the K-major codes, beside M_SHAPES
 SP_MS = (16, 17, 100, 300)
+#: the paged engine's chunk rows (B x prefill_chunk): 4 x 32 (the default
+#: chunk, 2 x page_size 16) on phase 5 and engine_paged_mixed, 4 x 512 on
+#: engine_paged_long; the four int8 kernels of the serving paths are
+#: checked and the diana path's timed there
+CHUNK = 32
+CHUNK_MS = (REQUESTS * CHUNK, REQUESTS * 512)
 # flash_attention checks at yi-9b's heads (B, H, KVH, D) = (4, 32, 4,
 # 128): (Sq, Sk, causal, kv_len); the last one runs through the op, which
 # pads Sk to its 512-key block and masks the padded keys
@@ -250,9 +300,23 @@ LAUNCH_PATH = {"quant_matmul": "diana", "split_ternary": "diana",
 #: others decode; engine_long: one admission group whose prefill pads to
 #: 4096 tokens and takes the chunked (flash) attention)
 ENGINE_MIXED = dict(requests=12, min_prompt=64, max_prompt=512, min_new=4,
-                    max_new=16, rate=0.5, max_batch=4, max_len=1024)
+                    max_new=16, rate=0.5, max_batch=4, max_len=1024,
+                    kv_layout="dense")
 ENGINE_LONG = dict(prompts=(3000, 3000, 200, 200), new=8, max_batch=4,
-                   max_len=4096)
+                   max_len=4096, kv_layout="dense")
+#: the paged engine's legs (phase 7): engine_mixed's traffic under the
+#: JAX package's defaults (page_size 16, prefill_chunk 32, prefix cache
+#: on); one system prompt of 512 tokens shared by 8 chats, served cold and
+#: then warm on one engine; engine_long's requests in chunks of 512
+ENGINE_PAGED_MIXED = dict(ENGINE_MIXED, kv_layout="paged")
+ENGINE_PAGED_PREFIX = dict(requests=8, min_prompt=64, max_prompt=256,
+                           min_new=4, max_new=16, shared_prefix=512,
+                           max_batch=4, max_len=1024, kv_layout="paged")
+ENGINE_PAGED_LONG = dict(ENGINE_LONG, kv_layout="paged", prefill_chunk=512)
+#: the paged_update call (0-based, 96 per forward: k and v of 48 layers)
+#: whose inputs each paged leg holds against the CPU: layer 5's k in the
+#: third forward
+CAPTURE_CALL = 2 * 96 + 10
 # Kernel vs plain prefill logits on gpu_tc_like.  A bf16 column of
 # split_precision differs from the plain value by ~1e-6 relative, which
 # moves a bf16-rounded wk / wv output by one bf16 step now and then; every
@@ -757,6 +821,25 @@ def phase_kernels(torch, gen):
                   f"N={n:<6d} K-major, boundaries {raws}: int8 columns "
                   f"bit-identical, bf16 columns at most {ratio:.3g} of the "
                   f"bound (both probes)")
+    # the paged engine's chunk rows, on the layouts the serving paths hold
+    for m in CHUNK_MS:
+        for k, n in KN_SHAPES:
+            x, w_q, _, sx, sw = operands(m, k, n, n, gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw),
+                f"chunk M={m} K={k} N={n} K-major", quiet=True)
+            ternary_k_major(m, k, n)
+            split_probes(m, k, n, min(PATHS["diana"][3], n), "K-major",
+                         quiet=True)
+            ratio = split_precision_check(m, k, n,
+                                          min(PATHS["gpu_tc_like"][3], n),
+                                          "K-major", quiet=True)
+            print(f"[kernels] chunk M={m:<5d} K={k:<6d} N={n:<6d} K-major: "
+                  f"quant_matmul, ternary_matmul, split_ternary (boundary "
+                  f"{PATHS['diana'][3]}, both garbage probes) bit-identical; "
+                  f"split_precision int8 columns bit-identical, bf16 "
+                  f"columns at most {ratio:.3g} of the bound")
     m, k, n = PACKED_LONG
     ternary_k_major(m, k, n, quiet=False)
     packed_case(m, k, n)
@@ -828,9 +911,12 @@ def phase_times(torch, gen):
                 key = (kernel, m if m == DECODE_M else pm, k, n)
                 calls[key] = raw if kernel == PATHS[path][2] else None
     # the long prefill's calls (diana_long: the diana layers at LONG_M)
+    # and the paged engine's chunks on the diana path
     raw = PATHS["diana"][3]
-    for (k, n), (kernel, _, pm) in path_layers("diana", LONG_M).items():
-        calls[(kernel, pm, k, n)] = raw if kernel == "split_ternary" else None
+    for rows in (LONG_M,) + CHUNK_MS:
+        for (k, n), (kernel, _, pm) in path_layers("diana", rows).items():
+            calls[(kernel, pm, k, n)] = (raw if kernel == "split_ternary"
+                                         else None)
     for m in M_SHAPES:       # the calls of ternary_packed's entry-point run
         for k, n in KN_SHAPES:
             calls[("ternary_packed", m, k, n)] = None
@@ -1112,27 +1198,6 @@ def print_mix(what, kernel, mix):
           f"{mix['ms'] / mix['library_ms']:.3f}")
 
 
-def plain_margins(torch, cfg, params, prompts, tokens, backend,
-                  max_len=None):
-    """Top-2 logit margins of the plain-version run at each generated step,
-    with ``tokens`` (that run's own) fed back: (B, GEN_LEN)."""
-    from repro_torch.models import _backend
-    from repro_torch.models import transformer as T
-    B, P = prompts.shape
-    caches = T.init_cache(cfg, B, max_len or P + GEN_LEN,
-                          device=prompts.device)
-    out = []
-    with _backend.use(backend):
-        logits, caches = T.prefill(params, cfg, prompts, caches)
-        for i in range(GEN_LEN):
-            top2 = torch.topk(logits.float(), 2, dim=-1).values
-            out.append(top2[:, 0] - top2[:, 1])
-            if i + 1 < GEN_LEN:
-                logits, caches = T.decode_step(params, cfg, tokens[:, i],
-                                               caches, P + i)
-    return torch.stack(out, dim=1)
-
-
 def recording_split_precision(calls, limit):
     """Context: `ops.split_precision_op` keeps the operands and output of
     its first ``limit`` calls in ``calls`` (the layer check of
@@ -1279,11 +1344,15 @@ def phase_serving(torch, path, cfg, params, prompts):
           f"{wk.boundaries}, aligned {wk.aligned_boundaries}")
     cfg = kv_cache_for(cfg, art)
 
-    forwards = GEN_LEN
-    calls = []
+    # serve_batch runs the paged engine: the prompts stream in chunks of
+    # CHUNK tokens, then GEN_LEN - 1 decode steps
+    chunks = -(-PROMPT_LEN // CHUNK)
+    forwards = chunks + GEN_LEN - 1
+    calls, logit_calls = [], []
     reset_launches()
     with recording_split_precision(calls, expected.get("split_precision",
-                                                       0)):
+                                                       0)), \
+            recording_logits(logit_calls):
         tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
                                     backend=backend)
     launches = kernel_launches()
@@ -1293,14 +1362,16 @@ def phase_serving(torch, path, cfg, params, prompts):
                              f"{want} ({forwards} forwards)")
     check_no_weight_copies(path)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    logits = stats["prefill_logits"]
+    logits, _ = batch_logits(torch, tokens, logit_calls)
+    del logit_calls
     if tuple(tokens.shape) != (REQUESTS, GEN_LEN) or \
             tuple(logits.shape) != (REQUESTS, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{path}: serving output has the wrong shape "
                              f"or is not finite")
     print(f"[serve:{path}] {REQUESTS} requests x prompt {PROMPT_LEN} + "
-          f"gen {GEN_LEN}, kv {cfg.kv_cache_dtype}: prefill "
+          f"gen {GEN_LEN}, kv {cfg.kv_cache_dtype}, through the paged "
+          f"engine: prefill ({chunks} chunk calls at M {REQUESTS * CHUNK}) "
           f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
           f"{stats['decode_s'] * 1e3:.3f} ms "
           f"({stats['tok_per_s']:.2f} tok/s, "
@@ -1314,12 +1385,15 @@ def phase_serving(torch, path, cfg, params, prompts):
     print(f"[serve:{path}] sample tokens: {tokens[:2, :8].tolist()}")
 
     backend.reference = True
-    ref_tokens, ref_stats = serve_batch(cfg, params, prompts, GEN_LEN,
-                                        backend=backend)
+    ref_calls = []
+    with recording_logits(ref_calls):
+        ref_tokens, ref_stats = serve_batch(cfg, params, prompts, GEN_LEN,
+                                            backend=backend)
     if kernel_launches() != want:
         raise AssertionError(f"{path}: the plain-version run launched a "
                              f"kernel")
-    ref_logits = ref_stats["prefill_logits"]
+    ref_logits, ref_margins = batch_logits(torch, ref_tokens, ref_calls)
+    del ref_calls
     same_tokens = torch.equal(tokens, ref_tokens)
     same_logits = torch.equal(logits, ref_logits)
     diff = float((logits.float() - ref_logits.float()).abs().max())
@@ -1342,26 +1416,27 @@ def phase_serving(torch, path, cfg, params, prompts):
     else:
         ratio = check_split_precision_calls(torch, calls)
         print(f"[serve:{path}] the {len(calls)} split_precision calls of "
-              f"the prefill agree with the plain version on their own "
+              f"the first chunk agree with the plain version on their own "
               f"inputs: int8 columns bit-identical, bf16 columns within "
               f"{ratio:.3g} of the summation bound")
         del calls
-        with plain_float32_split_precision():
+        calls32 = []
+        with plain_float32_split_precision(), recording_logits(calls32):
             tok32, st32 = serve_batch(cfg, params, prompts, GEN_LEN,
                                       backend=backend)
         if kernel_launches() != want:
             raise AssertionError(f"{path}: the float32 plain run launched "
                                  f"a kernel")
-        spread = float((st32["prefill_logits"].float() -
-                        ref_logits.float()).abs().max())
+        logits32, _ = batch_logits(torch, tok32, calls32)
+        del calls32
+        spread = float((logits32 - ref_logits).abs().max())
         print(f"[serve:{path}] plain run with float32 sums: prefill "
               f"logits max |diff| {spread:.4g} from the float64 plain run, "
               f"tokens identical {torch.equal(tok32, ref_tokens)}")
         tol = SENSITIVITY_FACTOR * spread
-        margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
-                                backend)
         compared, _ = compare_requests(path, tokens.tolist(),
-                                       ref_tokens.tolist(), margins.tolist(),
+                                       ref_tokens.tolist(),
+                                       ref_margins.tolist(),
                                        [tol] * len(tokens))
         print(f"[serve:{path}] tolerance {tol:.4g} = {SENSITIVITY_FACTOR:g}"
               f" x {spread:.4g}: kernel prefill logits max |diff| "
@@ -1537,8 +1612,8 @@ def phase_long(torch, cfg, params, prompts):
     serving record, largest |error| of the prefill's flash calls)."""
     from repro_torch.api import MappingArtifact
     from repro_torch.launch.serve import (check_coverage, kv_cache_for,
-                                          plan_mapping_execution,
-                                          serve_batch)
+                                          plan_mapping_execution)
+    from repro_torch.serving import Engine, Request
     path = "diana_long"
     art = MappingArtifact.load(
         str(ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana.json"))
@@ -1553,10 +1628,24 @@ def phase_long(torch, cfg, params, prompts):
         want[kernel] += count * GEN_LEN
     want["flash_attention"] = cfg.n_layers      # one per layer, in prefill
     B, P = prompts.shape
+    reqs = [Request(rid=b, prompt=row, max_new_tokens=GEN_LEN)
+            for b, row in enumerate(prompts.cpu().numpy())]
 
-    def serve():
-        return serve_batch(cfg, params, prompts, GEN_LEN, backend=backend,
-                           max_len=LONG_CACHE)
+    def serve(calls=None):
+        """The dense engine, one admission group of the B prompts (one
+        prefill at M B x P), then GEN_LEN - 1 decode steps: (tokens,
+        stats, prefill logits, top-2 margins per step) with ``calls``,
+        (tokens, stats) without."""
+        import contextlib
+        engine = Engine(cfg, params, max_batch=B, max_len=LONG_CACHE,
+                        backend=backend, kv_layout="dense", prefill_bucket=P)
+        with (recording_logits(calls) if calls is not None
+              else contextlib.nullcontext()):
+            results = engine.run(reqs)
+        tokens = torch.tensor([r.tokens for r in results])
+        if calls is None:
+            return tokens, engine.stats
+        return (tokens, engine.stats) + batch_logits(torch, tokens, calls)
 
     calls, checked = [], {}
     limits = dict.fromkeys(KERNELS, 0)
@@ -1564,20 +1653,20 @@ def phase_long(torch, cfg, params, prompts):
         limits[kernel] += count       # one forward pass: the prefill
     reset_launches()
     with recording_flash(calls), checking_matmuls(checked, limits):
-        tokens, stats = serve()
+        tokens, stats, logits, _ = serve([])
     launches = kernel_launches()
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected "
                              f"{want}")
     check_no_weight_copies(path)
-    logits = stats["prefill_logits"]
     if tuple(tokens.shape) != (B, GEN_LEN) or \
             tuple(logits.shape) != (B, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{path}: serving output has the wrong shape "
                              f"or is not finite")
     print(f"[serve:{path}] {B} requests x prompt {P} + gen {GEN_LEN} in a "
-          f"{LONG_CACHE}-slot {cfg.kv_cache_dtype} cache: prefill "
+          f"{LONG_CACHE}-slot {cfg.kv_cache_dtype} cache (dense engine, one "
+          f"admission group): prefill "
           f"{stats['prefill_s'] * 1e3:.3f} ms with the matmul checks inline,"
           f" decode {stats['decode_s'] * 1e3:.3f} ms "
           f"({stats['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step)")
@@ -1616,14 +1705,12 @@ def phase_long(torch, cfg, params, prompts):
     # versions); a plain run in float64 attention differs from it by
     # another valid one
     backend.reference = True
-    ref_tokens, ref_stats = serve()
+    ref_tokens, ref_stats, ref_logits, margins = serve([])
     with plain_float64_attention():
-        tok64, st64 = serve()
+        tok64, st64, logits64, _ = serve([])
     if kernel_launches() != want:
         raise AssertionError(f"{path}: a plain run launched a kernel")
-    ref_logits = ref_stats["prefill_logits"]
-    spread, spread_rms = logit_distance(torch, st64["prefill_logits"],
-                                        ref_logits)
+    spread, spread_rms = logit_distance(torch, logits64, ref_logits)
     diff, diff_rms = logit_distance(torch, logits, ref_logits)
     tol, tol_rms = SENSITIVITY_FACTOR * spread, SENSITIVITY_FACTOR * spread_rms
     # what an output unrelated to the plain run's would give: the plain
@@ -1637,8 +1724,6 @@ def phase_long(torch, cfg, params, prompts):
           f"{spread_rms:.4g} from it, tokens identical "
           f"{torch.equal(tok64, ref_tokens)}; another request's logits: max "
           f"|diff| {other:.4g}, RMS {other_rms:.4g}")
-    margins = plain_margins(torch, cfg, params, prompts, ref_tokens,
-                            backend, max_len=LONG_CACHE)
     compared, _ = compare_requests(path, tokens.tolist(), ref_tokens.tolist(),
                                    margins.tolist(), [tol] * B)
     print(f"[serve:{path}] tolerance {SENSITIVITY_FACTOR:g} x the float64 "
@@ -1714,30 +1799,56 @@ def profile_device(torch, tag, run):
 
 
 def recording_logits(calls):
-    """Context: `transformer.prefill` and `transformer.decode_step` keep
-    the logits of every call in ``calls`` as ``(kind, logits)``; the
-    engine and ``serve_batch`` look both up on the module, so every call
-    of theirs goes through."""
+    """Context: `transformer.prefill`, `prefill_chunk` and `decode_step`
+    keep the logits of every call in ``calls`` as ``(kind, logits,
+    inputs)``, kind "prefill", "chunk" or "decode"; ``inputs`` is a chunk
+    call's (tokens, fill positions, valid counts) on the host, else None.
+    The engine looks all three up on the module, so every call of its
+    goes through."""
     import contextlib
     from repro_torch.models import transformer as T
+    names = {"prefill": "prefill", "chunk": "prefill_chunk",
+             "decode": "decode_step"}
 
     @contextlib.contextmanager
     def ctx():
-        orig = T.prefill, T.decode_step
+        orig = {kind: getattr(T, name) for kind, name in names.items()}
 
         def wrap(kind, fn):
             def recording(*args, **kw):
                 logits, caches = fn(*args, **kw)
-                calls.append((kind, logits.float()))
+                inputs = (tuple(args[i].cpu() for i in (2, 4, 5))
+                          if kind == "chunk" else None)
+                calls.append((kind, logits.float(), inputs))
                 return logits, caches
             return recording
-        T.prefill = wrap("prefill", orig[0])
-        T.decode_step = wrap("decode", orig[1])
+        for kind, name in names.items():
+            setattr(T, name, wrap(kind, orig[kind]))
         try:
             yield
         finally:
-            T.prefill, T.decode_step = orig
+            for kind, name in names.items():
+                setattr(T, name, orig[kind])
     return ctx()
+
+
+def batch_logits(torch, tokens, calls):
+    """(prefill logits (B, V), top-2 margins (B, steps)) of a run whose B
+    requests, in slots 0..B-1, complete their prompts in one call and then
+    decode together until all retire (``serve_batch``; a dense engine's
+    single admission group): the last prefill or chunk call before the
+    first decode call, then the decode calls.  Each request's tokens are
+    checked to be the argmax of its logits."""
+    kinds = [kind for kind, _, _ in calls]
+    start = kinds.index("decode") if "decode" in kinds else len(calls)
+    seq = [calls[start - 1][1]] + [lg for kind, lg, _ in calls[start:]
+                                   if kind == "decode"]
+    steps = tokens.shape[1]
+    if len(seq) != steps or not torch.equal(
+            torch.stack([lg.argmax(-1) for lg in seq], 1).cpu(),
+            tokens.cpu()):
+        raise AssertionError("recorded logits do not give the run's tokens")
+    return seq[0], torch.stack([top2_margin(torch, lg) for lg in seq], 1)
 
 
 def top2_margin(torch, logits):
@@ -1749,7 +1860,7 @@ def engine_first_logits(torch, results, calls):
     """Each request's prefill logits in an engine run, from its recorded
     prefill calls: one per admission step, whose rows are the group's
     requests in trace order (the continuous policy admits FCFS)."""
-    prefills = [lg for kind, lg in calls if kind == "prefill"]
+    prefills = [lg for kind, lg, _ in calls if kind == "prefill"]
     steps = sorted({r.admitted_step for r in results})
     if len(prefills) != len(steps):
         raise AssertionError(f"{len(prefills)} prefill calls for "
@@ -1811,32 +1922,39 @@ def margin_rule(torch, what, tokens, first, ref_tokens, ref_first,
 
 
 def per_request_serving(torch, cfg, params, requests, backend, max_len):
-    """Each request alone through the fixed-batch loop (B = 1, the
-    engine's cache length): (tokens, per-step top-2 margins, prefill
-    logits) per request."""
-    from repro_torch.launch.serve import serve_batch
+    """Each request alone through a one-slot dense engine (the leg's cache
+    length): (tokens, per-step top-2 margins, prefill logits) per
+    request."""
+    from repro_torch.serving import Engine, Request
     tokens, margins, first = [], [], []
     for r in requests:
         calls = []
-        prompt = torch.from_numpy(r.prompt).long()[None].to(
-            params["emb"].device)
+        engine = Engine(cfg, params, max_batch=1, max_len=max_len,
+                        backend=backend, kv_layout="dense")
         with recording_logits(calls):
-            toks, st = serve_batch(cfg, params, prompt, r.max_new_tokens,
-                                   backend=backend, max_len=max_len)
-        tokens.append(toks[0].tolist())
+            (res,) = engine.run([Request(rid=r.rid, prompt=r.prompt,
+                                         max_new_tokens=r.max_new_tokens,
+                                         eos_id=r.eos_id)])
+        tokens.append(res.tokens)
         margins.append([float(top2_margin(torch, lg)[0])
-                        for _, lg in calls])
-        first.append(st["prefill_logits"][0].float())
+                        for _, lg, _ in calls])
+        first.append(calls[0][1][0])
     return tokens, margins, first
 
 
-def engine_run(torch, cfg, params, backend, trace, leg, calls=None):
-    """One engine run of ``trace`` (logits recorded into ``calls`` when
-    given); returns (engine, results, launches)."""
+def engine_run(torch, cfg, params, backend, trace, leg, calls=None,
+               engine=None):
+    """One run of ``trace`` on ``engine``, or on a new engine of the leg's
+    configuration (logits recorded into ``calls`` when given); returns
+    (engine, results, launches)."""
     import contextlib
     from repro_torch.serving import Engine
-    engine = Engine(cfg, params, max_batch=leg["max_batch"],
-                    max_len=leg["max_len"], backend=backend)
+    if engine is None:
+        engine = Engine(cfg, params, max_batch=leg["max_batch"],
+                        max_len=leg["max_len"], backend=backend,
+                        **{key: leg[key] for key in
+                           ("kv_layout", "prefill_chunk", "prefix_cache")
+                           if key in leg})
     reset_launches()
     with (recording_logits(calls) if calls is not None
           else contextlib.nullcontext()):
@@ -1858,7 +1976,9 @@ def print_engine_run(tag, engine, results, smi):
            "decode_steps": st["decode_steps"],
            "prefill_calls": st["prefill_calls"], "wall_s": st["wall_s"],
            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-           "tokens": summ["total_tokens"]}
+           "tokens": summ["total_tokens"],
+           "kv_peak_bytes": st["kv_peak_bytes"],
+           "kv_capacity_bytes": st["kv_capacity_bytes"]}
     print(f"[engine:{tag}] {len(results)} requests, {rec['tokens']} tokens: "
           f"TTFT p50 {rec['ttft_p50_s'] * 1e3:.3f} ms / p95 "
           f"{rec['ttft_p95_s'] * 1e3:.3f} ms, decode {rec['decode_tok_s']:.3f}"
@@ -1874,7 +1994,8 @@ def print_engine_run(tag, engine, results, smi):
 def phase_engine(torch, cfg, params, seed, smi):
     """The continuous-batching engine (dense KV layout) on the diana
     artifact of phase 5: legs engine_mixed and engine_long (module
-    docstring); returns {leg: record}."""
+    docstring); returns ({leg: record}, {leg: what the paged legs are
+    held against})."""
     from repro_torch.api import MappingArtifact
     from repro_torch.launch.serve import (check_coverage, kv_cache_for,
                                           plan_mapping_execution)
@@ -1899,33 +2020,42 @@ def phase_engine(torch, cfg, params, seed, smi):
     long_trace = [Request(rid=f"l{i}", prompt=rng.integers(0, cfg.vocab, n),
                           max_new_tokens=long["new"])
                   for i, n in enumerate(long["prompts"])]
-    out = {}
+    out, refs = {}, {}
     for tag, leg, reqs in (("engine_mixed", mixed, trace),
                            ("engine_long", long, long_trace)):
-        print(f"[engine:{tag}] {len(reqs)} requests, prompts "
-              f"{sorted(r.prompt_len for r in reqs)}, new "
-              f"{sorted(r.max_new_tokens for r in reqs)}, arrival steps "
-              f"{sorted(r.arrival_step for r in reqs)}; max_batch "
-              f"{leg['max_batch']}, max_len {leg['max_len']}")
-        out[tag] = engine_leg(torch, tag, cfg, params, backend, hist, reqs,
-                              leg, smi)
+        print_traffic(tag, reqs, leg)
+        out[tag], refs[tag] = engine_leg(torch, tag, cfg, params, backend,
+                                         hist, reqs, leg, smi)
     del plan, backend
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, refs
+
+
+def print_traffic(tag, reqs, leg):
+    print(f"[engine:{tag}] {len(reqs)} requests, prompts "
+          f"{sorted(r.prompt_len for r in reqs)}, new "
+          f"{sorted(r.max_new_tokens for r in reqs)}, arrival steps "
+          f"{sorted(r.arrival_step for r in reqs)}; max_batch "
+          f"{leg['max_batch']}, max_len {leg['max_len']}, "
+          + ", ".join(f"{k} {leg[k]}" for k in
+                      ("kv_layout", "prefill_chunk", "shared_prefix")
+                      if k in leg))
 
 
 def engine_leg(torch, tag, cfg, params, backend, hist, trace, leg, smi):
     """One leg: the kernel run (launch counts, weight copies, finish
     reasons), the plain run (``reference=True``), each request alone
-    through ``serve_batch``, a warm run and a profiled one; returns the
-    leg's record.  Without flash on the path the plain run must give
-    identical tokens and ``serve_batch`` agree under the per-request margin
+    through a one-slot dense engine, a warm run and a profiled one;
+    returns the leg's record and its reference for the paged legs (the
+    kernel run's tokens and prefill logits, the per-request runs'
+    margins; with flash, the tolerances and the plain run's margins).  Without flash on the path the plain run must give
+    identical tokens and the one-slot runs agree under the per-request margin
     rule (`margin_rule`).  With flash, whose sums run in another order
     than its plain version's, the check is diana_long's: a plain run with
     float64 attention measures how far another valid summation moves the
     prefill logits, and the kernel run must lie within SENSITIVITY_FACTOR
-    times that of the plain run and of ``serve_batch`` (max and RMS),
+    times that of the plain run and of the one-slot runs (max and RMS),
     tokens compared under the margin rule at that tolerance."""
     from repro_torch.models import transformer as T
     t_leg = time.perf_counter()
@@ -1999,7 +2129,7 @@ def engine_leg(torch, tag, cfg, params, backend, hist, trace, leg, smi):
     if long_groups:
         # margins of the plain run: all its requests sit in slots 0..B-1
         # from step 0 and decode every step
-        decodes = [lg for kind, lg in ref_calls if kind == "decode"]
+        decodes = [lg for kind, lg, _ in ref_calls if kind == "decode"]
         ref_margins = [[float(top2_margin(torch, ref_first[i]))] +
                        [float(top2_margin(torch, lg[i]))
                         for lg in decodes[:len(ref_tokens[i]) - 1]]
@@ -2055,16 +2185,16 @@ def engine_leg(torch, tag, cfg, params, backend, hist, trace, leg, smi):
 
     sb_tokens, sb_margins, sb_first = per_request_serving(
         torch, cfg, params, trace, backend, leg["max_len"])
-    print(f"[engine:{tag}] each request alone through serve_batch (B 1, "
-          f"max_len {leg['max_len']}; {at()}):")
+    print(f"[engine:{tag}] each request alone through a one-slot dense "
+          f"engine (max_len {leg['max_len']}; {at()}):")
     if long_groups:
         diff, diff_rms = logit_distance(torch, torch.stack(first),
                                         torch.stack(sb_first))
         dists = [float((a - b).abs().max()) for a, b in zip(first, sb_first)]
-        compared, total = compare_requests(f"{tag} vs serve_batch", tokens,
+        compared, total = compare_requests(f"{tag} vs alone", tokens,
                                            sb_tokens, sb_margins,
                                            [tol] * len(tokens))
-        print(f"[engine:{tag} vs serve_batch] prefill logits max |diff| "
+        print(f"[engine:{tag} vs alone] prefill logits max |diff| "
               f"{diff:.4g} (per request {' '.join(f'{d:.4g}' for d in dists)}"
               f"), RMS {diff_rms:.4g}; tolerance max {tol:.4g}, RMS "
               f"{tol_rms:.4g}; tokens identical over {compared} of {total} "
@@ -2073,14 +2203,17 @@ def engine_leg(torch, tag, cfg, params, backend, hist, trace, leg, smi):
               f"{tokens == sb_tokens})")
         if diff > tol or diff_rms > tol_rms:
             raise AssertionError(f"{tag}: prefill logits differ from "
-                                 f"serve_batch's by max {diff} > {tol} or "
+                                 f"the one-slot runs' by max {diff} > {tol} or "
                                  f"RMS {diff_rms} > {tol_rms}")
     else:
         compared, total, diff = margin_rule(
-            torch, f"{tag} vs serve_batch", tokens, first, sb_tokens,
+            torch, f"{tag} vs alone", tokens, first, sb_tokens,
             sb_first, sb_margins)
-    rec.update(serve_batch_prefill_logits_max_abs_diff=diff,
-               serve_batch_tokens_compared=compared, tokens_total=total)
+    rec.update(alone_prefill_logits_max_abs_diff=diff,
+               alone_tokens_compared=compared, tokens_total=total)
+    ref = {"tokens": tokens, "first": first, "sb_margins": sb_margins}
+    if long_groups:
+        ref.update(tol=tol, tol_rms=tol_rms, ref_margins=ref_margins)
 
     torch.cuda.reset_peak_memory_stats()
     engine, results, _ = engine_run(torch, cfg, params, backend, trace, leg)
@@ -2101,7 +2234,350 @@ def engine_leg(torch, tag, cfg, params, backend, hist, trace, leg, smi):
     print(f"[profile:{tag}] device busy {busy_ms:.3f} ms of the warm run's "
           f"{wall_ms:.3f} ms wall: idle share {rec['idle_share']:.3f} "
           f"({at()})")
-    return rec
+    return rec, ref
+
+
+def paged_request_logits(torch, requests, results, calls):
+    """Each request's prefill logits and per-step top-2 margins in a paged
+    engine run without preemption: its prompt completes in the chunk call
+    whose row b (its slot) holds the prompt's last tokens at fill + valid
+    == prompt length, and it decodes in slot b in each decode call after
+    that until it retires.  Every token is checked to be the argmax of its
+    logits (greedy), which holds the mapping.  Returns (first, margins)."""
+    import numpy as np
+    first, margins = [], []
+    for req, res in zip(requests, results):
+        plen = req.prompt_len
+        hits = []
+        for i, (kind, lg, inputs) in enumerate(calls):
+            if kind != "chunk":
+                continue
+            tokens, index, valid = inputs
+            for b in range(len(valid)):
+                v = int(valid[b])
+                if v and int(index[b]) + v == plen and np.array_equal(
+                        tokens[b, :v].numpy(), req.prompt[plen - v:]) and \
+                        int(torch.argmax(lg[b])) == res.tokens[0]:
+                    hits.append((i, b))
+        if len(hits) != 1:
+            raise AssertionError(f"request {res.rid}: {len(hits)} chunk "
+                                 f"rows complete its prompt")
+        i, b = hits[0]
+        seq = [calls[i][1][b]] + [lg[b] for kind, lg, _ in calls[i + 1:]
+                                  if kind == "decode"][:res.n_tokens - 1]
+        got = [int(torch.argmax(lg)) for lg in seq]
+        if got != res.tokens:
+            raise AssertionError(f"request {res.rid}: recorded logits give "
+                                 f"{got}, the run {res.tokens}")
+        first.append(seq[0])
+        margins.append([float(top2_margin(torch, lg)) for lg in seq])
+    return first, margins
+
+
+def capturing_paged_update(store, at):
+    """Context: call ``at`` (0-based) of `attention.paged_update` keeps
+    its inputs, the pool before and after the write and the gathered view
+    in ``store`` (clones on the card); every call writes as before."""
+    import contextlib
+    from repro_torch.models import attention as A
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = A.paged_update
+        count = [0]
+
+        def capture(pool, val, pages, index, mask=None):
+            hit = count[0] == at
+            count[0] += 1
+            if hit:
+                store.update(pool=pool.clone(), val=val.clone(),
+                             pages=pages.clone(), index=index.clone(),
+                             mask=None if mask is None else mask.clone())
+            out = orig(pool, val, pages, index, mask)
+            if hit:
+                store.update(after=out.clone(),
+                             view=A.paged_gather(out, pages))
+            return out
+        A.paged_update = capture
+        try:
+            yield
+        finally:
+            A.paged_update = orig
+    return ctx()
+
+
+def check_paged_capture(torch, tag, store):
+    """The captured `paged_update` / `paged_gather` call on the card
+    against the same calls on the CPU: the pool outside the trash page
+    and the gathered rows of mapped pages equal."""
+    from repro_torch.models import attention as A
+    if "after" not in store:
+        raise AssertionError(f"{tag}: paged_update call {CAPTURE_CALL} "
+                             f"never made")
+    cpu = {k: (v.cpu() if v is not None else None)
+           for k, v in store.items()}
+    want = A.paged_update(cpu["pool"], cpu["val"], cpu["pages"],
+                          cpu["index"], cpu["mask"])
+    ps = want.shape[1]
+    mapped = (cpu["pages"] > 0).repeat_interleave(ps, dim=1)
+    if not torch.equal(cpu["after"][1:], want[1:]) or not torch.equal(
+            cpu["view"][mapped], A.paged_gather(want, cpu["pages"])[mapped]):
+        raise AssertionError(f"{tag}: paged_update / paged_gather on the "
+                             f"card differ from the CPU")
+    B, S = cpu["val"].shape[:2]
+    live = int(cpu["mask"].sum()) if cpu["mask"] is not None else B * S
+    print(f"[engine:{tag}] paged_update call {CAPTURE_CALL} (pool "
+          f"{tuple(want.shape)} {want.dtype}, {B} x {S} rows, {live} "
+          f"unmasked) and its paged_gather (B {B}, {int(mapped.sum())} "
+          f"mapped positions) equal the same calls on the CPU outside the "
+          f"trash page")
+
+
+def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
+              engine=None):
+    """A recorded paged run: launch counts (each planned kernel once per
+    chunk call and decode step, flash never), weight copies, finish
+    reasons, the captured paged_update call against the CPU; returns
+    (engine, results, tokens, first, margins, stats)."""
+    calls, store = [], {}
+    with capturing_paged_update(store, CAPTURE_CALL):
+        engine, results, launches = engine_run(
+            torch, cfg, params, backend, trace, leg, calls, engine)
+    st = dict(engine.stats)
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    want = dict.fromkeys(KERNELS, 0)
+    for kernel, count in hist.items():
+        want[kernel] += count * forwards
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want} "
+                             f"({st['prefill_calls']} chunk calls + "
+                             f"{st['decode_steps']} decode steps)")
+    check_no_weight_copies(tag)
+    for req, res in zip(trace, results):
+        if res.finish_reason not in ("max_new_tokens", "eos") or \
+                (res.finish_reason == "max_new_tokens"
+                 and res.n_tokens != req.max_new_tokens):
+            raise AssertionError(f"{tag}: request {res.rid} finished "
+                                 f"{res.finish_reason} with {res.n_tokens} "
+                                 f"tokens")
+    first, margins = paged_request_logits(torch, trace, results, calls)
+    del calls
+    print(f"[engine:{tag}] recorded run {st['wall_s']:.3f} s: every request "
+          f"finished; launches " + " ".join(
+              f"{k} {v} ({v // forwards} per forward)"
+              for k, v in launches.items() if v) +
+          f" over {st['prefill_calls']} chunk calls + {st['decode_steps']} "
+          f"decode steps (flash 0: chunks attend through full_attention); "
+          f"weights copied per call: 0")
+    check_paged_capture(torch, tag, store)
+    return engine, results, [r.tokens for r in results], first, margins, st
+
+
+def print_paged(tag, st, smi):
+    print(f"[engine:{tag}] paged kv: {st['prefill_calls']} chunk calls, "
+          f"{st['decode_steps']} decode steps, kv_peak_pages "
+          f"{st['kv_peak_pages']} x {st['kv_page_bytes']} B = kv_peak_bytes "
+          f"{st['kv_peak_bytes']} of kv_capacity_bytes "
+          f"{st['kv_capacity_bytes']} (ratio "
+          f"{st['kv_peak_bytes'] / st['kv_capacity_bytes']:.3f}); prefix "
+          f"lookups {st['prefix_lookups']}, hit requests "
+          f"{st['prefix_hit_requests']}, hit tokens "
+          f"{st['prefix_hit_tokens']}, cow copies {st['cow_copies']}, "
+          f"evictions {st['page_evictions']} ({smi})")
+
+
+def paged_record(st):
+    return {k: st[k] for k in ("kv_peak_pages", "kv_page_bytes",
+                               "kv_peak_bytes", "kv_capacity_bytes",
+                               "prefix_lookups", "prefix_hit_requests",
+                               "prefix_hit_tokens", "cow_copies",
+                               "page_evictions")}
+
+
+def warm_paged(torch, tag, cfg, params, backend, trace, leg, tokens, smi,
+               engine=None):
+    """An unrecorded run for the served metrics (same tokens as the
+    recorded run); returns (engine, results, record)."""
+    torch.cuda.reset_peak_memory_stats()
+    engine, results, _ = engine_run(torch, cfg, params, backend, trace, leg,
+                                    engine=engine)
+    check_no_weight_copies(tag)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if [r.tokens for r in results] != tokens:
+        raise AssertionError(f"{tag}: the warm run's tokens differ from "
+                             f"the recorded run's")
+    rec = print_engine_run(tag, engine, results, smi)
+    print_paged(tag, engine.stats, smi)
+    print(f"[engine:{tag}] warm run peak memory {peak:.2f} GiB ({smi})")
+    rec.update(paged_record(engine.stats), peak_gib=peak)
+    return engine, results, rec
+
+
+def phase_paged(torch, cfg, params, seed, smi, refs, dense):
+    """The paged engine on the diana artifact: legs engine_paged_mixed,
+    engine_paged_prefix and engine_paged_long (module docstring), held
+    against the dense legs' ``refs``; ``dense`` holds their records for
+    the side-by-side lines.  Returns {leg: record}."""
+    from repro_torch.api import MappingArtifact
+    from repro_torch.launch.serve import (check_coverage, kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.serving import (Request, poisson_arrivals,
+                                     synthetic_trace)
+    import numpy as np
+    art = MappingArtifact.load(
+        str(ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana.json"))
+    plan, backend = plan_mapping_execution(params, art)
+    check_coverage("engine", backend, require_full=True)
+    cfg = kv_cache_for(cfg, art)
+    hist = plan.kernel_histogram()
+    out = {}
+
+    # engine_paged_mixed: engine_mixed's trace under the JAX defaults
+    tag, leg = "engine_paged_mixed", dict(ENGINE_PAGED_MIXED)
+    t_leg = time.perf_counter()
+    trace = poisson_arrivals(synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    print_traffic(tag, trace, leg)
+    _, _, tokens, first, _, _ = paged_run(torch, tag, cfg, params, backend,
+                                          hist, trace, leg)
+    ref = refs["engine_mixed"]
+    compared, total, diff = margin_rule(
+        torch, f"{tag} vs engine_mixed", tokens, first, ref["tokens"],
+        ref["first"], ref["sb_margins"])
+    _, _, rec = warm_paged(torch, tag, cfg, params, backend, trace, leg,
+                           tokens, smi)
+
+    def profiled():
+        eng, _, _ = engine_run(torch, cfg, params, backend, trace, leg)
+        return eng.stats["wall_s"] * 1e3
+    busy_ms = profile_device(torch, tag, profiled)
+    wall_ms = rec["wall_s"] * 1e3
+    rec.update(device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+               dense_prefill_logits_max_abs_diff=diff,
+               dense_tokens_compared=compared, tokens_total=total)
+    d = dense["engine_mixed"]
+    print(f"[profile:{tag}] device busy {busy_ms:.3f} ms of the warm run's "
+          f"{wall_ms:.3f} ms wall: idle share {rec['idle_share']:.3f}")
+    print(f"[engine:{tag}] paged vs dense (engine_mixed, this run): TTFT "
+          f"p50 {rec['ttft_p50_s'] * 1e3:.3f} / {d['ttft_p50_s'] * 1e3:.3f} "
+          f"ms, p95 {rec['ttft_p95_s'] * 1e3:.3f} / "
+          f"{d['ttft_p95_s'] * 1e3:.3f} ms; decode tok/s "
+          f"{rec['decode_tok_s']:.3f} / {d['decode_tok_s']:.3f}; forwards "
+          f"{rec['prefill_calls']} + {rec['decode_steps']} / "
+          f"{d['prefill_calls']} + {d['decode_steps']}; kv_peak_bytes "
+          f"{rec['kv_peak_bytes']} / {d['kv_peak_bytes']} "
+          f"({time.perf_counter() - t_leg:.1f} s)")
+    out[tag] = rec
+
+    # engine_paged_prefix: one system prompt shared by every chat, served
+    # cold and then warm on one engine, against the prefix cache off
+    tag, leg = "engine_paged_prefix", dict(ENGINE_PAGED_PREFIX)
+    t_leg = time.perf_counter()
+    trace = synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed,
+        shared_prefix=leg["shared_prefix"])
+    print_traffic(tag, trace, leg)
+    runs = {}
+    engine = None
+    for run in ("cold", "warm"):
+        engine, results, tokens, first, _, st = paged_run(
+            torch, f"{tag}:{run}", cfg, params, backend, hist, trace, leg,
+            engine)
+        prev = runs.get("cold", {}).get("stats", dict.fromkeys(st, 0))
+        hits = {k: st[k] - prev[k] for k in
+                ("prefix_lookups", "prefix_hit_requests",
+                 "prefix_hit_tokens", "cow_copies", "page_evictions")}
+        rec = print_engine_run(f"{tag}:{run}", engine, results, smi)
+        print(f"[engine:{tag}:{run}] this run's prefix lookups "
+              f"{hits['prefix_lookups']}, hit requests "
+              f"{hits['prefix_hit_requests']} of {len(trace)}, hit tokens "
+              f"{hits['prefix_hit_tokens']} of "
+              f"{sum(r.prompt_len for r in trace)} prompt tokens, cow "
+              f"copies {hits['cow_copies']}, evictions "
+              f"{hits['page_evictions']}")
+        print_paged(f"{tag}:{run}", st, smi)
+        rec.update(paged_record(st), run=hits)
+        runs[run] = dict(rec=rec, stats=st, tokens=tokens, first=first)
+    if runs["cold"]["rec"]["run"]["prefix_hit_tokens"] <= 0:
+        raise AssertionError(f"{tag}: the cold run hit no prefix")
+    off = dict(leg, prefix_cache=False)
+    _, _, ref_tokens, ref_first, ref_margins, ref_st = paged_run(
+        torch, f"{tag}:off", cfg, params, backend, hist, trace, off)
+    if ref_st["prefix_hit_tokens"]:
+        raise AssertionError(f"{tag}: the prefix cache was not off")
+    for run in ("cold", "warm"):
+        compared, total, diff = margin_rule(
+            torch, f"{tag}:{run} vs prefix cache off", runs[run]["tokens"],
+            runs[run]["first"], ref_tokens, ref_first, ref_margins)
+        runs[run]["rec"].update(off_prefill_logits_max_abs_diff=diff,
+                                off_tokens_compared=compared,
+                                tokens_total=total)
+    print(f"[engine:{tag}] TTFT p50 / p95: cold "
+          f"{runs['cold']['rec']['ttft_p50_s'] * 1e3:.3f} / "
+          f"{runs['cold']['rec']['ttft_p95_s'] * 1e3:.3f} ms, warm "
+          f"{runs['warm']['rec']['ttft_p50_s'] * 1e3:.3f} / "
+          f"{runs['warm']['rec']['ttft_p95_s'] * 1e3:.3f} ms; chunk calls "
+          f"cold {runs['cold']['rec']['prefill_calls']}, warm "
+          f"{runs['warm']['rec']['prefill_calls']}, prefix cache off "
+          f"{ref_st['prefill_calls']} ({time.perf_counter() - t_leg:.1f} s)")
+    out[tag] = {run: runs[run]["rec"] for run in runs}
+    out[tag]["off_prefill_calls"] = ref_st["prefill_calls"]
+
+    # engine_paged_long: engine_long's requests in chunks of 512
+    tag, leg = "engine_paged_long", dict(ENGINE_PAGED_LONG)
+    t_leg = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    trace = [Request(rid=f"l{i}", prompt=rng.integers(0, cfg.vocab, n),
+                     max_new_tokens=leg["new"])
+             for i, n in enumerate(leg["prompts"])]
+    print_traffic(tag, trace, leg)
+    _, _, tokens, first, _, _ = paged_run(torch, tag, cfg, params, backend,
+                                          hist, trace, leg)
+    ref = refs["engine_long"]
+    diff, diff_rms = logit_distance(torch, torch.stack(first),
+                                    torch.stack(ref["first"]))
+    compared, total = compare_requests(f"{tag} vs engine_long", tokens,
+                                       ref["tokens"], ref["ref_margins"],
+                                       [ref["tol"]] * len(tokens))
+    print(f"[engine:{tag}] vs engine_long's kernel run (flash in one "
+          f"group): prefill logits max |diff| {diff:.4g}, RMS "
+          f"{diff_rms:.4g}; engine_long's tolerance max {ref['tol']:.4g}, "
+          f"RMS {ref['tol_rms']:.4g}; tokens identical over {compared} of "
+          f"{total} (request, step) pairs before the first plain top-2 "
+          f"margin below the max tolerance (identical everywhere: "
+          f"{tokens == ref['tokens']})")
+    if diff > ref["tol"] or diff_rms > ref["tol_rms"]:
+        raise AssertionError(f"{tag}: prefill logits differ from "
+                             f"engine_long's by max {diff} > {ref['tol']} "
+                             f"or RMS {diff_rms} > {ref['tol_rms']}")
+    _, results, rec = warm_paged(torch, tag, cfg, params, backend, trace,
+                                 leg, tokens, smi)
+    ttft = {r.rid: r.ttft_s for r in results}
+    short = [ttft[r.rid] for r in trace if r.prompt_len < 1000]
+    longs = [ttft[r.rid] for r in trace if r.prompt_len >= 1000]
+    d = dense["engine_long"]
+    print(f"[engine:{tag}] TTFT of the short requests (prompts "
+          f"{sorted(r.prompt_len for r in trace if r.prompt_len < 1000)}) "
+          f"{' '.join(f'{t * 1e3:.3f}' for t in short)} ms, of the long "
+          f"ones {' '.join(f'{t * 1e3:.3f}' for t in longs)} ms; "
+          f"engine_long (dense, this run) {d['ttft_p50_s'] * 1e3:.3f} ms "
+          f"for all four ({time.perf_counter() - t_leg:.1f} s)")
+    if not max(short) < min(longs):
+        raise AssertionError(f"{tag}: a short request's first token came "
+                             f"no earlier than a long one's")
+    rec.update(ttft_short_s=short, ttft_long_s=longs,
+               dense_prefill_logits_max_abs_diff=diff,
+               dense_prefill_logits_rms_diff=diff_rms,
+               dense_tokens_compared=compared, tokens_total=total)
+    out[tag] = rec
+    del plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -2173,6 +2649,10 @@ def main(argv=None) -> int:
         for phase in ("decode", "prefill"):
             print_mix(f"per {phase} forward on {path}", kernel,
                       forward_mix(times, path, kernel, phase))
+    for kernel in ("quant_matmul", "split_ternary"):
+        for rows in CHUNK_MS:
+            print_mix(f"per chunk forward (M {rows}) on diana", kernel,
+                      forward_mix(times, "diana", kernel, "prefill", rows))
 
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import transformer as T
@@ -2200,8 +2680,13 @@ def main(argv=None) -> int:
         torch, cfg, params, long_prompts)
     mark("serving diana_long")
     worst["flash_attention"] = max(worst["flash_attention"], long_err)
-    serving.update(phase_engine(torch, cfg, params, args.seed, smi))
+    engine_recs, refs = phase_engine(torch, cfg, params, args.seed, smi)
+    serving.update(engine_recs)
     mark("engine")
+    serving.update(phase_paged(torch, cfg, params, args.seed, smi, refs,
+                               engine_recs))
+    del refs
+    mark("paged engine")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

@@ -1,5 +1,6 @@
-"""Serving entry point of the port: fixed-batch prefill + greedy decode
-(``repro.launch.serve`` counterpart, without the engine).
+"""Serving entry point of the port (``repro.launch.serve`` counterpart):
+``serve_batch`` and ``--engine`` both serve through the continuous-batching
+engine (`repro_torch.serving.Engine`, paged KV layout by default).
 
 With ``--mapping`` serve lowers the mapping artifact onto the model's
 weights (`repro_torch.runtime.lower`) and executes every projection the
@@ -21,45 +22,43 @@ the int8 KV cache.
         --require-full-coverage
 
 ``--engine`` replays a mixed-length request trace (``--trace`` JSONL, or a
-seeded synthetic trace sized by ``--requests/--prompt-len/--gen-len``)
-through the continuous-batching engine (`repro_torch.serving.Engine`,
-dense KV layout) and prints one line per request (TTFT, decode tok/s) and
-the run summary, as the JAX package's CLI does:
+seeded synthetic trace sized by ``--requests/--prompt-len/--gen-len``,
+``--shared-prefix`` prepending one system prompt to every request)
+through the engine and prints one line per request (TTFT, decode tok/s),
+the run summary and, on the paged layout, the ``[serve] paged kv:`` line
+(pages, peak KV bytes, prefix hits, copy-on-write copies, evictions), as
+the JAX package's CLI does:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --engine --requests 8 --max-batch 4 --poisson 0.5 --mapping m.json
 
-The engine flags of the paged layout and of the multi-plan features raise
-NotImplementedError naming the roadmap item that brings them
-(`UNPORTED_FLAGS`).  ``serve_batch`` stays the fixed-batch loop until the
-paged engine lands.
+``--kv-layout dense`` selects the dense layout; ``--page-size``,
+``--num-pages``, ``--prefill-chunk`` and ``--page-watermark`` size the
+paged one; ``--policy deadline --check-preempt-parity`` replays the trace
+FCFS and exits 2 unless every completed request's tokens match.  The
+flags of the multi-plan features raise NotImplementedError naming the
+roadmap item that brings them (`UNPORTED_FLAGS`).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import base as cfgbase
-from repro_torch.models import _backend
-from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
-from repro_torch.serving.engine import PAGED_ITEM, PLANSET_ITEM
+from repro_torch.serving.engine import PLANSET_ITEM
 
 #: flags of the JAX serve CLI the port does not take yet -> the roadmap
 #: item that brings them
 UNPORTED_FLAGS = {
-    "--page-size": PAGED_ITEM, "--num-pages": PAGED_ITEM,
-    "--prefill-chunk": PAGED_ITEM, "--shared-prefix": PAGED_ITEM,
-    "--page-watermark": PAGED_ITEM,
     "--speculate": PLANSET_ITEM, "--draft-k": PLANSET_ITEM,
     "--check-spec-parity": PLANSET_ITEM, "--slo-variant": PLANSET_ITEM,
     "--fault-spec": PLANSET_ITEM, "--degrade-to": PLANSET_ITEM,
-    "--ttft-target-s": PLANSET_ITEM, "--check-preempt-parity": PLANSET_ITEM,
+    "--ttft-target-s": PLANSET_ITEM,
     "--mapping-fallback": ("ROADMAP.md Queue 3 (no majority-dtype "
                            "fall-back, by choice)"),
 }
@@ -98,72 +97,26 @@ def check_coverage(tag, backend, require_full: bool):
         sys.exit(2)
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def serve_batch(cfg, params, prompts, gen_len: int, backend=None,
-                max_len=None):
-    """Greedy generation for same-length ``prompts (B, P)``: one prefill,
-    then ``gen_len - 1`` decode steps, in a KV cache of ``max_len`` slots
-    (the JAX engine's ``max_len``; default ``P + gen_len``).  Returns
-    (tokens (B, gen_len), stats) with ``prefill_s``, ``decode_s``,
-    ``tok_per_s`` and the prefill logits (``prefill_logits``, (B, vocab)
-    f32).
-
-    A prompt longer than 2048 tokens prefills through the chunked
-    attention, which takes prompts of a multiple of 512 tokens in a cache
-    of a multiple of 1024 slots.  Any other long prompt is right-padded to
-    the next multiple of 512 and prefilled with ``lengths=P``: the padded
-    slots are masked by every read and overwritten by the decode steps
-    (with dynamic activation scales, the padded rows take part in the
-    per-tensor max).  The default cache length of a long prompt is rounded
-    up to a multiple of 1024; an explicit ``max_len`` must be one.
-
-    This is the fixed-shape loop that the JAX package's engine-backed
-    ``serve_batch`` is token-identical to on a same-length batch."""
+def serve_batch(cfg, params, prompts, gen_len: int, backend=None):
+    """Greedy generation for same-length ``prompts (B, P)``: the B prompts
+    are submitted as B requests with a shared generation budget to an
+    `Engine` of B slots and ``max_len = P + gen_len`` (paged KV, as the
+    JAX package's ``serve_batch``).  Returns (tokens (B, gen_len) on the
+    prompts' device, stats with ``prefill_s``, ``decode_s`` and
+    ``tok_per_s``)."""
+    from repro_torch.serving import Engine, Request
     B, P = prompts.shape
-    dev = prompts.device
-    long = P > T.CHUNKED_ABOVE
-    padded = _round_up(P, A.Q_CHUNK) if long else P
-    need = max(padded, P + gen_len)
-    if max_len is None:
-        max_len = _round_up(need, A.K_CHUNK) if long else need
-    max_len = int(max_len)
-    if max_len < need:
-        raise ValueError(f"max_len {max_len} < prompt {P} (padded to "
-                         f"{padded}) + gen_len {gen_len}")
-    lengths = None
-    if padded > P:
-        prompts = torch.nn.functional.pad(prompts, (0, padded - P))
-        lengths = torch.full((B,), P, dtype=torch.long, device=dev)
-    caches = T.init_cache(cfg, B, max_len, device=dev)
-    with _backend.use(backend):
-        _sync(dev)
-        t0 = time.perf_counter()
-        logits, caches = T.prefill(params, cfg, prompts, caches,
-                                   lengths=lengths)
-        tok = torch.argmax(logits, -1)
-        _sync(dev)
-        t1 = time.perf_counter()
-        out = [tok]
-        for i in range(gen_len - 1):
-            step_logits, caches = T.decode_step(params, cfg, tok, caches,
-                                                P + i)
-            tok = torch.argmax(step_logits, -1)
-            out.append(tok)
-        _sync(dev)
-        t2 = time.perf_counter()
-    decode_s = t2 - t1
-    return torch.stack(out, dim=1), {
-        "prefill_s": t1 - t0, "decode_s": decode_s,
-        "tok_per_s": B * (gen_len - 1) / max(decode_s, 1e-9),
-        "prefill_logits": logits}
+    prompts_np = prompts.cpu().numpy()
+    reqs = [Request(rid=b, prompt=prompts_np[b], max_new_tokens=gen_len)
+            for b in range(B)]
+    engine = Engine(cfg, params, max_batch=B, max_len=P + gen_len,
+                    backend=backend, prefill_bucket=P)
+    results = engine.run(reqs)
+    tokens = torch.tensor([r.tokens for r in results], device=prompts.device)
+    st = engine.stats
+    return tokens, {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+                    "tok_per_s": B * (gen_len - 1) / max(st["decode_s"],
+                                                         1e-9)}
 
 
 def kv_cache_for(cfg, art):
@@ -214,9 +167,11 @@ def serve_engine(args, cfg, params, backend=None):
             min_prompt=max(2, args.prompt_len // 4),
             max_prompt=args.prompt_len,
             min_new=max(2, args.gen_len // 4), max_new=args.gen_len,
-            seed=args.seed, priorities=priorities, deadlines_ms=deadlines)
+            seed=args.seed, shared_prefix=args.shared_prefix,
+            priorities=priorities, deadlines_ms=deadlines)
         print(f"[serve] synthetic trace: {len(trace)} mixed-length requests "
-              f"(prompts <= {args.prompt_len}, gen <= {args.gen_len})")
+              f"(prompts <= {args.prompt_len}, gen <= {args.gen_len}, "
+              f"shared prefix {args.shared_prefix})")
     if args.poisson:
         trace = poisson_arrivals(trace, args.poisson, seed=args.seed)
         print(f"[serve] open-loop arrivals: Poisson at {args.poisson} "
@@ -226,8 +181,11 @@ def serve_engine(args, cfg, params, backend=None):
                                   for r in trace)
     engine = Engine(cfg, params, max_batch=args.max_batch, max_len=max_len,
                     backend=backend, scheduler=Scheduler(args.policy),
-                    kv_layout=args.kv_layout, sampling=sampling,
+                    kv_layout=args.kv_layout, page_size=args.page_size,
+                    num_pages=args.num_pages,
+                    prefill_chunk=args.prefill_chunk, sampling=sampling,
                     max_queue_depth=args.max_queue_depth,
+                    page_watermark=args.page_watermark,
                     request_timeout_s=args.request_timeout)
     results = engine.run(trace)
     for r in results:
@@ -247,14 +205,52 @@ def serve_engine(args, cfg, params, backend=None):
           f"ttft p50 {summ['ttft_p50_s'] * 1e3:.0f}ms / "
           f"p95 {summ['ttft_p95_s'] * 1e3:.0f}ms, "
           f"{st['decode_steps']} decode steps)")
-    if (st["shed_requests"] or st["timeouts"] or args.policy == "deadline"
-            or args.max_queue_depth or args.request_timeout):
-        print(f"[serve] robustness: sheds={st['shed_requests']} "
-              f"shed_rate={summ['shed_rate']} timeouts={st['timeouts']}")
+    if (st["preemptions"] or st["shed_requests"] or st["timeouts"]
+            or st["faults_detected"] or args.policy == "deadline"
+            or args.max_queue_depth or args.page_watermark
+            or args.request_timeout):
+        print(f"[serve] robustness: preemptions={st['preemptions']} "
+              f"resumes={st['resumes']} sheds={st['shed_requests']} "
+              f"shed_rate={summ['shed_rate']} timeouts={st['timeouts']} "
+              f"faults_detected={st['faults_detected']}")
         if "shed_reasons" in summ:
             print(f"[serve] shed reasons: "
                   + " ".join(f"{k}:{v}" for k, v in
                              sorted(summ["shed_reasons"].items())))
+    if args.check_preempt_parity:
+        # replay the SAME trace FCFS without preemption or sheds and
+        # compare every COMPLETED request's token stream — preemption must
+        # be a pure scheduling decision, invisible in the tokens
+        ref_engine = Engine(
+            cfg, params, max_batch=args.max_batch, max_len=max_len,
+            backend=backend, scheduler=Scheduler("continuous"),
+            kv_layout=args.kv_layout, page_size=args.page_size,
+            num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
+            sampling=sampling)
+        ref = {r.rid: r for r in ref_engine.run(trace)}
+        # timed-out requests carry a clean PREFIX of the full stream, so
+        # every non-shed result must prefix-match its FCFS replay
+        done = [r for r in results if not isinstance(r, ShedResult)]
+        bad = [r.rid for r in done
+               if isinstance(ref.get(r.rid), ShedResult)
+               or r.tokens != ref[r.rid].tokens[:len(r.tokens)]]
+        print(f"[serve] preemption token parity "
+              f"({len(done)} completed requests): {not bad}")
+        if bad:
+            print(f"[serve] ERROR: preempted serving diverged from FCFS "
+                  f"replay on requests {bad}", file=sys.stderr)
+            sys.exit(2)
+    if args.kv_layout == "paged":
+        print(f"[serve] paged kv: page_size={engine.page_size} "
+              f"pool={engine.num_pages} pages "
+              f"kv_peak_pages={st['kv_peak_pages']} "
+              f"kv_peak_bytes={st['kv_peak_bytes']} "
+              f"(capacity {st['kv_capacity_bytes']}) "
+              f"prefix_hit_tokens={st['prefix_hit_tokens']} "
+              f"prefix_hit_requests={st['prefix_hit_requests']} "
+              f"(lookups {st['prefix_lookups']}) "
+              f"cow_copies={st['cow_copies']} "
+              f"evictions={st['page_evictions']}")
     return results, summ
 
 
@@ -306,6 +302,9 @@ def main(argv=None):
     ap.add_argument("--max-queue-depth", type=int, default=None,
                     help="shed the newest waiting requests once the "
                          "admission queue exceeds this depth")
+    ap.add_argument("--page-watermark", type=float, default=None,
+                    help="paged layout: shed waiting requests when the "
+                         "free-page fraction drops below this watermark")
     ap.add_argument("--request-timeout", type=float, default=None,
                     metavar="SECONDS",
                     help="per-request wall-clock budget: queued requests "
@@ -317,10 +316,27 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (enables sampling when "
                          "< 1.0)")
-    ap.add_argument("--kv-layout", default="dense",
+    ap.add_argument("--check-preempt-parity", action="store_true",
+                    help="after a --policy deadline run, replay the trace "
+                         "FCFS without preemption and exit nonzero unless "
+                         "every completed request's tokens prefix-match")
+    ap.add_argument("--kv-layout", default="paged",
                     choices=["paged", "dense"],
-                    help="engine KV-cache layout: dense (B x max_len "
-                         "slots); paged waits for the paged engine")
+                    help="KV-cache layout: paged (block-table pool with "
+                         "chunked prefill + prefix caching) or dense "
+                         "(B x max_len slots)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged layout: tokens per KV page")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="paged layout: pool capacity in pages (default "
+                         "max_batch * ceil(max_len / page_size))")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="paged layout: prompt tokens prefilled per engine "
+                         "step (default 2 * page_size)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="synthetic --engine trace: prepend the same "
+                         "N-token system prefix to every prompt (exercises "
+                         "prefix caching)")
     for flag, item in UNPORTED_FLAGS.items():
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=f"not ported yet ({item})")
@@ -329,16 +345,17 @@ def main(argv=None):
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise NotImplementedError(f"{flag}: waits for {item}")
-    if args.kv_layout == "paged":
-        raise NotImplementedError(f"--kv-layout paged: waits for "
-                                  f"{PAGED_ITEM}")
     robust_flags = (args.policy == "deadline" or args.poisson
-                    or args.max_queue_depth or args.request_timeout
+                    or args.max_queue_depth or args.page_watermark
+                    or args.request_timeout or args.check_preempt_parity
                     or args.priorities or args.deadlines_ms)
     if robust_flags and not args.engine:
         ap.error("robustness flags (--policy deadline / --poisson / "
-                 "--max-queue-depth / --request-timeout / --priorities / "
-                 "--deadlines-ms) need --engine")
+                 "--max-queue-depth / --page-watermark / --request-timeout "
+                 "/ --check-preempt-parity / --priorities / --deadlines-ms) "
+                 "need --engine")
+    if args.check_preempt_parity and args.policy != "deadline":
+        ap.error("--check-preempt-parity needs --policy deadline")
     if args.require_full_coverage and not args.mapping:
         ap.error("--require-full-coverage needs --mapping")
 

@@ -7,8 +7,9 @@ never materialized H times.  Caches are updated IN PLACE (the JAX package
 returns new buffers; here a write into a slice of the stacked cache lands
 in the caller's buffer, which saves a copy of the cache per layer).
 Long prefills (``gqa(chunked=True)``) use `chunked_attention`, which on
-the card is the flash-attention kernel of `repro_torch.kernels`.  MLA and
-paged KV wait for later slices.
+the card is the flash-attention kernel of `repro_torch.kernels`.  The
+paged KV pool of the serving engine (`paged_update`, `paged_gather`,
+``gqa(pages=)``) is written in place too; MLA waits for a later slice.
 """
 from __future__ import annotations
 
@@ -66,8 +67,7 @@ def _grouped_scores_softmax_out(q, k, v, mask, scale):
     if mask is not None:
         if mask.dim() == 3:
             mask = mask[:, None, None]
-        s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype,
-                                              device=s.device))
+        s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return _einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
 
@@ -210,6 +210,58 @@ def cache_update(buf, val, index):
     return buf
 
 
+# ------------------------------------------------------------- paged KV pool
+
+def _paged_rows(pool, val, pages, index, mask):
+    """Flat row indices of ``val (B, S, ...)`` in ``pool (P, ps, ...)``.
+
+    ``pages`` is the (B, W) page table; ``index`` the (B,) tensor (or int)
+    of starting logical positions.  Page 0 of the pool is the TRASH page:
+    masked (padding) writes land on its row 0, and a position whose
+    page-table entry is 0 inside it, so a slot with a zeroed table never
+    corrupts live pages; so do positions at or beyond ``W * ps``."""
+    B, S = val.shape[:2]
+    W, ps = pages.shape[1], pool.shape[1]
+    dev = pool.device
+    start = index.reshape(-1, 1) if _is_per_slot(index) else index
+    pos = start + torch.arange(S, device=dev)[None, :]
+    logical = torch.clamp(torch.div(pos, ps, rounding_mode="floor"),
+                          0, W - 1).expand(B, S)
+    phys = torch.gather(pages.long(), 1, logical) * ps + pos % ps
+    valid = pos < W * ps
+    if mask is not None:
+        valid = valid & mask
+    return torch.where(valid, phys, 0)
+
+
+def paged_update(pool, val, pages, index, mask=None):
+    """Write ``val (B, S, ...)`` into the shared page pool ``pool (P, ps,
+    ...)`` in place, at per-slot logical positions ``index`` under the page
+    table ``pages (B, W)``; ``mask (B, S)`` sends padding writes to the
+    trash page (row 0).  The pool is flattened with ``view``, so a pool
+    that is not contiguous raises instead of taking the writes in a copy.
+    Several masked writes land on row 0 (``index_copy_`` without
+    accumulation: which one wins is undefined on the card, and row 0 is
+    never read unmasked).  Returns ``pool``."""
+    rows = _paged_rows(pool, val, pages, index, mask)
+    B, S = val.shape[:2]
+    feat = pool.shape[2:]
+    flat = pool.view((pool.shape[0] * pool.shape[1],) + feat)
+    flat.index_copy_(0, rows.reshape(-1),
+                     val.to(pool.dtype).reshape((B * S,) + feat))
+    return pool
+
+
+def paged_gather(pool, pages):
+    """Each slot's pages gathered into a dense (B, W * ps, ...) sequence
+    view (a copy) -- `full_attention`'s ``q_pos0`` / ``kv_len`` masking
+    then applies unchanged (the tail beyond ``kv_len``, trash-page rows
+    included, is masked out)."""
+    B, W = pages.shape
+    ps = pool.shape[1]
+    return pool[pages.long()].reshape((B, W * ps) + pool.shape[2:])
+
+
 def _kv_encode(t):
     """int8 KV-cache codes: round(t * KV_QSCALE), clipped to +-127."""
     return torch.clamp(torch.round(t.to(torch.float32) * KV_QSCALE),
@@ -217,12 +269,17 @@ def _kv_encode(t):
 
 
 def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
-        name=None, chunked=False):
+        name=None, chunked=False, pages=None, write_mask=None):
     """Grouped-query attention.  ``cache``: optional {"k", "v"} of
     (B, S_max, KVH, hd), written at ``cache_index`` (int or (B,) tensor);
     an int8 cache holds `_kv_encode` codes.  ``chunked`` (long prefill,
     cache written from position 0): attention through `chunked_attention`
-    over the whole updated cache.  Returns (out, cache)."""
+    over the whole updated cache.  With ``pages`` (a (B, W) page table)
+    the cache leaves are the SHARED (num_pages + 1, page_size, KVH, hd)
+    pool instead: writes scatter through the table (`paged_update`,
+    ``write_mask`` (B, S) sending padding to the trash page) and attention
+    reads the gathered per-slot view (`paged_gather`) under the same
+    per-slot ``q_pos0`` / ``kv_len`` masks.  Returns (out, cache)."""
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KVH
@@ -233,16 +290,29 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
 
+    if pages is not None:
+        def upd(buf, val):
+            return paged_update(buf, val, pages, cache_index, write_mask)
+
+        def view(buf):
+            return paged_gather(buf, pages)
+    else:
+        def upd(buf, val):
+            return cache_update(buf, val, cache_index)
+
+        def view(buf):
+            return buf
+
     kv_len = None
     if cache is not None:
         if cache["k"].dtype == torch.int8:
-            kc = cache_update(cache["k"], _kv_encode(k), cache_index)
-            vc = cache_update(cache["v"], _kv_encode(v), cache_index)
-            k = kc.to(x.dtype) * (1.0 / KV_QSCALE)
-            v = vc.to(x.dtype) * (1.0 / KV_QSCALE)
+            kc = upd(cache["k"], _kv_encode(k))
+            vc = upd(cache["v"], _kv_encode(v))
+            k = view(kc).to(x.dtype) * (1.0 / KV_QSCALE)
+            v = view(vc).to(x.dtype) * (1.0 / KV_QSCALE)
         else:
-            k = cache_update(cache["k"], k, cache_index)
-            v = cache_update(cache["v"], v, cache_index)
+            k = view(upd(cache["k"], k))
+            v = view(upd(cache["v"], v))
         kv_len = cache_index + S
 
     qg = q.reshape(B, S, KVH, G, hd)

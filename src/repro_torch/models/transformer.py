@@ -13,12 +13,18 @@ Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
   params_from_jax(tree, device)                  -> params
   prefill(params, cfg, tokens, caches, lengths=) -> (last_logits, caches)
-  decode_step(params, cfg, token, caches, index, active=)
+  prefill_chunk(params, cfg, tokens, caches, index, valid, pages)
+                                                 -> (last_logits, caches)
+  decode_step(params, cfg, token, caches, index, active=, pages=)
                                                  -> (logits, caches)
   cache_specs(cfg, B, S_max)                     -> tree of meta tensors
   init_cache(cfg, B, S_max, device)              -> caches
+  paged_cache_specs(cfg, B, pool_rows, page_size)-> tree of meta tensors
+  init_paged_cache(cfg, B, pool_rows, page_size, device) -> caches
+  cache_kv_axes(cfg)                             -> layout marker per leaf
   cache_batch_axes(caches)                       -> batch axis per leaf
   scatter_cache(caches, sub, slots)              -> caches (in place)
+  copy_pages(caches, src, dst)                   -> caches (in place)
 
 Caches are updated in place (see `repro_torch.models.attention`).  A
 prompt longer than 2048 tokens prefills through the chunked (flash)
@@ -26,11 +32,13 @@ attention, as the JAX package's ``_prefill_body`` does; like the JAX
 package's, that path needs a cache length that is a multiple of
 ``min(1024, S_max)`` and a prompt length that is a multiple of
 ``min(512, S)``.  Hybrid, MoE, MLA, cross-attention and encoder-decoder
-archs, paged caches and the paged chunked prefill of the serving engine
-wait for later slices; the dense serving engine
-(`repro_torch.serving.Engine`) prefills admission groups with
-``prefill(lengths=)``, moves them into its slot pool with `scatter_cache`
-and decodes all slots with a per-slot ``index``.
+archs wait for later slices.  The dense serving engine
+(`repro_torch.serving.Engine(kv_layout="dense")`) prefills admission
+groups with ``prefill(lengths=)``, moves them into its slot pool with
+`scatter_cache` and decodes all slots with a per-slot ``index``; the paged
+one streams prompts into its page pool with `prefill_chunk` (full
+attention over each slot's gathered pages, never the chunked path, as in
+the JAX package) and decodes with ``decode_step(pages=)``.
 """
 from __future__ import annotations
 
@@ -111,12 +119,16 @@ def _repeat(tree, r: int):
 
 
 def block_apply(p, x, cfg: ArchConfig, positions, *, cache=None,
-                cache_index=None, name=None, chunked=False):
-    """One ``attn`` block (pre-norm GQA + FFN). Returns (x, cache)."""
+                cache_index=None, name=None, chunked=False, length_mask=None,
+                pages=None):
+    """One ``attn`` block (pre-norm GQA + FFN). Returns (x, cache).
+    ``pages`` (B, W) switches the attention KV to the paged pool, where
+    ``length_mask`` (B, S) sends the writes of padding (and of masked
+    slots) to the trash page."""
     h = L.norm(p["norm1"], x, cfg.norm)
     ao, nc = A.gqa(p["attn"], h, positions, _attn_cfg(cfg), cache=cache,
                    cache_index=cache_index, name=_j(name, "attn"),
-                   chunked=chunked)
+                   chunked=chunked, pages=pages, write_mask=length_mask)
     x = x + ao
     if "ffn" in p:
         x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
@@ -125,9 +137,10 @@ def block_apply(p, x, cfg: ArchConfig, positions, *, cache=None,
 
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
-             cache_index=None, chunked=False):
+             cache_index=None, chunked=False, length_mask=None, pages=None):
     """Run all layers; returns (final-normed hidden, caches).  ``chunked``:
-    attention through `attention.chunked_attention` (long prefill)."""
+    attention through `attention.chunked_attention` (long prefill);
+    ``length_mask`` / ``pages``: see `block_apply`."""
     (units,) = params["units"]
     unit_cache = caches["units"][0] if caches is not None else None
     repeats = units["norm1"]["scale"].shape[0]
@@ -138,7 +151,8 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
         with _backend.scan_slot(r):
             x, _ = block_apply(_repeat(units, r), x, cfg, positions,
                                cache=c, cache_index=cache_index,
-                               name="units/0", chunked=chunked)
+                               name="units/0", chunked=chunked,
+                               length_mask=length_mask, pages=pages)
     return L.norm(params["final_norm"], x, cfg.norm), caches
 
 
@@ -180,6 +194,59 @@ def init_cache(cfg: ArchConfig, B: int, S_max: int, device="cuda"):
     return _tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
                                            device=device),
                      cache_specs(cfg, B, S_max))
+
+
+# Sequence-indexed attention-KV leaves: the ones the paged layout moves
+# from per-slot (B, S_max, ...) buffers into the shared page pool (the JAX
+# package's sets; the port's one kind, "attn", has only "k" and "v")
+_PAGED_KEYS = frozenset({"k", "v", "latent"})
+_SEQ_KINDS = frozenset({"attn", "dec", "shared_attn", "mla"})
+
+
+def paged_cache_specs(cfg: ArchConfig, B: int, pool_rows: int,
+                      page_size: int):
+    """The PAGED layout's cache: each attention-KV leaf is the shared
+    ``(R, pool_rows, page_size, KVH, hd)`` page pool (``pool_rows``
+    includes the trash row 0: pass num_pages + 1), as a tree of ``meta``
+    tensors with the dtypes of `cache_specs`.  ``B`` is kept for the JAX
+    package's signature: an attention-only arch has no per-slot state."""
+    _check_supported(cfg)
+    dt = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
+    shape = (cfg.pattern_repeats, pool_rows, page_size, cfg.n_kv_heads,
+             cfg.hd)
+    return {"units": ({key: torch.empty(shape, dtype=dt, device="meta")
+                       for key in ("k", "v")},)}
+
+
+def init_paged_cache(cfg: ArchConfig, B: int, pool_rows: int,
+                     page_size: int, device="cuda"):
+    """Paged KV pool of `paged_cache_specs`, zeroed."""
+    return _tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                           device=device),
+                     paged_cache_specs(cfg, B, pool_rows, page_size))
+
+
+def cache_kv_axes(cfg: ArchConfig):
+    """Marker tree (the structure of `cache_specs` / `paged_cache_specs`):
+    ``"page"`` for sequence-indexed attention-KV leaves, ``"slot"`` for
+    per-slot state, with the count of leading stack axes appended
+    (``"page1"``: a KV leaf whose pool / batch axis is axis 1 under the
+    stacked repeats).  The engine's page copy and its KV-byte accounting
+    address leaves of either layout through it."""
+    _check_supported(cfg)
+    (kind,) = cfg.pattern
+    return {"units": ({key: ("page" if kind in _SEQ_KINDS and
+                             key in _PAGED_KEYS else "slot") + "1"
+                       for key in ("k", "v")},)}
+
+
+def copy_pages(caches, src, dst):
+    """Copy-on-write: page rows ``src`` (k,) of every page leaf into rows
+    ``dst`` (k,), in place (``pool[:, dst] = pool[:, src]``); ``src`` and
+    ``dst`` are int64 tensors on the caches' device.  Returns ``caches``."""
+    _tree_map(lambda buf: buf.index_copy_(1, dst, buf.index_select(1, src)),
+              caches)
+    return caches
 
 
 def cache_batch_axes(caches):
@@ -231,19 +298,56 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None):
     return _project_logits(params, cfg, h_last), caches
 
 
-def decode_step(params, cfg: ArchConfig, token, caches, index, active=None):
+def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
+                  pages):
+    """One fixed-size chunk of a paged CHUNKED prefill.
+
+    ``tokens`` (B, C) holds the next (up to C) prompt tokens of every
+    prefilling slot, left-aligned; ``index`` (B,) is each slot's prefill
+    progress (tokens already in its pages) and ``valid`` (B,) how many of
+    this chunk's tokens are real -- 0 for slots that are decoding or idle,
+    whose rows are fully masked: their KV writes land in the trash page,
+    so interleaving chunks with decode steps cannot perturb other slots.
+    ``pages`` (B, W) is the page table.  Attention is `full_attention`
+    with per-slot ``q_pos0`` / ``kv_len`` over each slot's gathered pages,
+    never the chunked (flash) path, as in the JAX package.  Every row runs
+    through the projections (M = B * C), so with dynamic activation scales
+    a slot's numbers depend on its neighbours.  Returns (logits at each
+    slot's last valid token -- the slot's first generated token once its
+    whole prompt is in, garbage before that -- and the caches)."""
+    B, C = tokens.shape
+    dev = tokens.device
+    x = params["emb"][tokens]
+    steps = torch.arange(C, device=dev)[None, :]
+    positions = index[:, None] + steps
+    length_mask = steps < valid[:, None]
+    h, caches = backbone(params, cfg, x, positions, caches=caches,
+                         cache_index=index, length_mask=length_mask,
+                         pages=pages)
+    last = torch.clamp(valid - 1, 0, C - 1)
+    h_last = h[torch.arange(B, device=dev), last]
+    return _project_logits(params, cfg, h_last), caches
+
+
+def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
+                pages=None):
     """One decode step for ``token (B,)`` at position ``index``: an int
     (same-length batch) or a (B,) tensor of per-slot cache lengths.
-    ``active`` (B,) bool marks live slots; it keeps the JAX package's
-    signature and changes nothing here: an attention-only model has no
-    cross-slot coupling or recurrent state to suppress, and the logits of
-    an inactive slot are garbage by contract."""
+    ``active`` (B,) bool marks live slots; the logits of an inactive slot
+    are garbage by contract.  With ``pages`` (B, W) the KV lives in the
+    paged pool and ``active`` is the write mask: inactive and
+    still-prefilling slots write into the trash page, whatever their
+    ``index``.  On the dense cache ``active`` changes nothing (an
+    attention-only model has no cross-slot coupling or recurrent state to
+    suppress), and an inactive slot writes at its ``index``."""
     x = params["emb"][token][:, None, :]
     B = x.shape[0]
     if isinstance(index, torch.Tensor) and index.dim() == 1:
         positions = index[:, None]
     else:
         positions = torch.full((B, 1), int(index), device=x.device)
+    length_mask = None if active is None else active[:, None]
     h, caches = backbone(params, cfg, x, positions, caches=caches,
-                         cache_index=index)
+                         cache_index=index, length_mask=length_mask,
+                         pages=pages)
     return _project_logits(params, cfg, h[:, -1]), caches

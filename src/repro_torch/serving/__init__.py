@@ -1,5 +1,5 @@
 """repro_torch.serving — the continuous-batching inference engine over
-planned execution (``repro.serving`` counterpart, dense KV layout).
+planned execution (``repro.serving`` counterpart).
 
 The mapper (`repro_torch.runtime`) answers "which kernel executes each
 layer"; this package answers "what latency do real requests see": it
@@ -7,13 +7,20 @@ drives the planned kernels under mixed-length traffic and reports
 request-level TTFT and tokens/s.
 
 Architecture
-    `Engine` (engine.py)        the serving loop: ragged prefill per
-                                admission group + one per-slot decode step
-                                over B fixed slots of a dense
-                                ``B x max_len`` KV pool; optional
-                                `repro_torch.runtime.PlannedBackend` so
-                                every covered projection runs its mapped
-                                kernel.
+    `Engine` (engine.py)        the serving loop over B fixed slots:
+                                paged KV (default: a shared page pool,
+                                chunked prefill interleaved with decode,
+                                prefix caching, deadline preemption, load
+                                shedding, non-finite-logit containment)
+                                or dense (ragged prefill per admission
+                                group into ``B x max_len`` slots); one
+                                per-slot decode step per engine step;
+                                optional `repro_torch.runtime
+                                .PlannedBackend` so every covered
+                                projection runs its mapped kernel.
+    `PagePool` (paged.py)       the host-side page allocator: refcounts,
+                                the LRU of cached pages, exact-token
+                                prefix keys, copy-on-write sources.
     `Scheduler` / `RequestQueue` (scheduler.py)
                                 FCFS admission into freed slots between
                                 decode steps ("continuous", default),
@@ -23,7 +30,9 @@ Architecture
     `BatchState` (batch.py)     the B slots: per-slot sequence lengths
                                 (= KV positions), active flags, last
                                 tokens, retire predicate mirrors, sampling
-                                generators, and the device cache pool.
+                                generators, page tables and chunked-
+                                prefill progress, and the device cache
+                                pool.
     `RequestResult` / `summarize` (metrics.py)
                                 per-request TTFT + decode tok/s, p50/p95
                                 aggregation.
@@ -34,11 +43,10 @@ Architecture
                                 mixed-length traffic (the same requests as
                                 the JAX package's for the same seed).
 
-The JAX package's paged layout (`PagePool`, chunked prefill, prefix
-caching) and its multi-plan, speculative and robustness features
-(`FaultInjector`, SLO routing, degradation, preemption) wait for
-ROADMAP.md Queue 1 items 4 and 5; the engine raises NotImplementedError
-for their arguments.
+The JAX package's multi-plan, speculative and fault-injection features
+(`PlanSet`, SLO routing, degradation, `FaultInjector`, the heartbeat
+monitor) wait for ROADMAP.md Queue 1 item 5; the engine raises
+NotImplementedError for their arguments.
 
 Example::
 
@@ -57,6 +65,7 @@ from repro_torch.serving.batch import BatchState, SlotState
 from repro_torch.serving.engine import KV_LAYOUTS, Engine, EngineResult
 from repro_torch.serving.metrics import (RequestResult, Result, ShedResult,
                                          percentile, summarize)
+from repro_torch.serving.paged import PagePool
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.scheduler import (POLICIES, Request, RequestQueue,
                                            Scheduler, urgency)
@@ -65,7 +74,7 @@ from repro_torch.serving.trace import (load_trace, poisson_arrivals,
 
 __all__ = [
     "BatchState", "Engine", "EngineResult", "KV_LAYOUTS", "POLICIES",
-    "Request", "RequestQueue", "RequestResult", "Result", "SamplingParams",
+    "PagePool", "Request", "RequestQueue", "RequestResult", "Result", "SamplingParams",
     "Scheduler", "ShedResult", "SlotState", "load_trace", "percentile",
     "poisson_arrivals", "save_trace", "summarize", "synthetic_trace",
     "urgency",

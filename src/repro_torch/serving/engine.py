@@ -1,52 +1,86 @@
 """`Engine`: continuous-batching inference over (optionally planned) LMs
-(``repro.serving.engine`` counterpart for ``kv_layout="dense"``).
+(``repro.serving.engine`` counterpart).
 
 One engine owns a fixed pool of ``max_batch`` decode slots and runs the
-standard continuous-batching loop (ADMIT -> PREFILL -> DECODE -> RETIRE)
-over the DENSE KV layout: B slots of ``max_len`` positions each, one ragged
-prefill per admission group (`transformer.prefill` with ``lengths=`` into a
-fresh ``(kp, max_len)`` cache; the prompt length is bucketed to a
+standard continuous-batching loop (ADMIT -> PREFILL -> DECODE -> RETIRE).
+Two KV layouts back the slots, as in the JAX package:
+
+``kv_layout="paged"`` (default) — the block-table layout:
+  * KV lives in a SHARED pool of ``num_pages`` fixed-size pages
+    (`transformer.init_paged_cache`; row 0 is the trash page that masked
+    writes land in).  Each slot maps logical positions to pages through a
+    (W,) page-table row; attention gathers the slot's pages into a dense
+    view under the per-slot ``q_pos0`` / ``kv_len`` masks.  Peak KV
+    memory scales with the tokens in flight, not B x max_len.
+  * CHUNKED PREFILL: prompts stream into their pages ``prefill_chunk``
+    tokens per engine step (`transformer.prefill_chunk`, one call for all
+    prefilling slots at the fixed shape (B, C)), interleaved with the
+    decode steps of the other slots.  Admission requires free pages for
+    ceil(min(prompt + budget, W * page_size) / page_size) pages, not
+    ``prompt_len < max_len``.
+  * PREFIX CACHING (`repro_torch.serving.paged.PagePool`): once a prompt's
+    pages are written they are registered under exact token-prefix keys; a
+    later prompt sharing the prefix maps the SAME pages (a copy-on-write
+    copy for a partly covered tail page, `transformer.copy_pages`) and
+    prefills only its own suffix.  The device pool stays resident across
+    `run` calls, so a repeated trace is served from cache.
+  * ROBUSTNESS: under ``Scheduler(policy="deadline")`` a strictly more
+    urgent waiting request preempts the least urgent running one
+    (retire-and-requeue: its committed tokens are kept and its filled
+    pages parked in the prefix cache; it resumes by prefilling prompt +
+    committed tokens, which gives the same tokens as an unpreempted run
+    under static scales).  ``max_queue_depth`` / ``page_watermark`` /
+    ``request_timeout_s`` shed the backlog with a `ShedResult`.  Every
+    decode step and every chunk row that completes a prompt is screened
+    for non-finite logits: such a slot commits nothing, its pages are
+    purged from the prefix cache and released, the slot sits out
+    ``quarantine_steps`` steps and the request is requeued once, then
+    shed with ``reason="fault"``.
+
+``kv_layout="dense"`` — B slots of ``max_len`` positions each, one ragged
+prefill per admission group (`transformer.prefill` with ``lengths=`` into
+a fresh ``(kp, max_len)`` cache; the prompt length is bucketed to a
 power-of-two multiple of ``prefill_bucket`` and the group size to a power
 of two, exactly as in the JAX package), `transformer.scatter_cache`
 admission of the group's real rows, and one decode step per engine step
-over all B slots with the per-slot ``(B,)`` cache index.  With a
-`repro_torch.runtime.PlannedBackend` passed as ``backend``, every forward
-runs under `_backend.use(backend)`, so each covered projection executes
-its planned kernel and engine latency IS mapped latency.
+over all B slots.  A prompt group over 2048 tokens prefills through the
+chunked (flash) attention.
 
-The port's default layout is ``"dense"``, the only one it has until the
-paged engine lands (ROADMAP.md Queue 1 item 4); the JAX package defaults to
-``"paged"``, and its tests show that both layouts give the same tokens.
-Arguments that need layers the port does not have yet raise
-NotImplementedError naming the roadmap item that brings them:
-``kv_layout="paged"``, ``page_size``, ``num_pages``, ``prefill_chunk``,
-``prefix_cache`` and ``page_watermark`` (item 4); ``speculate``,
-``slo_routes``, ``degrade_to`` and ``injector`` (item 5).  Where the JAX
-package raises ValueError for an argument the port takes, the port raises
-the same error.  The JAX engine's ``trace_counts`` (jit retraces) has no
+With a `repro_torch.runtime.PlannedBackend` passed as ``backend``, every
+forward runs under `_backend.use(backend)`, so each covered projection
+executes its planned kernel and engine latency IS mapped latency.
+
+Each engine step makes one host-to-device upload and one device-to-host
+copy (`Engine._upload`, `Engine._download`): a chunk step uploads its
+tokens (B, C), fill positions, valid counts and page table packed in one
+tensor (`chunk_inputs`); a paged decode step the last tokens, lengths,
+active flags and page table (`paged_decode_inputs`); a dense one the last
+tokens, write positions and active flags (`decode_inputs`); each step
+downloads its tokens (and, paged, its finite-logit flags) in one
+``.cpu()``.  No ``.item()`` and no Python branch on a device value, so
+every step keeps one fixed shape that a CUDA graph can capture.
+
+Arguments of the JAX engine that need the multi-plan layer raise
+NotImplementedError naming ROADMAP.md Queue 1 item 5: ``speculate`` /
+``draft_k``, ``slo_routes``, ``degrade_to`` and its window, ``injector``
+and ``heartbeat_steps`` (the JAX engine's stuck-slot monitor, which only
+an injected fault trips).  Their stats (faults injected, degradation,
+straggler events, heartbeat trips) stay 0.  Where the JAX package raises
+ValueError for an argument the port takes, the port raises the same
+error.  The JAX engine's ``trace_counts`` (jit retraces) has no
 counterpart: torch runs eagerly and traces nothing.
 
-One decode step makes one host-to-device upload (the per-slot last token,
-write position and active flag, packed in one tensor) and one
-device-to-host copy (the step's tokens, the JAX engine's
-``np.asarray(tok)``): no ``.item()`` and no Python branch on a device
-value, so the step keeps one fixed shape (B slots x ``max_len``) that a
-CUDA graph can capture.  An inactive slot writes its (unread) KV at
-position 0, never at its stale length: a slot retired at the length cap
-keeps ``lengths == max_len``, a position the JAX package's scatter drops
-silently and an in-place write would index out of range.
-
 Exactness notes: outputs are token-identical to per-request serving
-(padding and masking are exact), provided the bound plan uses STATIC
-activation scales; dynamic max-abs activation quantization is computed
-over the whole pooled batch and therefore depends on batch composition.
-The stats carry the JAX dense run's keys; the counters of paged-only
-features (preemptions, resumes, faults, degradation, stragglers,
-heartbeats) stay 0.
+(padding and masking are exact, in both layouts), provided the bound plan
+uses STATIC activation scales; dynamic max-abs activation quantization is
+computed over the whole pooled batch (in a chunk step also over the idle
+and decoding slots' masked rows) and therefore depends on batch
+composition.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -56,65 +90,90 @@ from repro_torch.models import _backend
 from repro_torch.models import transformer as T
 from repro_torch.serving.batch import BatchState
 from repro_torch.serving.metrics import RequestResult, ShedResult
+from repro_torch.serving.paged import PagePool
 from repro_torch.serving.sampling import (SamplingParams, request_generator,
                                           sample_tokens)
-from repro_torch.serving.scheduler import Request, RequestQueue, Scheduler
+from repro_torch.serving.scheduler import (Request, RequestQueue, Scheduler,
+                                           urgency)
 
 EngineResult = Union[RequestResult, ShedResult]
 
 KV_LAYOUTS = ("paged", "dense")
 
-#: the roadmap items that bring the arguments the port does not take yet
-PAGED_ITEM = "ROADMAP.md Queue 1 item 4 (the paged engine)"
+#: the roadmap item that brings the arguments the port does not take yet
 PLANSET_ITEM = ("ROADMAP.md Queue 1 item 5 (PlanSet and the engine "
                 "features on it)")
 
+# prefix sharing is only sound when ALL sequence state is page-resident
+# (pure attention KV) and per-token compute is batch-composition-free
+_PREFIX_SAFE_KINDS = frozenset({"attn", "shared_attn", "mla"})
+
 
 class Engine:
-    """Continuous-batching serving engine, dense KV layout (see module
-    docstring).
+    """Continuous-batching serving engine (see module docstring).
 
     Parameters:
       cfg, params   — the LM (`repro_torch.configs` ArchConfig + its
                       weights); the engine runs on the params' device.
       max_batch     — pool size B (concurrent requests).
-      max_len       — per-slot sequence capacity (requests beyond it
-                      retire as "length_cap").  A prompt group over 2048
-                      tokens prefills through the chunked attention, which
-                      needs ``max_len`` to be a multiple of 1024.
+      max_len       — per-slot sequence capacity: dense slots hold exactly
+                      ``max_len`` tokens; paged slots hold ``W * page_size``
+                      with W = ceil(max_len / page_size) (requests beyond
+                      that retire as "length_cap").  A dense prompt group
+                      over 2048 tokens prefills through the chunked
+                      attention, which needs ``max_len`` to be a multiple
+                      of 1024.
       backend       — optional matmul backend (`PlannedBackend`) installed
                       around every forward.
       scheduler     — a `Scheduler` (default: continuous policy).
-      prefill_bucket— minimum prompt padding; group prompt lengths round up
-                      to the next power-of-two multiple of it.
-      kv_layout     — "dense" (default); "paged" raises
-                      NotImplementedError.
+      prefill_bucket— dense layout: minimum prompt padding; group prompt
+                      lengths round up to the next power-of-two multiple of
+                      it.
+      kv_layout     — "paged" (default) or "dense".
+      page_size     — paged: tokens per KV page (16).
+      num_pages     — paged: pool capacity (default B * W: the dense
+                      layout's worst-case capacity).
+      prefill_chunk — paged: prompt tokens per chunked-prefill step
+                      (default 2 * page_size).
+      prefix_cache  — paged: hash-share prompt pages across requests
+                      (switched off for archs where sharing is unsound).
       sampling      — optional `SamplingParams`; None = greedy (default).
       max_queue_depth  — shed (``ShedResult(reason="queue_depth")``) the
                          newest visible queued requests beyond this depth.
+      page_watermark   — paged: fraction in (0, 1]; when free pages drop
+                         below it, shed every visible queued request behind
+                         the head of line (``reason="page_watermark"``).
       request_timeout_s— wall-clock budget per request measured from when
                          it became schedulable: queued requests shed
                          (``reason="timeout"``), running requests retire
                          with partial tokens (``finish_reason="timeout"``).
+      max_preemptions  — paged: per-request retire-and-requeue cap under
+                         the deadline policy.
+      quarantine_steps — paged: steps a slot sits out after a non-finite
+                         logit.
       ttft_target_s    — only with ``degrade_to`` (not ported).
-    The paged and PlanSet arguments are named in the module docstring.
+    The PlanSet arguments are named in the module docstring.
     """
 
     def __init__(self, cfg, params, *, max_batch: int = 8, max_len: int = 64,
                  backend=None, scheduler: Optional[Scheduler] = None,
-                 prefill_bucket: int = 8, kv_layout: str = "dense",
-                 page_size: Optional[int] = None,
-                 num_pages: Optional[int] = None,
+                 prefill_bucket: int = 8, kv_layout: str = "paged",
+                 page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 prefix_cache: Optional[bool] = None,
-                 speculate=None, slo_routes=None,
+                 prefix_cache: bool = True,
+                 speculate=None, draft_k: Optional[int] = None,
+                 slo_routes=None,
                  sampling: Optional[SamplingParams] = None,
                  max_queue_depth: Optional[int] = None,
                  page_watermark: Optional[float] = None,
                  request_timeout_s: Optional[float] = None,
+                 max_preemptions: int = 2,
                  degrade_to: Optional[str] = None,
                  ttft_target_s: Optional[float] = None,
-                 injector=None):
+                 degrade_window: Optional[int] = None,
+                 degrade_recover_frac: Optional[float] = None,
+                 injector=None, quarantine_steps: int = 2,
+                 heartbeat_steps: Optional[int] = None):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"got {kv_layout!r}")
@@ -132,45 +191,90 @@ class Engine:
                              "the degraded variant needs a TTFT target to "
                              "defend (and vice versa)")
         unported = (
-            ("kv_layout='paged'", kv_layout == "paged", PAGED_ITEM),
-            ("page_size", page_size is not None, PAGED_ITEM),
-            ("num_pages", num_pages is not None, PAGED_ITEM),
-            ("prefill_chunk", prefill_chunk is not None, PAGED_ITEM),
-            ("prefix_cache", prefix_cache is not None, PAGED_ITEM),
-            ("page_watermark", page_watermark is not None, PAGED_ITEM),
-            ("speculate", speculate is not None, PLANSET_ITEM),
-            ("slo_routes", bool(slo_routes), PLANSET_ITEM),
-            ("degrade_to", degrade_to is not None, PLANSET_ITEM),
-            ("injector", injector is not None, PLANSET_ITEM))
-        for arg, given, item in unported:
+            ("speculate", speculate is not None),
+            ("draft_k", draft_k is not None),
+            ("slo_routes", bool(slo_routes)),
+            ("degrade_to", degrade_to is not None),
+            ("degrade_window", degrade_window is not None),
+            ("degrade_recover_frac", degrade_recover_frac is not None),
+            ("injector", injector is not None),
+            ("heartbeat_steps", heartbeat_steps is not None))
+        for arg, given in unported:
             if given:
                 raise NotImplementedError(
-                    f"Engine({arg}): the port serves the dense KV layout "
-                    f"only; this waits for {item}")
+                    f"Engine({arg}): the port has no multi-plan layer yet; "
+                    f"this waits for {PLANSET_ITEM}")
         self.cfg = cfg
         self.params = params
         self.max_batch = int(max_batch)
         self.max_len = int(max_len)
-        self.slot_cap = self.max_len
         self.backend = backend
         self.scheduler = scheduler or Scheduler()
         self.prefill_bucket = max(1, int(prefill_bucket))
         self.kv_layout = kv_layout
         self.sampling = sampling
         self.max_queue_depth = max_queue_depth
+        self.page_watermark = page_watermark
         self.request_timeout_s = request_timeout_s
+        self.max_preemptions = int(max_preemptions)
+        self.quarantine_steps = int(quarantine_steps)
         self.device = params["emb"].device
         self.stats: Dict[str, float] = {}
-        self._kv_capacity_bytes = self._kv_footprint()
+
+        if kv_layout == "paged":
+            self.page_size = int(page_size)
+            self.pages_per_slot = -(-self.max_len // self.page_size)
+            self.slot_cap = self.pages_per_slot * self.page_size
+            self.num_pages = (int(num_pages) if num_pages is not None
+                              else self.max_batch * self.pages_per_slot)
+            self.prefill_chunk = (int(prefill_chunk) if prefill_chunk
+                                  else 2 * self.page_size)
+            self.prefix_cache = bool(prefix_cache) and \
+                cfg.moe is None and not cfg.frontend and \
+                set(cfg.pattern) <= _PREFIX_SAFE_KINDS
+            self.pool_mgr = PagePool(self.num_pages, self.page_size)
+            # the DEVICE page pool persists across run() calls: the
+            # allocator's hash index outlives a run, so the pages it can
+            # match must stay resident too
+            self._paged_caches = None
+        else:
+            self.slot_cap = self.max_len
+            self.prefix_cache = False
+
+        self._kv_axes = T.cache_kv_axes(cfg)
+        self._kv_capacity_bytes, self._kv_page_bytes = self._kv_footprint()
         self._req_counter = 0
+        # robustness bookkeeping (cleared per run): per-request resume
+        # metadata and quarantined slots' release steps
+        self._req_meta: Dict[int, dict] = {}
+        self._quarantine: Dict[int, int] = {}
 
     # ---- helpers ---------------------------------------------------------
 
-    def _kv_footprint(self) -> int:
-        """Bytes of the pool's sequence KV (all of the dense cache)."""
-        specs = T.cache_specs(self.cfg, self.max_batch, self.max_len)
-        return sum(m.numel() * m.element_size()
-                   for unit in specs["units"] for m in unit.values())
+    def _kv_footprint(self):
+        """(total sequence-KV bytes of the pool, bytes per page or None):
+        the ``"page"`` leaves of `transformer.cache_kv_axes` only; the
+        paged total excludes the trash row."""
+        if self.kv_layout == "paged":
+            specs = T.paged_cache_specs(self.cfg, self.max_batch,
+                                        self.num_pages + 1, self.page_size)
+        else:
+            specs = T.cache_specs(self.cfg, self.max_batch, self.max_len)
+        total = per_page = 0
+        for unit, axes in zip(specs["units"], self._kv_axes["units"]):
+            for key, leaf in unit.items():
+                if not axes[key].startswith("page"):
+                    continue
+                nbytes = leaf.numel() * leaf.element_size()
+                total += nbytes
+                if self.kv_layout == "paged":
+                    # bytes of ONE page across all stacked layers
+                    rows = (leaf.shape[1] if axes[key] == "page1"
+                            else leaf.shape[0])
+                    per_page += nbytes // rows
+        if self.kv_layout == "paged":
+            return per_page * self.num_pages, per_page
+        return total, None
 
     def _bucket(self, n: int) -> int:
         b = self.prefill_bucket
@@ -185,6 +289,32 @@ class Engine:
         while g < k:
             g *= 2
         return min(g, self.max_batch)
+
+    def _pages_needed(self, req: Request) -> int:
+        total = min(req.prompt_len + req.max_new_tokens, self.slot_cap)
+        return self.pool_mgr.pages_for(total)
+
+    def _meta(self, req: Request) -> dict:
+        """Per-request serving metadata, created at FIRST admission:
+        ``tokens`` / ``t_first`` hold the committed state a preempted or
+        faulted request resumes from."""
+        meta = self._req_meta.get(id(req))
+        if meta is None:
+            meta = {"tokens": [], "t_first": None, "preemptions": 0,
+                    "requeues": 0}
+            self._req_meta[id(req)] = meta
+        return meta
+
+    def _eff_prompt(self, req: Request) -> np.ndarray:
+        """The token stream to prefill: the original prompt, plus — for a
+        request resuming after preemption/fault-requeue — every committed
+        token.  Prefilling that stream reproduces the preempted slot's
+        decode state exactly."""
+        meta = self._req_meta.get(id(req))
+        if meta and meta["tokens"]:
+            return np.concatenate(
+                [req.prompt, np.asarray(meta["tokens"], np.int32)])
+        return req.prompt
 
     def _next_generator(self) -> Optional[torch.Generator]:
         """The next admitted request's sampling generator (None when the
@@ -202,35 +332,95 @@ class Engine:
             return torch.argmax(logits, dim=-1)
         return sample_tokens(logits, gens, self.sampling)
 
+    def _upload(self, inputs: np.ndarray) -> torch.Tensor:
+        """An engine step's one host-to-device copy."""
+        return torch.from_numpy(inputs).to(self.device)
+
+    def _download(self, out: torch.Tensor) -> np.ndarray:
+        """An engine step's one device-to-host copy (the step's sync)."""
+        return out.cpu().numpy()
+
     def _validate(self, requests: Sequence[Request]):
         for r in requests:
-            if r.prompt_len >= self.max_len:
+            if self.kv_layout == "dense":
+                if r.prompt_len >= self.max_len:
+                    raise ValueError(
+                        f"request {r.rid!r}: prompt_len {r.prompt_len} does "
+                        f"not fit the engine's max_len {self.max_len} "
+                        f"(needs prompt_len < max_len)")
+                continue
+            need = self._pages_needed(r)
+            if r.prompt_len >= self.slot_cap or need > self.num_pages:
+                warnings.warn(
+                    f"unservable request {r.rid!r}: needs {need} pages "
+                    f"({r.prompt_len} prompt + {r.max_new_tokens} new tokens "
+                    f"@ page_size {self.page_size}) but the pool caps at "
+                    f"{self.num_pages} pages x {self.page_size} tokens "
+                    f"(slot capacity {self.slot_cap})")
                 raise ValueError(
-                    f"request {r.rid!r}: prompt_len {r.prompt_len} does "
-                    f"not fit the engine's max_len {self.max_len} "
-                    f"(needs prompt_len < max_len)")
+                    f"request {r.rid!r}: needs {need} pages, pool has "
+                    f"{self.num_pages} (slot capacity {self.slot_cap} "
+                    f"tokens)")
 
     def decode_inputs(self, batch: BatchState) -> np.ndarray:
-        """The decode step's one upload, (3, B) int64: each slot's last
-        token, write position and active flag.  An inactive slot writes at
-        position 0 (its KV is never read: admission overwrites the whole
-        slot), never at its stale length, which may be ``max_len``."""
+        """The dense decode step's one upload, (3, B) int64: each slot's
+        last token, write position and active flag.  An inactive slot
+        writes at position 0 (its KV is never read: admission overwrites
+        the whole slot), never at its stale length, which may be
+        ``max_len``."""
         index = np.where(batch.active, batch.lengths, 0)
         return np.stack([batch.last_tok, index,
                          batch.active]).astype(np.int64)
 
+    def paged_decode_inputs(self, batch: BatchState) -> np.ndarray:
+        """The paged decode step's one upload, (B, 3 + W) int64: each
+        slot's last token, length, active flag and page-table row.  An
+        inactive slot's write goes to the trash page whatever its length
+        (``active`` is the write mask)."""
+        return np.concatenate(
+            [np.stack([batch.last_tok, batch.lengths, batch.active], 1),
+             batch.page_table], axis=1).astype(np.int64)
+
+    def chunk_inputs(self, batch: BatchState) -> np.ndarray:
+        """The chunk step's one upload, (B, C + 2 + W) int64: each slot's
+        next (up to) C prompt tokens, left-aligned, its fill position, its
+        count of valid tokens (0 for slots that are not prefilling) and
+        its page-table row."""
+        B, C = self.max_batch, self.prefill_chunk
+        tokens = np.zeros((B, C), np.int64)
+        valid = np.zeros(B, np.int64)
+        for b in np.nonzero(batch.prefilling)[0]:
+            prompt = batch.pending[b].prompt
+            pos = int(batch.fill_pos[b])
+            n = min(C, len(prompt) - pos)
+            tokens[b, :n] = prompt[pos:pos + n]
+            valid[b] = n
+        return np.concatenate([tokens, batch.fill_pos[:, None],
+                               valid[:, None], batch.page_table],
+                              axis=1).astype(np.int64)
+
     # ---- retirement (host-side, vectorized) ------------------------------
+
+    def _release_pages(self, batch: BatchState, slot: int):
+        self.pool_mgr.release(batch.slot_pages[slot])
+        batch.slot_pages[slot] = []
+        batch.page_table[slot, :] = 0
 
     def _retire_slot(self, batch: BatchState, slot: int, reason: str,
                      now: float, step: int,
                      results: Dict[int, EngineResult]):
         st = batch.retire(slot)
         req = st.request
+        if self.kv_layout == "paged":
+            self._release_pages(batch, slot)
+        meta = self._req_meta.get(id(req), {})
         results[id(req)] = RequestResult(
             rid=req.rid, prompt_len=req.prompt_len, tokens=st.tokens,
             finish_reason=reason, ttft_s=st.t_first - st.t_ready,
             finish_s=now - st.t_ready, admitted_step=st.admitted_step,
-            finished_step=step, slo=req.slo)
+            finished_step=step, slo=req.slo,
+            preemptions=int(meta.get("preemptions", 0)),
+            requeues=int(meta.get("requeues", 0)))
 
     def _slot_reason(self, batch: BatchState, slot: int) -> Optional[str]:
         st = batch.slots[slot]
@@ -252,11 +442,16 @@ class Engine:
         return True
 
     def _postdecode(self, batch: BatchState, tok: np.ndarray, now: float,
-                    step: int, results: Dict[int, EngineResult]):
+                    step: int, results: Dict[int, EngineResult],
+                    exclude: Optional[np.ndarray] = None):
         """Record one decode step's tokens and retire finished slots — the
         one host sync happened already (``tok``); every predicate below
-        reads host-side numpy mirrors, no per-slot device pulls."""
+        reads host-side numpy mirrors, no per-slot device pulls.
+        ``exclude`` masks slots that must NOT commit this step (their
+        logits were not finite)."""
         act = batch.active
+        if exclude is not None:
+            act = act & ~exclude
         idx = np.nonzero(act)[0]
         batch.last_tok[idx] = tok[idx]
         batch.lengths[idx] += 1
@@ -271,7 +466,7 @@ class Engine:
                       "max_new_tokens" if budget[b] else "length_cap")
             self._retire_slot(batch, int(b), reason, now, step, results)
 
-    # ---- admission -------------------------------------------------------
+    # ---- dense admission -------------------------------------------------
 
     def _admit_dense(self, batch: BatchState, admits, step: int,
                      t_ready: Dict[int, float]) -> List[int]:
@@ -303,7 +498,7 @@ class Engine:
         T.scatter_cache(batch.caches, fresh,
                         torch.tensor(slots, dtype=torch.int64, device=dev))
         del fresh
-        tok0 = tok0.cpu().numpy()         # sync: first tokens materialized
+        tok0 = self._download(tok0)       # sync: first tokens materialized
         t1 = time.monotonic()
         self.stats["prefill_s"] += t1 - t0
         self.stats["prefill_calls"] += 1
@@ -313,7 +508,180 @@ class Engine:
             batch.gens[slot] = gens[i]
         return slots
 
-    # ---- overload (queue-level sheds and timeouts) -------------------------
+    # ---- paged admission + chunked prefill -------------------------------
+
+    def _admit_paged(self, batch: BatchState, admits, step: int,
+                     t_ready: Dict[int, float]):
+        cow_pairs = []
+        for slot, req in admits:
+            meta = self._meta(req)
+            prompt = self._eff_prompt(req)
+            if meta["tokens"]:
+                self.stats["resumes"] += 1
+            need = self._pages_needed(req)
+            hit_len, shared, cow_src = (
+                self.pool_mgr.match(prompt) if self.prefix_cache
+                else (0, [], None))
+            pages = shared + self.pool_mgr.alloc(need - len(shared))
+            if cow_src is not None:
+                cow_pairs.append((cow_src, pages[len(shared)]))
+            batch.start_prefill(slot, req, pages, hit_len,
+                                t_ready=t_ready[id(req)], step=step,
+                                prompt=prompt,
+                                prior_tokens=meta["tokens"],
+                                t_first=meta["t_first"])
+            batch.gens[slot] = self._next_generator()
+        if cow_pairs:
+            # copy-on-write before the admitting slots' first chunk
+            src, dst = torch.tensor(cow_pairs, dtype=torch.int64).t() \
+                .contiguous().to(self.device)
+            T.copy_pages(batch.caches, src, dst)
+            for src, _ in cow_pairs:
+                self.pool_mgr.release_cow(src)
+
+    def _register_prompt(self, batch: BatchState, slot: int):
+        """Publish a fully prefilled prompt's pages for prefix sharing
+        (the EFFECTIVE prompt: resumes include committed tokens)."""
+        if not self.prefix_cache:
+            return
+        prompt = batch.pending[slot].prompt
+        pages = batch.slot_pages[slot]
+        for key, end in self.pool_mgr.prompt_keys(prompt):
+            self.pool_mgr.register(pages[(end - 1) // self.page_size], key)
+
+    def _chunk_step(self, batch: BatchState, step: int,
+                    results: Dict[int, EngineResult], queue: RequestQueue,
+                    t_ready: Dict[int, float]):
+        """Stream the next ``prefill_chunk`` tokens of EVERY prefilling
+        slot in one fixed-shape call; slots whose prompt completes get
+        their first token from this chunk's logits and join decode (those
+        whose logits are not finite go through fault containment).  Only
+        completing slots draw a sample: a mid-prompt slot's generator
+        does not advance."""
+        C = self.prefill_chunk
+        sel = np.nonzero(batch.prefilling)[0]
+        inputs = self.chunk_inputs(batch)
+        valid = inputs[:, C + 1]
+        completes = [bool(batch.prefilling[b]) and
+                     batch.fill_pos[b] + valid[b] >=
+                     len(batch.pending[b].prompt)
+                     for b in range(self.max_batch)]
+        gens = [g if done else None for g, done in zip(batch.gens,
+                                                       completes)]
+        t0 = time.monotonic()
+        x = self._upload(inputs)
+        logits, batch.caches = T.prefill_chunk(
+            self.params, self.cfg, x[:, :C], batch.caches, x[:, C],
+            x[:, C + 1], x[:, C + 2:])
+        ok = torch.isfinite(logits).all(dim=-1)
+        tok, ok = self._download(torch.stack([self._pick(logits, gens),
+                                              ok.long()]))
+        t1 = time.monotonic()
+        self.stats["prefill_s"] += t1 - t0
+        self.stats["prefill_calls"] += 1
+        batch.fill_pos[sel] += valid[sel].astype(np.int32)
+        batch.lengths[sel] = batch.fill_pos[sel]
+        for b in sel:
+            pend = batch.pending[b]
+            if not completes[b]:
+                continue
+            if not ok[b]:
+                self._handle_fault(batch, queue, int(b), step, t1, t_ready,
+                                   results)
+                continue
+            self._register_prompt(batch, b)
+            tf = pend.t_first if pend.t_first is not None else t1
+            batch.assign(b, pend.request, int(tok[b]),
+                         t_ready=pend.t_ready, t_first=tf,
+                         step=pend.admitted_step,
+                         prompt_len=len(pend.prompt),
+                         prior_tokens=pend.prior_tokens)
+            meta = self._req_meta.get(id(pend.request))
+            if meta is not None and meta["t_first"] is None:
+                meta["t_first"] = tf
+            self._maybe_retire(batch, int(b), t1, step, results)
+
+    def _decode_paged(self, batch: BatchState, step: int,
+                      results: Dict[int, EngineResult], queue: RequestQueue,
+                      t_ready: Dict[int, float]):
+        """One decode step over all B slots (inactive ones write into the
+        trash page and draw no sample: a prefilling slot's generator does
+        not advance); slots whose logits are not finite commit nothing and
+        go through fault containment."""
+        gens = [g if act else None for g, act in zip(batch.gens,
+                                                     batch.active)]
+        t = time.monotonic()
+        x = self._upload(self.paged_decode_inputs(batch))
+        logits, batch.caches = T.decode_step(
+            self.params, self.cfg, x[:, 0], batch.caches, x[:, 1],
+            active=x[:, 2].bool(), pages=x[:, 3:])
+        ok = torch.isfinite(logits).all(dim=-1)
+        tok, ok = self._download(torch.stack([self._pick(logits, gens),
+                                              ok.long()]))
+        now = time.monotonic()
+        self.stats["decode_s"] += now - t
+        self.stats["decode_steps"] += 1
+        faulted = batch.active & (ok == 0)
+        self._postdecode(batch, tok, now, step, results, exclude=faulted)
+        for b in np.nonzero(faulted)[0]:
+            if batch.active[b]:     # not retired by _postdecode
+                self._handle_fault(batch, queue, int(b), step, now, t_ready,
+                                   results)
+
+    # ---- robustness: preemption, shedding, faults ------------------------
+
+    def _free_slots(self, batch: BatchState, step: int) -> List[int]:
+        """Free slots minus the quarantined ones."""
+        return [b for b in batch.free_slots()
+                if self._quarantine.get(b, 0) <= step]
+
+    def _maybe_preempt(self, batch: BatchState, queue: RequestQueue,
+                       t_ready: Dict[int, float], step: int, now: float):
+        """Retire-and-requeue at most ONE active slot when a visible
+        queued request is strictly more urgent than the least-urgent
+        running one and cannot be served from free capacity.  The victim's
+        committed tokens are recorded for resumption; with the prefix
+        cache on, its filled pages are registered under the resume
+        prompt's keys first, so they park in the LRU and resumption
+        re-prefills only the unhashed tail."""
+        waiting = [r for r in queue if r.arrival_step <= step]
+        if not waiting:
+            return
+        front = min(waiting, key=lambda r: urgency(r, now,
+                                                   t_ready.get(id(r))))
+        if self._free_slots(batch, step) and \
+                self._pages_needed(front) <= self.pool_mgr.available():
+            return          # plain admission can serve it this step
+        cands = [b for b in range(self.max_batch)
+                 if batch.active[b]
+                 and self._req_meta[id(batch.slots[b].request)]
+                 ["preemptions"] < self.max_preemptions]
+        if not cands:
+            return
+        victim = max(cands, key=lambda b: urgency(
+            batch.slots[b].request, now,
+            t_ready.get(id(batch.slots[b].request))))
+        vreq = batch.slots[victim].request
+        if not urgency(front, now, t_ready.get(id(front))) < \
+                urgency(vreq, now, t_ready.get(id(vreq))):
+            return          # nobody waiting beats the least-urgent runner
+        st = batch.retire(victim)
+        meta = self._req_meta[id(vreq)]
+        meta["tokens"] = list(st.tokens)
+        meta["t_first"] = st.t_first
+        meta["preemptions"] += 1
+        if self.prefix_cache:
+            # the cache holds resume_prompt[:filled] (the last committed
+            # token is not in the cache yet) — publish exactly that
+            pages = batch.slot_pages[victim]
+            filled = int(batch.lengths[victim])
+            resume = self._eff_prompt(vreq)
+            for key, end in self.pool_mgr.prompt_keys(resume[:filled]):
+                self.pool_mgr.register(pages[(end - 1) // self.page_size],
+                                       key)
+        self._release_pages(batch, victim)
+        queue.push_front(vreq)
+        self.stats["preemptions"] += 1
 
     def _shed(self, req: Request, reason: str, step: int, waited: float,
               results: Dict[int, EngineResult]):
@@ -322,6 +690,12 @@ class Engine:
                                       waited_s=round(max(waited, 0.0), 6),
                                       slo=req.slo)
         self.stats["shed_requests"] += 1
+
+    def _resumable(self, req: Request) -> bool:
+        """Requests holding committed tokens (preempted/faulted, waiting
+        to resume) are never backlog-shed — that would discard served
+        work.  The wall-clock timeout still applies to them."""
+        return bool(self._req_meta.get(id(req), {}).get("tokens"))
 
     def _timeout_queued(self, queue: RequestQueue,
                         t_ready: Dict[int, float], step: int, now: float,
@@ -340,23 +714,40 @@ class Engine:
 
     def _shed_backlog(self, queue: RequestQueue,
                       t_ready: Dict[int, float], step: int, now: float,
-                      results: Dict[int, EngineResult]):
+                      results: Dict[int, EngineResult],
+                      free_frac: Optional[float] = None):
         """Bound the POST-admission backlog (run after the step's
         admissions): overflow beyond ``max_queue_depth`` sheds newest
-        visible first."""
-        if self.max_queue_depth is None:
-            return
-        visible = [r for r in queue if r.arrival_step <= step]
-        for r in visible[self.max_queue_depth:][::-1]:
-            queue.remove(r)
-            self._shed(r, "queue_depth", step,
-                       now - t_ready.get(id(r), now), results)
+        visible first; below the free-page watermark everything behind
+        the head of line sheds (the head keeps its place — head-of-line
+        blocking already guarantees it admits as soon as pages free)."""
+        if self.max_queue_depth is not None:
+            visible = [r for r in queue if r.arrival_step <= step]
+            excess = len(visible) - self.max_queue_depth
+            for r in reversed(visible):
+                if excess <= 0:
+                    break
+                if self._resumable(r):
+                    continue
+                queue.remove(r)
+                excess -= 1
+                self._shed(r, "queue_depth", step,
+                           now - t_ready.get(id(r), now), results)
+        if self.page_watermark is not None and free_frac is not None \
+                and free_frac < self.page_watermark:
+            for r in [r for r in queue if r.arrival_step <= step][1:]:
+                if self._resumable(r):
+                    continue
+                queue.remove(r)
+                self._shed(r, "page_watermark", step,
+                           now - t_ready.get(id(r), now), results)
 
     def _timeout_running(self, batch: BatchState, step: int, now: float,
                          results: Dict[int, EngineResult]):
         """Retire ACTIVE slots whose request outlived the wall-clock
         budget — they keep their partial tokens, ``finish_reason=
-        "timeout"``."""
+        "timeout"``.  (Prefilling slots complete their bounded prefill
+        first and time out on the next sweep.)"""
         if self.request_timeout_s is None:
             return
         for b in range(self.max_batch):
@@ -365,13 +756,47 @@ class Engine:
                 self.stats["timeouts"] += 1
                 self._retire_slot(batch, b, "timeout", now, step, results)
 
-    # ---- main loop -------------------------------------------------------
+    def _handle_fault(self, batch: BatchState, queue: RequestQueue,
+                      slot: int, step: int, now: float,
+                      t_ready: Dict[int, float],
+                      results: Dict[int, EngineResult]):
+        """Contain a non-finite logit on ``slot``: purge its pages from
+        the prefix cache (corrupted content must never be matched) and
+        release them, quarantine the slot, and requeue the request ONCE
+        with its committed tokens; a second fault sheds it with
+        ``ShedResult(reason="fault")``."""
+        self.stats["faults_detected"] += 1
+        if batch.active[slot]:
+            st = batch.retire(slot)
+            req, tokens, tf = st.request, list(st.tokens), st.t_first
+        else:
+            pend = batch.pending[slot]
+            req, tokens, tf = (pend.request, list(pend.prior_tokens),
+                               pend.t_first)
+            batch.prefilling[slot] = False
+            batch.pending[slot] = None
+            batch.fill_pos[slot] = 0
+            batch.gens[slot] = None
+        self.pool_mgr.purge(batch.slot_pages[slot])
+        self._release_pages(batch, slot)
+        self._quarantine[slot] = step + self.quarantine_steps
+        meta = self._req_meta[id(req)]
+        if meta["requeues"] >= 1:       # requeue-once policy
+            self._shed(req, "fault", step,
+                       now - t_ready.get(id(req), now), results)
+            return
+        meta["requeues"] += 1
+        meta["tokens"] = tokens         # committed tokens predate the
+        meta["t_first"] = tf            # fault: clean, resume from them
+        queue.push_front(req)
+
+    # ---- main loops ------------------------------------------------------
 
     def run(self, requests: Sequence[Request]) -> List[EngineResult]:
         """Serve ``requests`` to completion; returns one result per
         request, in submission order — a `RequestResult` for requests that
-        finished, a `ShedResult` for requests the overload paths rejected.
-        Timing aggregates land in ``self.stats``."""
+        finished, a `ShedResult` for requests the overload/fault paths
+        rejected.  Timing aggregates land in ``self.stats``."""
         self._validate(requests)
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0,
                       "prefill_calls": 0, "wall_s": 0.0,
@@ -380,56 +805,123 @@ class Engine:
                       "faults_detected": 0, "degrade_transitions": 0,
                       "straggler_events": 0, "heartbeat_trips": 0}
         self._req_counter = 0
+        self._req_meta = {}
+        self._quarantine = {}
         queue = RequestQueue()
         for r in requests:
             queue.push(r)
         results: Dict[int, EngineResult] = {}
         t0 = time.monotonic()
-        self._run_dense(queue, results)
+        with _backend.use(self.backend):
+            if self.kv_layout == "paged":
+                self._run_paged(queue, results)
+            else:
+                self._run_dense(queue, results)
         self.stats["wall_s"] = time.monotonic() - t0
         self.stats["kv_capacity_bytes"] = self._kv_capacity_bytes
-        # dense pools are fully allocated up front: peak == capacity
-        self.stats["kv_peak_bytes"] = self._kv_capacity_bytes
+        if self.kv_layout == "paged":
+            ps = self.pool_mgr.stats
+            self.stats["kv_peak_pages"] = ps["peak_pages"]
+            self.stats["kv_page_bytes"] = self._kv_page_bytes
+            self.stats["kv_peak_bytes"] = ps["peak_pages"] * \
+                self._kv_page_bytes
+            self.stats["prefix_lookups"] = ps["lookups"]
+            self.stats["prefix_hit_requests"] = ps["hit_requests"]
+            self.stats["prefix_hit_tokens"] = ps["hit_tokens"]
+            self.stats["cow_copies"] = ps["cow_copies"]
+            self.stats["page_evictions"] = ps["evictions"]
+        else:
+            # dense pools are fully allocated up front: peak == capacity
+            self.stats["kv_peak_bytes"] = self._kv_capacity_bytes
         return [results[id(r)] for r in requests]
+
+    def _mark_ready(self, queue: RequestQueue, t_ready: Dict[int, float],
+                    step: int, now: float):
+        for r in queue:
+            if r.arrival_step <= step and id(r) not in t_ready:
+                t_ready[id(r)] = now
 
     def _run_dense(self, queue: RequestQueue,
                    results: Dict[int, EngineResult]):
-        dev = self.device
         batch = BatchState(self.max_batch,
                            T.init_cache(self.cfg, self.max_batch,
-                                        self.max_len, device=dev))
+                                        self.max_len, device=self.device))
         t_ready: Dict[int, float] = {}
         step = 0
-        with _backend.use(self.backend):
-            while len(queue) or batch.any_active():
-                # idle + only future arrivals: fast-forward the step clock
-                if not batch.any_active() and queue.ready(step) == 0:
-                    step = max(step, queue.next_arrival())
-                now = time.monotonic()
-                for r in queue:
-                    if r.arrival_step <= step and id(r) not in t_ready:
-                        t_ready[id(r)] = now
-                self._timeout_queued(queue, t_ready, step, now, results)
-                self._timeout_running(batch, step, now, results)
-                admits = self.scheduler.admissions(
-                    queue, batch.free_slots(), batch.n_active, step,
-                    now=now, t_ready=t_ready)
-                self._shed_backlog(queue, t_ready, step, now, results)
-                if admits:
-                    for slot in self._admit_dense(batch, admits, step,
-                                                  t_ready):
-                        self._maybe_retire(batch, slot, time.monotonic(),
-                                           step, results)
-                if not batch.any_active():
-                    continue
-                t = time.monotonic()
-                inputs = torch.from_numpy(self.decode_inputs(batch)).to(dev)
-                logits, batch.caches = T.decode_step(
-                    self.params, self.cfg, inputs[0], batch.caches,
-                    inputs[1], active=inputs[2].bool())
-                tok = self._pick(logits, batch.gens).cpu().numpy()  # sync
-                now = time.monotonic()
-                self.stats["decode_s"] += now - t
-                self.stats["decode_steps"] += 1
-                self._postdecode(batch, tok, now, step, results)
-                step += 1
+        while len(queue) or batch.any_active():
+            # idle + only future arrivals: fast-forward the step clock
+            if not batch.any_active() and queue.ready(step) == 0:
+                step = max(step, queue.next_arrival())
+            now = time.monotonic()
+            self._mark_ready(queue, t_ready, step, now)
+            self._timeout_queued(queue, t_ready, step, now, results)
+            self._timeout_running(batch, step, now, results)
+            admits = self.scheduler.admissions(
+                queue, batch.free_slots(), batch.n_active, step,
+                now=now, t_ready=t_ready)
+            self._shed_backlog(queue, t_ready, step, now, results)
+            if admits:
+                for slot in self._admit_dense(batch, admits, step, t_ready):
+                    self._maybe_retire(batch, slot, time.monotonic(), step,
+                                       results)
+            if not batch.any_active():
+                continue
+            t = time.monotonic()
+            x = self._upload(self.decode_inputs(batch))
+            logits, batch.caches = T.decode_step(
+                self.params, self.cfg, x[0], batch.caches, x[1],
+                active=x[2].bool())
+            tok = self._download(self._pick(logits, batch.gens))  # sync
+            now = time.monotonic()
+            self.stats["decode_s"] += now - t
+            self.stats["decode_steps"] += 1
+            self._postdecode(batch, tok, now, step, results)
+            step += 1
+
+    def _run_paged(self, queue: RequestQueue,
+                   results: Dict[int, EngineResult]):
+        if self._paged_caches is None:
+            rows = self.num_pages + 1                  # + trash page 0
+            self._paged_caches = T.init_paged_cache(
+                self.cfg, self.max_batch, rows, self.page_size,
+                device=self.device)
+        batch = BatchState(self.max_batch, self._paged_caches,
+                           pages_per_slot=self.pages_per_slot)
+        t_ready: Dict[int, float] = {}
+        step = 0
+        while len(queue) or batch.any_busy():
+            if not batch.any_busy() and queue.ready(step) == 0:
+                step = max(step, queue.next_arrival())
+            now = time.monotonic()
+            self._mark_ready(queue, t_ready, step, now)
+            self._timeout_queued(queue, t_ready, step, now, results)
+            self._timeout_running(batch, step, now, results)
+            if self.scheduler.preempts:
+                self._maybe_preempt(batch, queue, t_ready, step, now)
+            reserved = [0]
+
+            def fits(req):
+                # running reservation: one admission round may pop
+                # several requests before any pages are allocated
+                need = self._pages_needed(req)
+                if reserved[0] + need <= self.pool_mgr.available():
+                    reserved[0] += need
+                    return True
+                return False
+
+            admits = self.scheduler.admissions(
+                queue, self._free_slots(batch, step), batch.n_busy, step,
+                fits=fits, now=now, t_ready=t_ready)
+            for _, req in admits:
+                self._meta(req)
+            if admits:
+                self._admit_paged(batch, admits, step, t_ready)
+            self._shed_backlog(queue, t_ready, step, now, results,
+                               free_frac=(self.pool_mgr.available()
+                                          / self.num_pages))
+            if batch.prefilling.any():
+                self._chunk_step(batch, step, results, queue, t_ready)
+            if batch.any_active():
+                self._decode_paged(batch, step, results, queue, t_ready)
+            step += 1
+        self._paged_caches = batch.caches       # keep cached pages resident

@@ -19,10 +19,11 @@ queued requests enter which free slots between decode steps:
   * ``policy="deadline"`` orders admission by urgency instead of arrival:
     higher ``Request.priority`` first, then smallest deadline slack
     (``t_ready + deadline_ms - now``).  Requests without a deadline sort
-    last within their priority band (infinite slack).  The JAX package's
-    paged engine may also PREEMPT a running slot under this policy; the
-    dense engine, the only one the port has, never preempts (as in the JAX
-    package), so here the policy decides the admission order only.
+    last within their priority band (infinite slack).  The paged engine
+    may also PREEMPT a running slot under this policy (`Scheduler.preempts`;
+    the victim is requeued at the head with `RequestQueue.push_front`); the
+    dense engine never preempts, as in the JAX package, so there the policy
+    decides the admission order only.
 
 ``continuous``/``static`` are FCFS.  The dense engine rejects ``prompt_len
 >= max_len`` at submission time.  `admissions` takes an optional
@@ -133,6 +134,11 @@ class RequestQueue:
     def push(self, req: Request) -> None:
         self._q.append(req)
 
+    def push_front(self, req: Request) -> None:
+        """Requeue at the head (preempted/faulted requests resume first
+        among equally-urgent peers instead of going to the back)."""
+        self._q.appendleft(req)
+
     def remove(self, req: Request) -> bool:
         """Drop ``req`` from the queue (identity match); True if found."""
         for i, r in enumerate(self._q):
@@ -206,6 +212,11 @@ class Scheduler:
             raise ValueError(f"policy must be one of {POLICIES}, "
                              f"got {policy!r}")
         self.policy = policy
+
+    @property
+    def preempts(self) -> bool:
+        """Whether the engine should consider preemption under this policy."""
+        return self.policy == "deadline"
 
     def admissions(self, queue: RequestQueue, free_slots: List[int],
                    n_active: int, step: int, fits=None,

@@ -289,58 +289,13 @@ def test_long_prefill_with_lengths_matches_jax(tmp_path):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
 
 
-def test_serve_batch_max_len_sets_the_cache_and_is_checked(monkeypatch):
-    cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
-    params = T.init_lm(torch.Generator().manual_seed(0), cfg)
-    prompts = torch.randint(0, cfg.vocab, (2, 8),
-                            generator=torch.Generator().manual_seed(1))
-    sizes = []
-    init_cache = T.init_cache
-    monkeypatch.setattr(T, "init_cache", lambda c, B, S, device: (
-        sizes.append(S), init_cache(c, B, S, device))[1])
-    tokens, _ = serve.serve_batch(cfg, params, prompts, 4)
-    tokens64, _ = serve.serve_batch(cfg, params, prompts, 4, max_len=64)
-    assert sizes == [12, 64] and torch.equal(tokens, tokens64)
-    with pytest.raises(ValueError, match="max_len"):
-        serve.serve_batch(cfg, params, prompts, 4, max_len=11)
-
-
-def test_serve_batch_pads_a_long_prompt_to_the_chunked_contract(
-        monkeypatch):
-    """A prompt over 2048 tokens that is no multiple of 512 is right-padded
-    to one (prefill with ``lengths=``) and the default cache rounded up to
-    a multiple of 1024.  The padding is invisible: the prefill logits are
-    bit for bit those of the prompt padded with other tokens, and the
-    tokens do not depend on the cache length; a cache length that is no
-    multiple of 1024 raises the chunked contract's ValueError."""
-    cfg = dataclasses.replace(cfgbase.reduce_for_smoke(cfgbase.get("yi-9b")),
-                              param_dtype="float32")
-    params = T.init_lm(torch.Generator().manual_seed(0), cfg)
-    P, padded = 2100, 2560
-    gen = torch.Generator().manual_seed(4)
-    prompts = torch.randint(0, cfg.vocab, (1, P), generator=gen)
-    sizes = []
-    init_cache = T.init_cache
-    monkeypatch.setattr(T, "init_cache", lambda c, B, S, device: (
-        sizes.append(S), init_cache(c, B, S, device))[1])
-    tokens, stats = serve.serve_batch(cfg, params, prompts, 3)
-    assert sizes == [3072] and tuple(tokens.shape) == (1, 3)
-    other = torch.cat([prompts, torch.randint(0, cfg.vocab, (1, padded - P),
-                                              generator=gen)], dim=1)
-    want, _ = T.prefill(params, cfg, other,
-                        init_cache(cfg, 1, 3072, device="cpu"),
-                        lengths=torch.tensor([P]))
-    assert torch.equal(stats["prefill_logits"], want)
-    assert int(tokens[0, 0]) == int(want.argmax())
-    tokens4k, _ = serve.serve_batch(cfg, params, prompts, 3, max_len=4096)
-    assert torch.equal(tokens, tokens4k)
-    with pytest.raises(ValueError, match="multiple"):
-        serve.serve_batch(cfg, params, prompts, 3, max_len=3000)
-
-
 def test_serve_cli_takes_a_long_prompt_of_any_length():
+    """A 2100-token prompt (no multiple of 512) streams through the paged
+    engine's chunks, which have no chunked-attention contract."""
     tokens, stats = serve.main(["--arch", "yi-9b", "--reduce", "--device",
                                 "cpu", "--requests", "1", "--prompt-len",
                                 "2100", "--gen-len", "2"])
     assert tuple(tokens.shape) == (1, 2)
-    assert bool(torch.isfinite(stats["prefill_logits"]).all())
+    vocab = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b")).vocab
+    assert 0 <= int(tokens.min()) and int(tokens.max()) < vocab
+    assert stats["prefill_s"] > 0 and stats["tok_per_s"] > 0

@@ -507,7 +507,8 @@ def test_engine_planned_on_diana_launches_kernels_like_the_plain_run(
     hist = plan.kernel_histogram()
     assert hist == {"quant_matmul": 5, "split_ternary": 10}
     trace = _engine_trace(cfg.vocab)
-    engine = Engine(cfg, params, max_batch=2, max_len=16, backend=backend)
+    engine = Engine(cfg, params, max_batch=2, max_len=16, backend=backend,
+                    kv_layout="dense")
     before = {k: getattr(ops, k).launches for k in hist}
     got = engine.run(trace)
     torch.cuda.synchronize()
@@ -529,7 +530,7 @@ def test_engine_length_cap_retirement_on_the_card(cuda):
     from repro_torch.serving import Engine
     cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
     params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
-    engine = Engine(cfg, params, max_batch=2, max_len=16)
+    engine = Engine(cfg, params, max_batch=2, max_len=16, kv_layout="dense")
     res = {r.rid: r for r in engine.run(_engine_trace(cfg.vocab))}
     torch.cuda.synchronize()
     assert res[2].finish_reason == "length_cap"
@@ -537,3 +538,127 @@ def test_engine_length_cap_retirement_on_the_card(cuda):
                                           res[4].admitted_step)
     assert all(r.n_tokens >= 1 for r in res.values())
     assert bool(torch.isfinite(torch.ones(1, device=cuda)).all())
+
+
+def _reduced_planned(dev, tmp_path):
+    """Reduced yi-9b planned on diana (static scales, int8 KV) on ``dev``,
+    from the same seed on every device: (cfg, params, backend, hist)."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v) for v in tree)
+        return tree.to(dev)
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
+    params = to(T.init_lm(torch.Generator().manual_seed(0), cfg))
+    art = emit_static_mapping(params, cfg, "diana",
+                              tmp_path / f"m_{dev.type}.json", max_cout=64,
+                              act_log_scale=2.0)
+    plan, backend = plan_mapping_execution(params, art)
+    assert not backend.unbound
+    return kv_cache_for(cfg, art), params, backend, plan.kernel_histogram()
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_paged_update_gather_on_the_card_match_the_cpu(cuda, dtype):
+    """Scattered writes through shuffled page tables, masked and
+    out-of-table ones among them (many rows onto the trash page): the pool
+    outside the trash page and the gathered rows of mapped pages equal the
+    CPU's."""
+    rng = np.random.default_rng(9)
+    ps, W, B, S, KVH, hd = 16, 8, 4, 40, 4, 128
+    pages = np.zeros((B, W), np.int64)
+    perm = rng.permutation(np.arange(1, 1 + B * W))
+    for b in range(B):
+        n = int(rng.integers(1, W + 1))
+        pages[b, :n] = perm[b * W:b * W + n]
+    val = torch.from_numpy(rng.integers(-127, 128, (B, S, KVH, hd))
+                           .astype(np.float32) / 8).to(dtype)
+    pool = torch.from_numpy(rng.integers(-127, 128, (1 + B * W, ps, KVH, hd))
+                            .astype(np.float32) / 8).to(dtype)
+    index = torch.from_numpy(rng.integers(0, W * ps, B))
+    mask = torch.from_numpy(rng.random((B, S)) < 0.8)
+    pages_t = torch.from_numpy(pages)
+    want = A.paged_update(pool.clone(), val, pages_t, index, mask)
+    got = A.paged_update(pool.to(cuda), val.to(cuda), pages_t.to(cuda),
+                         index.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got[1:].cpu(), want[1:])
+    mapped = torch.from_numpy(np.repeat(pages > 0, ps, axis=1))
+    view = A.paged_gather(got, pages_t.to(cuda)).cpu()
+    assert torch.equal(view[mapped], A.paged_gather(want, pages_t)[mapped])
+
+
+def test_prefill_chunk_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Chunks with mixed valid counts, then a decode step, on reduced
+    yi-9b planned on diana: the card (the kernels) against the CPU (their
+    plain versions) within 1e-4 on the live rows, int8 pools equal outside
+    the trash page; every chunk launches each planned layer's kernel."""
+    from repro_torch.models import transformer as T
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        cfg, params, backend, hist = _reduced_planned(dev, tmp_path)
+        rng = np.random.default_rng(4)
+        B, C, ps, W = 3, 8, 4, 8
+        pages = torch.from_numpy(rng.permutation(np.arange(1, 1 + B * W))
+                                 .reshape(B, W)).to(dev)
+        caches = T.init_paged_cache(cfg, B, 1 + B * W, ps, device=dev)
+        logits = []
+        before = {k: getattr(ops, k).launches for k in hist}
+        with _backend.use(backend):
+            for index, valid in (([0, 0, 0], [8, 5, 0]),
+                                 ([8, 5, 0], [3, 0, 8])):
+                tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                       (B, C))).to(dev)
+                lg, caches = T.prefill_chunk(
+                    params, cfg, tokens, caches,
+                    torch.tensor(index, device=dev),
+                    torch.tensor(valid, device=dev), pages)
+                logits.append(lg.cpu())
+            lg, caches = T.decode_step(
+                params, cfg, torch.tensor([5, 6, 7], device=dev), caches,
+                torch.tensor([11, 5, 8], device=dev),
+                active=torch.tensor([True, True, False], device=dev),
+                pages=pages)
+            logits.append(lg.cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: getattr(ops, k).launches - before[k] for k in hist} \
+                == {k: 3 * n for k, n in hist.items()}
+        runs.append((logits, {k: t.cpu() for k, t in
+                              caches["units"][0].items()}))
+    (want, want_pool), (got, got_pool) = runs
+    for g, w, live in zip(got, want, ([0, 1], [0, 2], [0, 1])):
+        assert bool(torch.isfinite(g[live]).all())
+        assert float((g[live] - w[live]).abs().max()) < 1e-4
+    for key in ("k", "v"):
+        assert torch.equal(got_pool[key][:, 1:], want_pool[key][:, 1:])
+
+
+def test_engine_paged_planned_on_diana_launches_kernels_like_the_plain_run(
+        cuda, tmp_path):
+    """The paged engine on the card: every chunk call and decode step
+    launches each planned layer's kernel, the tokens equal those of the
+    plain versions (``reference=True``), and a slot retired at the length
+    cap writes nothing out of range."""
+    from repro_torch.serving import Engine
+    cfg, params, backend, hist = _reduced_planned(cuda, tmp_path)
+    trace = _engine_trace(cfg.vocab)
+    engine = Engine(cfg, params, max_batch=2, max_len=16, page_size=4,
+                    backend=backend)
+    before = {k: getattr(ops, k).launches for k in hist}
+    got = engine.run(trace)
+    torch.cuda.synchronize()
+    forwards = engine.stats["prefill_calls"] + engine.stats["decode_steps"]
+    assert {k: getattr(ops, k).launches - before[k] for k in hist} == \
+        {k: n * forwards for k, n in hist.items()}
+    backend.reference = True
+    want = Engine(cfg, params, max_batch=2, max_len=16, page_size=4,
+                  backend=backend).run(trace)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert "length_cap" in {r.finish_reason for r in got}

@@ -429,12 +429,13 @@ def test_serve_planned_runs_with_full_coverage(artifacts, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--engine", "--speculate", "d.json"],
-                                  ["--kv-layout", "paged"],
+                                  ["--engine", "--fault-spec", "stuck@1:0"],
                                   ["--check-spec-parity"]])
 def test_serve_engine_flags_wait_for_slice_2(flag, artifacts, tmp_path):
-    """The engine flags of the paged layout and of the multi-plan features
-    raise NotImplementedError naming the roadmap item that brings them
-    (``--engine`` itself serves since the dense engine was ported)."""
+    """The engine flags of the multi-plan features raise
+    NotImplementedError naming the roadmap item that brings them
+    (``--engine`` serves since the dense engine was ported, and the paged
+    layout's flags since the paged engine was)."""
     from repro_torch.launch import serve
     good = tmp_path / "good.json"
     good.write_text(json.dumps(artifacts[0]))

@@ -1,6 +1,7 @@
 """The port's continuous-batching engine (``repro_torch.serving``, dense KV
-layout) against the JAX package's ``repro.serving`` on the same numpy
-inputs.
+layout, passed as ``kv_layout="dense"``: the default is paged, whose tests
+are in ``test_torch_paged.py``) against the JAX package's
+``repro.serving`` on the same numpy inputs.
 
 Mechanics with no model: queue, scheduler (all three policies), batch
 state, request validation, traces and ``summarize`` give what the JAX
@@ -314,7 +315,7 @@ def _run_both(jcfg, cfg, jparams, params, jbackend, backend, mk, **kw):
     jreqs, treqs = _both(mk)
     jeng = js.Engine(jcfg, jparams, kv_layout="dense", backend=jbackend,
                      **kw)
-    teng = ts.Engine(cfg, params, backend=backend, **kw)
+    teng = ts.Engine(cfg, params, kv_layout="dense", backend=backend, **kw)
     return jeng.run(jreqs), jeng.stats, teng.run(treqs), teng.stats
 
 
@@ -352,16 +353,16 @@ def test_engine_matches_jax_dense_engine(planned, tmp_path):
 
 @pytest.mark.parametrize("planned", [False, True], ids=["fp", "diana"])
 def test_engine_matches_its_own_serve_batch(planned, tmp_path):
-    """Each request's engine tokens equal the port's fixed-batch loop
-    serving it alone (B = 1, the same cache length)."""
+    """Each request's dense-engine tokens equal the port's serve_batch
+    serving it alone (B = 1, through the paged engine)."""
     _, cfg, _, params, _, backend = _model(planned, tmp_path)
     reqs = _mixed(ts.Request, cfg.vocab, seed=5)
-    eng = ts.Engine(cfg, params, max_batch=3, max_len=20, backend=backend)
+    eng = ts.Engine(cfg, params, max_batch=3, max_len=20, backend=backend,
+                    kv_layout="dense")
     for r, res in zip(reqs, eng.run(reqs)):
         gen, _ = serve.serve_batch(cfg, params,
                                    torch.from_numpy(r.prompt).long()[None],
-                                   r.max_new_tokens, backend=backend,
-                                   max_len=20)
+                                   r.max_new_tokens, backend=backend)
         assert res.tokens == gen[0].tolist(), r.rid
 
 
@@ -381,7 +382,7 @@ def test_engine_static_policy_same_tokens_more_steps(tmp_path):
         jeng = js.Engine(jcfg, jparams, kv_layout="dense", max_batch=2,
                          max_len=20, scheduler=js.Scheduler(policy))
         teng = ts.Engine(cfg, params, max_batch=2, max_len=20,
-                         scheduler=ts.Scheduler(policy))
+                         scheduler=ts.Scheduler(policy), kv_layout="dense")
         tres = teng.run(treqs)
         _assert_same_run(jeng.run(jreqs), jeng.stats, tres, teng.stats)
         runs[policy] = (tres, teng.stats)
@@ -403,7 +404,7 @@ def test_engine_deadline_policy_matches_jax(tmp_path):
     jeng = js.Engine(jcfg, jparams, kv_layout="dense", max_batch=2,
                      max_len=20, scheduler=js.Scheduler("deadline"))
     teng = ts.Engine(cfg, params, max_batch=2, max_len=20,
-                     scheduler=ts.Scheduler("deadline"))
+                     scheduler=ts.Scheduler("deadline"), kv_layout="dense")
     tres = teng.run(treqs)
     _assert_same_run(jeng.run(jreqs), jeng.stats, tres, teng.stats)
     assert [r.rid for r in sorted(tres, key=lambda r: r.admitted_step)][:2] \
@@ -422,7 +423,8 @@ def test_engine_retirement_and_admission(tmp_path):
     jcfg, cfg, jparams, params, _, _ = _model(False, tmp_path)
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in (4, 5, 14, 3, 3)]
-    probe = ts.Engine(cfg, params, max_batch=1, max_len=16).run(
+    probe = ts.Engine(cfg, params, max_batch=1, max_len=16,
+                      kv_layout="dense").run(
         [ts.Request(rid="p", prompt=prompts[1], max_new_tokens=6)])[0]
     later = [t for t in probe.tokens[1:] if t != probe.tokens[0]]
     assert later, probe.tokens
@@ -462,7 +464,7 @@ def test_decode_inputs_keep_inactive_writes_in_range():
     length."""
     cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
     params = T.init_lm(torch.Generator().manual_seed(0), cfg)
-    eng = ts.Engine(cfg, params, max_batch=3, max_len=8)
+    eng = ts.Engine(cfg, params, max_batch=3, max_len=8, kv_layout="dense")
     bs = ts.BatchState(3, caches=None)
     bs.assign(0, _req("a", plen=5), 7, 0.0, 0.0, 0)
     bs.assign(1, _req("b", plen=7), 9, 0.0, 0.0, 0)
@@ -481,7 +483,8 @@ def test_engine_rejects_oversized_prompt():
     params = T.init_lm(torch.Generator().manual_seed(0), cfg)
     jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
     with pytest.raises(ValueError, match="max_len") as got:
-        ts.Engine(cfg, params, max_batch=1, max_len=8).run(
+        ts.Engine(cfg, params, max_batch=1, max_len=8,
+                  kv_layout="dense").run(
             [ts.Request(rid=0, prompt=np.zeros(8, np.int32),
                         max_new_tokens=2)])
     with pytest.raises(ValueError, match="max_len") as want:
@@ -493,14 +496,14 @@ def test_engine_rejects_oversized_prompt():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_layout="paged"), "item 4"), (dict(page_size=16), "item 4"),
-    (dict(num_pages=8), "item 4"), (dict(prefill_chunk=8), "item 4"),
-    (dict(prefix_cache=False), "item 4"), (dict(page_watermark=0.5),
-                                           "item 4"),
     (dict(speculate=("draft", "target")), "item 5"),
+    (dict(draft_k=4), "item 5"),
     (dict(slo_routes={"a": "draft"}), "item 5"),
     (dict(degrade_to="draft", ttft_target_s=0.1), "item 5"),
+    (dict(degrade_window=8), "item 5"),
+    (dict(degrade_recover_frac=0.7), "item 5"),
     (dict(injector=object()), "item 5"),
+    (dict(heartbeat_steps=32), "item 5"),
 ])
 def test_engine_unported_arguments_raise(kw, item):
     cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
@@ -662,7 +665,7 @@ def test_engine_sampling_is_seed_deterministic_and_batch_independent(
 
     def run(seed, max_batch):
         eng = ts.Engine(cfg, params, max_batch=max_batch, max_len=20,
-                        backend=backend,
+                        backend=backend, kv_layout="dense",
                         sampling=ts.SamplingParams(temperature=1.5,
                                                    top_p=0.9, seed=seed))
         return [r.tokens for r in eng.run(reqs)]
@@ -671,7 +674,7 @@ def test_engine_sampling_is_seed_deterministic_and_batch_independent(
     assert run(4, 3) != first
     assert run(3, 1) == first
     greedy = ts.Engine(cfg, params, max_batch=3, max_len=20,
-                       backend=backend).run(reqs)
+                       backend=backend, kv_layout="dense").run(reqs)
     assert [r.tokens for r in greedy] != first
 
 
@@ -717,17 +720,17 @@ def test_serve_cli_engine_takes_its_robustness_and_sampling_flags(capsys):
         "--kv-layout", "dense"])
     out = capsys.readouterr().out
     assert summ["requests"] == 4 and summ["shed"] >= 1
-    assert "[serve] robustness: sheds=" in out and "SHED (queue_depth)" in out
+    assert "[serve] robustness: preemptions=0 resumes=0 sheds=" in out
+    assert "SHED (queue_depth)" in out
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--kv-layout", "paged"], "item 4"), (["--page-size", "8"], "item 4"),
-    (["--shared-prefix", "4"], "item 4"),
-    (["--page-watermark", "0.5"], "item 4"),
     (["--speculate", "d.json"], "item 5"), (["--slo-variant", "a=m.json"],
                                             "item 5"),
+    (["--draft-k", "2"], "item 5"), (["--check-spec-parity"], "item 5"),
     (["--fault-spec", "stuck@1:0"], "item 5"),
-    (["--check-preempt-parity"], "item 5"),
+    (["--degrade-to", "a"], "item 5"), (["--ttft-target-s", "0.5"],
+                                        "item 5"),
     (["--mapping-fallback"], "Queue 3")])
 def test_serve_cli_unported_engine_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
