@@ -187,7 +187,24 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    decode steps x ms/step, kv_peak_bytes against kv_capacity_bytes, peak
    GiB; engine_paged_mixed also profiled: idle share), printed beside the
    dense leg of this run.
-8. one JSON line of kernel records, the nvidia-smi line, and the contract
+8. cnn: the paper's CNNs at full width (`CNN_LEGS`: resnet20 at batch 1
+   and 256, resnet18 at 256 and mobilenetv1_025 at 256, on ``diana``;
+   resnet20 and mobilenetv1_025 also on ``gpu_tc_like``), random weights
+   from --seed, through `launch.serve.serve_cnn`'s path: the artifact
+   emitted with the model's plan hints, lowered and bound at full
+   coverage, conv layers im2col'd onto the planned kernels (mobilenet's
+   depthwise convs zero-embedded, K and N held padded).  Each leg: one
+   forward with the launch counts reset just before and read just after
+   (= the JAX lowering's histogram, `CNN_HIST`), 0 weight copies, every
+   kernel call held against its plain version on its own inputs as it is
+   made (bit for bit); logits finite and bit-identical to the plain run's
+   (``reference=True``); the distance to the unplanned fp forward
+   (F.conv2d) printed, not gated; each kernel's recorded calls of the
+   forward replayed as one CUDA graph (device ms per forward, ROUNDS
+   rounds) beside their summed bound; CNN_WARM warm forwards (median and
+   range, img/s, peak GiB) and a profiled one (device busy, idle share),
+   on ``[cnn:<model>:<platform>:B<n>]`` lines beside the nvidia-smi line.
+9. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -313,6 +330,31 @@ ENGINE_PAGED_PREFIX = dict(requests=8, min_prompt=64, max_prompt=256,
                            min_new=4, max_new=16, shared_prefix=512,
                            max_batch=4, max_len=1024, kv_layout="paged")
 ENGINE_PAGED_LONG = dict(ENGINE_LONG, kv_layout="paged", prefill_chunk=512)
+#: the CNN phase (phase 8): the paper's CNNs (Sec. IV-A) at full width,
+#: random weights from --seed, served as `launch.serve.serve_cnn` serves
+#: them: (model, platform, batch); batch 1 is the edge latency case, 256 a
+#: batch of CIFAR-10 (32 x 32), Tiny-ImageNet (64 x 64) or VWW (96 x 96)
+#: images
+CNN_LEGS = [("resnet20", "diana", 1), ("resnet20", "diana", 256),
+            ("resnet20", "gpu_tc_like", 1), ("resnet20", "gpu_tc_like", 256),
+            ("resnet18", "diana", 256), ("mobilenetv1_025", "diana", 256),
+            ("mobilenetv1_025", "gpu_tc_like", 256)]
+#: the JAX package's lowering of each CNN artifact (emitted with the
+#: model's plan hints): planned layers per kernel, one launch each per
+#: forward
+CNN_HIST = {
+    ("resnet20", "diana"): {"ternary_matmul": 19, "split_ternary": 3},
+    ("resnet20", "gpu_tc_like"): {"split_precision": 22},
+    ("resnet18", "diana"): {"ternary_matmul": 20, "split_ternary": 1},
+    ("mobilenetv1_025", "diana"): {"quant_matmul": 15, "ternary_matmul": 5,
+                                   "split_ternary": 8},
+    ("mobilenetv1_025", "gpu_tc_like"): {"quant_matmul": 14,
+                                         "split_precision": 14},
+}
+#: the int8 kernels a CNN path runs, and its timed warm forwards
+CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
+               "split_precision")
+CNN_WARM = 5
 #: the paged_update call (0-based, 96 per forward: k and v of 48 layers)
 #: whose inputs each paged leg holds against the CPU: layer 5's k in the
 #: third forward
@@ -2580,6 +2622,244 @@ def phase_paged(torch, cfg, params, seed, smi, refs, dense):
     return out
 
 
+def checking_cnn_calls(torch, calls):
+    """Context: every call of the four int8 ops is held against its plain
+    version on its own inputs as it is made -- bit for bit, and
+    split_precision's bf16 columns (where the boundary leaves any) within
+    the summation bound -- and kept in ``calls[kernel]`` as (args, kw) for
+    the timing.  The kernels launch as before; the plain versions launch
+    nothing."""
+    import contextlib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_matmul import quant_matmul_plain
+    from repro_torch.kernels.split_ternary import split_ternary_plain
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_plain
+
+    def split_plain(x, w_q, w_p, sx, sw, boundary, bn=128):
+        n = w_q.shape[1]
+        b_al = min(ops.align_boundary(boundary, ops.block_n(bn, n)), n)
+        return split_ternary_plain(x, w_q, w_p, sx, sw, b_al)
+    plains = {"quant_matmul": quant_matmul_plain,
+              "ternary_matmul": ternary_matmul_plain,
+              "split_ternary": split_plain}
+
+    def checking(kernel, orig):
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            calls[kernel].append((args, kw))
+            if kernel == "split_precision":
+                check_split_precision_calls(torch, [(args, kw, out)])
+                return out
+            want = plains[kernel](*args, **kw)
+            if not torch.equal(out, want):
+                raise AssertionError(
+                    f"{kernel} call {len(calls[kernel]) - 1} (M "
+                    f"{args[0].shape[0]}): max |err| "
+                    f"{float((out - want).abs().max())} against the plain "
+                    f"version")
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        origs = {k: getattr(ops, f"{k}_op") for k in CNN_KERNELS}
+        for k in CNN_KERNELS:
+            calls[k] = []
+            setattr(ops, f"{k}_op", checking(k, origs[k]))
+        try:
+            yield
+        finally:
+            for k in CNN_KERNELS:
+                setattr(ops, f"{k}_op", origs[k])
+    return ctx()
+
+
+def cnn_call_bound(kernel, args, kw):
+    """(bound ms, what bounds it) of one recorded int8 op call of a CNN
+    forward, at its padded (M, K, N): the bytes of the weights it reads
+    (int8 codes; split_ternary's packed stream above the aligned
+    boundary, split_precision's bf16 weight above it)."""
+    from repro_torch.kernels import ops
+    if kernel == "split_precision":
+        x, x_q, sx, w_b, w_q, sw, raw = args
+    else:
+        x_q, w_q = args[0], args[1]
+        raw = args[5] if kernel == "split_ternary" else None
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if raw is None:
+        return bound_ms(m, k, n, k * n)
+    b_al = min(ops.align_boundary(raw, ops.block_n(kw.get("bn", 128), n)),
+               n)
+    if kernel == "split_ternary":
+        return bound_ms(m, k, n, k * b_al + (k // 4) * (n - b_al))
+    return bound_ms(m, k, n, k * b_al + 2 * k * (n - b_al), int8_cols=b_al,
+                    bf16_cols=n - b_al)
+
+
+def cnn_kernel_times(torch, calls):
+    """{kernel: record} of one CNN forward: the device ms of the recorded
+    calls of each kernel replayed as one CUDA graph (median and range of
+    ROUNDS rounds, interleaved across the kernels), beside the summed bound
+    of the calls."""
+    from repro_torch.kernels import ops
+    fns = {}
+    for kernel, recorded in calls.items():
+        if recorded:
+            op = getattr(ops, f"{kernel}_op")
+            fns[kernel] = (lambda op=op, recorded=recorded:
+                           [op(*a, **kw) for a, kw in recorded])
+    rounds = graph_rounds(fns, 1)
+    out = {}
+    for kernel, xs in rounds.items():
+        rec = {"calls": len(calls[kernel])}
+        spread(rec, "ms", xs)
+        bounds = [cnn_call_bound(kernel, a, kw) for a, kw in calls[kernel]]
+        rec["bound_ms"] = sum(b for b, _ in bounds)
+        by_bytes = sum(b for b, what in bounds if what == "bytes")
+        rec["bound_by"] = ("bytes" if by_bytes >= rec["bound_ms"] / 2
+                           else "operations")
+        out[kernel] = rec
+    return out
+
+
+def phase_cnn(torch, seed, smi, device="cuda"):
+    """The paper's CNNs served on the card (`CNN_LEGS`): each leg emits
+    the (model, platform) artifact with the model's plan hints, lowers
+    and binds it at full coverage, and runs one forward with the kernels
+    on ``batch`` random images of the model's size (launch counts = the
+    JAX lowering's histogram; 0 weight copies; every kernel call held
+    against its plain version on its own inputs), then the plain versions
+    (``reference=True``; logits bit-identical) and the unplanned fp
+    forward (its distance printed, not gated); then the recorded calls'
+    device times against their bounds, CNN_WARM timed warm forwards
+    (median, range, img/s, peak GiB) and a profiled one (device busy,
+    idle share).  Returns {leg: record}."""
+    from repro_torch.launch.serve import (check_coverage,
+                                          plan_mapping_execution)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import cnn as C
+    from repro_torch.models import managed as mg
+    dev = torch.device(device)
+    out, models = {}, {}
+    for name, platform, batch in CNN_LEGS:
+        tag = f"cnn:{name}:{platform}:B{batch}"
+        cfg = C.get_config(name)
+        init_fn, apply_fn, _ = C.get_model(cfg)
+        if name not in models:
+            models.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            models[name] = (init_fn(gen, cfg), gen, {})
+        params, gen, images = models[name]
+        if batch not in images:
+            images[batch] = torch.randn((batch, *cfg.img_hw, cfg.in_ch),
+                                        generator=gen, device=dev)
+        x = images[batch]
+        t0 = time.perf_counter()
+        art = emit_static_mapping(
+            params, cfg, platform,
+            ROOT / "build" / "chip_smoke" / f"{name}_{platform}.json",
+            plan_hints=C.plan_hints(cfg))
+        plan, backend = plan_mapping_execution(params, art)
+        check_coverage(tag, backend, require_full=True)
+        hist = plan.kernel_histogram()
+        if hist != CNN_HIST[name, platform]:
+            raise AssertionError(f"{tag}: kernel histogram {hist}, the JAX "
+                                 f"lowering's {CNN_HIST[name, platform]}")
+        print(f"[{tag}] {sum(t.numel() for t in _leaves(params))} params, "
+              f"{len(plan.layers)} planned layers {hist}, "
+              f"{backend.coverage()} (map, lower and bind "
+              f"{time.perf_counter() - t0:.1f} s); {smi}")
+
+        calls = {}
+        reset_launches()
+        with checking_cnn_calls(torch, calls), \
+                mg.matmul_backend(backend):
+            logits = apply_fn(params, x, cfg)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        if launches != hist:
+            raise AssertionError(f"{tag}: launches {launches} per forward, "
+                                 f"expected {hist}")
+        check_no_weight_copies(tag)
+        if tuple(logits.shape) != (batch, cfg.n_classes) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: logits of shape "
+                                 f"{tuple(logits.shape)} or not finite")
+        if backend.runtime_declines:
+            raise AssertionError(f"{tag}: declined {backend.runtime_declines}")
+        backend.reference = True
+        with mg.matmul_backend(backend):
+            ref_logits = apply_fn(params, x, cfg)
+        backend.reference = False
+        if kernel_launches() != {k: hist.get(k, 0) for k in KERNELS}:
+            raise AssertionError(f"{tag}: the plain-version run launched a "
+                                 f"kernel")
+        if not torch.equal(logits, ref_logits):
+            raise AssertionError(
+                f"{tag}: kernel logits differ from the plain run's by "
+                f"{float((logits - ref_logits).abs().max())}")
+        fp_logits = apply_fn(params, x, cfg)
+        fp_diff = float((logits - fp_logits).abs().max())
+        fp_rel = float((logits - fp_logits).norm() /
+                       fp_logits.norm().clamp_min(1e-30))
+        print(f"[{tag}] launches per forward: " + " ".join(
+            f"{k} {v}" for k, v in sorted(launches.items())) +
+            f"; weights copied per call 0; {sum(map(len, calls.values()))} "
+            f"kernel calls bit-identical to their plain versions; logits "
+            f"{tuple(logits.shape)} bit-identical to the plain run's; "
+            f"unplanned fp forward (F.conv2d) max |diff| {fp_diff:.4g}, "
+            f"relative {fp_rel:.4g}")
+        del ref_logits, fp_logits
+
+        ktimes = cnn_kernel_times(torch, calls)
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kernel, rec in sorted(ktimes.items()):
+            print(f"[{tag}] {kernel}: {rec['calls']} calls per forward, "
+                  f"device {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
+                  f"{rec['max_ms']:.4f}) per forward, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+                  f"{rec['bound_ms'] / rec['ms']:.3f}")
+
+        def forward_ms():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with mg.matmul_backend(backend):
+                apply_fn(params, x, cfg)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+        forward_ms()
+        torch.cuda.reset_peak_memory_stats()
+        walls = [forward_ms() for _ in range(CNN_WARM)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec = {"batch": batch, "launches_per_forward": launches,
+               "kernels": ktimes, "peak_gib": peak,
+               "fp_max_abs_diff": fp_diff, "fp_rel_diff": fp_rel}
+        spread(rec, "forward_ms", walls)
+        rec["img_per_s"] = batch / rec["forward_ms"] * 1e3
+        print(f"[{tag}] warm forward {rec['forward_ms']:.3f} ms (median of "
+              f"{CNN_WARM}, {rec['forward_min_ms']:.3f}-"
+              f"{rec['forward_max_ms']:.3f}), {rec['img_per_s']:.1f} img/s, "
+              f"peak {peak:.3f} GiB; {smi}")
+        busy = profile_device(torch, tag, forward_ms)
+        rec["device_busy_ms"] = busy
+        rec["idle_share"] = 1.0 - busy / rec["forward_ms"]
+        print(f"[profile:{tag}] device busy {busy:.3f} ms of the warm "
+              f"forward's {rec['forward_ms']:.3f} ms: idle share "
+              f"{rec['idle_share']:.3f}")
+        check_no_weight_copies(tag)
+        out[tag] = rec
+        del plan, backend, logits
+    models.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2687,6 +2967,11 @@ def main(argv=None) -> int:
                                engine_recs))
     del refs
     mark("paged engine")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving.update(phase_cnn(torch, args.seed, smi))
+    mark("cnn")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

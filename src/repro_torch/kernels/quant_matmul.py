@@ -56,6 +56,11 @@ def quant_matmul_plain(x_q, w_q, sx, sw):
     return dequant(int_matmul_exact(x_q, w_q), sx, sw)
 
 
+#: the largest M, K or N a kernel takes: the launch passes them as C ints
+#: (ctypes would wrap a larger one), after padding K to 16 and N to 16
+DIM_MAX = 2**31 - 1 - 16
+
+
 def check_operands(x_q, w_q, sx, sw):
     """Device, dtype, shape and contiguity checks shared by the wrappers."""
     m, k = x_q.shape
@@ -66,7 +71,12 @@ def check_operands(x_q, w_q, sx, sw):
         raise TypeError(f"int8 operands expected, got {x_q.dtype} and "
                         f"{w_q.dtype}")
     check_epilogue(x_q, w_q, sx, sw)
-    return m, k, w_q.shape[1]
+    n = w_q.shape[1]
+    if max(m, k, n) > DIM_MAX:
+        raise ValueError(f"(M, K, N) = ({m}, {k}, {n}): the kernels take "
+                         f"each as a C int, at most {DIM_MAX} with its "
+                         f"padding")
+    return m, k, n
 
 
 def check_epilogue(x_q, w, sx, sw):

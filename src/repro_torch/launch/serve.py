@@ -6,10 +6,13 @@ With ``--mapping`` serve lowers the mapping artifact onto the model's
 weights (`repro_torch.runtime.lower`) and executes every projection the
 plan covers through its planned CUDA kernel via the name-keyed matmul
 backend (`repro_torch.runtime.PlannedBackend`).  An artifact that fails to
-lower or bind exits 2 -- there is no majority-dtype fall-back -- and
-``--require-full-coverage`` also exits 2 when any planned layer is left
-unbound.  The artifact's activation majority decides the KV-cache dtype
-(int8 when the majority domain's activations have at most 8 bits).
+lower or bind falls back to majority-dtype serving
+(`apply_mapping_artifact`: the searchable layers' majority domain picks
+the global weight and KV-cache dtypes), as ``--mapping-fallback`` does
+without trying; ``--require-full-coverage`` exits 2 instead, and also when
+any planned layer is left unbound or declined.  The artifact's activation
+majority decides the KV-cache dtype (int8 when the majority domain's
+activations have at most 8 bits).
 
 Every plan kernel executes on dense layers, so yi-9b serves with full
 coverage from an artifact of ``diana`` (quant_matmul + split_ternary),
@@ -38,12 +41,23 @@ paged one; ``--policy deadline --check-preempt-parity`` replays the trace
 FCFS and exits 2 unless every completed request's tokens match.  The
 flags of the multi-plan features raise NotImplementedError naming the
 roadmap item that brings them (`UNPORTED_FLAGS`).
+
+CNNs serve with the ``cnn:<config>`` arch (`repro_torch.models.cnn`):
+``--requests`` random images of the config's size go through one forward,
+every conv and dense layer the plan binds on its planned kernel (conv
+layers through im2col, grouped ones zero-embedded); ``--engine`` is
+refused, and an artifact that fails to lower or bind exits 2, as in the
+JAX package:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch cnn:resnet20 \
+        --requests 256 --mapping m.json --require-full-coverage
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
+import time
 
 import numpy as np
 import torch
@@ -59,9 +73,31 @@ UNPORTED_FLAGS = {
     "--check-spec-parity": PLANSET_ITEM, "--slo-variant": PLANSET_ITEM,
     "--fault-spec": PLANSET_ITEM, "--degrade-to": PLANSET_ITEM,
     "--ttft-target-s": PLANSET_ITEM,
-    "--mapping-fallback": ("ROADMAP.md Queue 3 (no majority-dtype "
-                           "fall-back, by choice)"),
 }
+
+
+def majority_domain(artifact) -> dict:
+    """The domain holding most channels of the artifact's searchable layers
+    (pinned layers never had a choice; all layers vote when none is
+    searchable)."""
+    fractions = artifact.domain_channel_fractions(searchable_only=True)
+    return artifact.domains[int(np.argmax(fractions))]
+
+
+def apply_mapping_artifact(cfg, artifact):
+    """The fall-back consumer: GLOBAL serving dtypes from the artifact's
+    `majority_domain`.  A <= 8-bit majority serves int8 projections
+    (``serve_weight_dtype``), an <= 8-bit activation majority also an int8
+    KV cache.  Returns (cfg, majority domain dict)."""
+    dom = majority_domain(artifact)
+    updates = {}
+    if dom["weight_bits"] <= 8:
+        updates["serve_weight_dtype"] = "int8"
+    if dom.get("act_bits", 16) <= 8:
+        updates["kv_cache_dtype"] = "int8"
+    if updates:
+        cfg = dataclasses.replace(cfg, **updates)
+    return cfg, dom
 
 
 def plan_mapping_execution(params, artifact):
@@ -89,11 +125,16 @@ def print_plan_coverage(tag, plan, backend):
 
 
 def check_coverage(tag, backend, require_full: bool):
-    """Exit 2 when ``require_full`` and any planned layer is unbound."""
-    if require_full and backend.unbound:
+    """Print the call sites the backend declined; exit 2 when
+    ``require_full`` and any planned layer is unbound or declined."""
+    declines = backend.runtime_declines
+    for name, reason in sorted(declines.items()):
+        print(f"[{tag}] declined at run time: {name}: {reason}")
+    problems = list(backend.unbound) + sorted(declines)
+    if require_full and problems:
         print(f"[{tag}] ERROR: --require-full-coverage but "
-              f"{len(backend.unbound)} planned layers did not bind: "
-              f"{backend.unbound}", file=sys.stderr)
+              f"{len(problems)} planned layers did not execute as mapped: "
+              f"{problems}", file=sys.stderr)
         sys.exit(2)
 
 
@@ -121,9 +162,7 @@ def serve_batch(cfg, params, prompts, gen_len: int, backend=None):
 
 def kv_cache_for(cfg, art):
     """The KV-cache dtype the artifact's activation majority asks for."""
-    fractions = art.domain_channel_fractions(searchable_only=True)
-    dom = art.domains[int(np.argmax(fractions))]
-    if dom.get("act_bits", 16) <= 8:
+    if majority_domain(art).get("act_bits", 16) <= 8:
         return dataclasses.replace(cfg, kv_cache_dtype="int8")
     return cfg
 
@@ -254,6 +293,54 @@ def serve_engine(args, cfg, params, backend=None):
     return results, summ
 
 
+def serve_cnn(args, cnn_name: str):
+    """Batch inference of a CNN (``--arch cnn:<config>``): ``--requests``
+    images of the config's size through one forward, with ``--mapping``
+    every bound conv / dense layer on its planned kernel.  Returns (logits,
+    {"forward_s"})."""
+    from repro_torch.models import cnn as C
+    from repro_torch.models import managed as mg
+    cfg = C.get_config(cnn_name)
+    init_fn, apply_fn, _ = C.get_model(cfg)
+    dev = torch.device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_fn(gen, cfg)
+
+    backend = None
+    if args.mapping:
+        from repro_torch.api import MappingArtifact
+        from repro_torch.runtime import ExecutionError, LoweringError
+        art = MappingArtifact.load(args.mapping)
+        try:
+            plan, backend = plan_mapping_execution(params, art)
+        except (LoweringError, ExecutionError) as e:
+            print(f"[serve] ERROR: mapping {args.mapping} failed to "
+                  f"lower/bind: {e}", file=sys.stderr)
+            sys.exit(2)
+        print(f"[serve] mapping {args.mapping}: model={art.model} "
+              f"platform={art.platform}")
+        print_plan_coverage("serve", plan, backend)
+
+    x = torch.randn((args.requests, *cfg.img_hw, cfg.in_ch), generator=gen,
+                    device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with mg.matmul_backend(backend):
+        sync()
+        t0 = time.perf_counter()
+        logits = apply_fn(params, x, cfg)
+        sync()
+        dt = time.perf_counter() - t0
+    if tuple(logits.shape) != (args.requests, cfg.n_classes) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: logits of shape "
+                             f"{tuple(logits.shape)} or not finite")
+    if backend is not None:
+        check_coverage("serve", backend, args.require_full_coverage)
+    print(f"[serve] {cfg.name} on {dev}: {args.requests} images in "
+          f"{dt * 1e3:.1f} ms ({args.requests / max(dt, 1e-9):.1f} img/s)")
+    return logits, {"forward_s": dt}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="yi-9b")
@@ -268,8 +355,12 @@ def main(argv=None):
     ap.add_argument("--mapping", default=None,
                     help="mapping artifact JSON; lowered to an execution "
                          "plan and run through the planned kernels")
+    ap.add_argument("--mapping-fallback", action="store_true",
+                    help="skip plan lowering and serve with the "
+                         "artifact's majority-domain dtypes")
     ap.add_argument("--require-full-coverage", action="store_true",
-                    help="exit 2 unless every planned layer binds")
+                    help="exit 2 unless every planned layer binds and "
+                         "executes as mapped")
     ap.add_argument("--engine", action="store_true",
                     help="serve through the continuous-batching engine "
                          "(repro_torch.serving): mixed-length trace replay "
@@ -358,6 +449,11 @@ def main(argv=None):
         ap.error("--check-preempt-parity needs --policy deadline")
     if args.require_full_coverage and not args.mapping:
         ap.error("--require-full-coverage needs --mapping")
+    if args.arch.startswith("cnn:"):
+        if args.engine:
+            ap.error("--engine is a decode-loop mode; CNNs have no KV cache "
+                     "to batch continuously")
+        return serve_cnn(args, args.arch.split(":", 1)[1])
 
     cfgbase.load_all()
     cfg = cfgbase.get(args.arch)
@@ -372,17 +468,28 @@ def main(argv=None):
     if args.mapping:
         from repro_torch.api import MappingArtifact
         art = MappingArtifact.load(args.mapping)
-        try:
-            plan, backend = plan_mapping_execution(params, art)
-        except (LoweringError, ExecutionError) as e:
-            print(f"[serve] ERROR: mapping {args.mapping} failed to "
-                  f"lower/bind: {e}", file=sys.stderr)
-            sys.exit(2)
-        cfg = kv_cache_for(cfg, art)
-        print(f"[serve] mapping {args.mapping}: model={art.model} "
-              f"platform={art.platform} kv={cfg.kv_cache_dtype}")
-        print_plan_coverage("serve", plan, backend)
-        check_coverage("serve", backend, args.require_full_coverage)
+        if not args.mapping_fallback:
+            try:
+                plan, backend = plan_mapping_execution(params, art)
+            except (LoweringError, ExecutionError) as e:
+                print(f"[serve] mapping {args.mapping} failed to lower/bind "
+                      f"({e}); falling back to majority-dtype serving")
+        if backend is not None:
+            cfg = kv_cache_for(cfg, art)
+            print(f"[serve] mapping {args.mapping}: model={art.model} "
+                  f"platform={art.platform} kv={cfg.kv_cache_dtype}")
+            print_plan_coverage("serve", plan, backend)
+            check_coverage("serve", backend, args.require_full_coverage)
+        else:
+            cfg, dom = apply_mapping_artifact(cfg, art)
+            print(f"[serve] mapping {args.mapping}: model={art.model} "
+                  f"platform={art.platform} FALLBACK majority domain="
+                  f"{dom['name']} -> weights={cfg.serve_weight_dtype} "
+                  f"kv={cfg.kv_cache_dtype}")
+            if args.require_full_coverage:
+                print("[serve] ERROR: --require-full-coverage but no "
+                      "execution plan could be bound", file=sys.stderr)
+                sys.exit(2)
 
     if args.engine:
         try:

@@ -29,7 +29,7 @@ def _flatten_with_path(tree, path=()) -> Iterator[Tuple[List[str], object]]:
 
 def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
                         stacked_prefixes=("units", "enc_units"),
-                        act_log_scale=None, bias=None):
+                        plan_hints=None, act_log_scale=None, bias=None):
     """Write a schema-v2 mapping artifact for the model's projection
     weights: per-layer min-cost static channel split (paper Sec. IV
     baselines) under the named platform's cost model, with max-abs weight
@@ -38,10 +38,17 @@ def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
     Layer names are params paths in flatten order.  2-D ``(C_in, C_out)``
     weights give one layer each; 3-D ``(R, C_in, C_out)`` stacked weights
     under a ``stacked_prefixes`` subtree give one layer PER REPEAT, named
-    ``path@r`` with that repeat's own scale.  Layers wider than
-    ``max_cout`` output channels are pinned to domain 0 (the exhaustive
-    split search is O(C_out) cost evaluations).  ``act_log_scale`` pins a
-    static activation scale on every layer (None: dynamic per call).
+    ``path@r`` with that repeat's own scale; 4-D ``(kh, kw, C_in, C_out)``
+    HWIO conv weights give one layer each, which executes through im2col.
+    ``plan_hints`` -- ``{name: (LayerGeometry, searchable)}`` from a
+    model's ``plan()`` -- gives the cost model's true geometry (output map,
+    groups) and searchability of the 2-D and 4-D layers it names; a grouped
+    conv is emitted with its group count.  Without a hint a conv's geometry
+    is the weight's shape alone (output map 1 x 1, groups 1).  Layers wider
+    than ``max_cout`` output channels are pinned to domain 0 (the
+    exhaustive split search is O(C_out) cost evaluations).
+    ``act_log_scale`` pins a static activation scale on every layer (None:
+    dynamic per call).
 
     ``bias=(domain_name, fraction)`` overrides the min-cost split of every
     searchable layer: its first ``round(fraction * C_out)`` channels go to
@@ -52,6 +59,7 @@ def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
     plat = Platform.get(platform)
     cm, spec = plat.cost_model(), plat.spec()
     names, geoms, searchable, scales = [], [], [], []
+    plan_hints = plan_hints or {}
 
     def w_scale(w):
         ls = float(quant.init_log_scale(w))
@@ -65,11 +73,14 @@ def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
             continue
         parts = parts[:-1]
         name = "/".join(parts)
+        hint = plan_hints.get(name)
         if leaf.dim() == 2:
             names.append(name)
-            geoms.append(LayerGeometry(c_in=leaf.shape[0],
+            geoms.append(hint[0] if hint else
+                         LayerGeometry(c_in=leaf.shape[0],
                                        c_out=leaf.shape[1]))
-            searchable.append(leaf.shape[1] <= max_cout)
+            searchable.append((hint[1] if hint else True) and
+                              leaf.shape[1] <= max_cout)
             scales.append(w_scale(leaf))
         elif leaf.dim() == 3 and parts and parts[0] in stacked_prefixes:
             for r in range(leaf.shape[0]):
@@ -78,6 +89,14 @@ def emit_static_mapping(params, cfg, platform, out_path, max_cout=512,
                                            c_out=leaf.shape[2]))
                 searchable.append(leaf.shape[2] <= max_cout)
                 scales.append(w_scale(leaf[r]))
+        elif leaf.dim() == 4:
+            kh, kw, ci, co = leaf.shape
+            names.append(name)
+            geoms.append(hint[0] if hint else
+                         LayerGeometry(c_in=ci, c_out=co, fx=kw, fy=kh))
+            searchable.append((hint[1] if hint else True) and
+                              co <= max_cout)
+            scales.append(w_scale(leaf))
     assigns = baselines.min_cost(cm, geoms, "latency", searchable)
     if bias is not None:
         dom_name, frac = bias

@@ -1,11 +1,15 @@
 """Pluggable matmul backend shared by every dense primitive of the port
 (``repro.models._backend`` counterpart).
 
-A backend is any callable ``backend(name, p, x) -> y | None``: ``name`` is
-the layer's params path (``"units/0/attn/wq"``, ``"head"``), ``p`` the dense
-param dict and ``x`` the input.  Returning ``None`` declines the call and
-the primitive runs its default path; call sites that cannot name their
-layer pass ``name=None``, which backends must decline.
+A backend is any callable ``backend(name, p, x, **meta) -> y | None``:
+``name`` is the layer's params path (``"units/0/attn/wq"``, ``"head"``,
+``"blocks/3/c1"``), ``p`` the dense or conv param dict and ``x`` the
+input.  Conv call sites (`repro_torch.models.managed.conv2d` /
+``conv2d_linear``) pass ``conv={"stride", "padding", "groups"}``, so a
+planned backend can im2col the NHWC input; dense call sites pass nothing.
+Returning ``None`` declines the call and the primitive runs its default
+path; call sites that cannot name their layer pass ``name=None``, which
+backends must decline.
 
 Stacked layers: weights stacked on a leading repeat axis R (the JAX
 package's scan stacks; `repro_torch.models.transformer.backbone` loops

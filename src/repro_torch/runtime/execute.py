@@ -13,16 +13,26 @@ tensors on the card, its plain version for tensors on the CPU -- or, with
 ``reference=True``, the oracles of `kernels.ref`; outputs come back in the
 original channel order.
 
+Both 2-D dense weights and 4-D HWIO conv weights bind: a conv weight is
+flattened to ``(kh*kw*C_in, C_out)`` and runs through
+`execute_conv_layer`, which im2cols the NHWC input onto the same kernels;
+a grouped (depthwise) conv weight is first zero-embedded into its
+block-diagonal full form (`_expand_grouped`).  The prepared weights hold K
+zero-padded to the kernels' `K_ALIGN` (and the split kernels' N to their
+16-column alignment), so that no call copies a weight: the im2col patches
+come out with the padded width, and the padded output columns fall away
+with the inverse permutation.
+
 `PlannedBackend` binds a plan to a params dict by layer name and serves the
-name-keyed matmul-backend protocol of `repro_torch.models._backend`.
-Stacked ``base@r`` layers bind to a list of per-repeat prepared layers,
-indexed by the repeat the model's layer loop publishes.
+name-keyed matmul-backend protocol of `repro_torch.models._backend`
+(``backend(name, p, x, conv=None)``).  Stacked ``base@r`` layers bind to a
+list of per-repeat prepared layers, indexed by the repeat the model's
+layer loop publishes.
 
 Every plan kernel executes: ``quant_matmul``, ``ternary_matmul`` and
 ``split_ternary`` (the DIANA plans), ``split_precision`` (int8 + identity
-platforms such as ``gpu_tc_like``) and the ``fp`` identity, on 2-D dense
-weights.  Conv and grouped layers and multi-variant banks (``PlanSet``)
-wait for later slices; conv and grouped layers are refused at bind time.
+platforms such as ``gpu_tc_like``) and the ``fp`` identity.  Multi-variant
+banks (``PlanSet``) wait for a later slice.
 """
 from __future__ import annotations
 
@@ -31,16 +41,21 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.quant_matmul import _pad_to
-from repro_torch.kernels.ternary_packed import pack_ternary
+from repro_torch.kernels.quant_matmul import DECODE_M, K_ALIGN, _pad_to
+from repro_torch.kernels.ternary_packed import n_align, pack_ternary
 from repro_torch.models import _backend
 from repro_torch.runtime.lower import _layer_weight, _walk_path
 from repro_torch.runtime.plan import (KERNEL_FP, KERNEL_QUANT, KERNEL_SPLIT,
                                       KERNEL_SPLIT_TERNARY, KERNEL_TERNARY,
                                       ExecutionPlan, LayerPlan)
+
+#: the N alignment the split kernels take at every M (their wgmma GEMM's;
+#: the decode GEMM's 4 divides it)
+SPLIT_N_ALIGN = n_align(DECODE_M + 1)
 
 
 class ExecutionError(RuntimeError):
@@ -49,7 +64,9 @@ class ExecutionError(RuntimeError):
 
 @dataclasses.dataclass
 class PreparedLayer:
-    """A `LayerPlan` bound to concrete tensors, ready to execute."""
+    """A `LayerPlan` bound to concrete tensors, ready to execute.  Every
+    weight tensor holds ``k_pad`` rows (K zero-padded to `K_ALIGN`); the
+    split kernels' also hold their N zero-padded to `SPLIT_N_ALIGN`."""
     plan: LayerPlan
     inv: torch.Tensor                    # inverse channel permutation
     w_perm: torch.Tensor | None          # permuted weight (fp kernel only)
@@ -62,6 +79,13 @@ class PreparedLayer:
     act_sx: torch.Tensor | None = None       # activation step, f32
     boundary: int = 0                    # raw split boundary
     bn: int = 128                        # N-block the boundary aligns to
+    conv_shape: Tuple[int, ...] | None = None  # HWIO shape of a conv weight
+    k_in: int = 0                        # input features (kh*kw*C_in)
+    k_pad: int = 0                       # k_in padded to K_ALIGN
+
+    @property
+    def conv_groups(self) -> int:
+        return self.plan.groups
 
 
 def _quant_domain(lp: LayerPlan, domain_bits: List[int]) -> int:
@@ -112,32 +136,71 @@ def _pack_ternary_stream(lp: LayerPlan, w_q: torch.Tensor) -> torch.Tensor:
     return pack_ternary(_pad_to(w_t, 4, 0))
 
 
+def _expand_grouped(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Zero-embed a grouped conv weight ``(kh, kw, C_in/G, C_out)`` into the
+    block-diagonal full matrix ``(kh, kw, C_in, C_out)``: input-channel
+    block g only reaches output-channel block g (XLA's
+    ``feature_group_count`` semantics), every other entry is exactly zero,
+    which quantizes to code 0 in every domain."""
+    kh, kw, cpg, c_out = (int(s) for s in w.shape)
+    if c_out % groups:
+        raise ExecutionError(f"{c_out} output channels do not divide into "
+                             f"{groups} conv groups")
+    opg = c_out // groups
+    full = w.new_zeros((kh, kw, groups, cpg, groups, opg))
+    g = torch.arange(groups, device=w.device)
+    # (groups, kh, kw, cpg, opg) onto the diagonal blocks
+    full[:, :, g, :, g, :] = w.reshape(kh, kw, cpg, groups, opg).permute(
+        3, 0, 1, 2, 4)
+    return full.reshape(kh, kw, groups * cpg, c_out)
+
+
 def prepare_layer(lp: LayerPlan, w, b=None,
                   domain_bits: List[int] | None = None,
                   block_n: int = 128) -> PreparedLayer:
-    """Bind ``lp`` to a 2-D ``(C_in, C_out)`` weight (+ optional bias);
-    every plan kernel binds (`LayerPlan` admits no other)."""
-    if getattr(w, "ndim", 0) != 2 or lp.groups > 1:
-        raise ExecutionError(f"{lp.name}: conv weights and grouped layers "
-                             f"wait for a later slice of the port (weight "
-                             f"shape {tuple(getattr(w, 'shape', ()))}, "
-                             f"groups={lp.groups})")
+    """Bind ``lp`` to a 2-D ``(C_in, C_out)`` dense weight or a 4-D
+    ``(kh, kw, C_in, C_out)`` HWIO conv weight (+ optional bias); a plan
+    with ``groups > 1`` binds a grouped conv weight ``(kh, kw, C_in/G,
+    C_out)``, zero-embedded block-diagonally (`_expand_grouped`).  Every
+    plan kernel binds (`LayerPlan` admits no other)."""
+    ndim = getattr(w, "ndim", 0)
+    if ndim not in (2, 4):
+        raise ExecutionError(f"{lp.name}: planned execution covers 2-D "
+                             f"(dense) and 4-D (HWIO conv) weights, got "
+                             f"shape {tuple(getattr(w, 'shape', ()))}")
     if int(w.shape[-1]) != lp.c_out:
         raise ExecutionError(f"{lp.name}: weight has {int(w.shape[-1])} "
                              f"output channels, plan expects {lp.c_out}")
+    if lp.groups > 1:
+        if ndim != 4:
+            raise ExecutionError(f"{lp.name}: groups={lp.groups} needs a "
+                                 f"4-D HWIO conv weight, got shape "
+                                 f"{tuple(w.shape)}")
+        w = _expand_grouped(w, lp.groups)
+    conv_shape = tuple(int(s) for s in w.shape) if ndim == 4 else None
+    w2 = w.reshape(-1, lp.c_out)
+    k_in = int(w2.shape[0])
     if domain_bits is None:
         domain_bits = [8] * len(lp.counts)
     bn = int((lp.tuning or {}).get("bn", block_n))
     if bn < 1:
         raise ExecutionError(f"{lp.name}: invalid kernel tuning {lp.tuning}")
     dev = w.device
-    w_perm = torch.index_select(w, 1, torch.from_numpy(lp.perm).to(dev))
+    # K zero-padded once here, so no kernel call pads (copies) a weight
+    w_perm = _pad_to(torch.index_select(
+        w2, 1, torch.from_numpy(lp.perm).to(dev)), K_ALIGN, 0)
     w_q = sw = w_t_packed = w_bf16 = act_scale = act_sx = None
     if lp.kernel != KERNEL_FP:
         w_q, sw = _per_column_quant(lp, w_perm.to(torch.float32),
                                     domain_bits)
+        if lp.kernel in (KERNEL_SPLIT, KERNEL_SPLIT_TERNARY):
+            # the split kernels take N in multiples of SPLIT_N_ALIGN: the
+            # padded columns (code 0) fall away with the inverse
+            # permutation
+            w_q = _pad_to(w_q, SPLIT_N_ALIGN, 1)
+            sw = _pad_to(sw, SPLIT_N_ALIGN, 0)
         if lp.kernel == KERNEL_SPLIT:
-            w_bf16 = w_perm.to(torch.bfloat16)
+            w_bf16 = _pad_to(w_perm.to(torch.bfloat16), SPLIT_N_ALIGN, 1)
         w_perm = None          # the quantized kernels never read it
     if lp.kernel == KERNEL_SPLIT_TERNARY:
         w_t_packed = _pack_ternary_stream(lp, w_q)
@@ -153,7 +216,8 @@ def prepare_layer(lp: LayerPlan, w, b=None,
         plan=lp, inv=torch.from_numpy(lp.inv_perm()).to(dev), w_perm=w_perm,
         b=b, w_q=w_q, sw=sw, w_t_packed=w_t_packed, w_bf16=w_bf16,
         act_scale=act_scale, act_sx=act_sx, boundary=lp.split_boundary(),
-        bn=bn)
+        bn=bn, conv_shape=conv_shape, k_in=k_in,
+        k_pad=k_in + (-k_in) % K_ALIGN)
 
 
 def _act_quant(xf: torch.Tensor, prep: PreparedLayer):
@@ -173,14 +237,15 @@ def execute_layer(prep: PreparedLayer, x, *,
                   reference: bool = False) -> torch.Tensor:
     """Run ``x (..., C_in)`` through the prepared layer's kernel; returns
     ``(..., C_out)`` in the original channel order, bias applied, in
-    ``x.dtype``.  ``reference=True`` runs the plain oracles instead."""
+    ``x.dtype``.  ``x`` may carry the prepared K padding already (zeros:
+    im2col patches do); otherwise it is padded here.  ``reference=True``
+    runs the plain oracles instead."""
     lp = prep.plan
-    wk = prep.w_perm if prep.w_perm is not None else prep.w_q
-    if int(x.shape[-1]) != int(wk.shape[0]):
+    if int(x.shape[-1]) not in (prep.k_in, prep.k_pad):
         raise ExecutionError(f"{lp.name}: input has {int(x.shape[-1])} "
-                             f"features, weight expects {int(wk.shape[0])}")
+                             f"features, weight expects {prep.k_in}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = _pad_to(x.reshape(-1, x.shape[-1]), K_ALIGN, 1)
     xf = x2.to(torch.float32)
     # the ops clamp the N-block and round the boundary up to it; the
     # oracles split at the same column
@@ -218,26 +283,92 @@ def execute_layer(prep: PreparedLayer, x, *,
     return y.reshape(*lead, lp.c_out).to(x.dtype)
 
 
+# --------------------------------------------------------------------------
+# Conv execution: im2col onto the dense kernels
+# --------------------------------------------------------------------------
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int, int]:
+    """(output size, pad before, pad after) of XLA's SAME padding: the odd
+    pad goes after (bottom / right)."""
+    out = -(-size // stride)
+    pad = max((out - 1) * stride + k - size, 0)
+    return out, pad // 2, pad - pad // 2
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           padding: str = "SAME", width: int | None = None) -> torch.Tensor:
+    """NHWC input -> ``(B, OH, OW, kh*kw*C)`` patches whose last axis
+    matches a flattened HWIO conv weight ``w.reshape(kh*kw*C, C_out)``
+    (row-major (kh, kw, C) order), with XLA's SAME / VALID padding
+    semantics, so ``im2col(x) @ w_flat`` is the conv.  ``width`` (at least
+    kh*kw*C) appends zero columns up to that many."""
+    B, H, W, C = x.shape
+    if padding == "SAME":
+        oh, pt, pb = _same_pads(H, kh, stride)
+        ow, pl, pr = _same_pads(W, kw, stride)
+        if pt or pb or pl or pr:
+            x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    elif padding == "VALID":
+        oh = (H - kh) // stride + 1
+        ow = (W - kw) // stride + 1
+    else:
+        raise ExecutionError(f"unsupported conv padding {padding!r}")
+    if oh < 1 or ow < 1:
+        raise ExecutionError(f"conv kernel ({kh}x{kw}) exceeds input "
+                             f"({H}x{W}) under {padding} padding")
+    cols = [x[:, i:i + (oh - 1) * stride + 1:stride,
+              j:j + (ow - 1) * stride + 1:stride, :]
+            for i in range(kh) for j in range(kw)]
+    extra = (width or 0) - kh * kw * C
+    if extra > 0:
+        cols.append(x.new_zeros((B, oh, ow, extra)))
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
+
+
+def execute_conv_layer(prep: PreparedLayer, x, stride: int = 1,
+                       padding: str = "SAME", *,
+                       reference: bool = False) -> torch.Tensor:
+    """Run an NHWC input through a prepared conv layer: im2col the input to
+    ``(B, OH, OW, kh*kw*C_in)`` patches (K-padded as the weights are) and
+    execute them through the layer's planned dense kernel."""
+    if prep.conv_shape is None:
+        raise ExecutionError(f"{prep.plan.name}: not a conv layer (bound "
+                             f"weight was 2-D)")
+    kh, kw, ci, _ = prep.conv_shape
+    if int(x.shape[-1]) != ci:
+        raise ExecutionError(f"{prep.plan.name}: input has "
+                             f"{int(x.shape[-1])} channels, conv weight "
+                             f"expects {ci}")
+    patches = im2col(x, kh, kw, stride=stride, padding=padding,
+                     width=prep.k_pad)
+    return execute_layer(prep, patches, reference=reference)
+
+
 def _node_weight_ok(node) -> bool:
     w = _layer_weight(node)
     return isinstance(node, dict) and isinstance(w, torch.Tensor) \
-        and w.dim() == 2 and not w.is_meta
+        and w.dim() in (2, 4) and not w.is_meta
 
 
 class PlannedBackend:
     """One `ExecutionPlan` bound to a params dict, as a name-keyed matmul
-    backend: ``backend(name, p, x)`` runs the planned kernel of layer
-    ``name`` (stacked layers: of the repeat published by
-    `_backend.scan_slot`) or returns None for layers the plan does not
-    cover.  ``reference=True`` executes the plain oracles instead of the
-    kernels (attribute; may be flipped between runs); it also selects the
-    flash kernel's plain version in `attention.chunked_attention`.  Layers the plan
-    names but the params cannot bind are listed in ``unbound``."""
+    backend: ``backend(name, p, x, conv=None)`` runs the planned kernel of
+    layer ``name`` (stacked layers: of the repeat published by
+    `_backend.scan_slot`; conv call sites pass ``conv={"stride",
+    "padding", "groups"}`` and run through `execute_conv_layer`) or
+    returns None for layers the plan does not cover.  ``reference=True``
+    executes the plain oracles instead of the kernels (attribute; may be
+    flipped between runs); it also selects the flash kernel's plain version
+    in `attention.chunked_attention`.  Layers the plan names but the params
+    cannot bind are listed in ``unbound``; call sites declined at run time
+    (a grouped conv whose plan was lowered without groups) in
+    ``runtime_declines``, with the reason."""
 
     def __init__(self, plan: ExecutionPlan, params, *,
                  reference: bool = False):
         self.plan = plan
         self.reference = reference
+        self.runtime_declines: Dict[str, str] = {}
         domain_bits = [int(d["weight_bits"]) for d in plan.domains]
         prep = lambda lp, node: prepare_layer(
             lp, _layer_weight(node), b=node.get("b"),
@@ -280,7 +411,7 @@ class PlannedBackend:
         return (f"{len(self.bound)}/{len(self.plan.layers)} planned layers "
                 f"bound to weights, {len(self.unbound)} unbound")
 
-    def __call__(self, name, p, x):
+    def __call__(self, name, p, x, *, conv=None):
         if name is None:
             return None
         entry = self._by_name.get(name)
@@ -293,4 +424,28 @@ class PlannedBackend:
                     f"{name}: stacked plan executed outside a scan_slot "
                     f"context (no repeat index to select the layer)")
             entry = entry[r]
-        return execute_layer(entry, x, reference=self.reference)
+        if conv is not None and entry.conv_shape is None:
+            raise ExecutionError(
+                f"{name}: conv call site but the plan bound a 2-D dense "
+                f"weight -- the artifact does not match this model")
+        if conv is None and entry.conv_shape is not None:
+            raise ExecutionError(
+                f"{name}: dense call site but the plan bound a conv weight "
+                f"-- the artifact does not match this model")
+        if conv is None:
+            return execute_layer(entry, x, reference=self.reference)
+        cg, pg = int(conv.get("groups", 1)), entry.conv_groups
+        if cg != pg:
+            if pg == 1:
+                # a plan lowered without a groups record: declined, and
+                # surfaced by serve's coverage check
+                self.runtime_declines[name] = (
+                    f"grouped conv (groups={cg}) but the plan was lowered "
+                    f"without groups; executed on the default path")
+                return None
+            raise ExecutionError(
+                f"{name}: call site has groups={cg} but the plan was "
+                f"lowered with groups={pg} -- the artifact does not match "
+                f"this model")
+        return execute_conv_layer(entry, x, conv["stride"], conv["padding"],
+                                  reference=self.reference)

@@ -32,8 +32,7 @@ Plans serialize to JSON (schema v2, shared with the artifact's
 
 ``groups`` > 1 marks a grouped/depthwise conv layer: the executors
 zero-embed its per-group weight into a block-diagonal dense matrix at bind
-time so it runs through the same im2col'd kernels (the port's conv
-execution waits for a later slice).
+time so it runs through the same im2col'd kernels.
 """
 from __future__ import annotations
 

@@ -662,3 +662,138 @@ def test_engine_paged_planned_on_diana_launches_kernels_like_the_plain_run(
                   backend=backend).run(trace)
     assert [r.tokens for r in got] == [r.tokens for r in want]
     assert "length_cap" in {r.finish_reason for r in got}
+
+
+# --------------------------------------------------------------------------
+# the CNN serving path's shapes (im2col'd convs, K and N held padded)
+# --------------------------------------------------------------------------
+
+#: (M, K held padded to 16, N) of the CNNs' layers on the kernel that runs
+#: them: the resnet18 stem at batch 256 (M 1,048,576, K 27 -> 32), resnet20
+#: and resnet18 convs and their heads at batch 1 and 256, mobilenet's
+#: expanded depthwise convs (K 72 -> 80) and pointwise ones (K 8 -> 16)
+CNN_INT8_SHAPES = {
+    "ternary_matmul": [(1048576, 32, 64), (262144, 144, 16), (1024, 32, 16),
+                       (65536, 288, 32), (64, 576, 64), (256, 576, 64),
+                       (16384, 2304, 256), (1, 4608, 512)],
+    "quant_matmul": [(589824, 80, 8), (147456, 144, 16), (36864, 16, 16),
+                     (2304, 2304, 256), (256, 256, 2), (1, 256, 2),
+                     (16, 64, 10)],
+}
+#: (M, K padded, N padded to 16, raw boundary): resnet20's head (N 10 in
+#: 16) and a proj conv, resnet18's head (N 200 in 208, ternary above 128),
+#: mobilenet's pointwise layers with ternary columns
+CNN_SPLIT_SHAPES = [(1, 64, 16, 10), (256, 64, 16, 10),
+                    (65536, 16, 32, 0), (256, 512, 208, 100),
+                    (9216, 128, 256, 90), (576, 256, 256, 100)]
+
+
+def _padded_codes(m, k, n, seed, dev, n_real=None):
+    """int8 operands as `runtime.execute.prepare_layer` holds a padded
+    layer: x (M, K), the codes as the K-major (K, N) view; columns past
+    ``n_real`` zero."""
+    x, w, t, sx, sw = _operands(m, k, n, seed, dev)
+    if n_real is not None:
+        w[:, n_real:] = 0
+        t[:, n_real:] = 0
+    return x, w.t().contiguous().t(), t.t().contiguous().t(), sx, sw
+
+
+@pytest.mark.parametrize("m,k,n", CNN_INT8_SHAPES["ternary_matmul"])
+def test_ternary_matmul_at_cnn_shapes(cuda, m, k, n):
+    """Bit for bit, no weight copy, at the CNNs' shapes: K 32 inside the
+    wgmma GEMM's 128-K stage (the TMA box past the tensor), N 16-64 inside
+    its 128-column tile, M past 10**6."""
+    x, _, t, sx, sw = _padded_codes(m, k, n, 20, cuda)
+    copies = ternary_matmul.transposed_copies
+    got = ternary_matmul(x, t, sx, sw)
+    torch.cuda.synchronize()
+    assert ternary_matmul.transposed_copies == copies
+    assert torch.equal(got, ternary_matmul_plain(x, t, sx, sw))
+
+
+@pytest.mark.parametrize("m,k,n", CNN_INT8_SHAPES["quant_matmul"])
+def test_quant_matmul_at_cnn_shapes(cuda, m, k, n):
+    x, w, _, sx, sw = _padded_codes(m, k, n, 21, cuda)
+    copies = quant_matmul.transposed_copies
+    got = quant_matmul(x, w, sx, sw)
+    torch.cuda.synchronize()
+    assert quant_matmul.transposed_copies == copies
+    assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
+
+
+@pytest.mark.parametrize("m,k,n,raw", CNN_SPLIT_SHAPES)
+def test_split_ternary_at_cnn_shapes(cuda, m, k, n, raw):
+    """Through the op (the boundary aligned to the 128-column block, as a
+    served layer's), on codes and a packed stream held N-padded."""
+    x, w, t, sx, sw = _padded_codes(m, k, n, 22, cuda)
+    cols = torch.arange(n, device=cuda)[None, :]
+    b_al = min(ops.align_boundary(raw, 128), n)
+    w_q = torch.where(cols < b_al, w, t).t().contiguous().t()
+    # packed from row-major codes, as `prepare_layer` packs them
+    packed = pack_ternary(torch.where(cols >= b_al, t, 0).to(
+        torch.int8).contiguous())
+    copies = ops.split_ternary.transposed_copies
+    got = ops.split_ternary_op(x, w_q, packed, sx, sw, raw)
+    torch.cuda.synchronize()
+    assert ops.split_ternary.transposed_copies == copies
+    assert torch.equal(got, split_ternary_plain(x, w_q, packed, sx, sw,
+                                                b_al))
+
+
+@pytest.mark.parametrize("m,k,n,raw", [
+    (1, 64, 16, 10), (256, 64, 16, 10), (65536, 16, 32, 20),
+    (262144, 32, 16, 9), (256, 256, 16, 1), (9216, 128, 256, 200)])
+def test_split_precision_at_cnn_shapes(cuda, m, k, n, raw):
+    """At the CNNs' shapes the boundary rounds up to N (bn 128): every
+    column runs int8, bit for bit; the bf16 weight is never read (NaN)."""
+    x_q, w, _, sx, sw = _padded_codes(m, k, n, 23, cuda)
+    x = torch.randn((m, k), device=cuda).to(torch.bfloat16)
+    w_b = torch.full((k, n), float("nan"), device=cuda,
+                     dtype=torch.bfloat16)
+    copies = split_precision.transposed_copies
+    got = ops.split_precision_op(x, x_q, sx, w_b, w, sw, raw)
+    torch.cuda.synchronize()
+    assert split_precision.transposed_copies == copies
+    assert torch.equal(got, split_precision_plain(x, x_q, sx, w_b, w, sw,
+                                                  n))
+
+
+@pytest.mark.parametrize("name,platform", [("resnet20", "diana"),
+                                           ("resnet20", "gpu_tc_like"),
+                                           ("mobilenetv1_025", "diana"),
+                                           ("mobilenetv1_025",
+                                            "gpu_tc_like")])
+def test_cnn_planned_on_the_card_launches_kernels_like_the_plain_run(
+        cuda, tmp_path, name, platform):
+    """A full-width CNN at batch 8, planned: every layer launches its
+    kernel once per forward, no weight is copied, and the logits equal the
+    plain versions' (``reference=True``) bit for bit."""
+    from repro_torch.launch.serve import plan_mapping_execution
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import cnn as C
+    cfg = C.get_config(name)
+    init_fn, apply_fn, _ = C.get_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_fn(gen, cfg)
+    art = emit_static_mapping(params, cfg, platform, tmp_path / "m.json",
+                              plan_hints=C.plan_hints(cfg))
+    plan, backend = plan_mapping_execution(params, art)
+    assert not backend.unbound
+    hist = plan.kernel_histogram()
+    x = torch.randn((8, *cfg.img_hw, cfg.in_ch), generator=gen, device=cuda)
+    kernels = ("quant_matmul", "ternary_matmul", "split_ternary",
+               "split_precision")
+    before = {k: getattr(ops, k).launches for k in kernels}
+    copies = {k: getattr(ops, k).transposed_copies for k in kernels}
+    with _backend.use(backend):
+        got = apply_fn(params, x, cfg)
+        torch.cuda.synchronize()
+        assert {k: getattr(ops, k).launches - before[k] for k in kernels} \
+            == {k: hist.get(k, 0) for k in kernels}
+        assert {k: getattr(ops, k).transposed_copies for k in kernels} == \
+            copies
+        backend.reference = True
+        want = apply_fn(params, x, cfg)
+    assert not backend.runtime_declines
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())

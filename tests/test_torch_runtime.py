@@ -352,21 +352,32 @@ def test_execute_split_precision_layer_matches_jax(model, mappings,
 
 
 def test_backend_rejects_kernels_of_later_slices(model, artifacts):
-    """Every plan kernel binds now; what waits is grouped (and conv)
-    execution: a layer with ``groups > 1`` is refused at bind time."""
+    """Every plan kernel binds, and grouped conv layers too; a plan with
+    ``groups > 1`` on a 2-D dense weight is refused at bind time, as the
+    JAX package refuses it."""
     jcfg, jparams, cfg, params = model
     plan = rt.lower(artifacts[0], params=params)
     plan["units/0/ffn/up@0"].groups = 2
-    with pytest.raises(rt.ExecutionError, match="later slice"):
+    with pytest.raises(rt.ExecutionError, match="needs a 4-D HWIO conv"):
         rt.PlannedBackend(plan, params)
+    jplan = jrt.lower(artifacts[0], params=jparams)
+    jplan["units/0/ffn/up@0"].groups = 2
+    with pytest.raises(jrt.ExecutionError, match="needs a 4-D HWIO conv"):
+        jrt.PlannedBackend(jplan, jparams)
 
 
 def test_prepare_layer_rejects_conv_weights(model, artifacts):
+    """4-D HWIO conv weights bind now (flattened to (kh*kw*C_in, C_out));
+    weights of any other rank are refused, as in the JAX package."""
     jcfg, jparams, cfg, params = model
     lp = rt.lower(artifacts[0], params=params)["units/0/attn/wk@0"]
-    w4 = torch.zeros((3, 3, lp.c_in, lp.c_out))
-    with pytest.raises(rt.ExecutionError, match="later slice"):
-        rt.prepare_layer(lp, w4)
+    prep = rt.prepare_layer(lp, torch.zeros((3, 3, lp.c_in, lp.c_out)))
+    assert prep.conv_shape == (3, 3, lp.c_in, lp.c_out)
+    assert prep.k_in == 9 * lp.c_in
+    for shape in [(lp.c_out,), (2, lp.c_in, lp.c_out),
+                  (1, 3, 3, lp.c_in, lp.c_out)]:
+        with pytest.raises(rt.ExecutionError, match="2-D .* and 4-D"):
+            rt.prepare_layer(lp, torch.zeros(shape))
 
 
 def test_backend_rejects_repeat_count_mismatch(model, artifacts):
@@ -406,8 +417,10 @@ def test_serve_exits_2_when_the_artifact_does_not_lower(artifacts,
     doc["layers"][3]["counts"][-1] -= 1
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps(doc))
+    # without --require-full-coverage serve falls back to majority-dtype
+    # serving (tests/test_torch_cnn.py); with it, exit 2
     with pytest.raises(SystemExit) as exc:
-        serve.main(_serve_args(bad))
+        serve.main(_serve_args(bad, "--require-full-coverage"))
     assert exc.value.code == 2
 
 

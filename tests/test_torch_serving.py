@@ -730,8 +730,7 @@ def test_serve_cli_engine_takes_its_robustness_and_sampling_flags(capsys):
     (["--draft-k", "2"], "item 5"), (["--check-spec-parity"], "item 5"),
     (["--fault-spec", "stuck@1:0"], "item 5"),
     (["--degrade-to", "a"], "item 5"), (["--ttft-target-s", "0.5"],
-                                        "item 5"),
-    (["--mapping-fallback"], "Queue 3")])
+                                        "item 5")])
 def test_serve_cli_unported_engine_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(_CLI + flag)
