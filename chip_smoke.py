@@ -204,7 +204,51 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    rounds) beside their summed bound; CNN_WARM warm forwards (median and
    range, img/s, peak GiB) and a profiled one (device busy, idle share),
    on ``[cnn:<model>:<platform>:B<n>]`` lines beside the nvidia-smi line.
-9. one JSON line of kernel records, the nvidia-smi line, and the contract
+   Each kernel's calls are also timed through PyTorch's library on the
+   same inputs (`cnn_library_call`: ``torch._int_mm`` + the epilogue,
+   split_precision's two calls) in the same graph rounds.
+9. planset: the precision bank (`runtime.PlanSet`) over the same params,
+   ``{"target": diana, "draft": diana_ternary}`` from phase 5's
+   artifacts, served with the config's bf16 KV cache (`PLANSET`: one
+   seeded trace of 6 requests, prompts 64-256, 8-16 new tokens, Poisson
+   arrivals at 0.5 per step, 4 slots of 1024, pages of 16, chunks of 32):
+     bank         bind time, peak memory, `memory_report()`; every layer
+                  bound in both variants (`PLANSET_HISTS`) and
+                  dedup_saved_bytes > 0;
+     target_only  the trace on the bank's default; launches = each
+                  forward's variant histogram; a profiled run (device
+                  busy; the idle share against the recorded run's wall,
+                  whose TTFT and tok/s are the leg's);
+     draft_only   the trace under ``plan_variant("draft")``;
+     spec         ``speculate=("draft", "target"), draft_k=4``: launches
+                  per round 241 (k + 1) quant_matmul + 96 k ternary_matmul
+                  + 96 split_ternary beyond the chunk calls, spec_committed
+                  = the tokens committed, tokens against target-only under
+                  the margin rule (the distance read from each verify
+                  chunk's logits against target-only's at the same
+                  position and history); acceptance, rounds, TTFT, decode
+                  tok/s and idle share (recorded and profiled runs) beside
+                  target-only's;
+     slo          ``slo_routes={"interactive": "draft", "batch":
+                  "target"}``, classes alternating by request: each
+                  request against its variant's run, ``by_slo`` with both
+                  classes;
+     degrade      ``degrade_to="draft"`` at a TTFT target a tenth of the
+                  target-only p50: at least one transition, degraded
+                  requests on the draft and against draft-only, the others
+                  against target-only;
+     faults       nonfinite_logits, corrupt_page and a 40-step stuck
+                  fault on three slots decoding through three steps of the
+                  target-only run (`fault_spec`), heartbeat_steps 4:
+                  faults_detected >= 2, heartbeat_trips >= 1, every
+                  request finished against target-only or shed with
+                  reason "fault".
+   Each leg's tokens follow its reference under `follow_rule`: the margin
+   rule with each request's tolerance SENSITIVITY_FACTOR times its logits'
+   distance from the reference over the steps where their histories agree
+   (`request_logits` reads each committed token's logits from the
+   recorded calls).
+10. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -352,6 +396,21 @@ CNN_HIST = {
                                          "split_precision": 14},
 }
 #: the int8 kernels a CNN path runs, and its timed warm forwards
+#: the planset phase's traffic: one seeded trace for every leg (6
+#: requests, cut from 8 to hold the phase near 150 s on the card; prompts
+#: 64-256, 8-16 new tokens, Poisson arrivals at 0.5 per step), 4 slots of
+#: 1024 positions in pages of 16, chunks of 32; the faults leg's
+#: heartbeat deadline in steps
+PLANSET = dict(requests=6, min_prompt=64, max_prompt=256, min_new=8,
+               max_new=16, rate=0.5, max_batch=4, max_len=1024,
+               page_size=16, prefill_chunk=32, draft_k=4,
+               heartbeat_steps=4)
+#: the bank's variants: the artifacts of phase 5 they are lowered from,
+#: and the kernel histogram each lowers to (the 241 pinned layers on
+#: quant_matmul in both)
+PLANSET_VARIANTS = {"target": "diana", "draft": "diana_ternary"}
+PLANSET_HISTS = {"target": {"quant_matmul": 241, "split_ternary": 96},
+                 "draft": {"quant_matmul": 241, "ternary_matmul": 96}}
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
@@ -2622,6 +2681,532 @@ def phase_paged(torch, cfg, params, seed, smi, refs, dense):
     return out
 
 
+def recording_variant_calls(calls):
+    """Context: `transformer.prefill_chunk` and `decode_step` keep every
+    call in ``calls`` as ``(kind, logits, inputs, variant)``: kind "chunk"
+    (inputs: tokens, fill positions and valid counts on the host; logits
+    (B, V), or (B, C, V) for a speculative verify chunk) or "decode"
+    (inputs: the active mask on the host), and the variant the call
+    selected (None: the bank's default, or a surrounding selection)."""
+    import contextlib
+    from repro_torch.models import _backend
+    from repro_torch.models import transformer as T
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = {name: getattr(T, name) for name in ("prefill_chunk",
+                                                    "decode_step")}
+
+        def wrap(kind, fn):
+            def recording(*args, **kw):
+                logits, caches = fn(*args, **kw)
+                if kind == "chunk":
+                    inputs = tuple(args[i].cpu() for i in (2, 4, 5))
+                else:
+                    inputs = kw["active"].cpu()
+                variant = kw.get("variant") or \
+                    _backend.current_plan_variant()
+                calls.append((kind, logits.float(), inputs, variant))
+                return logits, caches
+            return recording
+        T.prefill_chunk = wrap("chunk", orig["prefill_chunk"])
+        T.decode_step = wrap("decode", orig["decode_step"])
+        try:
+            yield
+        finally:
+            for name, fn in orig.items():
+                setattr(T, name, fn)
+    return ctx()
+
+
+def request_logits(torch, results, calls, check=True, injected=()):
+    """Each request's logits for every token it committed, in a recorded
+    run (`planset_run`): the "slots" markers give the request in each slot
+    at each chunk step (with its effective prompt's length: a resume
+    prefills prompt + committed tokens) and decode step; a chunk row that
+    completes its prompt gives the logits of the token after it, and a
+    decode call's rows of its active slots (one call per variant group)
+    the next; a row that is not finite committed nothing (a contained
+    fault) and is skipped, as is a row whose logits the engine made NaN
+    after the model (``injected``: (step, slot) pairs).  A speculative run's draft steps carry no
+    marker and are skipped: only its first tokens' logits are read there
+    (``check=False``).  With ``check``, every token is checked to be the
+    argmax of its logits.  Returns {rid: [logits per token]}."""
+    seqs = {r.rid: [] for r in results}
+    owners = {"chunk": {}, "decode": {}}
+    at = None
+    for kind, lg, inputs, _ in calls:
+        if kind == "slots":
+            step, slots, at = lg
+            owners = {"chunk": {}, "decode": {}, step: slots}
+            continue
+        rows = []
+        if kind == "chunk" and lg.dim() == 2:
+            _, index, valid = inputs
+            rows = [(b, rid) for b, (rid, plen) in owners["chunk"].items()
+                    if int(valid[b]) and int(index[b] + valid[b]) == plen]
+        elif kind == "decode":
+            rows = [(b, rid) for b, rid in owners["decode"].items()
+                    if bool(inputs[b]) and (at, b) not in injected]
+        for b, rid in rows:
+            if bool(torch.isfinite(lg[b]).all()):
+                seqs[rid].append(lg[b])
+    for r in results if check else ():
+        got = [int(torch.argmax(lg)) for lg in seqs[r.rid]]
+        if got != list(getattr(r, "tokens", got)):
+            raise AssertionError(f"request {r.rid}: recorded logits give "
+                                 f"{got}, the run {r.tokens}")
+    return seqs
+
+
+def matched_distance(torch, tokens, ref_tokens, seq, ref_seq):
+    """The largest max |diff| between two runs' logits of one request over
+    the steps before their tokens first differ (each step's logits come
+    from the same history in both runs)."""
+    dist = 0.0
+    for t, (a, b) in enumerate(zip(seq, ref_seq)):
+        dist = max(dist, float((a - b).abs().max()))
+        if t >= len(tokens) or t >= len(ref_tokens) or \
+                tokens[t] != ref_tokens[t]:
+            break
+    return dist
+
+
+def follow_rule(torch, what, results, ref, dists):
+    """The margin rule against a reference run ``ref`` ({"tokens": {rid:
+    tokens}, "margins": {rid: top-2 margins}}): each request's tokens must
+    equal the reference's up to its first step whose reference top-2
+    margin is below SENSITIVITY_FACTOR times the request's measured
+    distance ``dists[rid]`` between the two computations (0 where they
+    are bit-identical: then every token must agree); fails when fewer than
+    half of all tokens were compared.  Returns (compared, total)."""
+    rids = [r.rid for r in results]
+    compared, total = compare_requests(
+        what, [r.tokens for r in results],
+        [ref["tokens"][rid] for rid in rids],
+        [ref["margins"][rid] for rid in rids],
+        [SENSITIVITY_FACTOR * dists[rid] for rid in rids])
+    print(f"[planset:{what}] logits max |diff| per request "
+          f"{' '.join(f'{dists[rid]:.4g}' for rid in rids)}; tolerance "
+          f"{SENSITIVITY_FACTOR:g} x each; tokens identical over {compared} "
+          f"of {total} (request, step) pairs before each request's first "
+          f"reference top-2 margin below its tolerance (identical "
+          f"everywhere: {all(r.tokens == ref['tokens'][r.rid] for r in results)})")
+    if 2 * compared < total:
+        raise AssertionError(f"{what}: only {compared} of {total} tokens "
+                             f"compared, too few for the check to say "
+                             f"anything")
+    return compared, total
+
+
+def planset_run(torch, tag, cfg, params, bank, hists, trace, smi, *,
+                record=True, variant=None, **kw):
+    """One run of ``trace`` on a new paged engine over ``bank`` (engine
+    arguments ``kw``; ``variant`` selects a variant around the whole run)
+    with the launch counts reset just before and read just after: each
+    recorded forward launches its variant's histogram (``hists``), and a
+    run that is not recorded is held to the totals of the calls it made.
+    Returns (engine, results, {rid: logits per token} or None, launches,
+    record)."""
+    import contextlib
+    import numpy as np
+    from repro_torch.models import _backend
+    from repro_torch.serving import Engine
+    leg = PLANSET
+    engine = Engine(cfg, params, max_batch=leg["max_batch"],
+                    max_len=leg["max_len"], page_size=leg["page_size"],
+                    prefill_chunk=leg["prefill_chunk"], backend=bank, **kw)
+    calls = []
+    rounds = []
+    if record:
+        # "slots" markers: the request in each busy slot before each chunk
+        # step (with its effective prompt's length) and decode step, and
+        # the engine step
+        def marking(method, step, owners):
+            def run(batch, at, *a):
+                calls.append(("slots", (step, owners(batch), at), None,
+                              None))
+                return method(batch, at, *a)
+            return run
+        engine._chunk_step = marking(engine._chunk_step, "chunk",
+                                     lambda batch: {
+            int(b): (batch.pending[b].request.rid,
+                     len(batch.pending[b].prompt))
+            for b in np.nonzero(batch.prefilling)[0]})
+        engine._decode_paged = marking(engine._decode_paged, "decode",
+                                       lambda batch: {
+            int(b): batch.slots[b].request.rid
+            for b in np.nonzero(batch.active)[0]})
+    if "speculate" in kw:
+        # each round's active slots -> (request, length): its verify
+        # chunk's rows
+        orig = engine._spec_round
+
+        def spec_round(batch, step, results):
+            rounds.append({int(b): (batch.slots[b].request.rid,
+                                    int(batch.lengths[b]))
+                           for b in np.nonzero(batch.active)[0]})
+            return orig(batch, step, results)
+        engine._spec_round = spec_round
+    reset_launches()
+    with (recording_variant_calls(calls) if record
+          else contextlib.nullcontext()), _backend.plan_variant(variant):
+        results = engine.run(trace)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    check_no_weight_copies(tag)
+    st = engine.stats
+    if record:
+        want = dict.fromkeys(KERNELS, 0)
+        forwards = [c for c in calls if c[0] != "slots"]
+        for kind, _, _, var in forwards:
+            for kernel, n in hists[var or bank.default].items():
+                want[kernel] += n
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches}, expected "
+                                 f"{want} from its {len(forwards)} recorded "
+                                 f"forwards")
+    rec = print_engine_run(f"planset:{tag}", engine, results, smi)
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    injected = {(at, b) for at, b, kind in
+                getattr(kw.get("injector"), "fired", ())
+                if kind == "nonfinite_logits"}
+    seqs = (request_logits(torch, results, calls,
+                           check="speculate" not in kw, injected=injected)
+            if record else None)
+    engine.recorded = (calls, rounds)
+    return engine, results, seqs, launches, rec
+
+
+def phase_planset(torch, cfg, params, seed, smi):
+    """The precision bank and the engine features on it (module docstring,
+    phase 9): legs bank, target-only, draft-only, spec, slo, degrade and
+    faults.  Returns {leg: record}."""
+    from repro_torch.api import MappingArtifact
+    from repro_torch.launch.serve import (build_planset, check_coverage,
+                                          print_planset_report)
+    from repro_torch.serving import (FaultInjector, ShedResult,
+                                     poisson_arrivals, summarize,
+                                     synthetic_trace)
+    leg = PLANSET
+    out = {}
+    print(f"[planset] kv cache {cfg.kv_cache_dtype} (the config's default: "
+          f"corrupt_page faults write NaN into float KV); {smi}")
+
+    # bank: one PlanSet over the params, the pinned layers shared
+    arts = {v: MappingArtifact.load(str(ROOT / "build" / "chip_smoke" /
+                                        f"{cfg.name}_{path}.json"))
+            for v, path in PLANSET_VARIANTS.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    plans, bank = build_planset(params, arts, "target")
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print_planset_report("planset:bank", plans, bank)
+    check_coverage("planset:bank", bank, require_full=True)
+    hists = {v: plans[v].kernel_histogram() for v in plans}
+    if hists != PLANSET_HISTS:
+        raise AssertionError(f"bank histograms {hists}, expected "
+                             f"{PLANSET_HISTS}")
+    rep = bank.memory_report()
+    shared = rep["shared_layers"]
+    shared_n = sum(len(bank.variant("target").by_name[name])
+                   if isinstance(bank.variant("target").by_name[name], list)
+                   else 1 for name in shared)
+    print(f"[planset:bank] variants {list(bank.variant_names)} (default "
+          f"{bank.default!r}): {bank.coverage()}; bind {bind_s:.1f} s; "
+          f"prepared_bytes {rep['prepared_bytes']} (target "
+          f"{rep['variants']['target']}, draft {rep['variants']['draft']}), "
+          f"sum_variant_bytes {rep['sum_variant_bytes']}, "
+          f"dedup_saved_bytes {rep['dedup_saved_bytes']}; "
+          f"{len(shared)} shared entries {sorted(shared)} holding "
+          f"{shared_n} layers; bank device bytes "
+          f"{torch.cuda.memory_allocated() - base}, peak memory "
+          f"{peak:.2f} GiB ({smi})")
+    if not bank.fully_covered or rep["dedup_saved_bytes"] <= 0:
+        raise AssertionError(f"bank: covered {bank.fully_covered}, "
+                             f"dedup_saved_bytes {rep['dedup_saved_bytes']}")
+    out["bank"] = {k: rep[k] for k in ("variants", "prepared_bytes",
+                                       "sum_variant_bytes",
+                                       "dedup_saved_bytes")}
+    out["bank"].update(shared_entries=len(shared), shared_layers=shared_n,
+                       bind_s=bind_s, peak_gib=peak)
+
+    trace = poisson_arrivals(synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    print(f"[planset] trace: {len(trace)} requests, prompts "
+          f"{[r.prompt_len for r in trace]}, new "
+          f"{[r.max_new_tokens for r in trace]}, arrival steps "
+          f"{[r.arrival_step for r in trace]}; max_batch "
+          f"{leg['max_batch']}, max_len {leg['max_len']}, page_size "
+          f"{leg['page_size']}, prefill_chunk {leg['prefill_chunk']}")
+
+    def profiled(**kw):
+        def run():
+            _, _, _, _, r = planset_run(torch, "profiled", cfg, params,
+                                        bank, hists, trace, smi,
+                                        record=False, **kw)
+            return r["wall_s"] * 1e3
+        return run
+
+    def reference(results, seqs):
+        return {"tokens": {r.rid: r.tokens for r in results},
+                "margins": {rid: [float(top2_margin(torch, lg))
+                                  for lg in seq]
+                            for rid, seq in seqs.items()},
+                "seqs": seqs, "calls": [c for c in eng.recorded[0]
+                                        if c[0] == "slots"]}
+
+    # target-only and draft-only: the references of every leg below
+    refs = {}
+    for name, variant in (("target_only", None), ("draft_only", "draft")):
+        t_leg = time.perf_counter()
+        eng, res, seqs, _, rec = planset_run(
+            torch, name, cfg, params, bank, hists, trace, smi,
+            variant=variant)
+        refs[name] = reference(res, seqs)
+        if name == "target_only":
+            for r in res:
+                if r.finish_reason not in ("max_new_tokens", "eos"):
+                    raise AssertionError(f"{name}: {r.rid} finished "
+                                         f"{r.finish_reason}")
+            busy = profile_device(torch, f"planset:{name}", profiled())
+            rec.update(device_busy_ms=busy,
+                       idle_share=1.0 - busy / (rec["wall_s"] * 1e3))
+            print(f"[profile:planset:{name}] device busy {busy:.3f} ms of "
+                  f"the recorded run's {rec['wall_s'] * 1e3:.3f} ms wall: "
+                  f"idle share {rec['idle_share']:.3f}")
+        out[name] = rec
+        print(f"[planset:{name}] ({time.perf_counter() - t_leg:.1f} s)")
+
+    # spec: draft k with the draft, verify with the target
+    t_leg = time.perf_counter()
+    k = leg["draft_k"]
+    spec_kw = dict(speculate=("draft", "target"), draft_k=k)
+    eng, res, seqs, launches, rec = planset_run(torch, "spec", cfg, params,
+                                                bank, hists, trace, smi,
+                                                **spec_kw)
+    st = dict(eng.stats)
+    calls, rounds = eng.recorded
+    chunks = [c for c in calls if c[0] == "chunk" and c[1].dim() == 2]
+    pinned, wkv = hists["target"]["quant_matmul"], \
+        hists["target"]["split_ternary"]
+    per_round = {"quant_matmul": pinned * (k + 1),
+                 "ternary_matmul": hists["draft"]["ternary_matmul"] * k,
+                 "split_ternary": wkv}
+    got = {kernel: launches[kernel] - len(chunks) * hists["target"].get(
+        kernel, 0) for kernel in per_round}
+    want = {kernel: n * st["spec_rounds"] for kernel, n in per_round.items()}
+    if got != want or len(chunks) != st["prefill_calls"] or \
+            len(rounds) != st["spec_rounds"]:
+        raise AssertionError(f"spec: launches beyond the chunk calls {got}, "
+                             f"expected {want} ({st['spec_rounds']} rounds, "
+                             f"{st['prefill_calls']} chunk calls)")
+    committed = sum(r.n_tokens - 1 for r in res)
+    if st["spec_committed"] != committed:
+        raise AssertionError(f"spec: spec_committed {st['spec_committed']}, "
+                             f"tokens committed {committed}")
+    # each verify chunk's target logits against the target-only run's at
+    # the same position, where the history agrees
+    ref = refs["target_only"]
+    spec_tok = {r.rid: r.tokens for r in res}
+    verifies = [c for c in calls if c[0] == "chunk" and c[1].dim() == 3]
+    dists = {r.rid: 0.0 for r in res}
+    for r in res:
+        dists[r.rid] = float((seqs[r.rid][0] - ref["seqs"][r.rid][0])
+                             .abs().max())
+    plens = {r.rid: r.prompt_len for r in trace}
+    for (_, lg, (tokens, _, _), _), slots in zip(verifies, rounds):
+        for b, (rid, length) in slots.items():
+            # row b holds [t0, d1..dk] at positions length..length + k;
+            # logits j predict generated token n_gen + j, from the target
+            # run's history while the drafts d1..dj are its tokens
+            n_gen = length - plens[rid] + 1
+            want_tok, got_tok = ref["tokens"][rid], spec_tok[rid]
+            if got_tok[:n_gen] != want_tok[:n_gen]:
+                continue
+            for j in range(k + 1):
+                t = n_gen + j
+                if t >= len(want_tok) or (
+                        j and int(tokens[b, j]) != want_tok[t - 1]):
+                    break
+                dists[rid] = max(dists[rid], float(
+                    (lg[b, j] - ref["seqs"][rid][t]).abs().max()))
+    compared, total = follow_rule(torch, "spec vs target_only", res, ref,
+                                  dists)
+    busy = profile_device(torch, "planset:spec", profiled(**spec_kw))
+    rec.update(device_busy_ms=busy,
+               idle_share=1.0 - busy / (rec["wall_s"] * 1e3),
+               spec_rounds=st["spec_rounds"],
+               spec_drafted=st["spec_drafted"],
+               spec_accepted=st["spec_accepted"],
+               spec_committed=st["spec_committed"],
+               spec_acceptance=st["spec_acceptance"],
+               spec_tokens_per_round=st["spec_tokens_per_round"],
+               launches_per_round=per_round,
+               tokens_compared=compared, tokens_total=total,
+               max_logit_distance=max(dists.values()))
+    t_only = out["target_only"]
+    print(f"[planset:spec] launches per round " + " ".join(
+        f"{kk} {v}" for kk, v in per_round.items()) +
+        f" (= {pinned} (k+1) + {wkv} k + {wkv}, k {k}) over "
+        f"{st['spec_rounds']} rounds + {st['prefill_calls']} chunk calls; "
+        f"spec_acceptance {st['spec_acceptance']}, tokens per round "
+        f"{st['spec_tokens_per_round']}, spec_committed "
+        f"{st['spec_committed']}; spec vs target-only (recorded runs): TTFT "
+        f"p50 {rec['ttft_p50_s'] * 1e3:.3f} / "
+        f"{t_only['ttft_p50_s'] * 1e3:.3f} ms, p95 "
+        f"{rec['ttft_p95_s'] * 1e3:.3f} / {t_only['ttft_p95_s'] * 1e3:.3f} "
+        f"ms, decode tok/s {rec['decode_tok_s']:.3f} / "
+        f"{t_only['decode_tok_s']:.3f}, idle share {rec['idle_share']:.3f} "
+        f"/ {t_only['idle_share']:.3f} ({time.perf_counter() - t_leg:.1f} "
+        f"s; {smi})")
+    out["spec"] = rec
+
+    # slo: interactive -> draft, batch -> target, alternating by request
+    t_leg = time.perf_counter()
+    routes = {"interactive": "draft", "batch": "target"}
+    for i, r in enumerate(trace):
+        r.slo = ("interactive", "batch")[i % 2]
+    try:
+        eng, res, seqs, _, rec = planset_run(torch, "slo", cfg, params,
+                                             bank, hists, trace, smi,
+                                             slo_routes=routes)
+    finally:
+        for r in trace:
+            r.slo = None
+    of = {r.rid: ("draft_only" if routes[("interactive", "batch")[i % 2]]
+                  == "draft" else "target_only")
+          for i, r in enumerate(trace)}
+    for name in ("target_only", "draft_only"):
+        group = [r for r in res if of[r.rid] == name]
+        ref = refs[name]
+        dists = {r.rid: matched_distance(torch, r.tokens,
+                                         ref["tokens"][r.rid], seqs[r.rid],
+                                         ref["seqs"][r.rid])
+                 for r in group}
+        follow_rule(torch, f"slo vs {name}", group, ref, dists)
+    by_slo = summarize(res, eng.stats["wall_s"]).get("by_slo", {})
+    if set(by_slo) != set(routes):
+        raise AssertionError(f"slo: by_slo has {sorted(by_slo)}")
+    rec["by_slo"] = by_slo
+    print(f"[planset:slo] by_slo " + "; ".join(
+        f"{cls} -> {routes[cls]}: {v['requests']} requests, TTFT p50 "
+        f"{v['ttft_p50_s'] * 1e3:.3f} ms" for cls, v in sorted(
+            by_slo.items())) + f" ({time.perf_counter() - t_leg:.1f} s)")
+    out["slo"] = rec
+
+    # degrade: a TTFT target a tenth of the target-only p50
+    t_leg = time.perf_counter()
+    target_s = out["target_only"]["ttft_p50_s"] / 10
+    eng, res, seqs, _, rec = planset_run(
+        torch, "degrade", cfg, params, bank, hists, trace, smi,
+        degrade_to="draft", ttft_target_s=target_s)
+    st = eng.stats
+    if st["degrade_transitions"] < 1:
+        raise AssertionError("degrade: no transition")
+    for flag, name in ((True, "draft_only"), (False, "target_only")):
+        group = [r for r in res if r.degraded == flag]
+        if any(r.variant != ("draft" if flag else None) for r in group):
+            raise AssertionError(f"degrade: variants "
+                                 f"{[r.variant for r in group]}")
+        ref = refs[name]
+        dists = {r.rid: matched_distance(torch, r.tokens,
+                                         ref["tokens"][r.rid], seqs[r.rid],
+                                         ref["seqs"][r.rid])
+                 for r in group}
+        if group:
+            follow_rule(torch, f"degrade vs {name}", group, ref, dists)
+    degraded = sum(r.degraded for r in res)
+    rec.update(degrade_transitions=st["degrade_transitions"],
+               degraded=degraded, ttft_target_s=target_s,
+               degrade_log=list(eng.degrade_log))
+    print(f"[planset:degrade] ttft_target_s {target_s:.6f} (a tenth of "
+          f"the target-only p50); degrade_transitions "
+          f"{st['degrade_transitions']} {eng.degrade_log}; {degraded} of "
+          f"{len(res)} requests degraded ({time.perf_counter() - t_leg:.1f} "
+          f"s)")
+    if not degraded:
+        raise AssertionError("degrade: no request was served degraded")
+    out["degrade"] = rec
+
+    # faults: each event on a slot decoding at that step in the
+    # target-only run's schedule
+    t_leg = time.perf_counter()
+    spec_str = fault_spec(refs["target_only"]["calls"])
+    inj = FaultInjector.parse(spec_str, seed)
+    print(f"[planset:faults] fault spec {spec_str!r}, heartbeat_steps "
+          f"{leg['heartbeat_steps']}")
+    eng, res, seqs, _, rec = planset_run(
+        torch, "faults", cfg, params, bank, hists, trace, smi,
+        injector=inj, heartbeat_steps=leg["heartbeat_steps"])
+    st = eng.stats
+    if st["faults_detected"] < 2 or st["heartbeat_trips"] < 1:
+        raise AssertionError(f"faults: faults_detected "
+                             f"{st['faults_detected']}, heartbeat_trips "
+                             f"{st['heartbeat_trips']}, fired {inj.fired}")
+    done = [r for r in res if not isinstance(r, ShedResult)]
+    shed = [r for r in res if isinstance(r, ShedResult)]
+    if any(r.reason != "fault" for r in shed):
+        raise AssertionError(f"faults: shed {[r.reason for r in shed]}")
+    # a resumed request re-prefills its committed tokens through a chunk:
+    # its distance includes that chunk row against the decode step
+    ref = refs["target_only"]
+    compared, total = follow_rule(
+        torch, "faults vs target_only", done, ref,
+        {r.rid: matched_distance(torch, r.tokens, ref["tokens"][r.rid],
+                                 seqs[r.rid], ref["seqs"][r.rid])
+         for r in done})
+    rec.update({key: st[key] for key in (
+        "faults_injected", "faults_detected", "heartbeat_trips",
+        "straggler_events", "resumes", "shed_requests")},
+        fired=inj.fired, spec=spec_str, requeued=sum(
+            r.requeues for r in done), tokens_compared=compared,
+        tokens_total=total)
+    print(f"[planset:faults] fired {inj.fired}; faults_injected "
+          f"{st['faults_injected']}, faults_detected "
+          f"{st['faults_detected']}, heartbeat_trips "
+          f"{st['heartbeat_trips']}, straggler_events "
+          f"{st['straggler_events']}, resumes {st['resumes']}; "
+          f"{len(done)} requests finished ({rec['requeued']} requeued), "
+          f"{len(shed)} shed (fault) ({time.perf_counter() - t_leg:.1f} s; "
+          f"{smi})")
+    out["faults"] = rec
+    del bank, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fault_spec(markers):
+    """The faults leg's spec: ``nonfinite_logits`` at step S on slot b1,
+    ``corrupt_page`` at S + 1 on b2 and a 40-step ``stuck`` fault at S + 2
+    on b3, where the target-only run (its decode-step ``markers``) has b1,
+    b2 and b3 decoding one request each through steps S..S + 2
+    (`FaultInjector.draw` fires only on occupied slots; a fault changes
+    the schedule of its own request only, so the later events still land);
+    S is the middle such step."""
+    active = {at: set(slots) for _, (kind, slots, at), _, _ in markers
+              if kind == "decode"}
+    common = {at: active[at] & active.get(at + 1, set()) &
+              active.get(at + 2, set()) for at in active}
+    cands = sorted(at for at, slots in common.items() if len(slots) >= 3)
+    if not cands:
+        raise AssertionError(f"faults: no three slots decode through three "
+                             f"steps in the target-only run ({active})")
+    step = cands[len(cands) // 2]
+    b1, b2, b3 = sorted(common[step])[:3]
+    return (f"nonfinite_logits@{step}:{b1},corrupt_page@{step + 1}:{b2},"
+            f"stuck@{step + 2}:{b3}x40")
+
+
 def checking_cnn_calls(torch, calls):
     """Context: every call of the four int8 ops is held against its plain
     version on its own inputs as it is made -- bit for bit, and
@@ -2697,11 +3282,46 @@ def cnn_call_bound(kernel, args, kw):
                     bf16_cols=n - b_al)
 
 
+def cnn_library_call(torch, kernel, args, kw):
+    """A function computing one recorded int8 op call of a CNN forward
+    with PyTorch's library: ``torch._int_mm`` on the call's codes and the
+    same epilogue (split_precision: its two calls, ``_int_mm`` on the int8
+    columns and a bf16 matmul on the rest).  ``_int_mm`` takes more than
+    16 rows and N a multiple of 8, so fewer rows are zero-padded to 32 and
+    N to 8, once, before the timing."""
+    from repro_torch.kernels import ops
+    if kernel == "split_precision":
+        x, x_q, sx, w_b, w_q, sw, raw = args
+        n = w_q.shape[1]
+        b_al = min(ops.align_boundary(raw, ops.block_n(kw.get("bn", 128),
+                                                       n)), n)
+        hi_w = w_b[:, b_al:].contiguous() if b_al < n else None
+        w_q, sw = w_q[:, :b_al], sw[:b_al]
+    else:
+        x_q, w_q, sx, sw = (args[:2] + args[3:5] if kernel == "split_ternary"
+                            else args[:4])
+        hi_w = None
+    m, n = x_q.shape[0], w_q.shape[1]
+    x_lib = torch.cat([x_q, x_q.new_zeros(32 - m, x_q.shape[1])]) \
+        if m <= 16 else x_q
+    if n % 8:
+        w_q = torch.cat([w_q, w_q.new_zeros(w_q.shape[0], 8 - n % 8)], 1)
+    elif not (w_q.is_contiguous() or w_q.t().is_contiguous()):
+        w_q = w_q.contiguous()
+
+    def lib():
+        lo = torch._int_mm(x_lib, w_q)[:m, :n].to(torch.float32) * sx * \
+            sw[None, :]
+        return lo if hi_w is None else (lo, torch.matmul(x, hi_w))
+    return lib
+
+
 def cnn_kernel_times(torch, calls):
     """{kernel: record} of one CNN forward: the device ms of the recorded
-    calls of each kernel replayed as one CUDA graph (median and range of
-    ROUNDS rounds, interleaved across the kernels), beside the summed bound
-    of the calls."""
+    calls of each kernel replayed as one CUDA graph, and of the same calls
+    through PyTorch's library (`cnn_library_call`), median and range of
+    ROUNDS rounds interleaved (kernel, library, ...), beside the summed
+    bound of the calls."""
     from repro_torch.kernels import ops
     fns = {}
     for kernel, recorded in calls.items():
@@ -2709,11 +3329,18 @@ def cnn_kernel_times(torch, calls):
             op = getattr(ops, f"{kernel}_op")
             fns[kernel] = (lambda op=op, recorded=recorded:
                            [op(*a, **kw) for a, kw in recorded])
+            libs = [cnn_library_call(torch, kernel, a, kw)
+                    for a, kw in recorded]
+            fns[f"{kernel}:library"] = (lambda libs=libs:
+                                        [lib() for lib in libs])
     rounds = graph_rounds(fns, 1)
     out = {}
     for kernel, xs in rounds.items():
+        if kernel.endswith(":library"):
+            continue
         rec = {"calls": len(calls[kernel])}
         spread(rec, "ms", xs)
+        spread(rec, "library_ms", rounds[f"{kernel}:library"])
         bounds = [cnn_call_bound(kernel, a, kw) for a, kw in calls[kernel]]
         rec["bound_ms"] = sum(b for b, _ in bounds)
         by_bytes = sum(b for b, what in bounds if what == "bytes")
@@ -2819,11 +3446,16 @@ def phase_cnn(torch, seed, smi, device="cuda"):
         gc.collect()
         torch.cuda.empty_cache()
         for kernel, rec in sorted(ktimes.items()):
+            lib_name = ("two calls" if kernel == "split_precision"
+                        else "_int_mm")
             print(f"[{tag}] {kernel}: {rec['calls']} calls per forward, "
                   f"device {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
                   f"{rec['max_ms']:.4f}) per forward, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
-                  f"{rec['bound_ms'] / rec['ms']:.3f}")
+                  f"{rec['bound_ms'] / rec['ms']:.3f}; library ({lib_name}) "
+                  f"{rec['library_ms']:.4f} ms ({rec['library_min_ms']:.4f}-"
+                  f"{rec['library_max_ms']:.4f}), factor kernel / library "
+                  f"{rec['ms'] / rec['library_ms']:.3f}")
 
         def forward_ms():
             torch.cuda.synchronize()
@@ -2967,6 +3599,8 @@ def main(argv=None) -> int:
                                engine_recs))
     del refs
     mark("paged engine")
+    serving["planset"] = phase_planset(torch, cfg, params, args.seed, smi)
+    mark("planset")
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -38,9 +38,24 @@ the JAX package's CLI does:
 ``--kv-layout dense`` selects the dense layout; ``--page-size``,
 ``--num-pages``, ``--prefill-chunk`` and ``--page-watermark`` size the
 paged one; ``--policy deadline --check-preempt-parity`` replays the trace
-FCFS and exits 2 unless every completed request's tokens match.  The
-flags of the multi-plan features raise NotImplementedError naming the
-roadmap item that brings them (`UNPORTED_FLAGS`).
+FCFS and exits 2 unless every completed request's tokens match.
+
+Multi-plan serving binds several artifacts of the same weights as one
+`repro_torch.runtime.PlanSet` bank (`build_planset`; its per-variant
+coverage and dedup bytes are printed by `print_planset_report`):
+``--speculate draft.json [--draft-k 4] [--check-spec-parity]`` drafts
+with the second artifact and verifies with ``--mapping`` (the parity check
+replays the trace target-only and exits 2 unless the tokens are
+identical); ``--slo-variant CLASS=MAPPING`` (repeatable) routes a class of
+the trace to its own variant; ``--degrade-to CLASS --ttft-target-s S``
+routes new requests to that ``--slo-variant`` class while the p95 TTFT
+exceeds S; ``--fault-spec kind@step:slot[xN],kind~rate`` injects seeded
+faults (`repro_torch.serving.FaultInjector`).  A bank that fails to lower
+or bind exits 2 (no majority-dtype fall-back):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --engine --requests 8 --mapping m.json --speculate draft.json \
+        --draft-k 4 --check-spec-parity
 
 CNNs serve with the ``cnn:<config>`` arch (`repro_torch.models.cnn`):
 ``--requests`` random images of the config's size go through one forward,
@@ -64,16 +79,6 @@ import torch
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.models import transformer as T
-from repro_torch.serving.engine import PLANSET_ITEM
-
-#: flags of the JAX serve CLI the port does not take yet -> the roadmap
-#: item that brings them
-UNPORTED_FLAGS = {
-    "--speculate": PLANSET_ITEM, "--draft-k": PLANSET_ITEM,
-    "--check-spec-parity": PLANSET_ITEM, "--slo-variant": PLANSET_ITEM,
-    "--fault-spec": PLANSET_ITEM, "--degrade-to": PLANSET_ITEM,
-    "--ttft-target-s": PLANSET_ITEM,
-}
 
 
 def majority_domain(artifact) -> dict:
@@ -108,6 +113,37 @@ def plan_mapping_execution(params, artifact):
     return plan, PlannedBackend(plan, params)
 
 
+def build_planset(params, artifacts, default):
+    """Lower several mapping artifacts of the SAME weights and bind them as
+    one `repro_torch.runtime.PlanSet` precision bank.  ``artifacts``:
+    {variant_name: MappingArtifact}.  Returns (plans, planset), ``plans``
+    the per-variant `ExecutionPlan`s; raises `LoweringError` /
+    `ExecutionError` -- a bank that cannot bind is an error, not a
+    degraded mode."""
+    from repro_torch.runtime import PlanSet, lower
+    plans = {v: lower(art, params=params) for v, art in artifacts.items()}
+    return plans, PlanSet(plans, params, default=default)
+
+
+def print_planset_report(tag, plans, planset):
+    """Per-variant coverage + the dedup memory accounting of the bank."""
+    for v in planset.variant_names:
+        hist = " ".join(f"{k}:{n}" for k, n in
+                        sorted(plans[v].kernel_histogram().items()))
+        bp = planset.variant(v)
+        print(f"[{tag}] variant {v!r}: {hist}; {len(bp.bound)}/"
+              f"{len(bp.plan.layers)} planned layers bound to weights, "
+              f"{len(bp.unbound)} unbound")
+    rep = planset.memory_report()
+    print(f"[{tag}] planset memory: prepared_bytes={rep['prepared_bytes']} "
+          f"sum_variant_bytes={rep['sum_variant_bytes']} "
+          f"dedup_saved_bytes={rep['dedup_saved_bytes']} "
+          f"shared_layers={len(rep['shared_layers'])}")
+    for v, missing in sorted(planset.coverage_diff().items()):
+        print(f"[{tag}] coverage diff: variant {v!r} leaves unbound: "
+              f"{missing}")
+
+
 def print_plan_coverage(tag, plan, backend):
     """Per-kernel histogram, fall-back reasons and per-layer coverage."""
     hist = " ".join(f"{k}:{v}" for k, v in
@@ -126,12 +162,28 @@ def print_plan_coverage(tag, plan, backend):
 
 def check_coverage(tag, backend, require_full: bool):
     """Print the call sites the backend declined; exit 2 when
-    ``require_full`` and any planned layer is unbound or declined."""
+    ``require_full`` and any planned layer is unbound or declined.  A
+    multi-variant `PlanSet` is checked variant by variant: the exit names
+    the offending variant and its layer names."""
     declines = backend.runtime_declines
     for name, reason in sorted(declines.items()):
         print(f"[{tag}] declined at run time: {name}: {reason}")
+    if not require_full:
+        return
+    if len(backend.variant_names) > 1:
+        diff = backend.coverage_diff()
+        for v in backend.variant_names:
+            problems = list(diff.get(v, [])) + \
+                [k.split(":", 1)[1] for k in sorted(declines)
+                 if k.startswith(f"{v}:")]
+            if problems:
+                print(f"[{tag}] ERROR: --require-full-coverage but variant "
+                      f"{v!r}: {len(problems)} planned layers did not "
+                      f"execute as mapped: {problems}", file=sys.stderr)
+                sys.exit(2)
+        return
     problems = list(backend.unbound) + sorted(declines)
-    if require_full and problems:
+    if problems:
         print(f"[{tag}] ERROR: --require-full-coverage but "
               f"{len(problems)} planned layers did not execute as mapped: "
               f"{problems}", file=sys.stderr)
@@ -173,11 +225,22 @@ def serve_engine(args, cfg, params, backend=None):
     decode tok/s) + the run summary.  The trace comes from ``--trace``
     (JSONL, see `repro_torch.serving.trace`) or a seeded synthetic trace
     sized by ``--requests/--prompt-len/--gen-len`` (the JAX package's
-    trace for the same seed).  Returns (results, summary)."""
-    from repro_torch.serving import (Engine, SamplingParams, Scheduler,
-                                     ShedResult, load_trace,
+    trace for the same seed).  With ``--speculate`` the run is
+    self-speculative (``--check-spec-parity`` replays it target-only and
+    asserts token identity); ``--slo-variant`` routes each request's SLO
+    class to its plan variant; ``--degrade-to`` and ``--fault-spec`` drive
+    the robustness layer.  Returns (results, summary)."""
+    from repro_torch.serving import (Engine, FaultInjector, SamplingParams,
+                                     Scheduler, ShedResult, load_trace,
                                      poisson_arrivals, summarize,
                                      synthetic_trace)
+    speculate = ("draft", "target") if args.speculate else None
+    # the --degrade-to class is bound in the bank but is NOT an SLO route:
+    # requests reach it only while the engine is degraded, never by tag
+    route_classes = [c for c in getattr(args, "slo_classes", [])
+                     if c != args.degrade_to]
+    slo_routes = ({cls: cls for cls in route_classes}
+                  if route_classes else None)
     sampling = None
     if args.temperature is not None or args.top_p < 1.0:
         sampling = SamplingParams(
@@ -207,6 +270,7 @@ def serve_engine(args, cfg, params, backend=None):
             max_prompt=args.prompt_len,
             min_new=max(2, args.gen_len // 4), max_new=args.gen_len,
             seed=args.seed, shared_prefix=args.shared_prefix,
+            slo_classes=(sorted(slo_routes) if slo_routes else None),
             priorities=priorities, deadlines_ms=deadlines)
         print(f"[serve] synthetic trace: {len(trace)} mixed-length requests "
               f"(prompts <= {args.prompt_len}, gen <= {args.gen_len}, "
@@ -218,14 +282,21 @@ def serve_engine(args, cfg, params, backend=None):
               f"{max(r.arrival_step for r in trace)})")
     max_len = args.max_len or max(r.prompt_len + r.max_new_tokens
                                   for r in trace)
+    injector = (FaultInjector.parse(args.fault_spec, seed=args.seed)
+                if args.fault_spec else None)
     engine = Engine(cfg, params, max_batch=args.max_batch, max_len=max_len,
                     backend=backend, scheduler=Scheduler(args.policy),
                     kv_layout=args.kv_layout, page_size=args.page_size,
                     num_pages=args.num_pages,
-                    prefill_chunk=args.prefill_chunk, sampling=sampling,
+                    prefill_chunk=args.prefill_chunk,
+                    speculate=speculate, draft_k=args.draft_k,
+                    slo_routes=slo_routes, sampling=sampling,
                     max_queue_depth=args.max_queue_depth,
                     page_watermark=args.page_watermark,
-                    request_timeout_s=args.request_timeout)
+                    request_timeout_s=args.request_timeout,
+                    degrade_to=args.degrade_to,
+                    ttft_target_s=args.ttft_target_s,
+                    injector=injector)
     results = engine.run(trace)
     for r in results:
         if isinstance(r, ShedResult):
@@ -245,17 +316,25 @@ def serve_engine(args, cfg, params, backend=None):
           f"p95 {summ['ttft_p95_s'] * 1e3:.0f}ms, "
           f"{st['decode_steps']} decode steps)")
     if (st["preemptions"] or st["shed_requests"] or st["timeouts"]
-            or st["faults_detected"] or args.policy == "deadline"
+            or st["faults_injected"] or st["degrade_transitions"]
+            or args.policy == "deadline" or injector is not None
             or args.max_queue_depth or args.page_watermark
             or args.request_timeout):
         print(f"[serve] robustness: preemptions={st['preemptions']} "
               f"resumes={st['resumes']} sheds={st['shed_requests']} "
               f"shed_rate={summ['shed_rate']} timeouts={st['timeouts']} "
-              f"faults_detected={st['faults_detected']}")
+              f"faults_injected={st['faults_injected']} "
+              f"faults_detected={st['faults_detected']} "
+              f"heartbeat_trips={st['heartbeat_trips']} "
+              f"degrade_transitions={st['degrade_transitions']} "
+              f"degrade_rate={summ['degrade_rate']}")
         if "shed_reasons" in summ:
             print(f"[serve] shed reasons: "
                   + " ".join(f"{k}:{v}" for k, v in
                              sorted(summ["shed_reasons"].items())))
+        for step_t, kind, p95 in engine.degrade_log:
+            print(f"[serve] degrade transition @step {step_t}: {kind} "
+                  f"(window p95 ttft {p95 * 1e3:.0f}ms)")
     if args.check_preempt_parity:
         # replay the SAME trace FCFS without preemption or sheds and
         # compare every COMPLETED request's token stream — preemption must
@@ -265,7 +344,7 @@ def serve_engine(args, cfg, params, backend=None):
             backend=backend, scheduler=Scheduler("continuous"),
             kv_layout=args.kv_layout, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
-            sampling=sampling)
+            slo_routes=slo_routes, sampling=sampling)
         ref = {r.rid: r for r in ref_engine.run(trace)}
         # timed-out requests carry a clean PREFIX of the full stream, so
         # every non-shed result must prefix-match its FCFS replay
@@ -290,6 +369,39 @@ def serve_engine(args, cfg, params, backend=None):
               f"(lookups {st['prefix_lookups']}) "
               f"cow_copies={st['cow_copies']} "
               f"evictions={st['page_evictions']}")
+    if "by_slo" in summ:
+        for cls, rec in sorted(summ["by_slo"].items()):
+            variant = (slo_routes or {}).get(cls, "default")
+            print(f"[serve] slo {cls!r} -> variant {variant!r}: "
+                  f"{rec['requests']} requests "
+                  f"ttft p50 {rec['ttft_p50_s'] * 1e3:.0f}ms / "
+                  f"p95 {rec['ttft_p95_s'] * 1e3:.0f}ms, "
+                  f"decode p50 {rec['decode_tok_s_p50']} tok/s")
+    if speculate is not None:
+        print(f"[serve] speculative(draft_k={args.draft_k}): "
+              f"rounds={st['spec_rounds']} drafted={st['spec_drafted']} "
+              f"accepted={st['spec_accepted']} "
+              f"acceptance={st['spec_acceptance']} "
+              f"tokens_per_round={st['spec_tokens_per_round']}")
+        if args.check_spec_parity:
+            # replay the SAME trace target-only (the PlanSet default is the
+            # target variant) and compare every request's token stream
+            ref_engine = Engine(
+                cfg, params, max_batch=args.max_batch, max_len=max_len,
+                backend=backend, scheduler=Scheduler(args.policy),
+                kv_layout=args.kv_layout, page_size=args.page_size,
+                num_pages=args.num_pages, prefill_chunk=args.prefill_chunk)
+            ref = ref_engine.run(trace)
+            identical = all(a.tokens == b.tokens
+                            for a, b in zip(results, ref))
+            print(f"[serve] spec tokens identical to target-only: "
+                  f"{identical}")
+            if not identical:
+                bad = [a.rid for a, b in zip(results, ref)
+                       if a.tokens != b.tokens]
+                print(f"[serve] ERROR: speculative decode diverged from "
+                      f"target-only on requests {bad}", file=sys.stderr)
+                sys.exit(2)
     return results, summ
 
 
@@ -428,27 +540,74 @@ def main(argv=None):
                     help="synthetic --engine trace: prepend the same "
                          "N-token system prefix to every prompt (exercises "
                          "prefix caching)")
-    for flag, item in UNPORTED_FLAGS.items():
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=f"not ported yet ({item})")
+    ap.add_argument("--fault-spec", default=None,
+                    help="inject seeded faults: comma-separated "
+                         "kind@step:slot[xN] events and/or kind~rate "
+                         "Bernoulli rates (kinds: nonfinite_logits, "
+                         "corrupt_page, stuck)")
+    ap.add_argument("--degrade-to", default=None, metavar="CLASS",
+                    help="precision degradation: route NEW requests to "
+                         "this --slo-variant class while the sliding p95 "
+                         "TTFT exceeds --ttft-target-s")
+    ap.add_argument("--ttft-target-s", type=float, default=None,
+                    help="p95 TTFT target (seconds) driving --degrade-to")
+    ap.add_argument("--speculate", default=None, metavar="DRAFT_MAPPING",
+                    help="second mapping artifact of the SAME weights bound "
+                         "as the 'draft' variant of a PlanSet bank "
+                         "(--mapping is the 'target'): self-speculative "
+                         "decoding, token-identical to target-only greedy")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="tokens drafted per speculative round")
+    ap.add_argument("--check-spec-parity", action="store_true",
+                    help="after the speculative run, replay the trace "
+                         "target-only and exit nonzero unless every "
+                         "request's tokens are identical")
+    ap.add_argument("--slo-variant", action="append", default=[],
+                    metavar="CLASS=MAPPING",
+                    help="route SLO class CLASS to a variant bound from "
+                         "this mapping artifact (repeatable; --mapping is "
+                         "the default variant for unrouted requests)")
     args = ap.parse_args(argv)
 
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(f"{flag}: waits for {item}")
+    if args.require_full_coverage and not args.mapping:
+        ap.error("--require-full-coverage needs --mapping")
     robust_flags = (args.policy == "deadline" or args.poisson
                     or args.max_queue_depth or args.page_watermark
-                    or args.request_timeout or args.check_preempt_parity
+                    or args.request_timeout or args.fault_spec
+                    or args.degrade_to or args.check_preempt_parity
                     or args.priorities or args.deadlines_ms)
     if robust_flags and not args.engine:
         ap.error("robustness flags (--policy deadline / --poisson / "
                  "--max-queue-depth / --page-watermark / --request-timeout "
-                 "/ --check-preempt-parity / --priorities / --deadlines-ms) "
-                 "need --engine")
+                 "/ --fault-spec / --degrade-to / --check-preempt-parity / "
+                 "--priorities / --deadlines-ms) need --engine")
+    if args.degrade_to:
+        if args.ttft_target_s is None:
+            ap.error("--degrade-to needs --ttft-target-s")
+        if not any(s.startswith(f"{args.degrade_to}=")
+                   for s in args.slo_variant):
+            ap.error(f"--degrade-to {args.degrade_to!r} must name a "
+                     f"--slo-variant class of the bank")
+    elif args.ttft_target_s is not None:
+        ap.error("--ttft-target-s needs --degrade-to")
     if args.check_preempt_parity and args.policy != "deadline":
         ap.error("--check-preempt-parity needs --policy deadline")
-    if args.require_full_coverage and not args.mapping:
-        ap.error("--require-full-coverage needs --mapping")
+    args.slo_classes = []
+    if args.speculate or args.slo_variant:
+        if not args.engine:
+            ap.error("--speculate/--slo-variant need --engine")
+        if not args.mapping:
+            ap.error("--speculate/--slo-variant need --mapping (the "
+                     "target/default plan of the bank)")
+        if args.mapping_fallback:
+            ap.error("--mapping-fallback cannot serve a multi-plan bank")
+        if args.speculate and args.slo_variant:
+            ap.error("--speculate and --slo-variant are mutually exclusive")
+    for spec_arg in args.slo_variant:
+        cls, sep, path = spec_arg.partition("=")
+        if not cls or not sep or not path:
+            ap.error(f"--slo-variant wants CLASS=MAPPING, got {spec_arg!r}")
+        args.slo_classes.append(cls)
     if args.arch.startswith("cnn:"):
         if args.engine:
             ap.error("--engine is a decode-loop mode; CNNs have no KV cache "
@@ -465,7 +624,35 @@ def main(argv=None):
 
     from repro_torch.runtime import ExecutionError, LoweringError
     backend = None
-    if args.mapping:
+    if args.mapping and (args.speculate or args.slo_variant):
+        from repro_torch.api import MappingArtifact
+        art = MappingArtifact.load(args.mapping)
+        if args.speculate:
+            arts = {"target": art,
+                    "draft": MappingArtifact.load(args.speculate)}
+            default = "target"
+        else:
+            arts = {"default": art}
+            for spec_arg in args.slo_variant:
+                cls, _, path = spec_arg.partition("=")
+                arts[cls] = MappingArtifact.load(path)
+            default = "default"
+        try:
+            plans, backend = build_planset(params, arts, default)
+        except (LoweringError, ExecutionError) as e:
+            print(f"[serve] multi-plan bank failed to lower/bind ({e})",
+                  file=sys.stderr)
+            sys.exit(2)
+        # the KV-cache precision follows the default / target artifact's
+        # activation majority, as on the single-plan path
+        cfg = kv_cache_for(cfg, art)
+        print(f"[serve] planset bank: model={art.model} "
+              f"platform={art.platform} "
+              f"variants={list(backend.variant_names)} default={default!r} "
+              f"kv={cfg.kv_cache_dtype}")
+        print_planset_report("serve", plans, backend)
+        check_coverage("serve", backend, args.require_full_coverage)
+    elif args.mapping:
         from repro_torch.api import MappingArtifact
         art = MappingArtifact.load(args.mapping)
         if not args.mapping_fallback:

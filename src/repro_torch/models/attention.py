@@ -279,7 +279,9 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
     pool instead: writes scatter through the table (`paged_update`,
     ``write_mask`` (B, S) sending padding to the trash page) and attention
     reads the gathered per-slot view (`paged_gather`) under the same
-    per-slot ``q_pos0`` / ``kv_len`` masks.  Returns (out, cache)."""
+    per-slot ``q_pos0`` / ``kv_len`` masks; on the paged path a row whose
+    attention output is not finite stays so through ``wo``.  Returns (out,
+    cache)."""
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KVH
@@ -325,4 +327,11 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
                              window=cfg.sliding_window, q_pos0=q_pos0,
                              kv_len=kv_len)
     out = out.reshape(B, S, H * hd)
-    return L.dense(p["wo"], out, _j(name, "wo")), cache
+    y = L.dense(p["wo"], out, _j(name, "wo"))
+    if pages is not None:
+        # a planned wo quantizes ``out`` to int8, which maps NaN (read from
+        # a corrupted page) to a finite code: keep such rows non-finite,
+        # so that the paged engine's logit screen sees the fault
+        y = torch.where(torch.isfinite(out).all(dim=-1, keepdim=True), y,
+                        float("nan"))
+    return y, cache

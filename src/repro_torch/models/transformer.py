@@ -12,11 +12,12 @@ Python and publishes the repeat index with `_backend.scan_slot`.
 Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
   params_from_jax(tree, device)                  -> params
-  prefill(params, cfg, tokens, caches, lengths=) -> (last_logits, caches)
-  prefill_chunk(params, cfg, tokens, caches, index, valid, pages)
+  prefill(params, cfg, tokens, caches, lengths=, variant=)
                                                  -> (last_logits, caches)
-  decode_step(params, cfg, token, caches, index, active=, pages=)
-                                                 -> (logits, caches)
+  prefill_chunk(params, cfg, tokens, caches, index, valid, pages,
+                variant=, full_logits=)          -> (logits, caches)
+  decode_step(params, cfg, token, caches, index, active=, pages=,
+              variant=)                          -> (logits, caches)
   cache_specs(cfg, B, S_max)                     -> tree of meta tensors
   init_cache(cfg, B, S_max, device)              -> caches
   paged_cache_specs(cfg, B, pool_rows, page_size)-> tree of meta tensors
@@ -158,12 +159,16 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
 
 def _project_logits(params, cfg: ArchConfig, h):
     """Vocab projection, routed through the matmul backend when one is
-    installed (planned execution of the head)."""
+    installed (planned execution of the head).  A planned head quantizes
+    ``h`` to int8, which maps NaN to a finite code: rows of ``h`` that are
+    not finite give NaN logits, so that the engine's screen sees a
+    corrupted KV page under a planned backend too."""
     be = _backend.current()
     if be is not None:
         y = be("head", params["head"], h)
         if y is not None:
-            return y.to(torch.float32)
+            finite = torch.isfinite(h).all(dim=-1, keepdim=True)
+            return torch.where(finite, y.to(torch.float32), float("nan"))
     return L.matmul(h, params["head"]["w"]).to(torch.float32)
 
 
@@ -279,27 +284,32 @@ def scatter_cache(caches, sub, slots):
 CHUNKED_ABOVE = 2048
 
 
-def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None):
+def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
+            variant=None):
     """Process the prompts ``tokens (B, S)``, fill the caches, and return
     (logits at each row's last valid position, caches).  ``lengths`` (B,)
     marks right-padded prompts; KV written at padded positions is masked by
     every later read.  Prompts longer than 2048 tokens take the chunked
-    attention (see the module docstring)."""
-    B, Sq = tokens.shape
-    x = params["emb"][tokens]
-    positions = torch.arange(Sq, device=tokens.device)[None, :]
-    h, caches = backbone(params, cfg, x, positions, caches=caches,
-                         cache_index=0, chunked=Sq > CHUNKED_ABOVE)
-    if lengths is None:
-        h_last = h[:, -1]
-    else:
-        last = torch.as_tensor(lengths, device=h.device) - 1
-        h_last = h[torch.arange(B, device=h.device), last]
-    return _project_logits(params, cfg, h_last), caches
+    attention (see the module docstring).  ``variant`` selects the plan
+    variant of a multi-plan backend (`repro_torch.runtime.PlanSet`) for
+    this call; None keeps any surrounding ``plan_variant`` selection or
+    the backend's default."""
+    with _backend.plan_variant(variant):
+        B, Sq = tokens.shape
+        x = params["emb"][tokens]
+        positions = torch.arange(Sq, device=tokens.device)[None, :]
+        h, caches = backbone(params, cfg, x, positions, caches=caches,
+                             cache_index=0, chunked=Sq > CHUNKED_ABOVE)
+        if lengths is None:
+            h_last = h[:, -1]
+        else:
+            last = torch.as_tensor(lengths, device=h.device) - 1
+            h_last = h[torch.arange(B, device=h.device), last]
+        return _project_logits(params, cfg, h_last), caches
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
-                  pages):
+                  pages, variant=None, full_logits: bool = False):
     """One fixed-size chunk of a paged CHUNKED prefill.
 
     ``tokens`` (B, C) holds the next (up to C) prompt tokens of every
@@ -314,23 +324,32 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
     through the projections (M = B * C), so with dynamic activation scales
     a slot's numbers depend on its neighbours.  Returns (logits at each
     slot's last valid token -- the slot's first generated token once its
-    whole prompt is in, garbage before that -- and the caches)."""
-    B, C = tokens.shape
-    dev = tokens.device
-    x = params["emb"][tokens]
-    steps = torch.arange(C, device=dev)[None, :]
-    positions = index[:, None] + steps
-    length_mask = steps < valid[:, None]
-    h, caches = backbone(params, cfg, x, positions, caches=caches,
-                         cache_index=index, length_mask=length_mask,
-                         pages=pages)
-    last = torch.clamp(valid - 1, 0, C - 1)
-    h_last = h[torch.arange(B, device=dev), last]
-    return _project_logits(params, cfg, h_last), caches
+    whole prompt is in, garbage before that -- and the caches).
+
+    ``variant`` selects the plan variant (see `prefill`).
+    ``full_logits=True`` returns the logits at EVERY chunk position (B, C,
+    V) instead: the speculative verify step reads the target variant's
+    prediction after each drafted token from one chunk call (rows past
+    ``valid`` are garbage by the same masking contract)."""
+    with _backend.plan_variant(variant):
+        B, C = tokens.shape
+        dev = tokens.device
+        x = params["emb"][tokens]
+        steps = torch.arange(C, device=dev)[None, :]
+        positions = index[:, None] + steps
+        length_mask = steps < valid[:, None]
+        h, caches = backbone(params, cfg, x, positions, caches=caches,
+                             cache_index=index, length_mask=length_mask,
+                             pages=pages)
+        if full_logits:
+            return _project_logits(params, cfg, h), caches
+        last = torch.clamp(valid - 1, 0, C - 1)
+        h_last = h[torch.arange(B, device=dev), last]
+        return _project_logits(params, cfg, h_last), caches
 
 
 def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
-                pages=None):
+                pages=None, variant=None):
     """One decode step for ``token (B,)`` at position ``index``: an int
     (same-length batch) or a (B,) tensor of per-slot cache lengths.
     ``active`` (B,) bool marks live slots; the logits of an inactive slot
@@ -339,15 +358,17 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
     still-prefilling slots write into the trash page, whatever their
     ``index``.  On the dense cache ``active`` changes nothing (an
     attention-only model has no cross-slot coupling or recurrent state to
-    suppress), and an inactive slot writes at its ``index``."""
-    x = params["emb"][token][:, None, :]
-    B = x.shape[0]
-    if isinstance(index, torch.Tensor) and index.dim() == 1:
-        positions = index[:, None]
-    else:
-        positions = torch.full((B, 1), int(index), device=x.device)
-    length_mask = None if active is None else active[:, None]
-    h, caches = backbone(params, cfg, x, positions, caches=caches,
-                         cache_index=index, length_mask=length_mask,
-                         pages=pages)
-    return _project_logits(params, cfg, h[:, -1]), caches
+    suppress), and an inactive slot writes at its ``index``.  ``variant``
+    selects the plan variant (see `prefill`)."""
+    with _backend.plan_variant(variant):
+        x = params["emb"][token][:, None, :]
+        B = x.shape[0]
+        if isinstance(index, torch.Tensor) and index.dim() == 1:
+            positions = index[:, None]
+        else:
+            positions = torch.full((B, 1), int(index), device=x.device)
+        length_mask = None if active is None else active[:, None]
+        h, caches = backbone(params, cfg, x, positions, caches=caches,
+                             cache_index=index, length_mask=length_mask,
+                             pages=pages)
+        return _project_logits(params, cfg, h[:, -1]), caches

@@ -7,6 +7,10 @@ planned layers through the port's CUDA kernels.
     with repro_torch.models._backend.use(backend):
         logits, caches = transformer.prefill(params, cfg, tokens, caches)
 
+A `PlanSet` binds several plans of the same weights as one precision bank
+(``PlanSet({"target": plan_a, "draft": plan_b}, params)``), selected per
+call by ``variant=`` (``transformer.prefill(..., variant="draft")``).
+
 Conv layers (4-D HWIO weights, grouped ones included) bind too and run
 through im2col (`execute_conv_layer`) when the model's conv call sites
 (`repro_torch.models.managed.conv2d`) consult the backend.
@@ -20,15 +24,18 @@ from repro_torch.runtime.registry import (KernelCapability,
                                           register_kernel, unregister_kernel)
 from repro_torch.runtime.lower import lower, resolve_layer_params
 from repro_torch.runtime.execute import (ExecutionError, PlannedBackend,
-                                         PreparedLayer, execute_conv_layer,
-                                         execute_layer, im2col,
-                                         prepare_layer)
+                                         PlanSet, PreparedLayer,
+                                         execute_conv_layer, execute_layer,
+                                         im2col, prepare_layer,
+                                         prepared_nbytes)
 
 __all__ = [
     "ExecutionError", "ExecutionPlan", "KernelCapability", "LayerPlan",
-    "LoweringError", "PlannedBackend", "PreparedLayer", "KERNELS",
+    "LoweringError", "PlanSet", "PlannedBackend", "PreparedLayer",
+    "KERNELS",
     "KERNEL_FP", "KERNEL_QUANT", "KERNEL_SPLIT", "KERNEL_SPLIT_TERNARY",
     "KERNEL_TERNARY", "capability_matrix", "execute_conv_layer",
-    "execute_layer", "im2col", "kernel_for", "lower", "prepare_layer", "register_kernel", "resolve_layer_params",
+    "execute_layer", "im2col", "kernel_for", "lower", "prepare_layer",
+    "prepared_nbytes", "register_kernel", "resolve_layer_params",
     "unregister_kernel",
 ]

@@ -23,20 +23,23 @@ zero-padded to the kernels' `K_ALIGN` (and the split kernels' N to their
 come out with the padded width, and the padded output columns fall away
 with the inverse permutation.
 
-`PlannedBackend` binds a plan to a params dict by layer name and serves the
-name-keyed matmul-backend protocol of `repro_torch.models._backend`
-(``backend(name, p, x, conv=None)``).  Stacked ``base@r`` layers bind to a
-list of per-repeat prepared layers, indexed by the repeat the model's
-layer loop publishes.
+`PlanSet` binds a bank of plans (precision variants of the same weights)
+to a params dict by layer name and serves the name-keyed matmul-backend
+protocol of `repro_torch.models._backend` (``backend(name, p, x,
+conv=None)``), in the variant `_backend.plan_variant` publishes; prepared
+tensors of coinciding layers are shared across variants
+(`prepared_nbytes` counts them once).  `PlannedBackend` is its one-variant
+case.  Stacked ``base@r`` layers bind to a list of per-repeat prepared
+layers, indexed by the repeat the model's layer loop publishes.
 
 Every plan kernel executes: ``quant_matmul``, ``ternary_matmul`` and
 ``split_ternary`` (the DIANA plans), ``split_precision`` (int8 + identity
-platforms such as ``gpu_tc_like``) and the ``fp`` identity.  Multi-variant
-banks (``PlanSet``) wait for a later slice.
+platforms such as ``gpu_tc_like``) and the ``fp`` identity.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -344,36 +347,71 @@ def execute_conv_layer(prep: PreparedLayer, x, stride: int = 1,
     return execute_layer(prep, patches, reference=reference)
 
 
+# --------------------------------------------------------------------------
+# Prepared-buffer accounting
+# --------------------------------------------------------------------------
+
+#: PreparedLayer fields that hold tensors (the bind-time weight memory a
+#: plan keeps alive)
+_PREP_TENSOR_FIELDS = ("inv", "w_perm", "b", "w_q", "sw", "w_bf16",
+                       "w_t_packed", "act_scale", "act_sx")
+
+
+def _entry_tensors(entry):
+    """Every tensor a bound entry (a prepared layer, or the per-repeat list
+    of a stacked layer) keeps alive."""
+    if isinstance(entry, list):
+        for prep in entry:
+            yield from _entry_tensors(prep)
+        return
+    for f in _PREP_TENSOR_FIELDS:
+        t = getattr(entry, f)
+        if t is not None:
+            yield t
+
+
+def prepared_nbytes(entries) -> int:
+    """Total bytes of the UNIQUE storages held by ``entries``: a storage
+    shared between entries (the `PlanSet` dedup) or between fields (the
+    K-major ``w_q`` is a view of its own ``(N, K)`` copy) counts once."""
+    seen, total = set(), 0
+    for e in entries:
+        for t in _entry_tensors(e):
+            s = t.untyped_storage()
+            key = (str(t.device), s.data_ptr())
+            if s.nbytes() and key not in seen:
+                seen.add(key)
+                total += int(s.nbytes())
+    return total
+
+
+# --------------------------------------------------------------------------
+# Name-keyed matmul backend over a bank of plans
+# --------------------------------------------------------------------------
+
 def _node_weight_ok(node) -> bool:
     w = _layer_weight(node)
     return isinstance(node, dict) and isinstance(w, torch.Tensor) \
         and w.dim() in (2, 4) and not w.is_meta
 
 
-class PlannedBackend:
-    """One `ExecutionPlan` bound to a params dict, as a name-keyed matmul
-    backend: ``backend(name, p, x, conv=None)`` runs the planned kernel of
-    layer ``name`` (stacked layers: of the repeat published by
-    `_backend.scan_slot`; conv call sites pass ``conv={"stride",
-    "padding", "groups"}`` and run through `execute_conv_layer`) or
-    returns None for layers the plan does not cover.  ``reference=True``
-    executes the plain oracles instead of the kernels (attribute; may be
-    flipped between runs); it also selects the flash kernel's plain version
-    in `attention.chunked_attention`.  Layers the plan names but the params
-    cannot bind are listed in ``unbound``; call sites declined at run time
-    (a grouped conv whose plan was lowered without groups) in
-    ``runtime_declines``, with the reason."""
+class _BoundPlan:
+    """One `ExecutionPlan` variant bound to the owning `PlanSet`'s params:
+    layers resolve by artifact layer name as params path, and every
+    prepare goes through the owner's shared prepare cache, so identical
+    (layer plan, weight, domain bits, block) tuples across variants bind
+    to ONE set of prepared tensors."""
 
-    def __init__(self, plan: ExecutionPlan, params, *,
-                 reference: bool = False):
+    def __init__(self, variant: str, plan: ExecutionPlan, params,
+                 owner: "PlanSet"):
+        self.variant = variant
         self.plan = plan
-        self.reference = reference
-        self.runtime_declines: Dict[str, str] = {}
         domain_bits = [int(d["weight_bits"]) for d in plan.domains]
+        dsig = tuple(domain_bits)
         prep = lambda lp, node: prepare_layer(
             lp, _layer_weight(node), b=node.get("b"),
             domain_bits=domain_bits, block_n=plan.block_n)
-        self._by_name: Dict[str, Any] = {}
+        self.by_name: Dict[str, Any] = {}
         self.bound: List[str] = []
         self.unbound: List[str] = []
         stacked: Dict[str, List[Tuple[int, LayerPlan, Any]]] = {}
@@ -382,11 +420,15 @@ class PlannedBackend:
             base, _, rep = lp.name.partition("@")
             if rep:
                 stacked.setdefault(base, []).append((int(rep), lp, node))
-            elif _node_weight_ok(node):
-                self._by_name[lp.name] = prep(lp, node)
-                self.bound.append(lp.name)
-            else:
+                continue
+            if not _node_weight_ok(node):
                 self.unbound.append(lp.name)
+                continue
+            key = ("layer", ("p", lp.name), owner._plan_sig(lp), dsig,
+                   int(plan.block_n))
+            self.by_name[lp.name] = owner._memo(
+                key, variant, lp.name, lambda: prep(lp, node))
+            self.bound.append(lp.name)
         for base, entries in sorted(stacked.items()):
             entries.sort(key=lambda e: e[0])
             reps = [r for r, _, _ in entries]
@@ -404,17 +446,112 @@ class PlannedBackend:
             if not all(_node_weight_ok(node) for _, _, node in entries):
                 self.unbound.extend(lp.name for _, lp, _ in entries)
                 continue
-            self._by_name[base] = [prep(lp, node) for _, lp, node in entries]
+            # stacks dedup at WHOLE-STACK granularity, as in the JAX
+            # package (whose stacked containers hold fresh arrays): one
+            # divergent repeat forks the whole stack for that base
+            key = ("stack", "p", base,
+                   tuple(owner._plan_sig(lp) for _, lp, _ in entries),
+                   dsig, int(plan.block_n))
+            self.by_name[base] = owner._memo(
+                key, variant, base,
+                lambda: [prep(lp, node) for _, lp, node in entries])
             self.bound.extend(lp.name for _, lp, _ in entries)
 
-    def coverage(self) -> str:
-        return (f"{len(self.bound)}/{len(self.plan.layers)} planned layers "
-                f"bound to weights, {len(self.unbound)} unbound")
+
+class PlanSet:
+    """A precision bank: N `ExecutionPlan` variants of the SAME weights
+    bound against one params dict, serving the name-keyed matmul-backend
+    protocol (``backend(name, p, x, conv=None)``).
+
+    The active variant is the key published by `_backend.plan_variant`
+    (the transformer's ``variant=`` arguments publish it); calls outside
+    any variant context execute ``default``.
+
+    Prepared tensors DEDUPLICATE across variants: wherever a layer's
+    (layer plan, resolved weight, domain bit-widths, block size) tuple
+    coincides, the variants share one set of prepared tensors (per plain
+    layer; per whole stack for stacked ``base@r`` entries, whose per-repeat
+    lists are the eager counterpart of the JAX package's scan stacks).
+    ``prepared_bytes()`` / ``memory_report()`` measure the dedup over
+    unique storages: a two-variant bank stays strictly below two
+    independent binds whenever any layer coincides.
+
+    Layer resolution, coverage bookkeeping and the fail-loud
+    `ExecutionError` semantics are those of the single-plan
+    `PlannedBackend`, which is the one-variant case of this class.
+    ``reference=True`` executes the plain oracles instead of the kernels
+    (attribute; may be flipped between runs); it also selects the flash
+    kernel's plain version in `attention.chunked_attention`.  Call sites
+    declined at run time (a grouped conv whose plan was lowered without
+    groups) are listed in ``runtime_declines`` with the reason, keyed
+    ``variant:name`` in banks of more than one variant.
+    """
+
+    def __init__(self, variants: Dict[str, ExecutionPlan], params, *,
+                 default: str | None = None, reference: bool = False):
+        if not variants:
+            raise ValueError("PlanSet needs at least one plan variant")
+        for v in variants:
+            if not isinstance(v, str) or not v:
+                raise ValueError(f"variant names must be non-empty strings, "
+                                 f"got {v!r}")
+        self.reference = reference
+        self.variant_names: Tuple[str, ...] = tuple(variants)
+        self.default = self.variant_names[0] if default is None else default
+        if self.default not in variants:
+            raise ValueError(f"default variant {self.default!r} is not one "
+                             f"of {list(self.variant_names)}")
+        self.runtime_declines: Dict[str, str] = {}
+        self._prep_cache: Dict[Any, Any] = {}
+        self._share: Dict[Any, List[Tuple[str, str]]] = {}
+        self._sig_cache: Dict[int, str] = {}
+        self._variants: Dict[str, _BoundPlan] = {}
+        for vname, plan in variants.items():
+            self._variants[vname] = _BoundPlan(vname, plan, params, self)
+
+    # ---- shared prepare cache -------------------------------------------
+
+    def _plan_sig(self, lp: LayerPlan) -> str:
+        sig = self._sig_cache.get(id(lp))
+        if sig is None:
+            sig = json.dumps(lp.to_dict(), sort_keys=True)
+            self._sig_cache[id(lp)] = sig
+        return sig
+
+    def _memo(self, key, variant: str, display_name: str, build):
+        if key not in self._prep_cache:
+            self._prep_cache[key] = build()
+        self._share.setdefault(key, []).append((variant, display_name))
+        return self._prep_cache[key]
+
+    # ---- backend protocol -----------------------------------------------
+
+    def _resolve_variant(self) -> _BoundPlan:
+        v = _backend.current_plan_variant()
+        if v is None:
+            v = self.default
+        bp = self._variants.get(v)
+        if bp is None:
+            raise ExecutionError(
+                f"unknown plan variant {v!r}: this PlanSet binds "
+                f"{list(self.variant_names)}")
+        return bp
+
+    def _decline_key(self, bp: _BoundPlan, name: str) -> str:
+        # one-variant banks keep the bare-name key (the PlannedBackend
+        # contract); multi-variant banks qualify it so variants don't alias
+        return name if len(self._variants) == 1 else f"{bp.variant}:{name}"
 
     def __call__(self, name, p, x, *, conv=None):
+        """Run the planned kernel of layer ``name`` in the ACTIVE variant
+        (stacked layers: of the repeat published by `_backend.scan_slot`;
+        conv call sites pass ``conv={"stride", "padding", "groups"}`` and
+        run through `execute_conv_layer`), or return None for layers the
+        variant does not cover."""
         if name is None:
             return None
-        entry = self._by_name.get(name)
+        bp = self._resolve_variant()
+        entry = bp.by_name.get(name)
         if entry is None:
             return None
         if isinstance(entry, list):
@@ -439,7 +576,7 @@ class PlannedBackend:
             if pg == 1:
                 # a plan lowered without a groups record: declined, and
                 # surfaced by serve's coverage check
-                self.runtime_declines[name] = (
+                self.runtime_declines[self._decline_key(bp, name)] = (
                     f"grouped conv (groups={cg}) but the plan was lowered "
                     f"without groups; executed on the default path")
                 return None
@@ -449,3 +586,88 @@ class PlannedBackend:
                 f"this model")
         return execute_conv_layer(entry, x, conv["stride"], conv["padding"],
                                   reference=self.reference)
+
+    # ---- coverage -------------------------------------------------------
+
+    def variant(self, name: str) -> _BoundPlan:
+        """The bound state of one variant (plan / bound / unbound)."""
+        return self._variants[name]
+
+    @property
+    def fully_covered(self) -> bool:
+        """True when EVERY variant bound every planned layer."""
+        return all(not bp.unbound for bp in self._variants.values())
+
+    def coverage(self) -> str:
+        parts = []
+        for v, bp in self._variants.items():
+            s = (f"{len(bp.bound)}/{len(bp.plan.layers)} planned layers "
+                 f"bound to weights, {len(bp.unbound)} unbound")
+            parts.append(s if len(self._variants) == 1 else f"{v}: {s}")
+        return "; ".join(parts)
+
+    def coverage_diff(self) -> Dict[str, List[str]]:
+        """Per-variant UNBOUND layer names (only variants with gaps)."""
+        return {v: list(bp.unbound) for v, bp in self._variants.items()
+                if bp.unbound}
+
+    # ---- memory accounting ----------------------------------------------
+
+    def prepared_bytes(self, variant: str | None = None) -> int:
+        """Bytes of the unique prepared storages held by ``variant`` (or
+        by the whole bank when None): storages shared across variants
+        count once."""
+        if variant is None:
+            entries = [e for bp in self._variants.values()
+                       for e in bp.by_name.values()]
+        else:
+            entries = list(self._variants[variant].by_name.values())
+        return prepared_nbytes(entries)
+
+    def shared_layers(self) -> Dict[str, Tuple[str, ...]]:
+        """Display name -> variants whose prepared tensors coincide (>= 2
+        variants sharing one prepare-cache entry)."""
+        out: Dict[str, Tuple[str, ...]] = {}
+        for users in self._share.values():
+            vs = tuple(dict.fromkeys(v for v, _ in users))
+            if len(vs) > 1:
+                out[users[0][1]] = vs
+        return out
+
+    def memory_report(self) -> Dict[str, Any]:
+        per_variant = {v: self.prepared_bytes(v) for v in self.variant_names}
+        total = self.prepared_bytes()
+        return {
+            "variants": per_variant,
+            "prepared_bytes": total,
+            "sum_variant_bytes": sum(per_variant.values()),
+            "dedup_saved_bytes": sum(per_variant.values()) - total,
+            "shared_layers": self.shared_layers(),
+        }
+
+
+class PlannedBackend(PlanSet):
+    """A one-plan `PlanSet` (variant ``"default"``): the single-mapping
+    binding.  ``plan`` / ``bound`` / ``unbound`` / ``coverage()`` address
+    the one variant, and ``runtime_declines`` keys stay bare layer
+    names."""
+
+    def __init__(self, plan: ExecutionPlan, params, *,
+                 reference: bool = False):
+        super().__init__({"default": plan}, params, reference=reference)
+
+    @property
+    def plan(self) -> ExecutionPlan:
+        return self._variants["default"].plan
+
+    @property
+    def bound(self) -> List[str]:
+        return self._variants["default"].bound
+
+    @property
+    def unbound(self) -> List[str]:
+        return self._variants["default"].unbound
+
+    @property
+    def _by_name(self) -> Dict[str, Any]:
+        return self._variants["default"].by_name

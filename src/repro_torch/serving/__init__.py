@@ -11,13 +11,16 @@ Architecture
                                 paged KV (default: a shared page pool,
                                 chunked prefill interleaved with decode,
                                 prefix caching, deadline preemption, load
-                                shedding, non-finite-logit containment)
-                                or dense (ragged prefill per admission
-                                group into ``B x max_len`` slots); one
-                                per-slot decode step per engine step;
-                                optional `repro_torch.runtime
-                                .PlannedBackend` so every covered
-                                projection runs its mapped kernel.
+                                shedding, fault containment, and over a
+                                `repro_torch.runtime.PlanSet` bank
+                                self-speculative decoding, SLO routes and
+                                precision degradation) or dense (ragged
+                                prefill per admission group into ``B x
+                                max_len`` slots); one per-slot decode step
+                                per engine step; optional `repro_torch
+                                .runtime.PlannedBackend` / `PlanSet` so
+                                every covered projection runs its mapped
+                                kernel.
     `PagePool` (paged.py)       the host-side page allocator: refcounts,
                                 the LRU of cached pages, exact-token
                                 prefix keys, copy-on-write sources.
@@ -42,11 +45,10 @@ Architecture
     traces (trace.py)           JSONL request traces + seeded synthetic
                                 mixed-length traffic (the same requests as
                                 the JAX package's for the same seed).
-
-The JAX package's multi-plan, speculative and fault-injection features
-(`PlanSet`, SLO routing, degradation, `FaultInjector`, the heartbeat
-monitor) wait for ROADMAP.md Queue 1 item 5; the engine raises
-NotImplementedError for their arguments.
+    `FaultInjector` (faults.py) seeded fault injection (non-finite logits,
+                                corrupt KV pages, stuck slots) for the
+                                containment layer; the same events as the
+                                JAX package's for the same spec and seed.
 
 Example::
 
@@ -63,6 +65,7 @@ Exactness
 """
 from repro_torch.serving.batch import BatchState, SlotState
 from repro_torch.serving.engine import KV_LAYOUTS, Engine, EngineResult
+from repro_torch.serving.faults import FAULT_KINDS, FaultEvent, FaultInjector
 from repro_torch.serving.metrics import (RequestResult, Result, ShedResult,
                                          percentile, summarize)
 from repro_torch.serving.paged import PagePool
@@ -73,8 +76,9 @@ from repro_torch.serving.trace import (load_trace, poisson_arrivals,
                                        save_trace, synthetic_trace)
 
 __all__ = [
-    "BatchState", "Engine", "EngineResult", "KV_LAYOUTS", "POLICIES",
-    "PagePool", "Request", "RequestQueue", "RequestResult", "Result", "SamplingParams",
+    "BatchState", "Engine", "EngineResult", "FAULT_KINDS", "FaultEvent",
+    "FaultInjector", "KV_LAYOUTS", "POLICIES", "PagePool", "Request",
+    "RequestQueue", "RequestResult", "Result", "SamplingParams",
     "Scheduler", "ShedResult", "SlotState", "load_trace", "percentile",
     "poisson_arrivals", "save_trace", "summarize", "synthetic_trace",
     "urgency",

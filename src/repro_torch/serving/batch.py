@@ -18,7 +18,8 @@ is one vectorized pass over host data — no per-slot device sync.
 
 Host-side per-slot bookkeeping (the request occupying the slot, its
 generated tokens, timing marks) lives in `SlotState`.  Non-greedy sampling
-keeps one ``torch.Generator`` per slot (``gens``), the request's own.
+keeps one ``torch.Generator`` per slot (``gens``), the request's own; a
+multi-plan engine keeps each slot's plan variant (``variant``).
 """
 from __future__ import annotations
 
@@ -79,6 +80,9 @@ class BatchState:
         self.n_gen = np.zeros(self.max_batch, np.int64)
         # per-slot sampling generators (None: greedy engine or free slot)
         self.gens: List[Optional[object]] = [None] * self.max_batch
+        # per-slot plan-variant key (SLO routing, degradation and
+        # speculation over a PlanSet; None = the backend's default)
+        self.variant: List[Optional[str]] = [None] * self.max_batch
         # paged layout: page tables + chunked-prefill progress
         self.pages_per_slot = pages_per_slot
         if pages_per_slot is not None:
@@ -182,4 +186,5 @@ class BatchState:
         self.eos_id[slot] = -1
         self.n_gen[slot] = 0
         self.gens[slot] = None
+        self.variant[slot] = None
         return st

@@ -30,12 +30,52 @@ Two KV layouts back the slots, as in the JAX package:
     pages parked in the prefix cache; it resumes by prefilling prompt +
     committed tokens, which gives the same tokens as an unpreempted run
     under static scales).  ``max_queue_depth`` / ``page_watermark`` /
-    ``request_timeout_s`` shed the backlog with a `ShedResult`.  Every
-    decode step and every chunk row that completes a prompt is screened
-    for non-finite logits: such a slot commits nothing, its pages are
-    purged from the prefix cache and released, the slot sits out
-    ``quarantine_steps`` steps and the request is requeued once, then
-    shed with ``reason="fault"``.
+    ``request_timeout_s`` shed the backlog with a `ShedResult`.
+  * FAULT CONTAINMENT: every decode step and every chunk row that
+    completes a prompt is screened for non-finite logits on the device:
+    such a slot commits nothing, its pages are purged from the prefix
+    cache and released, the slot sits out ``quarantine_steps`` steps and
+    the request is requeued once with its committed tokens, then shed with
+    ``reason="fault"``.  ``injector`` (`repro_torch.serving.faults
+    .FaultInjector`) injects faults: a NaN added to a slot's decode logits
+    on the device, NaN written into the floating-point KV of a slot's
+    page, or a stuck slot, which commits nothing and which the
+    `repro_torch.distributed.HeartbeatMonitor` on the engine's step clock
+    catches after ``heartbeat_steps`` silent steps; a `StragglerPolicy`
+    over decode-step wall times counts ``stats["straggler_events"]``.
+
+MULTI-PLAN SERVING (paged) -- with a `repro_torch.runtime.PlanSet` bound
+as ``backend`` (precision variants over ONE params dict):
+  * SELF-SPECULATIVE DECODING (``speculate=(draft, target)``): each
+    decode round drafts ``draft_k`` greedy tokens per slot with ``k``
+    paged decode steps under the ``draft`` variant (a slot at capacity
+    holds its token), then verifies them in ONE ``prefill_chunk(...,
+    full_logits=True)`` under ``target`` over ``[t0, d1..dk]``, and
+    commits the longest agreeing prefix plus the bonus target token,
+    applying the retire predicates per token.  Verify rewrites every KV
+    position the draft wrote with target numerics, so the committed cache
+    is the target-only cache and the tokens are those of target-only
+    greedy decoding (static activation scales).  The caches are updated in
+    place, and on an attention-only arch nothing else needs restoring; the
+    JAX engine's pre-round snapshot and replay exist for recurrent state,
+    and come with the hybrid archs (ROADMAP.md Queue 1 item 6).
+    Paged-only, greedy-only.
+  * SLO ROUTING (``slo_routes={"interactive": "draft", ...}``): a
+    request's SLO class picks its variant.  Chunk and decode steps run
+    once per active variant group with the other slots masked inactive,
+    so their paged KV writes land in the trash page: a request's KV is
+    written under its own variant only.  The variant (and the
+    ``degraded`` flag) is pinned at a request's first admission and kept
+    on every resume.
+  * DEGRADATION (``degrade_to=variant, ttft_target_s=...``): a sliding
+    p95 over observed TTFTs (``degrade_window``); on a breach NEW
+    admissions route to the cheaper variant, and route back once the p95
+    falls below ``degrade_recover_frac`` x the target (hysteresis).
+    Transitions are in ``degrade_log`` / ``stats["degrade_transitions"]``;
+    requests served degraded carry ``RequestResult.degraded``.
+  SLO routing and degradation turn the prefix cache off: routed KV
+  numerics depend on the variant, so pages cannot be shared across
+  requests.
 
 ``kv_layout="dense"`` — B slots of ``max_len`` positions each, one ragged
 prefill per admission group (`transformer.prefill` with ``lengths=`` into
@@ -46,9 +86,10 @@ admission of the group's real rows, and one decode step per engine step
 over all B slots.  A prompt group over 2048 tokens prefills through the
 chunked (flash) attention.
 
-With a `repro_torch.runtime.PlannedBackend` passed as ``backend``, every
-forward runs under `_backend.use(backend)`, so each covered projection
-executes its planned kernel and engine latency IS mapped latency.
+With a `repro_torch.runtime.PlannedBackend` or `PlanSet` passed as
+``backend``, every forward runs under `_backend.use(backend)`, so each
+covered projection executes its planned kernel and engine latency IS
+mapped latency.
 
 Each engine step makes one host-to-device upload and one device-to-host
 copy (`Engine._upload`, `Engine._download`): a chunk step uploads its
@@ -57,18 +98,15 @@ tensor (`chunk_inputs`); a paged decode step the last tokens, lengths,
 active flags and page table (`paged_decode_inputs`); a dense one the last
 tokens, write positions and active flags (`decode_inputs`); each step
 downloads its tokens (and, paged, its finite-logit flags) in one
-``.cpu()``.  No ``.item()`` and no Python branch on a device value, so
-every step keeps one fixed shape that a CUDA graph can capture.
+``.cpu()``.  A routed step makes one upload and one download per variant
+group; a speculative round uploads its inputs once (`spec_inputs`) and
+downloads the drafted and verified tokens once.  No ``.item()`` and no
+Python branch on a device value, so every step keeps one fixed shape that
+a CUDA graph can capture.
 
-Arguments of the JAX engine that need the multi-plan layer raise
-NotImplementedError naming ROADMAP.md Queue 1 item 5: ``speculate`` /
-``draft_k``, ``slo_routes``, ``degrade_to`` and its window, ``injector``
-and ``heartbeat_steps`` (the JAX engine's stuck-slot monitor, which only
-an injected fault trips).  Their stats (faults injected, degradation,
-straggler events, heartbeat trips) stay 0.  Where the JAX package raises
-ValueError for an argument the port takes, the port raises the same
-error.  The JAX engine's ``trace_counts`` (jit retraces) has no
-counterpart: torch runs eagerly and traces nothing.
+Every ValueError of the JAX engine is raised with the same message.  The
+JAX engine's ``trace_counts`` (jit retraces) has no counterpart: torch
+runs eagerly and traces nothing.
 
 Exactness notes: outputs are token-identical to per-request serving
 (padding and masking are exact, in both layouts), provided the bound plan
@@ -81,15 +119,19 @@ from __future__ import annotations
 
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence, Union
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
+                                                     StragglerPolicy)
 from repro_torch.models import _backend
 from repro_torch.models import transformer as T
 from repro_torch.serving.batch import BatchState
-from repro_torch.serving.metrics import RequestResult, ShedResult
+from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.metrics import RequestResult, ShedResult, percentile
 from repro_torch.serving.paged import PagePool
 from repro_torch.serving.sampling import (SamplingParams, request_generator,
                                           sample_tokens)
@@ -99,10 +141,6 @@ from repro_torch.serving.scheduler import (Request, RequestQueue, Scheduler,
 EngineResult = Union[RequestResult, ShedResult]
 
 KV_LAYOUTS = ("paged", "dense")
-
-#: the roadmap item that brings the arguments the port does not take yet
-PLANSET_ITEM = ("ROADMAP.md Queue 1 item 5 (PlanSet and the engine "
-                "features on it)")
 
 # prefix sharing is only sound when ALL sequence state is page-resident
 # (pure attention KV) and per-token compute is batch-composition-free
@@ -123,8 +161,8 @@ class Engine:
                       over 2048 tokens prefills through the chunked
                       attention, which needs ``max_len`` to be a multiple
                       of 1024.
-      backend       — optional matmul backend (`PlannedBackend`) installed
-                      around every forward.
+      backend       — optional matmul backend (`PlannedBackend` /
+                      `PlanSet`) installed around every forward.
       scheduler     — a `Scheduler` (default: continuous policy).
       prefill_bucket— dense layout: minimum prompt padding; group prompt
                       lengths round up to the next power-of-two multiple of
@@ -137,6 +175,12 @@ class Engine:
                       (default 2 * page_size).
       prefix_cache  — paged: hash-share prompt pages across requests
                       (switched off for archs where sharing is unsound).
+      speculate     — optional ``(draft_variant, target_variant)`` pair of
+                      variant names on the bound `PlanSet`: self-
+                      speculative decoding (see module docstring).
+      draft_k       — tokens drafted per speculative round (default 4).
+      slo_routes    — optional ``{slo_class: variant_name}`` map routing
+                      each request's SLO class to a plan variant.
       sampling      — optional `SamplingParams`; None = greedy (default).
       max_queue_depth  — shed (``ShedResult(reason="queue_depth")``) the
                          newest visible queued requests beyond this depth.
@@ -149,10 +193,16 @@ class Engine:
                          with partial tokens (``finish_reason="timeout"``).
       max_preemptions  — paged: per-request retire-and-requeue cap under
                          the deadline policy.
-      quarantine_steps — paged: steps a slot sits out after a non-finite
-                         logit.
-      ttft_target_s    — only with ``degrade_to`` (not ported).
-    The PlanSet arguments are named in the module docstring.
+      degrade_to       — paged: `PlanSet` variant new admissions route to
+                         while the TTFT p95 estimate breaches
+                         ``ttft_target_s`` (required together; the p95 over
+                         the last ``degrade_window`` TTFTs; hysteresis
+                         recovery at ``degrade_recover_frac * target``).
+      injector         — paged: optional `FaultInjector`.
+      quarantine_steps — paged: steps a slot sits out after a detected
+                         fault.
+      heartbeat_steps  — paged: step-clock deadline of the stuck-slot
+                         monitor.
     """
 
     def __init__(self, cfg, params, *, max_batch: int = 8, max_len: int = 64,
@@ -161,8 +211,9 @@ class Engine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = True,
-                 speculate=None, draft_k: Optional[int] = None,
-                 slo_routes=None,
+                 speculate: Optional[Tuple[str, str]] = None,
+                 draft_k: int = 4,
+                 slo_routes: Optional[Dict[str, str]] = None,
                  sampling: Optional[SamplingParams] = None,
                  max_queue_depth: Optional[int] = None,
                  page_watermark: Optional[float] = None,
@@ -170,13 +221,34 @@ class Engine:
                  max_preemptions: int = 2,
                  degrade_to: Optional[str] = None,
                  ttft_target_s: Optional[float] = None,
-                 degrade_window: Optional[int] = None,
-                 degrade_recover_frac: Optional[float] = None,
-                 injector=None, quarantine_steps: int = 2,
-                 heartbeat_steps: Optional[int] = None):
+                 degrade_window: int = 8,
+                 degrade_recover_frac: float = 0.7,
+                 injector: Optional[FaultInjector] = None,
+                 quarantine_steps: int = 2,
+                 heartbeat_steps: int = 32):
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"got {kv_layout!r}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = int(max_batch)
+        self.max_len = int(max_len)
+        self.backend = backend
+        self.scheduler = scheduler or Scheduler()
+        self.prefill_bucket = max(1, int(prefill_bucket))
+        self.kv_layout = kv_layout
+        self.sampling = sampling
+        self.draft_k = int(draft_k)
+        self._spec = tuple(speculate) if speculate is not None else None
+        self.slo_routes = dict(slo_routes) if slo_routes else None
+        self.max_queue_depth = max_queue_depth
+        self.page_watermark = page_watermark
+        self.request_timeout_s = request_timeout_s
+        self.max_preemptions = int(max_preemptions)
+        self.degrade_to = degrade_to
+        self.injector = injector
+        self.quarantine_steps = int(quarantine_steps)
+        self.heartbeat_steps = int(heartbeat_steps)
         if max_queue_depth is not None and max_queue_depth < 1:
             raise ValueError(f"max_queue_depth must be >= 1, "
                              f"got {max_queue_depth}")
@@ -190,36 +262,15 @@ class Engine:
             raise ValueError("degrade_to and ttft_target_s come together: "
                              "the degraded variant needs a TTFT target to "
                              "defend (and vice versa)")
-        unported = (
-            ("speculate", speculate is not None),
-            ("draft_k", draft_k is not None),
-            ("slo_routes", bool(slo_routes)),
-            ("degrade_to", degrade_to is not None),
-            ("degrade_window", degrade_window is not None),
-            ("degrade_recover_frac", degrade_recover_frac is not None),
-            ("injector", injector is not None),
-            ("heartbeat_steps", heartbeat_steps is not None))
-        for arg, given in unported:
-            if given:
-                raise NotImplementedError(
-                    f"Engine({arg}): the port has no multi-plan layer yet; "
-                    f"this waits for {PLANSET_ITEM}")
-        self.cfg = cfg
-        self.params = params
-        self.max_batch = int(max_batch)
-        self.max_len = int(max_len)
-        self.backend = backend
-        self.scheduler = scheduler or Scheduler()
-        self.prefill_bucket = max(1, int(prefill_bucket))
-        self.kv_layout = kv_layout
-        self.sampling = sampling
-        self.max_queue_depth = max_queue_depth
-        self.page_watermark = page_watermark
-        self.request_timeout_s = request_timeout_s
-        self.max_preemptions = int(max_preemptions)
-        self.quarantine_steps = int(quarantine_steps)
+        self._degrade = (_DegradeController(ttft_target_s,
+                                            window=degrade_window,
+                                            recover_frac=degrade_recover_frac)
+                         if degrade_to is not None else None)
+        self.degrade_log = self._degrade.transitions if self._degrade else []
         self.device = params["emb"].device
         self.stats: Dict[str, float] = {}
+        self._validate_multiplan(cfg, backend, kv_layout, speculate,
+                                 sampling, scheduler)
 
         if kv_layout == "paged":
             self.page_size = int(page_size)
@@ -229,9 +280,12 @@ class Engine:
                               else self.max_batch * self.pages_per_slot)
             self.prefill_chunk = (int(prefill_chunk) if prefill_chunk
                                   else 2 * self.page_size)
+            # degrade_to joins slo_routes here: both make KV numerics
+            # variant-dependent, so pages cannot be shared across requests
             self.prefix_cache = bool(prefix_cache) and \
                 cfg.moe is None and not cfg.frontend and \
-                set(cfg.pattern) <= _PREFIX_SAFE_KINDS
+                set(cfg.pattern) <= _PREFIX_SAFE_KINDS and \
+                not self.slo_routes and self.degrade_to is None
             self.pool_mgr = PagePool(self.num_pages, self.page_size)
             # the DEVICE page pool persists across run() calls: the
             # allocator's hash index outlives a run, so the pages it can
@@ -244,10 +298,107 @@ class Engine:
         self._kv_axes = T.cache_kv_axes(cfg)
         self._kv_capacity_bytes, self._kv_page_bytes = self._kv_footprint()
         self._req_counter = 0
-        # robustness bookkeeping (cleared per run): per-request resume
-        # metadata and quarantined slots' release steps
+        # robustness bookkeeping (cleared per run): per-request resume /
+        # serving metadata, quarantined slots' release steps, stuck-until
+        # markers and the slots whose next decode logits get a NaN
         self._req_meta: Dict[int, dict] = {}
         self._quarantine: Dict[int, int] = {}
+        self._stuck: Dict[int, int] = {}
+        self._inject_slots: List[int] = []
+        self._monitor: Optional[HeartbeatMonitor] = None
+
+    def _validate_multiplan(self, cfg, backend, kv_layout, speculate,
+                            sampling, scheduler):
+        """The JAX engine's checks of the multi-plan and robustness
+        arguments, in its order and with its messages."""
+        variant_names = getattr(backend, "variant_names", None)
+        if self._spec is not None:
+            if len(self._spec) != 2 or not all(
+                    isinstance(v, str) for v in self._spec):
+                raise ValueError(
+                    f"speculate must be a (draft_variant, target_variant) "
+                    f"pair of variant names, got {speculate!r}")
+            if kv_layout != "paged":
+                raise ValueError(
+                    "speculative decoding requires kv_layout='paged': the "
+                    "dense layout writes garbage KV at masked slots' live "
+                    "positions, so draft/verify masking would corrupt "
+                    "co-batched state (paged masked writes hit the trash "
+                    "page)")
+            if cfg.moe is not None:
+                raise ValueError(
+                    "speculative decoding is unsupported for MoE archs: "
+                    "expert dispatch is batch-composition-dependent, so "
+                    "verify logits would not match sequential decoding")
+            if cfg.frontend:
+                raise ValueError(
+                    "speculative decoding is unsupported for frontend "
+                    "(cross-attention) archs")
+            if sampling is not None:
+                raise ValueError(
+                    "speculative decoding is greedy-only (its token-"
+                    "identity guarantee is an argmax property); drop "
+                    "`sampling` or `speculate`")
+            if self.slo_routes:
+                raise ValueError(
+                    "speculate and slo_routes are mutually exclusive: "
+                    "speculation pins every slot to the draft/target pair")
+            if self.draft_k < 1:
+                raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
+            if variant_names is None:
+                raise ValueError(
+                    "speculate needs a multi-variant PlanSet backend "
+                    "(`repro.runtime.PlanSet`); got "
+                    f"{type(backend).__name__ if backend is not None else None}")
+            for v in self._spec:
+                if v not in variant_names:
+                    raise ValueError(
+                        f"speculate variant {v!r} is not bound: this "
+                        f"PlanSet has {list(variant_names)}")
+        if self.slo_routes:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "SLO routing requires kv_layout='paged': variant-"
+                    "grouped decode masks the other groups' slots, and "
+                    "only the paged layout routes masked KV writes to the "
+                    "trash page instead of live positions")
+            if variant_names is None:
+                raise ValueError(
+                    "slo_routes needs a multi-variant PlanSet backend "
+                    "(`repro.runtime.PlanSet`); got "
+                    f"{type(backend).__name__ if backend is not None else None}")
+            for cls, v in self.slo_routes.items():
+                if v not in variant_names:
+                    raise ValueError(
+                        f"slo_routes[{cls!r}] -> {v!r} is not bound: this "
+                        f"PlanSet has {list(variant_names)}")
+        if self.degrade_to is not None:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "precision degradation requires kv_layout='paged' "
+                    "(variant-grouped execution masks into the trash page)")
+            if variant_names is None:
+                raise ValueError(
+                    "degrade_to needs a multi-variant PlanSet backend "
+                    "(`repro.runtime.PlanSet`); got "
+                    f"{type(backend).__name__ if backend is not None else None}")
+            if self.degrade_to not in variant_names:
+                raise ValueError(
+                    f"degrade_to={self.degrade_to!r} is not bound: this "
+                    f"PlanSet has {list(variant_names)}")
+        if self.injector is not None and kv_layout != "paged":
+            raise ValueError(
+                "fault injection requires kv_layout='paged' (containment "
+                "releases/purges pages and requeues via chunked prefill)")
+        if self._spec is not None and (
+                self.injector is not None or self.degrade_to is not None
+                or (scheduler is not None and scheduler.preempts)):
+            raise ValueError(
+                "speculate is incompatible with fault injection, precision "
+                "degradation, and deadline preemption: a speculative round "
+                "commits multiple tokens under a pinned draft/target pair, "
+                "which the per-step containment/routing machinery does not "
+                "cover")
 
     # ---- helpers ---------------------------------------------------------
 
@@ -294,14 +445,28 @@ class Engine:
         total = min(req.prompt_len + req.max_new_tokens, self.slot_cap)
         return self.pool_mgr.pages_for(total)
 
+    def _route(self, req: Request) -> Optional[str]:
+        """The plan variant serving ``req``: the speculative target (all
+        slots), the request's routed SLO class, or the backend default."""
+        if self._spec is not None:
+            return self._spec[1]
+        if self.slo_routes and req.slo is not None:
+            return self.slo_routes[req.slo]
+        return None
+
     def _meta(self, req: Request) -> dict:
-        """Per-request serving metadata, created at FIRST admission:
-        ``tokens`` / ``t_first`` hold the committed state a preempted or
-        faulted request resumes from."""
+        """Per-request serving metadata, created at FIRST admission.
+        ``variant`` / ``degraded`` are pinned here and reused on every
+        resume: a request's KV numerics stay under one variant for its
+        whole lifetime.  ``tokens`` / ``t_first`` hold the committed state
+        a preempted or faulted request resumes from."""
         meta = self._req_meta.get(id(req))
         if meta is None:
-            meta = {"tokens": [], "t_first": None, "preemptions": 0,
-                    "requeues": 0}
+            degraded = self._degrade is not None and self._degrade.active
+            meta = {"variant": (self.degrade_to if degraded
+                                else self._route(req)),
+                    "degraded": degraded, "tokens": [], "t_first": None,
+                    "preemptions": 0, "requeues": 0}
             self._req_meta[id(req)] = meta
         return meta
 
@@ -342,6 +507,11 @@ class Engine:
 
     def _validate(self, requests: Sequence[Request]):
         for r in requests:
+            if self.slo_routes and r.slo is not None \
+                    and r.slo not in self.slo_routes:
+                raise ValueError(
+                    f"request {r.rid!r}: SLO class {r.slo!r} has no route "
+                    f"(routes cover {sorted(self.slo_routes)})")
             if self.kv_layout == "dense":
                 if r.prompt_len >= self.max_len:
                     raise ValueError(
@@ -372,14 +542,33 @@ class Engine:
         return np.stack([batch.last_tok, index,
                          batch.active]).astype(np.int64)
 
-    def paged_decode_inputs(self, batch: BatchState) -> np.ndarray:
+    def paged_decode_inputs(self, batch: BatchState,
+                            active: Optional[np.ndarray] = None,
+                            inject: Optional[np.ndarray] = None
+                            ) -> np.ndarray:
         """The paged decode step's one upload, (B, 3 + W) int64: each
-        slot's last token, length, active flag and page-table row.  An
-        inactive slot's write goes to the trash page whatever its length
+        slot's last token, length, active flag (``active``: a variant
+        group's slots; default every active slot) and page-table row, and
+        with ``inject`` one more column, the slots whose logits get a NaN.
+        An inactive slot's write goes to the trash page whatever its length
         (``active`` is the write mask)."""
+        act = batch.active if active is None else active
+        cols = [np.stack([batch.last_tok, batch.lengths, act], 1),
+                batch.page_table]
+        if inject is not None:
+            cols.append(inject[:, None])
+        return np.concatenate(cols, axis=1).astype(np.int64)
+
+    def spec_inputs(self, batch: BatchState, vcount: np.ndarray
+                    ) -> np.ndarray:
+        """A speculative round's one upload, (B, 4 + W) int64: each slot's
+        last token, length, active flag, verify count (the chunk's valid
+        tokens: ``min(k + 1, capacity - length)``, 0 when inactive) and
+        page-table row."""
         return np.concatenate(
-            [np.stack([batch.last_tok, batch.lengths, batch.active], 1),
-             batch.page_table], axis=1).astype(np.int64)
+            [np.stack([batch.last_tok, batch.lengths, batch.active,
+                       vcount], 1), batch.page_table],
+            axis=1).astype(np.int64)
 
     def chunk_inputs(self, batch: BatchState) -> np.ndarray:
         """The chunk step's one upload, (B, C + 2 + W) int64: each slot's
@@ -419,6 +608,8 @@ class Engine:
             finish_reason=reason, ttft_s=st.t_first - st.t_ready,
             finish_s=now - st.t_ready, admitted_step=st.admitted_step,
             finished_step=step, slo=req.slo,
+            variant=meta.get("variant"),
+            degraded=bool(meta.get("degraded", False)),
             preemptions=int(meta.get("preemptions", 0)),
             requeues=int(meta.get("requeues", 0)))
 
@@ -447,12 +638,15 @@ class Engine:
         """Record one decode step's tokens and retire finished slots — the
         one host sync happened already (``tok``); every predicate below
         reads host-side numpy mirrors, no per-slot device pulls.
-        ``exclude`` masks slots that must NOT commit this step (their
-        logits were not finite)."""
+        ``exclude`` masks slots that must NOT commit this step (stuck, or
+        their logits were not finite)."""
         act = batch.active
         if exclude is not None:
             act = act & ~exclude
         idx = np.nonzero(act)[0]
+        if self._monitor is not None:
+            for b in idx:               # a commit is a liveness beat
+                self._monitor.beat(int(b))
         batch.last_tok[idx] = tok[idx]
         batch.lengths[idx] += 1
         batch.n_gen[idx] += 1
@@ -530,6 +724,7 @@ class Engine:
                                 prompt=prompt,
                                 prior_tokens=meta["tokens"],
                                 t_first=meta["t_first"])
+            batch.variant[slot] = meta["variant"]
             batch.gens[slot] = self._next_generator()
         if cow_pairs:
             # copy-on-write before the admitting slots' first chunk
@@ -549,45 +744,67 @@ class Engine:
         for key, end in self.pool_mgr.prompt_keys(prompt):
             self.pool_mgr.register(pages[(end - 1) // self.page_size], key)
 
+    def _variant_groups(self, batch: BatchState, sel: np.ndarray):
+        """``[(variant, [slots...]), ...]`` grouping ``sel`` by per-slot
+        plan variant (deterministic order: default group first)."""
+        groups: Dict[Optional[str], List[int]] = {}
+        for b in sel:
+            groups.setdefault(batch.variant[b], []).append(int(b))
+        return sorted(groups.items(),
+                      key=lambda kv: (kv[0] is not None, kv[0] or ""))
+
     def _chunk_step(self, batch: BatchState, step: int,
                     results: Dict[int, EngineResult], queue: RequestQueue,
                     t_ready: Dict[int, float]):
         """Stream the next ``prefill_chunk`` tokens of EVERY prefilling
-        slot in one fixed-shape call; slots whose prompt completes get
+        slot in one fixed-shape call per plan-variant group (one call when
+        nothing is routed; the other groups' rows are masked, so their KV
+        writes land in the trash page); slots whose prompt completes get
         their first token from this chunk's logits and join decode (those
         whose logits are not finite go through fault containment).  Only
         completing slots draw a sample: a mid-prompt slot's generator
         does not advance."""
-        C = self.prefill_chunk
+        B, C = self.max_batch, self.prefill_chunk
         sel = np.nonzero(batch.prefilling)[0]
         inputs = self.chunk_inputs(batch)
-        valid = inputs[:, C + 1]
+        valid = inputs[:, C + 1].copy()
         completes = [bool(batch.prefilling[b]) and
                      batch.fill_pos[b] + valid[b] >=
                      len(batch.pending[b].prompt)
-                     for b in range(self.max_batch)]
-        gens = [g if done else None for g, done in zip(batch.gens,
-                                                       completes)]
+                     for b in range(B)]
         t0 = time.monotonic()
-        x = self._upload(inputs)
-        logits, batch.caches = T.prefill_chunk(
-            self.params, self.cfg, x[:, :C], batch.caches, x[:, C],
-            x[:, C + 1], x[:, C + 2:])
-        ok = torch.isfinite(logits).all(dim=-1)
-        tok, ok = self._download(torch.stack([self._pick(logits, gens),
-                                              ok.long()]))
+        tok = np.zeros(B, np.int64)
+        ok = np.ones(B, np.int64)
+        for var, group in self._variant_groups(batch, sel):
+            member = np.zeros(B, bool)
+            member[group] = True
+            grp = inputs.copy()
+            grp[:, C + 1] = np.where(member, valid, 0)
+            gens = [g if done and member[b] else None for b, (g, done) in
+                    enumerate(zip(batch.gens, completes))]
+            x = self._upload(grp)
+            logits, batch.caches = T.prefill_chunk(
+                self.params, self.cfg, x[:, :C], batch.caches, x[:, C],
+                x[:, C + 1], x[:, C + 2:], variant=var)
+            fin = torch.isfinite(logits).all(dim=-1)
+            got, fin = self._download(torch.stack([self._pick(logits, gens),
+                                                   fin.long()]))
+            tok[group], ok[group] = got[group], fin[group]
+            self.stats["prefill_calls"] += 1
         t1 = time.monotonic()
         self.stats["prefill_s"] += t1 - t0
-        self.stats["prefill_calls"] += 1
         batch.fill_pos[sel] += valid[sel].astype(np.int32)
         batch.lengths[sel] = batch.fill_pos[sel]
+        if self._monitor is not None:
+            for b in sel:               # chunk progress is a liveness beat
+                self._monitor.beat(int(b))
         for b in sel:
             pend = batch.pending[b]
             if not completes[b]:
                 continue
             if not ok[b]:
                 self._handle_fault(batch, queue, int(b), step, t1, t_ready,
-                                   results)
+                                   results, purge=True)
                 continue
             self._register_prompt(batch, b)
             tf = pend.t_first if pend.t_first is not None else t1
@@ -599,34 +816,143 @@ class Engine:
             meta = self._req_meta.get(id(pend.request))
             if meta is not None and meta["t_first"] is None:
                 meta["t_first"] = tf
+                if self._degrade is not None:
+                    self._degrade.observe(tf - pend.t_ready)
             self._maybe_retire(batch, int(b), t1, step, results)
 
     def _decode_paged(self, batch: BatchState, step: int,
                       results: Dict[int, EngineResult], queue: RequestQueue,
                       t_ready: Dict[int, float]):
-        """One decode step over all B slots (inactive ones write into the
-        trash page and draw no sample: a prefilling slot's generator does
-        not advance); slots whose logits are not finite commit nothing and
-        go through fault containment."""
-        gens = [g if act else None for g, act in zip(batch.gens,
-                                                     batch.active)]
+        """One decode step: one call per active plan-variant group
+        (exactly one when nothing is routed), the other groups' slots
+        masked inactive -- their paged KV writes land in the trash page --
+        and inactive slots draw no sample (a prefilling slot's generator
+        does not advance).  Stuck slots (an injected liveness fault) are
+        masked out entirely and commit nothing; slots whose logits are not
+        finite commit nothing and go through fault containment."""
+        B, W = self.max_batch, self.pages_per_slot
+        stuck = np.zeros(B, bool)
+        for b, until in self._stuck.items():
+            if until > step and batch.active[b]:
+                stuck[b] = True
+        inject = None
+        if self.injector is not None:
+            inject = np.zeros(B, bool)
+            inject[self._inject_slots] = True
+            self._inject_slots = []
         t = time.monotonic()
-        x = self._upload(self.paged_decode_inputs(batch))
-        logits, batch.caches = T.decode_step(
-            self.params, self.cfg, x[:, 0], batch.caches, x[:, 1],
-            active=x[:, 2].bool(), pages=x[:, 3:])
-        ok = torch.isfinite(logits).all(dim=-1)
-        tok, ok = self._download(torch.stack([self._pick(logits, gens),
-                                              ok.long()]))
+        tok = batch.last_tok.astype(np.int64)
+        ok = np.ones(B, np.int64)
+        for var, group in self._variant_groups(
+                batch, np.nonzero(batch.active & ~stuck)[0]):
+            member = np.zeros(B, bool)
+            member[group] = True
+            gens = [g if m else None for g, m in zip(batch.gens, member)]
+            x = self._upload(self.paged_decode_inputs(batch, member, inject))
+            logits, batch.caches = T.decode_step(
+                self.params, self.cfg, x[:, 0], batch.caches, x[:, 1],
+                active=x[:, 2].bool(), pages=x[:, 3:3 + W], variant=var)
+            if inject is not None:
+                logits = logits + torch.where(
+                    x[:, 3 + W] > 0, float("nan"), 0.0)[:, None]
+            fin = torch.isfinite(logits).all(dim=-1)
+            got, fin = self._download(torch.stack([self._pick(logits, gens),
+                                                   fin.long()]))
+            tok[group], ok[group] = got[group], fin[group]
         now = time.monotonic()
         self.stats["decode_s"] += now - t
         self.stats["decode_steps"] += 1
-        faulted = batch.active & (ok == 0)
-        self._postdecode(batch, tok, now, step, results, exclude=faulted)
+        faulted = batch.active & (ok == 0) & ~stuck
+        self._postdecode(batch, tok, now, step, results,
+                         exclude=stuck | faulted)
         for b in np.nonzero(faulted)[0]:
             if batch.active[b]:     # not retired by _postdecode
                 self._handle_fault(batch, queue, int(b), step, now, t_ready,
-                                   results)
+                                   results, purge=True)
+
+    # ---- self-speculative decoding ---------------------------------------
+
+    def _draft(self, x: torch.Tensor, caches):
+        """``k`` greedy paged decode steps under the draft variant from a
+        round's inputs (`spec_inputs`); a slot at capacity stops advancing
+        and repeats its token (verify's per-slot count ignores those
+        rows).  Returns (the drafted tokens (B, k), caches)."""
+        W = self.pages_per_slot
+        tok, pos = x[:, 0], x[:, 1]
+        active, pages = x[:, 2].bool(), x[:, 4:4 + W]
+        drafted = []
+        for _ in range(self.draft_k):
+            live = active & (pos < self.slot_cap)
+            logits, caches = T.decode_step(
+                self.params, self.cfg, tok, caches, pos, active=live,
+                pages=pages, variant=self._spec[0])
+            tok = torch.where(live, torch.argmax(logits, dim=-1), tok)
+            pos = pos + live.long()
+            drafted.append(tok)
+        return torch.stack(drafted, 1), caches
+
+    def _verify(self, x: torch.Tensor, drafted: torch.Tensor, caches):
+        """One fixed-shape chunk of ``[t0, d1..dk]`` under the target
+        variant: the full logits give the target's argmax after every
+        drafted token, and the chunk's KV writes replace every
+        draft-written position with target numerics.  Returns ((B, k + 1)
+        tokens, caches)."""
+        W = self.pages_per_slot
+        tokens = torch.cat([x[:, :1], drafted], dim=1)
+        logits, caches = T.prefill_chunk(
+            self.params, self.cfg, tokens, caches, x[:, 1], x[:, 3],
+            x[:, 4:4 + W], variant=self._spec[1], full_logits=True)
+        return torch.argmax(logits, dim=-1), caches
+
+    def _spec_round(self, batch: BatchState, step: int,
+                    results: Dict[int, EngineResult]):
+        """One speculative round: draft ``k`` tokens per active slot with
+        the draft variant, verify all of them in one target-variant chunk,
+        and commit the longest agreeing prefix plus the bonus target token,
+        applying the per-token retire predicates exactly as sequential
+        decoding would.  One upload, one download."""
+        k = self.draft_k
+        sel = np.nonzero(batch.active)[0]
+        vcount = np.zeros(self.max_batch, np.int64)
+        vcount[sel] = np.minimum(k + 1, self.slot_cap - batch.lengths[sel])
+        t = time.monotonic()
+        x = self._upload(self.spec_inputs(batch, vcount))
+        drafted, batch.caches = self._draft(x, batch.caches)
+        verified, batch.caches = self._verify(x, drafted, batch.caches)
+        out = self._download(torch.cat([drafted, verified], dim=1))
+        d, v = out[:, :k], out[:, k:]
+        now = time.monotonic()
+        self.stats["decode_s"] += now - t
+        self.stats["decode_steps"] += 1
+        self.stats["spec_rounds"] += 1
+        for b in sel:
+            vc = int(vcount[b])
+            # drafts that could actually commit: the slot's remaining token
+            # budget caps the round, so over-drafting past it is not a
+            # draft-quality failure and must not dilute the acceptance rate
+            budget_left = int(batch.max_new[b] - batch.n_gen[b])
+            m = 0                            # agreeing draft prefix
+            while m < vc - 1 and d[b, m] == v[b, m]:
+                m += 1
+            st = batch.slots[b]
+            committed = 0
+            for j in range(m + 1):           # m matches + 1 bonus token
+                tokj = int(v[b, j])
+                st.tokens.append(tokj)
+                batch.last_tok[b] = tokj
+                batch.lengths[b] += 1
+                batch.n_gen[b] += 1
+                committed += 1
+                reason = self._slot_reason(batch, int(b))
+                if reason is not None:
+                    self._retire_slot(batch, int(b), reason, now, step,
+                                      results)
+                    break
+            if self._monitor is not None and batch.active[b]:
+                self._monitor.beat(int(b))  # a commit is a liveness beat
+            self.stats["spec_drafted"] += min(vc - 1, budget_left)
+            self.stats["spec_accepted"] += min(committed, m)
+            self.stats["spec_committed"] += committed
 
     # ---- robustness: preemption, shedding, faults ------------------------
 
@@ -653,7 +979,7 @@ class Engine:
                 self._pages_needed(front) <= self.pool_mgr.available():
             return          # plain admission can serve it this step
         cands = [b for b in range(self.max_batch)
-                 if batch.active[b]
+                 if batch.active[b] and not self._stuck.get(b, 0) > step
                  and self._req_meta[id(batch.slots[b].request)]
                  ["preemptions"] < self.max_preemptions]
         if not cands:
@@ -756,15 +1082,49 @@ class Engine:
                 self.stats["timeouts"] += 1
                 self._retire_slot(batch, b, "timeout", now, step, results)
 
+    def _apply_faults(self, batch: BatchState, step: int):
+        """Draw this step's injected faults and arm them: NaN slots for
+        the decode inject vector, NaN-stomped KV pages, stuck markers."""
+        if self.injector is None:
+            return
+        occupied = [b for b in range(self.max_batch)
+                    if batch.active[b] or batch.prefilling[b]]
+        if not occupied:
+            return
+        for ev in self.injector.draw(step, occupied):
+            self.stats["faults_injected"] += 1
+            if ev.kind == "nonfinite_logits":
+                self._inject_slots.append(ev.slot)
+            elif ev.kind == "corrupt_page":
+                # corrupt the page holding the slot's newest WRITTEN
+                # position -- inside the attention window, so the next step
+                # that attends over it detects it
+                filled = max(int(batch.lengths[ev.slot]), 1)
+                pages = batch.slot_pages[ev.slot]
+                page = pages[min((filled - 1) // self.page_size,
+                                 len(pages) - 1)]
+                self._corrupt_pages(batch.caches, [page])
+            elif ev.kind == "stuck":
+                self._stuck[ev.slot] = step + ev.duration
+
+    def _corrupt_pages(self, caches, pages: List[int]):
+        """Fault injection: NaN over the floating-point KV rows of
+        ``pages``, in place (integer KV leaves are left as they are)."""
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        for unit, axes in zip(caches["units"], self._kv_axes["units"]):
+            for key, leaf in unit.items():
+                if leaf.is_floating_point() and axes[key].startswith("page"):
+                    leaf.index_fill_(int(axes[key][4:]), idx, float("nan"))
+
     def _handle_fault(self, batch: BatchState, queue: RequestQueue,
                       slot: int, step: int, now: float,
                       t_ready: Dict[int, float],
-                      results: Dict[int, EngineResult]):
-        """Contain a non-finite logit on ``slot``: purge its pages from
-        the prefix cache (corrupted content must never be matched) and
-        release them, quarantine the slot, and requeue the request ONCE
-        with its committed tokens; a second fault sheds it with
-        ``ShedResult(reason="fault")``."""
+                      results: Dict[int, EngineResult], *, purge: bool):
+        """Contain a detected fault on ``slot``: release (and for numeric
+        faults PURGE from the prefix cache -- corrupted content must never
+        be matched) its pages, quarantine the slot, and requeue the
+        request ONCE with its committed tokens; a second fault sheds it
+        with ``ShedResult(reason="fault")``."""
         self.stats["faults_detected"] += 1
         if batch.active[slot]:
             st = batch.retire(slot)
@@ -777,9 +1137,11 @@ class Engine:
             batch.pending[slot] = None
             batch.fill_pos[slot] = 0
             batch.gens[slot] = None
-        self.pool_mgr.purge(batch.slot_pages[slot])
+        if purge:
+            self.pool_mgr.purge(batch.slot_pages[slot])
         self._release_pages(batch, slot)
         self._quarantine[slot] = step + self.quarantine_steps
+        self._stuck.pop(slot, None)
         meta = self._req_meta[id(req)]
         if meta["requeues"] >= 1:       # requeue-once policy
             self._shed(req, "fault", step,
@@ -804,9 +1166,16 @@ class Engine:
                       "timeouts": 0, "faults_injected": 0,
                       "faults_detected": 0, "degrade_transitions": 0,
                       "straggler_events": 0, "heartbeat_trips": 0}
+        if self._spec is not None:
+            self.stats.update({"spec_rounds": 0, "spec_drafted": 0,
+                               "spec_accepted": 0, "spec_committed": 0})
         self._req_counter = 0
         self._req_meta = {}
         self._quarantine = {}
+        self._stuck = {}
+        self._inject_slots = []
+        if self._degrade is not None:
+            self._degrade.reset()
         queue = RequestQueue()
         for r in requests:
             queue.push(r)
@@ -819,6 +1188,15 @@ class Engine:
                 self._run_dense(queue, results)
         self.stats["wall_s"] = time.monotonic() - t0
         self.stats["kv_capacity_bytes"] = self._kv_capacity_bytes
+        if self._spec is not None:
+            drafted = self.stats["spec_drafted"]
+            self.stats["spec_acceptance"] = (
+                round(self.stats["spec_accepted"] / drafted, 4)
+                if drafted else 0.0)
+            rounds = self.stats["spec_rounds"]
+            self.stats["spec_tokens_per_round"] = (
+                round(self.stats["spec_committed"] / rounds, 4)
+                if rounds else 0.0)
         if self.kv_layout == "paged":
             ps = self.pool_mgr.stats
             self.stats["kv_peak_pages"] = ps["peak_pages"]
@@ -833,6 +1211,9 @@ class Engine:
         else:
             # dense pools are fully allocated up front: peak == capacity
             self.stats["kv_peak_bytes"] = self._kv_capacity_bytes
+        if self._degrade is not None:
+            self.stats["degrade_transitions"] = \
+                len(self._degrade.transitions)
         return [results[id(r)] for r in requests]
 
     def _mark_ready(self, queue: RequestQueue, t_ready: Dict[int, float],
@@ -859,6 +1240,8 @@ class Engine:
             admits = self.scheduler.admissions(
                 queue, batch.free_slots(), batch.n_active, step,
                 now=now, t_ready=t_ready)
+            for _, req in admits:
+                self._meta(req)         # pin variant / degraded at admission
             self._shed_backlog(queue, t_ready, step, now, results)
             if admits:
                 for slot in self._admit_dense(batch, admits, step, t_ready):
@@ -889,9 +1272,19 @@ class Engine:
                            pages_per_slot=self.pages_per_slot)
         t_ready: Dict[int, float] = {}
         step = 0
+        # the liveness monitor runs on the STEP clock (host keys are slot
+        # ids): a slot that commits nothing and makes no prefill progress
+        # for heartbeat_steps steps is declared stuck
+        step_ref = [0]
+        self._monitor = HeartbeatMonitor(
+            hosts=list(range(self.max_batch)),
+            deadline_s=float(self.heartbeat_steps),
+            clock=lambda: float(step_ref[0]))
+        straggler = StragglerPolicy()
         while len(queue) or batch.any_busy():
             if not batch.any_busy() and queue.ready(step) == 0:
                 step = max(step, queue.next_arrival())
+            step_ref[0] = step
             now = time.monotonic()
             self._mark_ready(queue, t_ready, step, now)
             self._timeout_queued(queue, t_ready, step, now, results)
@@ -913,15 +1306,85 @@ class Engine:
                 queue, self._free_slots(batch, step), batch.n_busy, step,
                 fits=fits, now=now, t_ready=t_ready)
             for _, req in admits:
-                self._meta(req)
+                self._meta(req)         # pin variant / degraded at admission
             if admits:
                 self._admit_paged(batch, admits, step, t_ready)
             self._shed_backlog(queue, t_ready, step, now, results,
                                free_frac=(self.pool_mgr.available()
                                           / self.num_pages))
+            self._apply_faults(batch, step)
             if batch.prefilling.any():
                 self._chunk_step(batch, step, results, queue, t_ready)
             if batch.any_active():
-                self._decode_paged(batch, step, results, queue, t_ready)
+                t_step = time.monotonic()
+                if self._spec is not None:
+                    self._spec_round(batch, step, results)
+                else:
+                    self._decode_paged(batch, step, results, queue, t_ready)
+                if straggler.observe(step, time.monotonic() - t_step) \
+                        != "ok":
+                    self.stats["straggler_events"] += 1
+            # idle slots are not stuck: keep their heartbeats fresh
+            for b in range(self.max_batch):
+                if not (batch.active[b] or batch.prefilling[b]):
+                    self._monitor.beat(b)
+            for b in self._monitor.dead_hosts():
+                if batch.active[b] or batch.prefilling[b]:
+                    self.stats["heartbeat_trips"] += 1
+                    self._handle_fault(batch, queue, int(b), step,
+                                       time.monotonic(), t_ready, results,
+                                       purge=False)
+                self._monitor.beat(b)
+            if self._degrade is not None:
+                self._degrade.update(step)   # _meta reads .active
             step += 1
+        self._monitor = None
         self._paged_caches = batch.caches       # keep cached pages resident
+
+
+class _DegradeController:
+    """Hysteresis switch for precision degradation.
+
+    Observes TTFTs as requests get their first token; `update` (once per
+    engine step) flips ``active`` ON when the sliding-window p95 breaches
+    the target, and OFF once p95 drops below ``recover_frac * target``.
+    The window is cleared at each transition so pre-transition samples
+    cannot immediately flip it back, and a minimum sample count must
+    accumulate again before the next decision -- that is the hysteresis.
+    Transitions are recorded as ``(step, "degrade"|"recover", p95_s)``."""
+
+    def __init__(self, target_s: float, window: int = 8,
+                 min_samples: int = 4, recover_frac: float = 0.7):
+        if target_s <= 0:
+            raise ValueError(f"ttft_target_s must be > 0, got {target_s}")
+        if not 0.0 < recover_frac <= 1.0:
+            raise ValueError(f"degrade_recover_frac must be in (0, 1], "
+                             f"got {recover_frac}")
+        self.target_s = float(target_s)
+        self.min_samples = max(1, min(int(min_samples), int(window)))
+        self.recover_frac = float(recover_frac)
+        self.samples: deque = deque(maxlen=int(window))
+        self.active = False
+        self.transitions: List[Tuple[int, str, float]] = []
+
+    def reset(self):
+        self.samples.clear()
+        self.active = False
+        self.transitions.clear()    # in place: Engine.degrade_log aliases
+
+    def observe(self, ttft_s: float):
+        self.samples.append(float(ttft_s))
+
+    def update(self, step: int) -> bool:
+        if len(self.samples) < self.min_samples:
+            return self.active
+        p95 = percentile(list(self.samples), 95)
+        if not self.active and p95 > self.target_s:
+            self.active = True
+            self.transitions.append((step, "degrade", round(p95, 6)))
+            self.samples.clear()
+        elif self.active and p95 < self.recover_frac * self.target_s:
+            self.active = False
+            self.transitions.append((step, "recover", round(p95, 6)))
+            self.samples.clear()
+        return self.active

@@ -797,3 +797,111 @@ def test_cnn_planned_on_the_card_launches_kernels_like_the_plain_run(
         want = apply_fn(params, x, cfg)
     assert not backend.runtime_declines
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
+# --------------------------------------------------------------------------
+# the precision bank and the engine features on it
+# --------------------------------------------------------------------------
+
+def _reduced_bank(dev, tmp_path):
+    """Reduced yi-9b on ``dev`` (float32 params, bf16 KV cache) and the
+    bank the chip smoke serves, at reduced width: target diana
+    (quant_matmul 5 + split_ternary 10), draft all-ternary diana
+    (quant_matmul 5 + ternary_matmul 10).  Returns (cfg, params, bank)."""
+    import dataclasses
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import build_planset
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfgbase.reduce_for_smoke(cfgbase.get("yi-9b")),
+                              param_dtype="float32")
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    arts = {v: emit_static_mapping(params, cfg, "diana",
+                                   tmp_path / f"{v}.json", max_cout=64,
+                                   act_log_scale=2.0, bias=bias)
+            for v, bias in (("target", None), ("draft", ("aimc", 1.0)))}
+    _, bank = build_planset(params, arts, "target")
+    assert bank.fully_covered
+    return cfg, params, bank
+
+
+def test_planset_bank_on_the_card_shares_and_launches_per_variant(
+        cuda, tmp_path):
+    """The bank on the card: the pinned layers' prepared tensors are shared
+    (dedup_saved_bytes > 0), and a prefill under each variant launches that
+    variant's kernels, with the plain versions' logits."""
+    from repro_torch.models import transformer as T
+    cfg, params, bank = _reduced_bank(cuda, tmp_path)
+    rep = bank.memory_report()
+    assert rep["dedup_saved_bytes"] > 0 and len(rep["shared_layers"]) == 3
+    tokens = torch.arange(12, device=cuda).reshape(1, 12) % cfg.vocab
+    want = {"target": {"quant_matmul": 5, "split_ternary": 10},
+            "draft": {"quant_matmul": 5, "ternary_matmul": 10}}
+    for variant, hist in want.items():
+        out = {}
+        for reference in (False, True):
+            bank.reference = reference
+            before = {k: getattr(ops, k).launches for k in hist}
+            with _backend.use(bank):
+                out[reference], _ = T.prefill(
+                    params, cfg, tokens, T.init_cache(cfg, 1, 16,
+                                                      device=cuda),
+                    variant=variant)
+            torch.cuda.synchronize()
+            got = {k: getattr(ops, k).launches - before[k] for k in hist}
+            assert got == (dict.fromkeys(hist, 0) if reference else hist)
+        bank.reference = False
+        assert torch.equal(out[False], out[True])
+
+
+def test_speculative_rounds_on_the_card_launch_per_formula(cuda, tmp_path):
+    """Speculation on the card: per round k draft steps (quant_matmul +
+    ternary_matmul) and one verify chunk (quant_matmul + split_ternary);
+    the tokens are the target-only run's and the plain versions'."""
+    from repro_torch.serving import Engine, synthetic_trace
+    cfg, params, bank = _reduced_bank(cuda, tmp_path)
+    trace = synthetic_trace(4, vocab=cfg.vocab, seed=3, min_prompt=4,
+                            max_prompt=10, min_new=4, max_new=10)
+    k = 4
+    names = ("quant_matmul", "ternary_matmul", "split_ternary")
+    before = {n: getattr(ops, n).launches for n in names}
+    spec = Engine(cfg, params, max_batch=2, max_len=64, backend=bank,
+                  speculate=("draft", "target"), draft_k=k)
+    got = spec.run(trace)
+    torch.cuda.synchronize()
+    chunks, rounds = spec.stats["prefill_calls"], spec.stats["spec_rounds"]
+    assert {n: getattr(ops, n).launches - before[n] for n in names} == {
+        "quant_matmul": 5 * (chunks + rounds * (k + 1)),
+        "ternary_matmul": 10 * k * rounds,
+        "split_ternary": 10 * (chunks + rounds)}
+    assert spec.stats["spec_committed"] == sum(r.n_tokens - 1 for r in got)
+    target = Engine(cfg, params, max_batch=2, max_len=64,
+                    backend=bank).run(trace)
+    bank.reference = True
+    plain = Engine(cfg, params, max_batch=2, max_len=64, backend=bank,
+                   speculate=("draft", "target"), draft_k=k).run(trace)
+    bank.reference = False
+    assert [r.tokens for r in got] == [r.tokens for r in target] == \
+        [r.tokens for r in plain]
+
+
+@pytest.mark.parametrize("kind", ["nonfinite_logits", "corrupt_page",
+                                  "stuck"])
+def test_fault_of_each_kind_contained_on_the_card(cuda, tmp_path, kind):
+    """An injected fault on the card (the NaN added on the device, NaN in
+    the bf16 KV pages, a stuck slot) is detected, the request requeued
+    once, and its tokens are a clean run's."""
+    from repro_torch.serving import Engine, FaultEvent, FaultInjector, \
+        Request
+    cfg, params, bank = _reduced_bank(cuda, tmp_path)
+    req = Request(rid="f0", prompt=np.arange(8) % cfg.vocab,
+                  max_new_tokens=10)
+    kw = dict(max_batch=1, max_len=48, page_size=8, backend=bank)
+    (clean,) = Engine(cfg, params, **kw).run([req])
+    inj = FaultInjector(events=[FaultEvent(kind, 4, 0, duration=100)])
+    eng = Engine(cfg, params, injector=inj, heartbeat_steps=4, **kw)
+    (r,) = eng.run([req])
+    assert r.requeues == 1 and r.tokens == clean.tokens
+    assert eng.stats["faults_injected"] == 1
+    key = "heartbeat_trips" if kind == "stuck" else "faults_detected"
+    assert eng.stats[key] >= 1

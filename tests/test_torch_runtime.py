@@ -441,19 +441,43 @@ def test_serve_planned_runs_with_full_coverage(artifacts, tmp_path):
     assert tuple(tokens.shape) == (1, 2)
 
 
-@pytest.mark.parametrize("flag", [["--engine", "--speculate", "d.json"],
-                                  ["--engine", "--fault-spec", "stuck@1:0"],
-                                  ["--check-spec-parity"]])
-def test_serve_engine_flags_wait_for_slice_2(flag, artifacts, tmp_path):
-    """The engine flags of the multi-plan features raise
-    NotImplementedError naming the roadmap item that brings them
-    (``--engine`` serves since the dense engine was ported, and the paged
-    layout's flags since the paged engine was)."""
+@pytest.mark.parametrize("flags", [
+    ["--speculate", "{ternary}", "--draft-k", "2", "--check-spec-parity"],
+    ["--slo-variant", "cheap={ternary}", "--slo-variant", "same={good}"],
+    ["--slo-variant", "cheap={ternary}", "--degrade-to", "cheap",
+     "--ttft-target-s", "1e-9", "--max-batch", "2", "--requests", "8",
+     "--gen-len", "8", "--fault-spec",
+     "nonfinite_logits@3:0,stuck@5:1x40"]], ids=["speculate", "slo",
+                                                "degrade_faults"])
+def test_serve_engine_serves_a_planset_bank(flags, artifacts, mappings,
+                                            tmp_path, capsys):
+    """The multi-plan flags serve through a `PlanSet` bank of the mapping
+    and a second artifact of the same weights (full coverage in every
+    variant): speculation with its target-only parity replay, SLO routes,
+    degradation with injected faults; each prints its report lines."""
     from repro_torch.launch import serve
     good = tmp_path / "good.json"
     good.write_text(json.dumps(artifacts[0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        serve.main(_serve_args(good, *flag))
+    ternary = tmp_path / "ternary.json"
+    ternary.write_text(json.dumps(mappings["ternary"][1]))
+    flags = [f.format(good=good, ternary=ternary) for f in flags]
+    results, summ = serve.main(_serve_args(
+        good, "--engine", "--requests", "4", "--gen-len", "6",
+        "--require-full-coverage", *flags))
+    out = capsys.readouterr().out
+    assert "[serve] planset bank:" in out and "dedup_saved_bytes=" in out
+    assert summ["requests"] == int(flags[flags.index("--requests") + 1]
+                                   if "--requests" in flags else 4)
+    if "--speculate" in flags:
+        assert "[serve] speculative(draft_k=2): rounds=" in out
+        assert "spec tokens identical to target-only: True" in out
+    elif "--degrade-to" in flags:
+        assert "faults_injected=2 faults_detected=2 heartbeat_trips=1 " \
+            "degrade_transitions=1" in out
+        assert "degrade transition @step" in out and summ["degraded"] > 0
+    else:
+        assert "[serve] slo 'cheap' -> variant 'cheap'" in out
+        assert "[serve] slo 'same' -> variant 'same'" in out
 
 
 def test_v1_plan_json_from_jax_loads(model, artifacts):

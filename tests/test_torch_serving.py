@@ -495,23 +495,6 @@ def test_engine_rejects_oversized_prompt():
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(speculate=("draft", "target")), "item 5"),
-    (dict(draft_k=4), "item 5"),
-    (dict(slo_routes={"a": "draft"}), "item 5"),
-    (dict(degrade_to="draft", ttft_target_s=0.1), "item 5"),
-    (dict(degrade_window=8), "item 5"),
-    (dict(degrade_recover_frac=0.7), "item 5"),
-    (dict(injector=object()), "item 5"),
-    (dict(heartbeat_steps=32), "item 5"),
-])
-def test_engine_unported_arguments_raise(kw, item):
-    cfg = cfgbase.reduce_for_smoke(cfgbase.get("yi-9b"))
-    params = T.init_lm(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        ts.Engine(cfg, params, **kw)
-
-
 @pytest.mark.parametrize("kw", [
     dict(kv_layout="ring"), dict(max_queue_depth=0),
     dict(page_watermark=1.5), dict(request_timeout_s=-1.0),
@@ -724,16 +707,111 @@ def test_serve_cli_engine_takes_its_robustness_and_sampling_flags(capsys):
     assert "SHED (queue_depth)" in out
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--speculate", "d.json"], "item 5"), (["--slo-variant", "a=m.json"],
-                                            "item 5"),
-    (["--draft-k", "2"], "item 5"), (["--check-spec-parity"], "item 5"),
-    (["--fault-spec", "stuck@1:0"], "item 5"),
-    (["--degrade-to", "a"], "item 5"), (["--ttft-target-s", "0.5"],
-                                        "item 5")])
-def test_serve_cli_unported_engine_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(_CLI + flag)
+#: the multi-plan and robustness arguments of the JAX engine that it
+#: refuses, each on its own; "bank" stands for a two-variant PlanSet
+#: (draft, target), "deadline" for a preempting scheduler
+MULTIPLAN_ERRORS = [
+    dict(speculate="draft", backend="bank"),
+    dict(speculate=("draft", "target"), backend="bank", kv_layout="dense"),
+    dict(speculate=("draft", "target"), backend="bank", sampling=True),
+    dict(speculate=("draft", "target"), backend="bank",
+         slo_routes={"x": "draft"}),
+    dict(speculate=("draft", "target"), backend="bank", draft_k=0),
+    dict(speculate=("tiny", "target"), backend="bank"),
+    dict(speculate=("draft", "target")),
+    dict(slo_routes={"gold": "nope"}, backend="bank"),
+    dict(slo_routes={"gold": "draft"}, backend="bank", kv_layout="dense"),
+    dict(slo_routes={"gold": "draft"}),
+    dict(degrade_to="draft", ttft_target_s=0.5, backend="bank",
+         kv_layout="dense"),
+    dict(degrade_to="draft", ttft_target_s=0.5),
+    dict(degrade_to="cheap", ttft_target_s=0.5, backend="bank"),
+    dict(degrade_to="draft", ttft_target_s=0.0, backend="bank"),
+    dict(degrade_to="draft", ttft_target_s=0.5, backend="bank",
+         degrade_recover_frac=1.5),
+    dict(injector=True, kv_layout="dense"),
+    dict(speculate=("draft", "target"), backend="bank", injector=True),
+    dict(speculate=("draft", "target"), backend="bank",
+         degrade_to="draft", ttft_target_s=0.5),
+    dict(speculate=("draft", "target"), backend="bank",
+         scheduler="deadline"),
+]
+
+
+@pytest.fixture(scope="module")
+def banks(tmp_path_factory):
+    """(jcfg, cfg, jparams, params, JAX bank, port bank): reduced yi-9b and
+    two-variant banks (target: diana, draft: all-ternary diana)."""
+    jcfg, cfg = _configs()
+    jparams = JT.init_lm(jax.random.PRNGKey(0), jcfg)
+    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    d = tmp_path_factory.mktemp("bank")
+    arts = {v: j_emit(jparams, jcfg, "diana", d / f"{v}.json", max_cout=64,
+                      act_log_scale=2.0, bias=bias)
+            for v, bias in (("target", None), ("draft", ("aimc", 1.0)))}
+    jbank = jrt.PlanSet({v: jrt.lower(a, params=jparams)
+                         for v, a in arts.items()}, jparams,
+                        default="target", reference=True)
+    bank = rt.PlanSet({v: rt.lower(a.to_dict(), params=params)
+                       for v, a in arts.items()}, params, default="target")
+    return jcfg, cfg, jparams, params, jbank, bank
+
+
+@pytest.mark.parametrize("kw", MULTIPLAN_ERRORS,
+                         ids=[str(i) for i in range(len(MULTIPLAN_ERRORS))])
+def test_engine_multiplan_value_errors_match_jax(banks, kw):
+    """Every multi-plan and robustness refusal of the JAX engine is the
+    port's, word for word."""
+    jcfg, cfg, jparams, params, jbank, bank = banks
+
+    def args(m, bank_):
+        out = dict(kw, max_batch=2, max_len=64)
+        if out.get("backend") == "bank":
+            out["backend"] = bank_
+        if out.get("sampling"):
+            out["sampling"] = m.SamplingParams(temperature=1.0)
+        if out.get("injector"):
+            out["injector"] = m.FaultInjector()
+        if "scheduler" in out:
+            out["scheduler"] = m.Scheduler(out["scheduler"])
+        return out
+    with pytest.raises(ValueError) as want:
+        js.Engine(jcfg, jparams, **args(js, jbank))
+    with pytest.raises(ValueError) as got:
+        ts.Engine(cfg, params, **args(ts, bank))
+    assert str(got.value) == str(want.value)
+
+
+#: serve flags each refused by the JAX CLI's argument checks
+CLI_ERRORS = [
+    ["--engine", "--degrade-to", "a"],
+    ["--engine", "--degrade-to", "a", "--ttft-target-s", "1"],
+    ["--engine", "--ttft-target-s", "0.5"],
+    ["--speculate", "d.json"],
+    ["--engine", "--speculate", "d.json"],
+    ["--engine", "--mapping", "m.json", "--mapping-fallback",
+     "--speculate", "d.json"],
+    ["--engine", "--mapping", "m.json", "--speculate", "d.json",
+     "--slo-variant", "a=d.json"],
+    ["--engine", "--mapping", "m.json", "--slo-variant", "a:d.json"],
+    ["--fault-spec", "stuck@1:0"],
+]
+
+
+@pytest.mark.parametrize("flags", CLI_ERRORS,
+                         ids=[str(i) for i in range(len(CLI_ERRORS))])
+def test_serve_cli_multiplan_errors_match_jax(flags, capsys):
+    """The multi-plan flags' argparse errors are the JAX CLI's, word for
+    word (the usage lines list each CLI's own flags)."""
+    from repro.launch import serve as jserve
+    argv = ["--arch", "yi-9b", "--reduce"] + flags
+    msgs = []
+    for main in (jserve.main, serve.main):
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2
+        msgs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert msgs[1] == msgs[0] and "error: " in msgs[0]
 
 
 def test_serve_cli_robustness_flags_need_engine():
