@@ -48,7 +48,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    Sk in {128, 3072}, Sq 3072 against Sk 4096 with kv_len 3072, a ragged
    Sq 3000, and one non-causal case whose keys the op pads (Sk 1000 to
    1024), each within `flash_error_bound` (the bf16 rounding of p and of
-   the output, and the float32 sums; stated in its docstring).  Then the
+   the output, and the float32 sums; stated in its docstring).  zamba2-1.2b's
+   shapes (phase 10): split_ternary at its five (K, N) (`ZAMBA_RAW`) x M
+   {4, 128, 512} at its planned raw boundaries, through the op (aligned)
+   and the kernel itself, with both garbage probes, and quant_matmul there
+   and at its head (2048, 32000); flash at its heads (B 4, H = KVH 32, D
+   64): Sq = Sk 3072, Sq 3000, kv_len 3072 in a 4096 cache, and the long
+   leg's Sq = Sk = kv_len 4096, within the bound.  Then the
    entry point of ternary_packed, which no serving path calls, is driven
    once at each of the ten (M, K, N) with the launch counts read around
    that run.
@@ -72,7 +78,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    the path (the head projects only the last position: M = B at prefill
    as at decode), the diana layers also at the long prefill's M = 4 x
    3072 = 12288, and, for flash_attention, at the long prefill's call (q
-   (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal, kv_len 3072).
+   (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal, kv_len 3072);
+   zamba2's split_ternary calls at M {4, 128, 512} and its head, summed
+   per decode, chunk and prefill forward (`zamba_layers`), and flash at
+   its long leg's call (q (4, 4096, 32, 1, 64), kv_len 4096) x 6 uses.
    Then the split sweep: the wgmma GEMM of split_precision and of
    ternary_matmul at M 512 x (4096, 512) at each K split of SWEEP_SPLITS,
    each checked against the plain version and timed as above.
@@ -248,7 +257,48 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    distance from the reference over the steps where their histories agree
    (`request_logits` reads each committed token's logits from the
    recorded calls).
-10. one JSON line of kernel records, the nvidia-smi line, and the contract
+10. zamba2: full-width zamba2-1.2b (38 blocks, d_model 2048: 6 x five
+   Mamba2 blocks + the shared attention block, and 2 remainder Mamba2
+   blocks; vocab 32000), one set of bf16 params from --seed, its diana
+   artifact emitted at ``max_cout=ZAMBA_MAX_COUT`` (8384: every
+   projection but the head searched; 71 split_ternary layers + the head
+   on quant_matmul, the shared block's 7 bound once and run 6 times, so
+   `ZAMBA_HIST` = 106 + 1 launches per forward), int8 KV:
+     fixed               ``serve_batch`` 4 x 128 + 16 (19 forwards), every
+                         planned call held bit for bit against its plain
+                         version as it is made (`checking_matmuls`),
+                         launches = 19 x `ZAMBA_HIST`, 0 weight copies,
+                         tokens against the plain run by the margin rule;
+                         a warm run;
+     engine_paged_mixed  engine_mixed's trace (at vocab 32000) through the
+                         paged engine (the prefix cache off: recurrent
+                         state is not page-resident), and engine_mixed
+                         through the dense one: launches = forwards x
+                         `ZAMBA_HIST`, each held against its plain run
+                         (paged by the margin rule, dense identical), the
+                         layouts compared for the record; a warm paged run
+                         and a profiled one (idle share);
+     long                engine_long's requests (2 x 3000 + 2 x 200, 8
+                         new) through the dense engine, 4 slots of 4096:
+                         one group padded to 4096 tokens whose shared block
+                         launches flash at D 64 six times, each call held
+                         against the plain version within the bound; the
+                         prefill logits within SENSITIVITY_FACTOR x the
+                         float64-attention plain run's distance, tokens by
+                         the margin rule;
+     bank, spec          ``PlanSet({"target": digital 1.0, "draft": aimc
+                         0.05})`` (`ZAMBA_BANK_HISTS`), the planset phase's
+                         trace shape: target-only, the same with the SSM
+                         summed in float64 (its logit distance is the
+                         spread), then ``speculate=("draft", "target"),
+                         draft_k=4``: against target-only by
+                         `spec_step_rule` (the first token's logits
+                         equal, every later step's within
+                         SENSITIVITY_FACTOR x the spread while the
+                         histories agree, tokens by the margin rule),
+                         rounds, acceptance and the replay chunks (counted
+                         by wrapping ``Engine._replay``; at least one).
+11. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -411,6 +461,51 @@ PLANSET = dict(requests=6, min_prompt=64, max_prompt=256, min_new=8,
 PLANSET_VARIANTS = {"target": "diana", "draft": "diana_ternary"}
 PLANSET_HISTS = {"target": {"quant_matmul": 241, "split_ternary": 96},
                  "draft": {"quant_matmul": 241, "ternary_matmul": 96}}
+#: zamba2-1.2b (phase 10), full width.  Emitted with max_cout 8384, the
+#: widest non-head projection (in_proj: 2 x 4096 + 2 x 64 + 64): with the
+#: default 512 every projection (all >= 2048 wide) is pinned to int8, a
+#: bias changes nothing, the bank's target and draft coincide and the
+#: speculative replay never runs.  At 8384 diana's min-cost split searches
+#: every projection but the 32000-wide head.
+ZAMBA = "zamba2-1.2b"
+ZAMBA_MAX_COUT = 8384
+#: its planned projections per forward, (K, N) -> count (32 Mamba2 blocks:
+#: in_proj, out_proj; the shared block's 7 projections at 6 uses), and the
+#: int8 columns of diana's min-cost split at each (the raw boundary)
+ZAMBA_USES = 6
+ZAMBA_LAYERS = {(2048, 8384): 32, (4096, 2048): 32,
+                (2048, 2048): 4 * ZAMBA_USES, (2048, 8192): 2 * ZAMBA_USES,
+                (8192, 2048): ZAMBA_USES}
+ZAMBA_RAW = {(2048, 8384): 128, (4096, 2048): 30, (2048, 2048): 30,
+             (2048, 8192): 120, (8192, 2048): 30}
+ZAMBA_HEAD = (2048, 32000)
+#: launches per forward: diana, and the bank's digital target and 5 %
+#: ternary draft (the head pinned to quant_matmul in all three)
+ZAMBA_HIST = {"quant_matmul": 1, "split_ternary": 106}
+ZAMBA_BANK_HISTS = {"target": {"quant_matmul": 107},
+                    "draft": {"quant_matmul": 1, "split_ternary": 106}}
+#: the plans' layers per kernel: 60 stacked Mamba2 projections, 4 of the
+#: remainder blocks, the shared block's 7 (bound once, run 6 times) and
+#: the head
+ZAMBA_PLAN_HISTS = {"diana": {"quant_matmul": 1, "split_ternary": 71},
+                    "target": {"quant_matmul": 72},
+                    "draft": {"quant_matmul": 1, "split_ternary": 71}}
+#: split_ternary checked and timed at these M: decode, a paged chunk (4 x
+#: 32) and the fixed batch's 512
+ZAMBA_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
+#: flash_attention at zamba2's heads (B, H, KVH, D) = (4, 32, 32, 64):
+#: (Sq, Sk, causal, kv_len) as for yi-9b, and the long leg's call (its
+#: 3000-token group pads to 4096 in a 4096-slot cache)
+ZAMBA_FLASH_HEADS = (REQUESTS, 32, 32, 64)
+ZAMBA_LONG_SQ = 4096
+ZAMBA_FLASH_CASES = [(3072, 3072, True, None), (3000, 3000, True, None),
+                     (LONG_PROMPT, LONG_CACHE, True, LONG_PROMPT),
+                     (ZAMBA_LONG_SQ, ZAMBA_LONG_SQ, True, ZAMBA_LONG_SQ)]
+#: the zamba2 phase's traffic: the fixed batch is phase 5's; the engine
+#: legs are engine_paged_mixed's and engine_mixed's; the long leg is
+#: engine_long's; the bank serves the planset phase's trace shape
+ZAMBA_LONG = dict(ENGINE_LONG)
+ZAMBA_BANK = dict(PLANSET)
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
@@ -732,17 +827,17 @@ def phase_kernels(torch, gen):
         if not quiet:
             print(f"[kernels] {kernel:<15s} {what} bit-identical")
 
-    def split_probes(m, k, n, raw, layout, quiet=False):
+    def split_probes(m, k, n, raw, layout, quiet=False, kernel_raw=False):
         """split_ternary through the op (boundary aligned to the N-block)
-        and, at a raw boundary of RAW_BOUNDARIES, the kernel itself at that
-        column; w_q holds 99 at and above the boundary, the packed stream
-        0xFF (a 2 in every 2-bit field) below it: neither may reach the
-        output."""
+        and, at a raw boundary of RAW_BOUNDARIES (or with ``kernel_raw``),
+        the kernel itself at that column; w_q holds 99 at and above the
+        boundary, the packed stream 0xFF (a 2 in every 2-bit field) below
+        it: neither may reach the output."""
         shape = f"M={m:<5d} K={k:<6d} N={n:<6d}"
         x, w_q, w_p, sx, sw = operands(m, k, n, raw, gen)
         cols = torch.arange(n, device=x.device)[None, :]
         calls = [(aligned(raw, n), ops.split_ternary_op, raw, "aligned")]
-        if raw in RAW_BOUNDARIES:
+        if raw in RAW_BOUNDARIES or kernel_raw:
             calls.append((raw, split_ternary, raw, "raw"))
         for b, fn, arg, what in calls:
             probe = torch.where(cols < b, w_q, 99).to(torch.int8)
@@ -946,8 +1041,29 @@ def phase_kernels(torch, gen):
     packed_case(m, k, n)
     for raw in (PATHS["diana"][3], 300):
         split_probes(m, k, n, raw, "K-major")
-    B, H, KVH, D = FLASH_HEADS
-    for Sq, Sk, causal, kv_len in FLASH_CASES:
+    # zamba2-1.2b's projections on diana (phase 10): split_ternary at its
+    # planned raw boundaries, through the op and the kernel itself, with
+    # both garbage probes; quant_matmul at its head and, for the bank's
+    # digital target, at the same (K, N)
+    for m in ZAMBA_MS:
+        for (k, n), raw in ZAMBA_RAW.items():
+            split_probes(m, k, n, raw, "K-major", quiet=True,
+                         kernel_raw=True)
+            x, w_q, _, sx, sw = operands(m, k, n, n, gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw),
+                f"zamba2 M={m} K={k} N={n} K-major", quiet=True)
+            print(f"[kernels] zamba2 M={m:<4d} K={k:<5d} N={n:<5d}: "
+                  f"split_ternary at raw boundary {raw} (aligned "
+                  f"{aligned(raw, n)}, and raw through the kernel), both "
+                  f"garbage probes, and quant_matmul bit-identical")
+    quant_both_layouts(DECODE_M, *ZAMBA_HEAD)
+    flash_sets = [(FLASH_HEADS, FLASH_CASES),
+                  (ZAMBA_FLASH_HEADS, ZAMBA_FLASH_CASES)]
+    for (B, H, KVH, D), Sq, Sk, causal, kv_len in (
+            (heads, *case) for heads, cases in flash_sets
+            for case in cases):
         q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen)
         if causal:
             got = ops.flash_attention(q, k, v, causal=True, kv_len=kv_len)
@@ -1021,6 +1137,11 @@ def phase_times(torch, gen):
     for m in M_SHAPES:       # the calls of ternary_packed's entry-point run
         for k, n in KN_SHAPES:
             calls[("ternary_packed", m, k, n)] = None
+    # zamba2-1.2b's calls on diana (phase 10)
+    for m in ZAMBA_MS:
+        for (k, n), raw in ZAMBA_RAW.items():
+            calls[("split_ternary", m, k, n)] = raw
+    calls[("quant_matmul", DECODE_M) + ZAMBA_HEAD] = None
     for (kernel, m, k, n), raw in calls.items():
         raw = n if raw is None else raw
         b_al = aligned(raw, n)
@@ -1203,26 +1324,28 @@ def phase_split_sweep(torch, gen):
     return out
 
 
-def phase_flash_times(torch, gen):
-    """Times of the long prefill's flash_attention call as the path makes
-    it (`attention.chunked_attention` on the model layout: q (4, 3072, 4,
-    8, 128), k / v (4, 4096, 4, 128) bf16, causal, kv_len 3072), its plain
-    version on the same layout, and scaled_dot_product_attention (causal,
-    GQA) over the 3072 keys the call reads; returns the record."""
+def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
+                      sk=LONG_CACHE):
+    """Times of a long prefill's flash_attention call as the path makes it
+    (`attention.chunked_attention` on the model layout, bf16, causal,
+    kv_len ``sq``; by default diana_long's: q (4, 3072, 4, 8, 128), k / v
+    (4, 4096, 4, 128)), its plain version on the same layout, and
+    scaled_dot_product_attention (causal, GQA) over the ``sq`` keys the
+    call reads; returns the record."""
     import torch.nn.functional as F
     from repro_torch.models import attention as A
-    B, H, KVH, D = FLASH_HEADS
-    q, k, v = flash_operands(torch, B, H, KVH, LONG_PROMPT, LONG_CACHE, D,
-                             gen, layout="model")
+    B, H, KVH, D = heads
+    q, k, v = flash_operands(torch, B, H, KVH, sq, sk, D, gen,
+                             layout="model")
 
     def run():
-        return A.chunked_attention(q, k, v, kv_len=LONG_PROMPT)
+        return A.chunked_attention(q, k, v, kv_len=sq)
 
     def plain():
-        return A.attention_plain(q, k, v, causal=True, kv_len=LONG_PROMPT)
-    qh = q.reshape(B, LONG_PROMPT, H, D).transpose(1, 2)
-    kh = k[:, :LONG_PROMPT].transpose(1, 2)
-    vh = v[:, :LONG_PROMPT].transpose(1, 2)
+        return A.attention_plain(q, k, v, causal=True, kv_len=sq)
+    qh = q.reshape(B, sq, H, D).transpose(1, 2)
+    kh = k[:, :sq].transpose(1, 2)
+    vh = v[:, :sq].transpose(1, 2)
 
     def lib():
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
@@ -1230,10 +1353,9 @@ def phase_flash_times(torch, gen):
     rec = {"plain_ms": cuda_ms(plain, 3)}
     for key, xs in graph_rounds({"ms": run, "library_ms": lib}, 5).items():
         spread(rec, key, xs)
-    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
-        B, H, KVH, LONG_PROMPT, LONG_PROMPT, D)
+    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(B, H, KVH, sq, sq, D)
     print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Sq="
-          f"{LONG_PROMPT} Sk={LONG_CACHE} kv_len={LONG_PROMPT} causal: "
+          f"{sq} Sk={sk} kv_len={sq} causal: "
           f"kernel {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
           f"{rec['max_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  sdpa "
           f"{rec['library_ms']:.4f} ms ({rec['library_min_ms']:.4f}-"
@@ -1262,13 +1384,25 @@ def entry_mix(times, only_m=None):
     return tot
 
 
-def forward_mix(times, path, kernel, phase, prefill_m=PREFILL_M):
+def zamba_layers(prefill_m=PREFILL_M):
+    """zamba2-1.2b's planned layers per forward on diana (`ZAMBA_LAYERS`,
+    the head): (K, N) -> (kernel, count, rows at a prefill of
+    ``prefill_m`` tokens); every layer has M = B rows at decode."""
+    out = {kn: ("split_ternary", count, prefill_m)
+           for kn, count in ZAMBA_LAYERS.items()}
+    out[ZAMBA_HEAD] = ("quant_matmul", 1, DECODE_M)
+    return out
+
+
+def forward_mix(times, path, kernel, phase, prefill_m=PREFILL_M,
+                layers=None):
     """Sum of per-layer records over one ``"prefill"`` (of ``prefill_m``
-    tokens) or ``"decode"`` forward pass of yi-9b on ``path``, each layer
-    at the M the path gives it."""
+    tokens) or ``"decode"`` forward pass of yi-9b on ``path`` (or of the
+    model whose `path_layers` counterpart gives ``layers``), each layer at
+    the M the path gives it."""
     tot = dict.fromkeys(MIX_KEYS + ("bytes_ms",), 0.0)
-    for (k, n), (kern, count, prefill_m) in path_layers(
-            path, prefill_m).items():
+    layers = layers if layers is not None else path_layers(path, prefill_m)
+    for (k, n), (kern, count, prefill_m) in layers.items():
         if kern != kernel:
             continue
         m = prefill_m if phase == "prefill" else DECODE_M
@@ -1630,7 +1764,7 @@ def checking_matmuls(checked, limits):
                 want = plain(*args, **kw)
                 if not torch.equal(out, want):
                     raise AssertionError(
-                        f"{kernel} call {n} of the long prefill (M "
+                        f"{kernel} call {n} on the path (M "
                         f"{args[0].shape[0]}): max |err| "
                         f"{float((out - want).abs().max())} against the "
                         f"plain version")
@@ -1698,6 +1832,34 @@ def plain_float64_attention():
             yield
         finally:
             A.attention_plain = orig
+    return ctx()
+
+
+def plain_float64_ssm():
+    """Context: the Mamba2 blocks sum their SSM in float64 (the chunked
+    SSD and the per-step recurrence, `ssm._ssd_chunked` / `ssm._ssd_step`,
+    on float64 copies of their float32 inputs; the state and outputs
+    rounded back to float32) -- another valid summation, for the
+    sensitivity run of zamba2's speculative leg."""
+    import contextlib
+    import torch
+    from repro_torch.models import ssm
+
+    def f64(fn):
+        def run(xs, Bt, Ct, dt, la, h0, *args, **kw):
+            h, y = fn(xs, Bt, Ct, dt.double(), la.double(), h0.double(),
+                      *args, **kw)
+            return h.to(torch.float32), y.to(torch.float32)
+        return run
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = ssm._ssd_chunked, ssm._ssd_step
+        ssm._ssd_chunked, ssm._ssd_step = map(f64, orig)
+        try:
+            yield
+        finally:
+            ssm._ssd_chunked, ssm._ssd_step = orig
     return ctx()
 
 
@@ -2799,20 +2961,102 @@ def follow_rule(torch, what, results, ref, dists):
     return compared, total
 
 
+def spec_step_rule(torch, what, trace, results, seqs, calls, rounds, ref,
+                   k, spread):
+    """A speculative run's tokens and logits against its target-only
+    reference ``ref`` (as `follow_rule` takes it, with ``"seqs"``: {rid:
+    logits per token}), step by step.  The logits of each committed token
+    (the first from its prompt's chunk call, each later one from the
+    verify row of the round that committed it, whose history is the
+    committed tokens) lie at max |diff| d_t from the reference's at the
+    same step.  The first token's logits come from the prompt's chunk
+    calls, the same path in both runs, so d_0 must be 0.  Over the steps
+    where the two histories agree, every d_t must stay within
+    SENSITIVITY_FACTOR x ``spread``, the distance by
+    which a plain run of the same trace with the SSM summed in float64
+    (`plain_float64_ssm`) moves the reference's logits: the verify chunk's
+    SSD over k + 1 steps and the reference's per-step recurrence are two
+    valid summations of one function, so their distance is of that size.
+    A replay or restore that leaves a slot's recurrent state wrong moves
+    the next step's logits by about another request's distance, far
+    beyond it.  Tokens: where the reference's top-2 margin exceeds 2 d_t
+    the argmax cannot move, so the committed token must be the
+    reference's; each request is compared up to its first token that
+    differs.  Fails when a distance passes its bound or when fewer than
+    half of all tokens were compared.  Returns (compared, total,
+    largest d_t)."""
+    plens = {r.rid: r.prompt_len for r in trace}
+    spec = {r.rid: {0: seqs[r.rid][0]} for r in results}
+    verifies = [c for c in calls if c[0] == "chunk" and c[1].dim() == 3]
+    for (_, lg, (tokens, _, _), _), slots in zip(verifies, rounds):
+        for b, (rid, length) in slots.items():
+            got = next(r.tokens for r in results if r.rid == rid)
+            n_gen = length - plens[rid] + 1
+            for j in range(k + 1):
+                t = n_gen + j
+                if t >= len(got) or (j and int(tokens[b, j]) != got[t - 1]):
+                    break
+                spec[rid][t] = lg[b, j]
+    tol = SENSITIVITY_FACTOR * spread
+    compared = held = total = 0
+    worst = 0.0
+    for r in results:
+        want = ref["tokens"][r.rid]
+        total += len(want)
+        for t in range(len(want)):
+            d = float((spec[r.rid][t] - ref["seqs"][r.rid][t]).abs().max())
+            if t == 0 and d:
+                raise AssertionError(
+                    f"{what}: request {r.rid}: the prompt's chunk logits "
+                    f"differ from the reference's by {d:.4g}")
+            if d > tol:
+                raise AssertionError(
+                    f"{what}: request {r.rid} token {t}: logits {d:.4g} "
+                    f"from the reference's, beyond {SENSITIVITY_FACTOR:g} x "
+                    f"the float64-SSM run's {spread:.4g}")
+            worst = max(worst, d)
+            held += 1
+            same = t < len(r.tokens) and r.tokens[t] == want[t]
+            if ref["margins"][r.rid][t] > 2 * d:
+                if not same:
+                    raise AssertionError(
+                        f"{what}: request {r.rid} token {t} differs at "
+                        f"margin {ref['margins'][r.rid][t]:.4g} > 2 x "
+                        f"{d:.4g}")
+                compared += 1
+            if not same:
+                break
+    print(f"[planset:{what}] step by step: logits within {tol:.4g} = "
+          f"{SENSITIVITY_FACTOR:g} x the float64-SSM run's distance "
+          f"{spread:.4g} at all {held} (request, step) pairs before each "
+          f"request's first differing token (largest {worst:.4g}; 0 at the "
+          f"prompts' chunk calls, the same path in both runs); "
+          f"tokens identical at {compared} of {total} pairs whose reference "
+          f"top-2 margin exceeds twice that step's distance (identical "
+          f"everywhere: "
+          f"{all(r.tokens == ref['tokens'][r.rid] for r in results)})")
+    if 2 * compared < total:
+        raise AssertionError(f"{what}: only {compared} of {total} tokens "
+                             f"compared, too few for the check to say "
+                             f"anything")
+    return compared, total, worst
+
+
 def planset_run(torch, tag, cfg, params, bank, hists, trace, smi, *,
-                record=True, variant=None, **kw):
-    """One run of ``trace`` on a new paged engine over ``bank`` (engine
-    arguments ``kw``; ``variant`` selects a variant around the whole run)
-    with the launch counts reset just before and read just after: each
-    recorded forward launches its variant's histogram (``hists``), and a
-    run that is not recorded is held to the totals of the calls it made.
-    Returns (engine, results, {rid: logits per token} or None, launches,
+                record=True, variant=None, leg=PLANSET, on_engine=None,
+                **kw):
+    """One run of ``trace`` on a new paged engine of ``leg``'s sizes over
+    ``bank`` (engine arguments ``kw``; ``variant`` selects a variant around
+    the whole run; ``on_engine(engine)`` is called before the run) with the
+    launch counts reset just before and read just after: each recorded
+    forward launches its variant's histogram (``hists``), and a run that is
+    not recorded is held to the totals of the calls it made.  Returns
+    (engine, results, {rid: logits per token} or None, launches,
     record)."""
     import contextlib
     import numpy as np
     from repro_torch.models import _backend
     from repro_torch.serving import Engine
-    leg = PLANSET
     engine = Engine(cfg, params, max_batch=leg["max_batch"],
                     max_len=leg["max_len"], page_size=leg["page_size"],
                     prefill_chunk=leg["prefill_chunk"], backend=bank, **kw)
@@ -2848,6 +3092,8 @@ def planset_run(torch, tag, cfg, params, bank, hists, trace, smi, *,
                            for b in np.nonzero(batch.active)[0]})
             return orig(batch, step, results)
         engine._spec_round = spec_round
+    if on_engine is not None:
+        on_engine(engine)
     reset_launches()
     with (recording_variant_calls(calls) if record
           else contextlib.nullcontext()), _backend.plan_variant(variant):
@@ -3180,6 +3426,396 @@ def phase_planset(torch, cfg, params, seed, smi):
           f"{smi})")
     out["faults"] = rec
     del bank, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zamba_launches(tag, launches, want, forwards):
+    """Launches of a run against ``want``; 0 weight copies."""
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want} "
+                             f"({forwards} forwards)")
+    check_no_weight_copies(tag)
+    return " ".join(f"{k} {v}" for k, v in launches.items() if v)
+
+
+def phase_zamba(torch, seed, smi, device="cuda"):
+    """zamba2-1.2b at full width (module docstring, phase 10): legs
+    fixed, engine_paged_mixed, engine_mixed, long, bank and spec; returns
+    {leg: record}.  ``device`` "cpu" serves a rehearsal, with the config
+    reduced and the CUDA-only calls stubbed by the caller."""
+    import numpy as np
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (build_planset, check_coverage,
+                                          kv_cache_for,
+                                          plan_mapping_execution,
+                                          print_planset_report, serve_batch)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (Request, poisson_arrivals,
+                                     synthetic_trace)
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+    cfg = cfgbase.get(ZAMBA)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(gen, cfg)
+    print(f"[zamba] {cfg.name}: {cfg.n_layers} blocks ({cfg.pattern_repeats}"
+          f" x {cfg.pattern} + {len(params['rem'])} mamba), d_model "
+          f"{cfg.d_model}, mamba2 d_state {cfg.ssm_state} expand 2 head_dim "
+          f"64 conv 4, shared block {cfg.n_heads} heads / {cfg.n_kv_heads} "
+          f"kv, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+          f"({smi})")
+    arts = {}
+    for name, bias in (("diana", None), ("target", ("digital", 1.0)),
+                       ("draft", ("aimc", 0.05))):
+        arts[name] = emit_static_mapping(
+            params, cfg, "diana",
+            ROOT / "build" / "chip_smoke" / f"{cfg.name}_{name}.json",
+            max_cout=ZAMBA_MAX_COUT, act_log_scale=2.0, bias=bias)
+    plan, backend = plan_mapping_execution(params, arts["diana"])
+    check_coverage("zamba", backend, require_full=True)
+    hist = plan.kernel_histogram()
+    for line in plan.histogram_lines():
+        print(f"[zamba] {line}")
+    if hist != ZAMBA_PLAN_HISTS["diana"]:
+        raise AssertionError(f"zamba diana: kernel histogram {hist}")
+    for (k, n), raw in ZAMBA_RAW.items():
+        name = {(2048, 8384): "units/0/mamba/in_proj@0",
+                (4096, 2048): "rem/0/mamba/out_proj",
+                (2048, 2048): "shared/attn/wq",
+                (2048, 8192): "shared/ffn/gate",
+                (8192, 2048): "shared/ffn/down"}[(k, n)]
+        lp = plan[name]
+        if lp.boundaries[0] != raw:
+            raise AssertionError(f"zamba {name}: raw boundary "
+                                 f"{lp.boundaries}, expected {raw}")
+        print(f"[zamba] {name} ({k} x {n}): counts {lp.counts}, raw "
+              f"boundary {lp.boundaries}, aligned {lp.aligned_boundaries}")
+    kcfg = kv_cache_for(cfg, arts["diana"])
+    print(f"[zamba] diana: {backend.coverage()}; {len(plan.layers)} planned "
+          f"layers, {sum(ZAMBA_HIST.values())} launches per forward "
+          f"{ZAMBA_HIST}; kv {kcfg.kv_cache_dtype} ({at()})")
+    out = {}
+
+    # fixed batch: serve_batch, every planned call checked as it is made
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    forwards = -(-PROMPT_LEN // CHUNK) + GEN_LEN - 1
+    checked, calls = {}, []
+    limits = dict.fromkeys(ZAMBA_HIST, 10**9)
+    reset_launches()
+    with checking_matmuls(checked, limits), recording_logits(calls):
+        tokens, stats = serve_batch(kcfg, params, prompts, GEN_LEN,
+                                    backend=backend)
+    want = {k: ZAMBA_HIST.get(k, 0) * forwards for k in KERNELS}
+    got = zamba_launches("zamba:fixed", kernel_launches(), want, forwards)
+    if {k: n for k, (n, _) in checked.items()} != {
+            k: v for k, v in want.items() if v}:
+        raise AssertionError(f"zamba:fixed: calls checked {checked}")
+    first, margins = batch_logits(torch, tokens, calls)
+    del calls
+    if tuple(tokens.shape) != (REQUESTS, GEN_LEN) or \
+            tuple(first.shape) != (REQUESTS, cfg.vocab) or \
+            not bool(torch.isfinite(first).all()):
+        raise AssertionError("zamba:fixed: output has the wrong shape or is "
+                             "not finite")
+    print(f"[zamba:fixed] {REQUESTS} x {PROMPT_LEN} + {GEN_LEN} through "
+          f"serve_batch (paged engine, {forwards} forwards): launches {got} "
+          f"({ZAMBA_HIST} per forward), weights copied per call 0; every "
+          f"planned call bit-identical to its plain version on its own "
+          f"inputs (" + ", ".join(f"{n} {k}, largest M {m}"
+                                  for k, (n, m) in checked.items()) + ")")
+    backend.reference = True
+    ref_calls = []
+    with recording_logits(ref_calls):
+        ref_tokens, _ = serve_batch(kcfg, params, prompts, GEN_LEN,
+                                    backend=backend)
+    backend.reference = False
+    if any(kernel_launches()[k] != want[k] for k in KERNELS):
+        raise AssertionError("zamba:fixed: the plain run launched a kernel")
+    ref_first, ref_margins = batch_logits(torch, ref_tokens, ref_calls)
+    del ref_calls
+    compared, total, dist = margin_rule(
+        torch, "zamba:fixed vs plain", tokens.tolist(), list(first),
+        ref_tokens.tolist(), list(ref_first), ref_margins.tolist())
+    _, warm = serve_batch(kcfg, params, prompts, GEN_LEN, backend=backend)
+    print(f"[zamba:fixed] warm run: prefill {warm['prefill_s'] * 1e3:.3f} "
+          f"ms, decode {warm['decode_s'] * 1e3:.3f} ms "
+          f"({warm['tok_per_s']:.2f} tok/s, "
+          f"{warm['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step); sample "
+          f"tokens {tokens[:2, :8].tolist()} ({at()})")
+    out["fixed"] = {"forwards": forwards, "launches": want,
+                    "calls_checked": {k: n for k, (n, _) in checked.items()},
+                    "tokens_identical_to_plain": tokens.equal(ref_tokens),
+                    "prefill_logits_max_abs_diff": dist,
+                    "tokens_compared": compared, "tokens_total": total,
+                    "warm_prefill_ms": warm["prefill_s"] * 1e3,
+                    "warm_decode_ms_per_step":
+                        warm["decode_s"] * 1e3 / (GEN_LEN - 1),
+                    "warm_decode_tok_per_s": warm["tok_per_s"]}
+    del prompts
+
+    # engine traffic: engine_paged_mixed's trace through the paged engine,
+    # engine_mixed's through the dense one; each against its plain run
+    # (the integer kernels are bit-exact, so the margin rule compares
+    # every token), and the layouts against each other for the record
+    leg = ENGINE_MIXED
+    trace = poisson_arrivals(synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    print_traffic("zamba:engine_paged_mixed", trace, ENGINE_PAGED_MIXED)
+    engine, results, ptok, pfirst, pmargins, st = paged_run(
+        torch, "zamba:engine_paged_mixed", kcfg, params, backend,
+        ZAMBA_HIST, trace, ENGINE_PAGED_MIXED)
+    if engine.prefix_cache:
+        raise AssertionError("zamba: the prefix cache is on for a "
+                             "recurrent arch")
+    backend.reference = True
+    calls = []
+    _, rres, _ = engine_run(torch, kcfg, params, backend, trace,
+                            ENGINE_PAGED_MIXED, calls)
+    rfirst, rmargins = paged_request_logits(torch, trace, rres, calls)
+    compared, total, _ = margin_rule(
+        torch, "zamba:engine_paged_mixed vs plain", ptok, pfirst,
+        [r.tokens for r in rres], rfirst, rmargins)
+    calls = []
+    backend.reference = False
+    dense, dres, dl = engine_run(torch, kcfg, params, backend, trace,
+                                 ENGINE_MIXED, calls)
+    dst = dense.stats
+    dforwards = dst["prefill_calls"] + dst["decode_steps"]
+    zamba_launches("zamba:engine_mixed", dl,
+                   {k: ZAMBA_HIST.get(k, 0) * dforwards for k in KERNELS},
+                   dforwards)
+    dfirst = engine_first_logits(torch, dres, calls)
+    dtok = [r.tokens for r in dres]
+    backend.reference = True
+    calls = []
+    _, rres, _ = engine_run(torch, kcfg, params, backend, trace,
+                            ENGINE_MIXED, calls)
+    backend.reference = False
+    rdfirst = engine_first_logits(torch, rres, calls)
+    del calls
+    if dtok != [r.tokens for r in rres] or not all(
+            torch.equal(a, b) for a, b in zip(dfirst, rdfirst)):
+        raise AssertionError("zamba:engine_mixed: kernel and plain-version "
+                             "runs disagree")
+    # dense and paged sum the SSD in other chunks (256 and 32 steps): in
+    # bf16 their logits part, so the layouts are compared for the record
+    dist = max(float((a - b).abs().max()) for a, b in zip(dfirst, pfirst))
+    same = sum(a == b for a, b in zip(dtok, ptok))
+    print(f"[zamba:engine_mixed] dense: {dst['prefill_calls']} prefill "
+          f"calls + {dst['decode_steps']} decode steps, launches "
+          f"{ZAMBA_HIST} per forward; tokens and prefill logits identical "
+          f"to the plain run's; against the paged layout: {same} of "
+          f"{len(dtok)} requests' tokens identical, prefill logits max "
+          f"|diff| {dist:.4g} ({at()})")
+    _, _, prec = warm_paged(torch, "zamba:engine_paged_mixed", kcfg,
+                            params, backend, trace, ENGINE_PAGED_MIXED,
+                            ptok, smi)
+
+    def profiled():
+        eng, _, _ = engine_run(torch, kcfg, params, backend, trace,
+                               ENGINE_PAGED_MIXED)
+        return eng.stats["wall_s"] * 1e3
+    busy = profile_device(torch, "zamba:engine_paged_mixed", profiled)
+    prec.update(device_busy_ms=busy,
+                idle_share=1.0 - busy / (prec["wall_s"] * 1e3),
+                forwards=st["prefill_calls"] + st["decode_steps"])
+    print(f"[profile:zamba:engine_paged_mixed] device busy {busy:.3f} ms "
+          f"of the warm run's {prec['wall_s'] * 1e3:.3f} ms wall: idle "
+          f"share {prec['idle_share']:.3f} ({at()})")
+    out["engine_paged_mixed"] = prec
+    prec.update(plain_tokens_compared=compared, tokens_total=total)
+    out["engine_mixed"] = dict(print_engine_run(
+        "zamba:engine_mixed", dense, dres, smi), forwards=dforwards,
+        vs_paged_max_abs_diff=dist, vs_paged_requests_identical=same)
+    del engine, dense
+
+    # long: one dense admission group padded to 4096 tokens, its shared
+    # block's 6 uses through flash at head dim 64
+    rng = np.random.default_rng(seed)
+    leg = ZAMBA_LONG
+    long_trace = [Request(rid=f"l{i}", prompt=rng.integers(0, cfg.vocab, n),
+                          max_new_tokens=leg["new"])
+                  for i, n in enumerate(leg["prompts"])]
+    print_traffic("zamba:long", long_trace, leg)
+    uses = ZAMBA_USES
+    flash_calls, calls = [], []
+    with recording_flash(flash_calls):
+        eng, lres, ll = engine_run(torch, kcfg, params, backend, long_trace,
+                                   leg, calls)
+    lst = dict(eng.stats)
+    lforwards = lst["prefill_calls"] + lst["decode_steps"]
+    want = {k: ZAMBA_HIST.get(k, 0) * lforwards for k in KERNELS}
+    want["flash_attention"] = uses
+    got = zamba_launches("zamba:long", ll, want, lforwards)
+    worst = worst_ratio = 0.0
+    for i, (q, k, v, kw, o) in enumerate(flash_calls):
+        if q.shape[-1] != cfg.hd or q.shape[2] != ZAMBA_LONG_SQ:
+            raise AssertionError(f"zamba:long flash call {i}: q "
+                                 f"{tuple(q.shape)}")
+        err, ratio = check_flash(torch, q, k, v, o, kw["causal"],
+                                 kw["kv_len"], f"zamba:long use {i}")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+    print(f"[zamba:long] {lst['prefill_calls']} prefill + "
+          f"{lst['decode_steps']} decode steps: launches {got}; the "
+          f"{len(flash_calls)} flash calls (q {tuple(flash_calls[0][0].shape)}"
+          f", D {cfg.hd}, kv_len {flash_calls[0][3]['kv_len']}) within the "
+          f"bound "
+          f"of the plain version on their own inputs: max |err| "
+          f"{worst:.4g}, at most {worst_ratio:.4g} of it")
+    del flash_calls
+    first = engine_first_logits(torch, lres, calls)
+    tokens = [r.tokens for r in lres]
+    del calls
+    backend.reference = True
+    ref_calls = []
+    _, rres, _ = engine_run(torch, kcfg, params, backend, long_trace, leg,
+                            ref_calls)
+    ref_first = engine_first_logits(torch, rres, ref_calls)
+    decodes = [lg for kind, lg, _ in ref_calls if kind == "decode"]
+    ref_tokens = [r.tokens for r in rres]
+    ref_margins = [[float(top2_margin(torch, ref_first[i]))] +
+                   [float(top2_margin(torch, lg[i]))
+                    for lg in decodes[:len(ref_tokens[i]) - 1]]
+                   for i in range(len(ref_tokens))]
+    del ref_calls, decodes
+    f64_calls = []
+    with plain_float64_attention():
+        _, f64_res, _ = engine_run(torch, kcfg, params, backend, long_trace,
+                                   leg, f64_calls)
+    backend.reference = False
+    f64_first = engine_first_logits(torch, f64_res, f64_calls)
+    del f64_calls
+    ref_stack = torch.stack(ref_first)
+    spread, spread_rms = logit_distance(torch, torch.stack(f64_first),
+                                        ref_stack)
+    diff, diff_rms = logit_distance(torch, torch.stack(first), ref_stack)
+    other, other_rms = logit_distance(torch, ref_stack.roll(1, dims=0),
+                                      ref_stack)
+    tol, tol_rms = SENSITIVITY_FACTOR * spread, SENSITIVITY_FACTOR * spread_rms
+    compared, total = compare_requests("zamba:long vs plain", tokens,
+                                       ref_tokens, ref_margins,
+                                       [tol] * len(tokens))
+    print(f"[zamba:long] plain run in float64 attention: prefill logits max "
+          f"|diff| {spread:.4g}, RMS {spread_rms:.4g} from the plain run; "
+          f"another request's: {other:.4g}, RMS {other_rms:.4g}; kernel run "
+          f"vs plain: max {diff:.4g} (ratio {diff / max(spread, 1e-30):.3g})"
+          f", RMS {diff_rms:.4g} (ratio "
+          f"{diff_rms / max(spread_rms, 1e-30):.3g}); tokens identical over "
+          f"{compared} of {total} (request, step) pairs before the first "
+          f"plain top-2 margin below {tol:.4g} ({at()})")
+    if diff > tol or diff_rms > tol_rms:
+        raise AssertionError(f"zamba:long: prefill logits differ from the "
+                             f"plain run's by max {diff} > {tol} or RMS "
+                             f"{diff_rms} > {tol_rms}")
+    torch.cuda.reset_peak_memory_stats()
+    eng, wres, _ = engine_run(torch, kcfg, params, backend, long_trace, leg)
+    if [r.tokens for r in wres] != tokens:
+        raise AssertionError("zamba:long: the warm run's tokens differ")
+    out["long"] = dict(print_engine_run("zamba:long", eng, wres, smi),
+                       flash_calls=uses, flash_worst_error=worst,
+                       flash_worst_error_over_bound=worst_ratio,
+                       float64_plain_max_abs_diff=spread,
+                       float64_plain_rms_diff=spread_rms,
+                       prefill_logits_max_abs_diff=diff,
+                       prefill_logits_rms_diff=diff_rms,
+                       tokens_compared=compared, tokens_total=total,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del eng, plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bank: the JAX CI's pair, speculative against target-only
+    plans, bank = build_planset(
+        params, {"target": arts["target"], "draft": arts["draft"]},
+        "target")
+    print_planset_report("zamba:bank", plans, bank)
+    check_coverage("zamba:bank", bank, require_full=True)
+    plan_hists = {v: plans[v].kernel_histogram() for v in plans}
+    if plan_hists != {v: ZAMBA_PLAN_HISTS[v] for v in plans}:
+        raise AssertionError(f"zamba bank histograms {plan_hists}")
+    hists = ZAMBA_BANK_HISTS
+    bcfg = kv_cache_for(cfg, arts["target"])
+    leg = ZAMBA_BANK
+    trace = poisson_arrivals(synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    eng, res, seqs, _, trec = planset_run(
+        torch, "zamba:target_only", bcfg, params, bank, hists, trace, smi,
+        leg=leg)
+    ref = {"tokens": {r.rid: r.tokens for r in res},
+           "margins": {rid: [float(top2_margin(torch, lg)) for lg in seq]
+                       for rid, seq in seqs.items()},
+           "seqs": seqs}
+    # the sensitivity run: the same trace with the SSM summed in float64
+    with plain_float64_ssm():
+        _, res64, seqs64, _, _ = planset_run(
+            torch, "zamba:target_only:float64_ssm", bcfg, params, bank,
+            hists, trace, smi, leg=leg)
+    spread = max(matched_distance(torch, r.tokens, ref["tokens"][r.rid],
+                                  seqs64[r.rid], seqs[r.rid])
+                 for r in res64)
+    same64 = sum(r.tokens == ref["tokens"][r.rid] for r in res64)
+    print(f"[zamba:target_only] float64-SSM run: logits max |diff| "
+          f"{spread:.4g} from the target-only run's over the steps where "
+          f"their histories agree; {same64} of {len(res64)} requests' "
+          f"tokens identical ({at()})")
+    del seqs64
+    replays = []
+
+    def count_replays(engine):
+        replay = engine._replay
+
+        def counting(x, drafted, caches, snap, valid):
+            replays.append(int((valid > 0).sum()))
+            return replay(x, drafted, caches, snap, valid)
+        engine._replay = counting
+    k = leg["draft_k"]
+    eng, res, seqs, _, srec = planset_run(
+        torch, "zamba:spec", bcfg, params, bank, hists, trace, smi, leg=leg,
+        on_engine=count_replays, speculate=("draft", "target"), draft_k=k)
+    st = dict(eng.stats)
+    calls, rounds = eng.recorded
+    # the verify chunk sums the SSD over k + 1 steps, target-only decoding
+    # steps the recurrence: in bf16 their logits part, so the rule holds
+    # each step within the float64-SSM run's distance
+    compared, total, dist = spec_step_rule(
+        torch, "zamba:spec vs target_only", trace, res, seqs, calls, rounds,
+        ref, k, spread)
+    del calls, eng
+    print(f"[zamba:spec] k {k}: {st['spec_rounds']} rounds, acceptance "
+          f"{st['spec_acceptance']}, {st['spec_tokens_per_round']} tokens per"
+          f" round, {len(replays)} replay chunks ({sum(replays)} slot "
+          f"replays) of the recurrent state; decode "
+          f"{srec['decode_tok_s']:.3f} tok/s against target-only's "
+          f"{trec['decode_tok_s']:.3f} ({at()})")
+    if not replays:
+        raise AssertionError("zamba:spec: no round replayed a partial "
+                             "accept")
+    out["target_only"] = trec
+    out["spec"] = dict(srec, spec_rounds=st["spec_rounds"],
+                       spec_acceptance=st["spec_acceptance"],
+                       spec_tokens_per_round=st["spec_tokens_per_round"],
+                       replay_chunks=len(replays),
+                       slot_replays=sum(replays),
+                       tokens_compared=compared, tokens_total=total,
+                       max_logit_distance=dist,
+                       float64_ssm_max_abs_diff=spread)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[zamba] phase {out['seconds']:.1f} s, peak memory "
+          f"{out['peak_gib']:.2f} GiB ({smi})")
+    del plans, bank, params
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3553,6 +4189,8 @@ def main(argv=None) -> int:
     times = phase_times(torch, gen)
     sweep = phase_split_sweep(torch, gen)
     flash_rec = phase_flash_times(torch, gen)
+    zamba_flash = phase_flash_times(torch, gen, ZAMBA_FLASH_HEADS,
+                                    ZAMBA_LONG_SQ, ZAMBA_LONG_SQ)
     mark("kernel times")
     for kernel in KERNELS:
         path = LAUNCH_PATH[kernel]
@@ -3565,6 +4203,27 @@ def main(argv=None) -> int:
         for rows in CHUNK_MS:
             print_mix(f"per chunk forward (M {rows}) on diana", kernel,
                       forward_mix(times, "diana", kernel, "prefill", rows))
+    zamba_mix = {}
+    for kernel in ZAMBA_HIST:
+        for what, phase, rows in (("decode", "decode", PREFILL_M),
+                                  (f"chunk (M {REQUESTS * CHUNK})",
+                                   "prefill", REQUESTS * CHUNK),
+                                  (f"prefill (M {PREFILL_M})", "prefill",
+                                   PREFILL_M)):
+            mix = forward_mix(times, None, kernel, phase, rows,
+                              layers=zamba_layers(rows))
+            zamba_mix[f"{kernel} {what}"] = mix
+            print_mix(f"per {what} forward of {ZAMBA} on diana", kernel, mix)
+    # the long leg's dense prefill makes one flash call per shared-block use
+    uses = ZAMBA_USES
+    zamba_mix["flash_attention long prefill"] = {
+        key: zamba_flash[key] * uses for key in
+        ("ms", "min_ms", "max_ms", "plain_ms", "library_ms",
+         "library_min_ms", "library_max_ms", "bound_ms")}
+    zamba_mix["flash_attention long prefill"]["bound_by"] = \
+        zamba_flash["bound_by"]
+    print_mix(f"per long prefill forward of {ZAMBA} ({uses} uses)",
+              "flash_attention", zamba_mix["flash_attention long prefill"])
 
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import transformer as T
@@ -3604,6 +4263,9 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    serving["zamba"] = phase_zamba(torch, args.seed, smi)
+    serving["zamba"]["kernel_mix"] = zamba_mix
+    mark("zamba")
     serving.update(phase_cnn(torch, args.seed, smi))
     mark("cnn")
     # one prefill forward of diana_long makes one flash call per layer

@@ -67,7 +67,12 @@ class ArchConfig:
 
     @property
     def pattern_repeats(self) -> int:
-        if self.n_layers % len(self.pattern):
+        """Whole repeats of ``pattern``.  A hybrid pattern with a shared
+        attention block (zamba2) may leave layers past the last whole
+        repeat: its remainder blocks (``params["rem"]``), as in the JAX
+        package; any other pattern must tile ``n_layers``."""
+        if self.n_layers % len(self.pattern) and \
+                "shared_attn" not in self.pattern:
             raise ValueError(f"{self.name}: {self.n_layers} layers do not "
                              f"tile the pattern {self.pattern}")
         return self.n_layers // len(self.pattern)
@@ -99,7 +104,7 @@ def names():
 
 def load_all():
     """Import every config module of the port (each self-registers)."""
-    from repro_torch.configs import yi_9b  # noqa: F401
+    from repro_torch.configs import yi_9b, zamba2_1_2b  # noqa: F401
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:

@@ -24,7 +24,8 @@
 //     order the (s, h, b) dimensions by stride, so the model's (B, S, H,
 //     D) layout is read through its transposed views without a copy.
 //     Rows of D = 128 split into two 64-column chunks with a 128-byte
-//     swizzle, rows of D = 16 take a 32-byte swizzle;
+//     swizzle, rows of D = 64 are one such chunk, rows of D = 16 take a
+//     32-byte swizzle;
 //   - S = Q K^T runs on wgmma m64n128k16 bf16 -> f32, A (Q) and B (K) from
 //     shared memory, both K-major as stored; the softmax runs on the S
 //     accumulator in registers, in the log2 domain (exp2f of scores
@@ -102,6 +103,8 @@ __device__ __forceinline__ void mma_pv(float (&o)[D / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 128)
     hopper::mma_bf16_m64n128k16_rs_tb(o, a, db, 1);
+  else if constexpr (D == 64)
+    hopper::mma_bf16_m64n64k16_rs_tb(o, a, db, 1);
   else
     hopper::mma_bf16_m64n16k16_rs_tb(o, a, db, 1);
 }
@@ -381,6 +384,9 @@ extern "C" int flash_attention_launch(
   switch (D) {
     case 16:
       return launch<16>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h, k_s,
+                        v_b, v_h, v_s, s);
+    case 64:
+      return launch<64>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h, k_s,
                         v_b, v_h, v_s, s);
     case 128:
       return launch<128>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h,

@@ -27,9 +27,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the kernel is instantiated for: yi-9b's 128 and the reduced
-#: yi-9b's 16
-HEAD_DIMS = (16, 128)
+#: head dims the kernel is instantiated for: yi-9b's 128, zamba2-1.2b's
+#: 64 and the reduced configs' 16
+HEAD_DIMS = (16, 64, 128)
 #: query rows per plain-version step: bounds its float32 score block
 PLAIN_Q_BLOCK = 512
 

@@ -18,7 +18,12 @@ Every plan kernel executes on dense layers, so yi-9b serves with full
 coverage from an artifact of ``diana`` (quant_matmul + split_ternary),
 ``gpu_tc_like`` (quant_matmul + split_precision) and ``diana`` emitted with
 ``bias=("aimc", 1.0)`` (quant_matmul + ternary_matmul); all three ask for
-the int8 KV cache.
+the int8 KV cache.  The hybrid ``--arch zamba2-1.2b`` serves the same way
+(its Mamba2 blocks' recurrent state held per slot in both KV layouts, the
+prefix cache off); at full width every projection is wider than the
+emission's default ``max_cout=512``, so an artifact emitted with
+``max_cout=8384`` searches all but the head (106 split_ternary + 1
+quant_matmul launches per forward on diana).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\

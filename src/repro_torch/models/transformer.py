@@ -1,13 +1,19 @@
 """Config-driven LM assembly (``repro.models.transformer`` counterpart) for
-the attention-only ``("attn",)`` pattern.
+the dense attention-only ``("attn",)`` pattern and zamba2's hybrid one
+(five Mamba2 blocks, then one shared attention + FFN block).
 
 Params are the JAX package's pytree as a nested dict of tensors: the
-layers are ``pattern_repeats`` repeats of the block pattern, stacked on a
-leading repeat axis R (``params["units"][0]["attn"]["wq"]["w"]`` is
-``(R, d_model, H * hd)``), so a mapping artifact's layer names
-(``units/0/attn/wq@r``) address the same weights in both packages.  Where
-the JAX package runs ``jax.lax.scan`` over the repeats, `backbone` loops in
-Python and publishes the repeat index with `_backend.scan_slot`.
+layers are ``pattern_repeats`` repeats of the block pattern, one block per
+pattern position stacked on a leading repeat axis R
+(``params["units"][0]["attn"]["wq"]["w"]`` is ``(R, d_model, H * hd)``),
+so a mapping artifact's layer names (``units/0/attn/wq@r``) address the
+same weights in both packages.  zamba2's two blocks past its last whole
+repeat are unstacked (``params["rem"]``, named ``rem/{i}``), and its
+shared block's weights are one copy (``params["shared"]``, named
+``shared/attn`` and ``shared/ffn`` at every use) with a per-use input norm
+stacked in its pattern position.  Where the JAX package runs
+``jax.lax.scan`` over the repeats, `backbone` loops in Python and
+publishes the repeat index with `_backend.scan_slot`.
 
 Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
@@ -25,21 +31,25 @@ Public API:
   cache_kv_axes(cfg)                             -> layout marker per leaf
   cache_batch_axes(caches)                       -> batch axis per leaf
   scatter_cache(caches, sub, slots)              -> caches (in place)
-  copy_pages(caches, src, dst)                   -> caches (in place)
+  copy_pages(caches, src, dst, kv_axes)          -> caches (in place)
 
-Caches are updated in place (see `repro_torch.models.attention`).  A
-prompt longer than 2048 tokens prefills through the chunked (flash)
-attention, as the JAX package's ``_prefill_body`` does; like the JAX
-package's, that path needs a cache length that is a multiple of
-``min(1024, S_max)`` and a prompt length that is a multiple of
-``min(512, S)``.  Hybrid, MoE, MLA, cross-attention and encoder-decoder
-archs wait for later slices.  The dense serving engine
-(`repro_torch.serving.Engine(kv_layout="dense")`) prefills admission
-groups with ``prefill(lengths=)``, moves them into its slot pool with
-`scatter_cache` and decodes all slots with a per-slot ``index``; the paged
-one streams prompts into its page pool with `prefill_chunk` (full
+Caches are updated in place (see `repro_torch.models.attention`): the
+attention KV (dense per slot, or paged) and the Mamba2 blocks' per-slot
+recurrent state (``ssm`` float32, ``conv`` in the activation dtype),
+which ``length_mask`` (ragged prefill, chunk validity, ``active``) leaves
+bit for bit unchanged at masked steps.  A prompt longer than 2048 tokens
+prefills through the chunked (flash) attention, as the JAX package's
+``_prefill_body`` does; like the JAX package's, that path needs a cache
+length that is a multiple of ``min(1024, S_max)`` and a prompt length
+that is a multiple of ``min(512, S)``.  MoE, MLA, xLSTM, cross-attention
+and encoder-decoder archs wait for later slices.  The dense serving
+engine (`repro_torch.serving.Engine(kv_layout="dense")`) prefills
+admission groups with ``prefill(lengths=)``, moves them into its slot pool
+with `scatter_cache` and decodes all slots with a per-slot ``index``; the
+paged one streams prompts into its page pool with `prefill_chunk` (full
 attention over each slot's gathered pages, never the chunked path, as in
-the JAX package) and decodes with ``decode_step(pages=)``.
+the JAX package; recurrent state carried across chunks) and decodes with
+``decode_step(pages=)``.
 """
 from __future__ import annotations
 
@@ -49,17 +59,25 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import _backend
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 _j = _backend.join
 
 
+#: the block patterns the port serves: dense attention-only archs and
+#: zamba2's hybrid (five Mamba2 blocks, then the shared attention block)
+SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",))
+
+
 def _check_supported(cfg: ArchConfig):
-    if (cfg.pattern != ("attn",) or cfg.moe is not None or cfg.mla
-            or cfg.frontend or cfg.encoder_layers or cfg.parallel_block
-            or cfg.tie_embeddings or cfg.norm != "rmsnorm"):
+    if (cfg.pattern not in SUPPORTED_PATTERNS or cfg.moe is not None
+            or cfg.mla or cfg.frontend or cfg.encoder_layers
+            or cfg.parallel_block or cfg.tie_embeddings
+            or cfg.norm != "rmsnorm"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense attention-only ('attn',) "
-            f"archs; the other families wait for later slices")
+            f"archs and zamba2's hybrid pattern; the other families wait "
+            f"for later slices")
 
 
 def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
@@ -69,30 +87,73 @@ def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
         sliding_window=cfg.sliding_window)
 
 
+def _mamba_cfg(cfg: ArchConfig) -> S.Mamba2Config:
+    return S.Mamba2Config(d_model=cfg.d_model, d_state=cfg.ssm_state)
+
+
 def _dtype(cfg: ArchConfig):
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
+def _zamba_remainder(cfg: ArchConfig) -> int:
+    period = len(cfg.pattern)
+    return cfg.n_layers - (cfg.n_layers // period) * period
+
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
+               repeats=None):
+    """One block of ``kind``, stacked on a leading ``repeats`` axis when
+    given.  A ``shared_attn`` block holds only its per-use input norm; its
+    weights live in ``params["shared"]`` (`init_shared_block`)."""
+    dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
+    p = {"norm1": L.init_norm(d, dt, repeats=repeats, device=dev)}
+    if kind == "attn":
+        p["attn"] = A.init_attn(gen, _attn_cfg(cfg), dt, repeats=repeats)
+        if cfg.d_ff:
+            p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt,
+                                  repeats=repeats)
+            p["norm2"] = L.init_norm(d, dt, repeats=repeats, device=dev)
+    elif kind == "mamba":
+        p["mamba"] = S.init_mamba2(gen, _mamba_cfg(cfg), dt, repeats=repeats)
+    elif kind != "shared_attn":
+        raise ValueError(kind)
+    return p
+
+
+def init_shared_block(gen: torch.Generator, cfg: ArchConfig):
+    """zamba2's shared transformer block (one copy)."""
+    dt, d = _dtype(cfg), cfg.d_model
+    return {"attn": A.init_attn(gen, _attn_cfg(cfg), dt),
+            "ffn": L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt),
+            "norm2": L.init_norm(d, dt, device=gen.device)}
+
+
 def init_lm(gen: torch.Generator, cfg: ArchConfig):
     """Random parameters drawn from ``gen`` on ``gen.device``, with the JAX
-    package's shapes and scales (the numbers differ: the generators do)."""
+    package's tree, shapes and scales (the numbers differ: the generators
+    do): ``units`` a tuple of one stacked block per pattern position,
+    zamba2's ``rem`` a list of its remainder blocks and its ``shared``
+    block."""
     _check_supported(cfg)
     dt, dev = _dtype(cfg), gen.device
-    d, R = cfg.d_model, cfg.pattern_repeats
+    d, R, period = cfg.d_model, cfg.pattern_repeats, len(cfg.pattern)
     emb = torch.randn((cfg.vocab, d), generator=gen, device=dev,
                       dtype=torch.float32) * 0.02
-    block = {"norm1": L.init_norm(d, dt, repeats=R, device=dev),
-             "attn": A.init_attn(gen, _attn_cfg(cfg), dt, repeats=R)}
-    if cfg.d_ff:
-        block["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt,
-                                  repeats=R)
-        block["norm2"] = L.init_norm(d, dt, repeats=R, device=dev)
-    return {
+    units = tuple(init_block(gen, cfg, kind, repeats=R)
+                  for kind in cfg.pattern)
+    params = {
         "emb": emb.to(dt),
         "final_norm": L.init_norm(d, dt, device=dev),
         "head": L.init_dense(gen, d, cfg.vocab, dt, scale=d ** -0.5),
-        "units": (block,),
+        "units": units,
     }
+    rem = _zamba_remainder(cfg)
+    if rem:
+        params["rem"] = [init_block(gen, cfg, cfg.pattern[i % period])
+                         for i in range(rem)]
+    if "shared_attn" in cfg.pattern:
+        params["shared"] = init_shared_block(gen, cfg)
+    return params
 
 
 def params_from_jax(tree, device="cuda"):
@@ -119,41 +180,72 @@ def _repeat(tree, r: int):
     return tree[r]
 
 
-def block_apply(p, x, cfg: ArchConfig, positions, *, cache=None,
-                cache_index=None, name=None, chunked=False, length_mask=None,
-                pages=None):
-    """One ``attn`` block (pre-norm GQA + FFN). Returns (x, cache).
-    ``pages`` (B, W) switches the attention KV to the paged pool, where
-    ``length_mask`` (B, S) sends the writes of padding (and of masked
-    slots) to the trash page."""
+def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
+                cache_index=None, shared=None, name=None, chunked=False,
+                length_mask=None, pages=None):
+    """One block of ``kind``; returns (x, cache).  ``name`` is the block's
+    params path (``"units/3"``, ``"rem/0"``), threaded into every
+    projection's backend call; the shared block's weights always use the
+    fixed names ``"shared/attn"`` and ``"shared/ffn"`` (one copy, many
+    call sites).
+
+    ``attn`` / ``shared_attn``: pre-norm GQA + FFN; ``pages`` (B, W)
+    switches the attention KV to the paged pool, where ``length_mask`` (B,
+    S) sends the writes of padding (and of masked slots) to the trash
+    page.  ``mamba``: a Mamba2 block whose new state is copied into
+    ``cache`` in place; ``length_mask`` makes its masked steps exact
+    identities on the state (dt = 0, the conv carry kept), on either KV
+    layout."""
     h = L.norm(p["norm1"], x, cfg.norm)
+    if kind == "mamba":
+        mo, ns = S.mamba2(p["mamba"], h, _mamba_cfg(cfg), state=cache,
+                          name=_j(name, "mamba"), length_mask=length_mask)
+        if cache is not None:
+            cache["ssm"].copy_(ns["ssm"])
+            cache["conv"].copy_(ns["conv"])
+        return x + mo, cache
+    if kind == "shared_attn":
+        p, attn_name, ffn_name = shared, "shared/attn", "shared/ffn"
+    elif kind == "attn":
+        attn_name, ffn_name = _j(name, "attn"), _j(name, "ffn")
+    else:
+        raise ValueError(kind)
     ao, nc = A.gqa(p["attn"], h, positions, _attn_cfg(cfg), cache=cache,
-                   cache_index=cache_index, name=_j(name, "attn"),
-                   chunked=chunked, pages=pages, write_mask=length_mask)
+                   cache_index=cache_index, name=attn_name, chunked=chunked,
+                   pages=pages, write_mask=length_mask)
     x = x + ao
     if "ffn" in p:
         x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
-                      _j(name, "ffn"))
+                      ffn_name)
     return x, nc
 
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
              cache_index=None, chunked=False, length_mask=None, pages=None):
-    """Run all layers; returns (final-normed hidden, caches).  ``chunked``:
-    attention through `attention.chunked_attention` (long prefill);
-    ``length_mask`` / ``pages``: see `block_apply`."""
-    (units,) = params["units"]
-    unit_cache = caches["units"][0] if caches is not None else None
-    repeats = units["norm1"]["scale"].shape[0]
+    """Run all layers; returns (final-normed hidden, caches).  The
+    pattern's blocks run once per repeat under `_backend.scan_slot`, then
+    zamba2's remainder blocks (``rem/{i}``).  ``chunked``: attention
+    through `attention.chunked_attention` (long prefill); ``length_mask``
+    / ``pages``: see `block_apply`."""
+    units, shared = params["units"], params.get("shared")
+    unit_caches = caches["units"] if caches is not None else None
+    repeats = units[0]["norm1"]["scale"].shape[0]
+    kw = dict(cache_index=cache_index, shared=shared, chunked=chunked,
+              length_mask=length_mask, pages=pages)
     for r in range(repeats):
-        c = _repeat(unit_cache, r) if unit_cache is not None else None
         # stacked layers are named by their base path ("units/0/attn/wq");
         # a name-keyed backend selects repeat r's prepared kernels
         with _backend.scan_slot(r):
-            x, _ = block_apply(_repeat(units, r), x, cfg, positions,
-                               cache=c, cache_index=cache_index,
-                               name="units/0", chunked=chunked,
-                               length_mask=length_mask, pages=pages)
+            for i, kind in enumerate(cfg.pattern):
+                c = (_repeat(unit_caches[i], r) if unit_caches is not None
+                     else None)
+                x, _ = block_apply(_repeat(units[i], r), x, kind, cfg,
+                                   positions, cache=c, name=f"units/{i}",
+                                   **kw)
+    for i, blk in enumerate(params.get("rem", ())):
+        c = caches["rem"][i] if caches is not None else None
+        x, _ = block_apply(blk, x, cfg.pattern[i % len(cfg.pattern)], cfg,
+                           positions, cache=c, name=f"rem/{i}", **kw)
     return L.norm(params["final_norm"], x, cfg.norm), caches
 
 
@@ -173,7 +265,8 @@ def _project_logits(params, cfg: ArchConfig, h):
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over the leaves of equally shaped dict / tuple trees."""
+    """``fn`` over the leaves of equally shaped dict / tuple / list
+    trees."""
     head = trees[0]
     if isinstance(head, dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in head}
@@ -182,53 +275,113 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
-def cache_specs(cfg: ArchConfig, B: int, S_max: int):
-    """The dense KV cache's shapes and dtypes, as a tree of ``meta``
-    tensors (no storage): int8 codes when ``cfg.kv_cache_dtype ==
-    "int8"``, else bfloat16 (whatever the parameter dtype, as in the JAX
-    package)."""
+def tree_leaves(tree):
+    """The leaves of a dict / tuple / list tree, in `_tree_map` order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _block_cache_spec(cfg: ArchConfig, kind: str, B: int, S_max: int):
+    """``{key: (shape, dtype)}`` of one block's cache.  The attention KV
+    holds int8 codes when ``cfg.kv_cache_dtype == "int8"``, else bfloat16
+    (whatever the parameter dtype, as in the JAX package).  The Mamba2
+    conv carry holds activations: the parameter dtype, whatever the KV
+    dtype (the JAX package gives it the KV dtype; the port writes state
+    in place, where an int8 buffer would truncate it every step)."""
+    kv = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
+    if kind in ("attn", "shared_attn"):
+        shape = (B, S_max, cfg.n_kv_heads, cfg.hd)
+        return {"k": (shape, kv), "v": (shape, kv)}
+    if kind == "mamba":
+        mc = _mamba_cfg(cfg)
+        return {"ssm": ((B, mc.n_heads, mc.head_dim, mc.d_state),
+                        torch.float32),
+                "conv": ((B, mc.conv_kernel - 1, mc.conv_dim), _dtype(cfg))}
+    raise ValueError(kind)
+
+
+def _assemble_caches(cfg: ArchConfig, block_fn, stacked, plain):
+    """The layout walk shared by every cache-shaped tree (the JAX
+    package's): ``block_fn(kind)`` gives one block's ``{key: spec}``;
+    ``stacked(spec, repeats)`` builds a ``"units"`` leaf, ``plain(spec)``
+    a ``"rem"`` one."""
     _check_supported(cfg)
-    dt = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
-    shape = (cfg.pattern_repeats, B, S_max, cfg.n_kv_heads, cfg.hd)
-    return {"units": ({"k": torch.empty(shape, dtype=dt, device="meta"),
-                       "v": torch.empty(shape, dtype=dt, device="meta")},)}
+    period, R = len(cfg.pattern), cfg.pattern_repeats
+    caches = {"units": tuple(
+        {key: stacked(sp, R) for key, sp in block_fn(kind).items()}
+        for kind in cfg.pattern)}
+    rem = _zamba_remainder(cfg)
+    if rem:
+        caches["rem"] = [{key: plain(sp) for key, sp in
+                          block_fn(cfg.pattern[i % period]).items()}
+                         for i in range(rem)]
+    return caches
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def cache_specs(cfg: ArchConfig, B: int, S_max: int):
+    """The dense cache's shapes and dtypes (`_block_cache_spec`), as a tree
+    of ``meta`` tensors (no storage): the JAX package's tree, ``"units"``
+    leaves stacked on a leading repeats axis."""
+    return _assemble_caches(
+        cfg, lambda kind: _block_cache_spec(cfg, kind, B, S_max),
+        stacked=lambda sp, r: _meta((r,) + sp[0], sp[1]),
+        plain=lambda sp: _meta(*sp))
+
+
+def _zeros_like_specs(specs, device):
+    return _tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                           device=device), specs)
 
 
 def init_cache(cfg: ArchConfig, B: int, S_max: int, device="cuda"):
-    """Dense KV cache of `cache_specs`, zeroed."""
-    return _tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
-                                           device=device),
-                     cache_specs(cfg, B, S_max))
+    """Dense cache of `cache_specs`, zeroed."""
+    return _zeros_like_specs(cache_specs(cfg, B, S_max), device)
 
 
 # Sequence-indexed attention-KV leaves: the ones the paged layout moves
 # from per-slot (B, S_max, ...) buffers into the shared page pool (the JAX
-# package's sets; the port's one kind, "attn", has only "k" and "v")
+# package's sets); every other leaf is per-slot state, slot-indexed in
+# both layouts
 _PAGED_KEYS = frozenset({"k", "v", "latent"})
 _SEQ_KINDS = frozenset({"attn", "dec", "shared_attn", "mla"})
 
 
+def _paged_block_cache_spec(cfg: ArchConfig, kind: str, B: int,
+                            pool_rows: int, page_size: int):
+    spec = _block_cache_spec(cfg, kind, B, 1)
+    if kind in _SEQ_KINDS:
+        for key, ((_, _, *feat), dt) in list(spec.items()):
+            if key in _PAGED_KEYS:
+                spec[key] = ((pool_rows, page_size, *feat), dt)
+    return spec
+
+
 def paged_cache_specs(cfg: ArchConfig, B: int, pool_rows: int,
                       page_size: int):
-    """The PAGED layout's cache: each attention-KV leaf is the shared
-    ``(R, pool_rows, page_size, KVH, hd)`` page pool (``pool_rows``
-    includes the trash row 0: pass num_pages + 1), as a tree of ``meta``
-    tensors with the dtypes of `cache_specs`.  ``B`` is kept for the JAX
-    package's signature: an attention-only arch has no per-slot state."""
-    _check_supported(cfg)
-    dt = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
-    shape = (cfg.pattern_repeats, pool_rows, page_size, cfg.n_kv_heads,
-             cfg.hd)
-    return {"units": ({key: torch.empty(shape, dtype=dt, device="meta")
-                       for key in ("k", "v")},)}
+    """The PAGED layout's cache as ``meta`` tensors: each attention-KV
+    leaf is the shared ``(R, pool_rows, page_size, KVH, hd)`` page pool
+    (``pool_rows`` includes the trash row 0: pass num_pages + 1); per-slot
+    state keeps its dense shape with B slots.  The tree of
+    `cache_specs`."""
+    return _assemble_caches(
+        cfg, lambda kind: _paged_block_cache_spec(cfg, kind, B, pool_rows,
+                                                  page_size),
+        stacked=lambda sp, r: _meta((r,) + tuple(sp[0]), sp[1]),
+        plain=lambda sp: _meta(tuple(sp[0]), sp[1]))
 
 
 def init_paged_cache(cfg: ArchConfig, B: int, pool_rows: int,
                      page_size: int, device="cuda"):
-    """Paged KV pool of `paged_cache_specs`, zeroed."""
-    return _tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
-                                           device=device),
-                     paged_cache_specs(cfg, B, pool_rows, page_size))
+    """Paged cache of `paged_cache_specs`, zeroed."""
+    return _zeros_like_specs(
+        paged_cache_specs(cfg, B, pool_rows, page_size), device)
 
 
 def cache_kv_axes(cfg: ArchConfig):
@@ -236,30 +389,39 @@ def cache_kv_axes(cfg: ArchConfig):
     ``"page"`` for sequence-indexed attention-KV leaves, ``"slot"`` for
     per-slot state, with the count of leading stack axes appended
     (``"page1"``: a KV leaf whose pool / batch axis is axis 1 under the
-    stacked repeats).  The engine's page copy and its KV-byte accounting
-    address leaves of either layout through it."""
-    _check_supported(cfg)
-    (kind,) = cfg.pattern
-    return {"units": ({key: ("page" if kind in _SEQ_KINDS and
-                             key in _PAGED_KEYS else "slot") + "1"
-                       for key in ("k", "v")},)}
+    stacked repeats; ``"slot0"``: a remainder block's state, slots on
+    axis 0).  The engine's slot reset, page copy, snapshot and KV-byte
+    accounting address leaves of either layout through it."""
+    def roles(kind):
+        return {key: ("page" if kind in _SEQ_KINDS and key in _PAGED_KEYS
+                      else "slot")
+                for key in _block_cache_spec(cfg, kind, 1, 1)}
+    return _assemble_caches(cfg, roles, stacked=lambda role, r: role + "1",
+                            plain=lambda role: role + "0")
 
 
-def copy_pages(caches, src, dst):
-    """Copy-on-write: page rows ``src`` (k,) of every page leaf into rows
-    ``dst`` (k,), in place (``pool[:, dst] = pool[:, src]``); ``src`` and
-    ``dst`` are int64 tensors on the caches' device.  Returns ``caches``."""
-    _tree_map(lambda buf: buf.index_copy_(1, dst, buf.index_select(1, src)),
-              caches)
+def copy_pages(caches, src, dst, kv_axes):
+    """Copy-on-write: page rows ``src`` (k,) of every ``"page"`` leaf of
+    ``kv_axes`` (`cache_kv_axes`) into rows ``dst`` (k,), in place
+    (``pool[:, dst] = pool[:, src]``); per-slot state is left alone.
+    ``src`` and ``dst`` are int64 tensors on the caches' device.  Returns
+    ``caches``."""
+    for buf, ax in zip(tree_leaves(caches), tree_leaves(kv_axes)):
+        if ax.startswith("page"):
+            axis = int(ax[4:])
+            buf.index_copy_(axis, dst, buf.index_select(axis, src))
     return caches
 
 
 def cache_batch_axes(caches):
     """Tree (matching ``caches``) of each leaf's BATCH axis: the
     ``"units"`` leaves are stacked with a leading repeats axis, so batch
-    is axis 1.  This is the layout knowledge `scatter_cache` needs to
-    address slots."""
-    return {"units": _tree_map(lambda _: 1, caches["units"])}
+    is axis 1; ``"rem"`` leaves carry batch first.  This is the layout
+    knowledge `scatter_cache` needs to address slots."""
+    axes = {"units": _tree_map(lambda _: 1, caches["units"])}
+    if "rem" in caches:
+        axes["rem"] = _tree_map(lambda _: 0, caches["rem"])
+    return axes
 
 
 def scatter_cache(caches, sub, slots):
@@ -267,11 +429,11 @@ def scatter_cache(caches, sub, slots):
     ``caches`` at slot indices ``slots`` (k,) int64 on the caches' device,
     in place (``index_copy_`` along each leaf's batch axis) — the
     continuous-batching admission step: freshly prefilled per-request
-    caches land in the slots the scheduler assigned, replacing whatever a
-    retired request left there.  Rows of ``sub`` past k (the padding rows
-    of an admission group) are not written, and ``slots`` must not repeat
-    a slot: which of two writes to one slot lands is undefined on the
-    card.  Returns ``caches``."""
+    caches (KV and recurrent state) land in the slots the scheduler
+    assigned, replacing whatever a retired request left there.  Rows of
+    ``sub`` past k (the padding rows of an admission group) are not
+    written, and ``slots`` must not repeat a slot: which of two writes to
+    one slot lands is undefined on the card.  Returns ``caches``."""
     k = slots.numel()
     _tree_map(lambda buf, s, axis: buf.index_copy_(
         axis, slots, s.narrow(axis, 0, k).to(buf.dtype)),
@@ -288,23 +450,28 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
             variant=None):
     """Process the prompts ``tokens (B, S)``, fill the caches, and return
     (logits at each row's last valid position, caches).  ``lengths`` (B,)
-    marks right-padded prompts; KV written at padded positions is masked by
-    every later read.  Prompts longer than 2048 tokens take the chunked
-    attention (see the module docstring).  ``variant`` selects the plan
-    variant of a multi-plan backend (`repro_torch.runtime.PlanSet`) for
-    this call; None keeps any surrounding ``plan_variant`` selection or
-    the backend's default."""
+    marks right-padded prompts: recurrent state suppresses the padded tail
+    exactly (``length_mask``), and KV written at padded positions is
+    masked by every later read.  Prompts longer than 2048 tokens take the
+    chunked attention (see the module docstring).  ``variant`` selects the
+    plan variant of a multi-plan backend (`repro_torch.runtime.PlanSet`)
+    for this call; None keeps any surrounding ``plan_variant`` selection
+    or the backend's default."""
     with _backend.plan_variant(variant):
         B, Sq = tokens.shape
         x = params["emb"][tokens]
-        positions = torch.arange(Sq, device=tokens.device)[None, :]
-        h, caches = backbone(params, cfg, x, positions, caches=caches,
-                             cache_index=0, chunked=Sq > CHUNKED_ABOVE)
+        steps = torch.arange(Sq, device=tokens.device)[None, :]
+        length_mask = None
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=tokens.device)
+            length_mask = steps < lengths[:, None]
+        h, caches = backbone(params, cfg, x, steps, caches=caches,
+                             cache_index=0, chunked=Sq > CHUNKED_ABOVE,
+                             length_mask=length_mask)
         if lengths is None:
             h_last = h[:, -1]
         else:
-            last = torch.as_tensor(lengths, device=h.device) - 1
-            h_last = h[torch.arange(B, device=h.device), last]
+            h_last = h[torch.arange(B, device=h.device), lengths - 1]
         return _project_logits(params, cfg, h_last), caches
 
 
@@ -316,8 +483,10 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
     prefilling slot, left-aligned; ``index`` (B,) is each slot's prefill
     progress (tokens already in its pages) and ``valid`` (B,) how many of
     this chunk's tokens are real -- 0 for slots that are decoding or idle,
-    whose rows are fully masked: their KV writes land in the trash page,
-    so interleaving chunks with decode steps cannot perturb other slots.
+    whose rows are fully masked: their KV writes land in the trash page
+    and their recurrent state carries through bit for bit, so interleaving
+    chunks with decode steps cannot perturb other slots.  Recurrent state
+    accumulated in ``caches`` across calls is the carried chunk boundary.
     ``pages`` (B, W) is the page table.  Attention is `full_attention`
     with per-slot ``q_pos0`` / ``kv_len`` over each slot's gathered pages,
     never the chunked (flash) path, as in the JAX package.  Every row runs
@@ -353,13 +522,12 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
     """One decode step for ``token (B,)`` at position ``index``: an int
     (same-length batch) or a (B,) tensor of per-slot cache lengths.
     ``active`` (B,) bool marks live slots; the logits of an inactive slot
-    are garbage by contract.  With ``pages`` (B, W) the KV lives in the
-    paged pool and ``active`` is the write mask: inactive and
+    are garbage by contract, and on either layout their recurrent state
+    carries through unchanged.  With ``pages`` (B, W) the KV lives in the
+    paged pool and ``active`` is also the write mask: inactive and
     still-prefilling slots write into the trash page, whatever their
-    ``index``.  On the dense cache ``active`` changes nothing (an
-    attention-only model has no cross-slot coupling or recurrent state to
-    suppress), and an inactive slot writes at its ``index``.  ``variant``
-    selects the plan variant (see `prefill`)."""
+    ``index``; on the dense cache an inactive slot writes its KV at its
+    ``index``.  ``variant`` selects the plan variant (see `prefill`)."""
     with _backend.plan_variant(variant):
         x = params["emb"][token][:, None, :]
         B = x.shape[0]

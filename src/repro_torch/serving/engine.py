@@ -56,10 +56,12 @@ as ``backend`` (precision variants over ONE params dict):
     position the draft wrote with target numerics, so the committed cache
     is the target-only cache and the tokens are those of target-only
     greedy decoding (static activation scales).  The caches are updated in
-    place, and on an attention-only arch nothing else needs restoring; the
-    JAX engine's pre-round snapshot and replay exist for recurrent state,
-    and come with the hybrid archs (ROADMAP.md Queue 1 item 6).
-    Paged-only, greedy-only.
+    place, so on a recurrent arch (zamba2) the round clones the per-slot
+    state before drafting, puts it back before verify, and after the
+    commits replays the slots that accepted part of their draft over
+    exactly their committed tokens (`_replay`: one more target chunk, only
+    in rounds with a partial accept), as the JAX engine's snapshot,
+    ``restore_slots`` and ``replay_fn`` do.  Paged-only, greedy-only.
   * SLO ROUTING (``slo_routes={"interactive": "draft", ...}``): a
     request's SLO class picks its variant.  Chunk and decode steps run
     once per active variant group with the other slots masked inactive,
@@ -296,6 +298,8 @@ class Engine:
             self.prefix_cache = False
 
         self._kv_axes = T.cache_kv_axes(cfg)
+        self._has_recurrent = any(ax.startswith("slot") for ax in
+                                  T.tree_leaves(self._kv_axes))
         self._kv_capacity_bytes, self._kv_page_bytes = self._kv_footprint()
         self._req_counter = 0
         # robustness bookkeeping (cleared per run): per-request resume /
@@ -404,25 +408,26 @@ class Engine:
 
     def _kv_footprint(self):
         """(total sequence-KV bytes of the pool, bytes per page or None):
-        the ``"page"`` leaves of `transformer.cache_kv_axes` only; the
-        paged total excludes the trash row."""
+        the ``"page"`` leaves of `transformer.cache_kv_axes` only (per-slot
+        recurrent state is the same in both layouts and left out, so that
+        dense and paged peaks compare what paging changes); the paged
+        total excludes the trash row."""
         if self.kv_layout == "paged":
             specs = T.paged_cache_specs(self.cfg, self.max_batch,
                                         self.num_pages + 1, self.page_size)
         else:
             specs = T.cache_specs(self.cfg, self.max_batch, self.max_len)
         total = per_page = 0
-        for unit, axes in zip(specs["units"], self._kv_axes["units"]):
-            for key, leaf in unit.items():
-                if not axes[key].startswith("page"):
-                    continue
-                nbytes = leaf.numel() * leaf.element_size()
-                total += nbytes
-                if self.kv_layout == "paged":
-                    # bytes of ONE page across all stacked layers
-                    rows = (leaf.shape[1] if axes[key] == "page1"
-                            else leaf.shape[0])
-                    per_page += nbytes // rows
+        for leaf, ax in zip(T.tree_leaves(specs),
+                            T.tree_leaves(self._kv_axes)):
+            if not ax.startswith("page"):
+                continue
+            nbytes = leaf.numel() * leaf.element_size()
+            total += nbytes
+            if self.kv_layout == "paged":
+                # bytes of ONE page across all stacked layers
+                rows = leaf.shape[1] if ax == "page1" else leaf.shape[0]
+                per_page += nbytes // rows
         if self.kv_layout == "paged":
             return per_page * self.num_pages, per_page
         return total, None
@@ -704,8 +709,19 @@ class Engine:
 
     # ---- paged admission + chunked prefill -------------------------------
 
+    def _slot_leaves(self, caches):
+        """``[(leaf, slot axis)]``: the per-slot (recurrent) state of
+        ``caches``, the ``"slot"`` leaves of `transformer.cache_kv_axes`."""
+        return [(leaf, int(ax[4:])) for leaf, ax in
+                zip(T.tree_leaves(caches), T.tree_leaves(self._kv_axes))
+                if ax.startswith("slot")]
+
     def _admit_paged(self, batch: BatchState, admits, step: int,
                      t_ready: Dict[int, float]):
+        """Map (and with the prefix cache, share) each admitted request's
+        pages and zero its slot's recurrent state, which must not leak from
+        the slot's previous occupant (resumes included: they prefill their
+        committed tokens again)."""
         cow_pairs = []
         for slot, req in admits:
             meta = self._meta(req)
@@ -726,11 +742,13 @@ class Engine:
                                 t_first=meta["t_first"])
             batch.variant[slot] = meta["variant"]
             batch.gens[slot] = self._next_generator()
+            for leaf, axis in self._slot_leaves(batch.caches):
+                leaf.select(axis, slot).zero_()
         if cow_pairs:
             # copy-on-write before the admitting slots' first chunk
             src, dst = torch.tensor(cow_pairs, dtype=torch.int64).t() \
                 .contiguous().to(self.device)
-            T.copy_pages(batch.caches, src, dst)
+            T.copy_pages(batch.caches, src, dst, self._kv_axes)
             for src, _ in cow_pairs:
                 self.pool_mgr.release_cow(src)
 
@@ -891,18 +909,45 @@ class Engine:
             drafted.append(tok)
         return torch.stack(drafted, 1), caches
 
-    def _verify(self, x: torch.Tensor, drafted: torch.Tensor, caches):
+    def _verify(self, x: torch.Tensor, drafted: torch.Tensor, caches,
+                snap):
         """One fixed-shape chunk of ``[t0, d1..dk]`` under the target
         variant: the full logits give the target's argmax after every
         drafted token, and the chunk's KV writes replace every
-        draft-written position with target numerics.  Returns ((B, k + 1)
+        draft-written position with target numerics.  The recurrent state
+        the draft advanced is first put back to the round's snapshot
+        ``snap`` (the JAX engine's ``restore_slots``).  Returns ((B, k + 1)
         tokens, caches)."""
         W = self.pages_per_slot
+        for (leaf, _), saved in zip(self._slot_leaves(caches), snap):
+            leaf.copy_(saved)
         tokens = torch.cat([x[:, :1], drafted], dim=1)
         logits, caches = T.prefill_chunk(
             self.params, self.cfg, tokens, caches, x[:, 1], x[:, 3],
             x[:, 4:4 + W], variant=self._spec[1], full_logits=True)
         return torch.argmax(logits, dim=-1), caches
+
+    def _replay(self, x: torch.Tensor, drafted: torch.Tensor, caches, snap,
+                valid: np.ndarray):
+        """Partial accepts on a recurrent arch: verify left a slot's state
+        advanced over all of ``[t0, d1..dk]``, past its committed tokens.
+        Rewind the slots with ``valid > 0`` to the round's snapshot and
+        run the target over exactly their ``valid`` committed tokens in
+        one chunk (the JAX engine's ``replay_fn``); the KV it rewrites is
+        the value verify wrote, and the state ends where sequential
+        decoding would.  One upload (``valid``).  Returns caches."""
+        W = self.pages_per_slot
+        v = self._upload(valid.astype(np.int64))
+        live = v > 0
+        for (leaf, axis), saved in zip(self._slot_leaves(caches), snap):
+            shape = [1] * leaf.dim()
+            shape[axis] = -1
+            leaf.copy_(torch.where(live.view(shape), saved, leaf))
+        tokens = torch.cat([x[:, :1], drafted], dim=1)
+        _, caches = T.prefill_chunk(
+            self.params, self.cfg, tokens, caches, x[:, 1], v,
+            x[:, 4:4 + W], variant=self._spec[1])
+        return caches
 
     def _spec_round(self, batch: BatchState, step: int,
                     results: Dict[int, EngineResult]):
@@ -910,21 +955,28 @@ class Engine:
         the draft variant, verify all of them in one target-variant chunk,
         and commit the longest agreeing prefix plus the bonus target token,
         applying the per-token retire predicates exactly as sequential
-        decoding would.  One upload, one download."""
+        decoding would; then replay partially accepting slots' recurrent
+        state when the arch has any (`_replay`).  One upload, one
+        download, and the replay's one upload when it runs."""
         k = self.draft_k
         sel = np.nonzero(batch.active)[0]
         vcount = np.zeros(self.max_batch, np.int64)
         vcount[sel] = np.minimum(k + 1, self.slot_cap - batch.lengths[sel])
         t = time.monotonic()
         x = self._upload(self.spec_inputs(batch, vcount))
+        # the caches are updated in place: the recurrent state is cloned
+        # before the draft advances it (JAX keeps the immutable arrays)
+        snap = [leaf.clone() for leaf, _ in self._slot_leaves(batch.caches)]
         drafted, batch.caches = self._draft(x, batch.caches)
-        verified, batch.caches = self._verify(x, drafted, batch.caches)
+        verified, batch.caches = self._verify(x, drafted, batch.caches,
+                                              snap)
         out = self._download(torch.cat([drafted, verified], dim=1))
         d, v = out[:, :k], out[:, k:]
         now = time.monotonic()
         self.stats["decode_s"] += now - t
         self.stats["decode_steps"] += 1
         self.stats["spec_rounds"] += 1
+        replay_valid = np.zeros(self.max_batch, np.int64)
         for b in sel:
             vc = int(vcount[b])
             # drafts that could actually commit: the slot's remaining token
@@ -936,6 +988,7 @@ class Engine:
                 m += 1
             st = batch.slots[b]
             committed = 0
+            retired = False
             for j in range(m + 1):           # m matches + 1 bonus token
                 tokj = int(v[b, j])
                 st.tokens.append(tokj)
@@ -947,12 +1000,20 @@ class Engine:
                 if reason is not None:
                     self._retire_slot(batch, int(b), reason, now, step,
                                       results)
+                    retired = True
                     break
             if self._monitor is not None and batch.active[b]:
                 self._monitor.beat(int(b))  # a commit is a liveness beat
             self.stats["spec_drafted"] += min(vc - 1, budget_left)
             self.stats["spec_accepted"] += min(committed, m)
             self.stats["spec_committed"] += committed
+            if not retired and committed < vc:
+                replay_valid[b] = committed
+        if self._has_recurrent and replay_valid.any():
+            t = time.monotonic()
+            batch.caches = self._replay(x, drafted, batch.caches, snap,
+                                        replay_valid)
+            self.stats["decode_s"] += time.monotonic() - t
 
     # ---- robustness: preemption, shedding, faults ------------------------
 
@@ -1111,10 +1172,10 @@ class Engine:
         """Fault injection: NaN over the floating-point KV rows of
         ``pages``, in place (integer KV leaves are left as they are)."""
         idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
-        for unit, axes in zip(caches["units"], self._kv_axes["units"]):
-            for key, leaf in unit.items():
-                if leaf.is_floating_point() and axes[key].startswith("page"):
-                    leaf.index_fill_(int(axes[key][4:]), idx, float("nan"))
+        for leaf, ax in zip(T.tree_leaves(caches),
+                            T.tree_leaves(self._kv_axes)):
+            if leaf.is_floating_point() and ax.startswith("page"):
+                leaf.index_fill_(int(ax[4:]), idx, float("nan"))
 
     def _handle_fault(self, batch: BatchState, queue: RequestQueue,
                       slot: int, step: int, now: float,

@@ -347,7 +347,8 @@ def _bhsd(B, H, KVH, Sq, Sk, D, dev, seed=0):
         for s in ((B, H, Sq, D), (B, KVH, Sk, D), (B, KVH, Sk, D))]
 
 
-#: B, H, KVH, Sq, Sk, D, causal, kv_len: ragged Sq and Sk, G 1 and 8
+#: B, H, KVH, Sq, Sk, D, causal, kv_len: ragged Sq and Sk, G 1 and 8, D
+#: 16, 64 and 128
 FLASH_CASES = [(2, 4, 4, 100, 100, 16, True, None),
                (1, 8, 1, 77, 130, 128, True, 120),
                (1, 32, 4, 300, 300, 128, True, None),
@@ -357,7 +358,11 @@ FLASH_CASES = [(2, 4, 4, 100, 100, 16, True, None),
                (1, 4, 4, 1, 70, 16, False, None),
                # Sq and Sk off the 128-row query and key tiles
                (2, 8, 2, 390, 517, 16, True, 450),
-               (1, 16, 2, 391, 645, 128, True, 520)]
+               (1, 16, 2, 391, 645, 128, True, 520),
+               # zamba2-1.2b's head dim 64 (G 1), ragged and off the tiles
+               (2, 32, 32, 300, 300, 64, True, None),
+               (1, 8, 2, 391, 645, 64, True, 520),
+               (1, 4, 4, 100, 130, 64, False, 120)]
 
 
 @pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,kv_len", FLASH_CASES)
