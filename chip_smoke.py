@@ -298,7 +298,27 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                          histories agree, tokens by the margin rule),
                          rounds, acceptance and the replay chunks (counted
                          by wrapping ``Engine._replay``; at least one).
-11. one JSON line of kernel records, the nvidia-smi line, and the contract
+11. search: the ODiMO search (`phase_search`) on full-width ResNet20
+   (``RESNET20_CFG``: 32 x 32 x 3, widths 16 / 32 / 64, 10 classes) on
+   ``diana``: ``SearchPipeline(cnn_handle(cfg), "diana",
+   config=SearchConfig(lam, objective="latency"), device="cuda")`` with
+   the port's synthetic image stream drawn on the card, SearchConfig's
+   batch 64 and 8 eval batches and its steps halved (`SEARCH_STEPS`: 150
+   pretrain, 200 search, 150 finetune), at lambda 5e-7 and 1e-9 (same
+   seed): per stage its wall and
+   first / last loss, the search's last task / reg losses and tau, then
+   accuracy, exact latency (cycles), energy, the aimc channel share and
+   the mixed layers; latency at 5e-7 must be <= 1.05 x latency at 1e-9.
+   The 5e-7 mapping is lowered strictly with the handle, bound at full
+   coverage, and one deploy-mode forward of 256 eval images runs with the
+   launch counts reset just before and read just after (= the plan's
+   histogram), every kernel call held against its plain version as it is
+   made, the plain versions' run bit-identical; the deployed accuracy and
+   the distance from the finetune-mode logits are printed; then ``python
+   -m repro_torch.launch.serve --arch cnn:resnet20 --mapping
+   build/chip_smoke/resnet20_searched.json --require-full-coverage`` must
+   exit 0.
+12. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -509,6 +529,16 @@ ZAMBA_BANK = dict(PLANSET)
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
+#: the search phase: full-width ResNet20 on diana, the latency objective
+#: at two lambdas (the deployed mapping's first), SearchConfig's batch 64
+#: and 8 eval batches, its steps (300 / 400 / 300) halved in both runs: an
+#: eager search step is ~21,500 ATen calls, ~100 ms of host time on the
+#: card, and the phase has ~120 s (at four fifths of the steps it took
+#: 132 s); and the deploy forward's batch
+SEARCH_LAMS = (5e-7, 1e-9)
+SEARCH_STEPS = dict(pretrain_steps=150, search_steps=200,
+                    finetune_steps=150)
+SEARCH_DEPLOY_BATCH = 256
 #: the paged_update call (0-based, 96 per forward: k and v of 48 layers)
 #: whose inputs each paged leg holds against the CPU: layer 5's k in the
 #: third forward
@@ -4128,6 +4158,201 @@ def phase_cnn(torch, seed, smi, device="cuda"):
     return out
 
 
+class StageClock:
+    """`SearchPipeline` callback: each stage's wall time (the device
+    synchronised at both ends)."""
+
+    def __init__(self, torch):
+        self.torch, self.walls, self._t = torch, {}, 0.0
+
+    def on_stage_start(self, stage, state):
+        self.torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def on_stage_end(self, stage, state):
+        self.torch.cuda.synchronize()
+        self.walls[stage.name] = time.perf_counter() - self._t
+
+    def on_step(self, stage, step, metrics):
+        pass
+
+
+def search_run(torch, handle, data_fn, lam, seed, smi, device):
+    """One `SearchPipeline` run of ``handle`` on diana at ``lam``; prints
+    each stage's wall and first / last loss, the search's last task and
+    regularizer losses and tau, and the result (accuracy, exact latency in
+    cycles and energy, the aimc share of the searchable channels, mixed
+    layers).  Returns (result, record)."""
+    from repro_torch import api as A
+    from repro_torch.core import odimo
+    scfg = A.SearchConfig(lam=lam, objective="latency", seed=seed,
+                          **SEARCH_STEPS)
+    clock = StageClock(torch)
+    t0 = time.perf_counter()
+    res = A.SearchPipeline(handle, "diana", config=scfg, data_fn=data_fn,
+                           callbacks=[clock], device=device).run()
+    wall = time.perf_counter() - t0
+    tag = f"search:{handle.name}:diana:lam{lam:g}"
+    rec = {"lam": lam, "wall_s": wall, "stage_s": clock.walls,
+           "steps": {k: len(v) for k, v in res.history.items()}}
+    for stage in ("pretrain", "search", "finetune"):
+        h = res.history[stage]
+        first, last = ((h[0][0] + lam * h[0][1], h[-1][0] + lam * h[-1][1])
+                       if stage == "search" else (h[0], h[-1]))
+        rec[f"{stage}_loss"] = (first, last)
+        print(f"[{tag}] {stage}: {len(h)} steps in "
+              f"{clock.walls[stage]:.2f} s, loss {first:.4f} -> "
+              f"{last:.4f}")
+    task, reg = res.history["search"][-1]
+    tau = float(odimo.tau_schedule(len(res.history["search"]) - 1,
+                                   len(res.history["search"]),
+                                   odimo.ODiMOSpec()))
+    rec.update(search_last_task=task, search_last_reg=reg, tau_last=tau)
+    searchable = [s for (_, _, s) in handle.plan()]
+    counts = [c for c, s in zip(res.counts, searchable) if s]
+    aimc = sum(int(c[1]) for c in counts) / sum(int(c.sum()) for c in counts)
+    mixed = sum(1 for c in res.counts if (c > 0).sum() > 1)
+    rec.update(accuracy=res.accuracy, latency_cycles=res.latency,
+               energy=res.energy, aimc_fraction=aimc, mixed_layers=mixed,
+               counts=[c.tolist() for c in res.counts])
+    print(f"[{tag}] search: last task {task:.4f}, reg {reg:.6g}, tau "
+          f"{tau:.4f}; discretize {clock.walls['discretize']:.3f} s, "
+          f"evaluate {clock.walls['evaluate']:.2f} s; total {wall:.1f} s")
+    print(f"[{tag}] accuracy {res.accuracy:.4f}, latency {res.latency:.0f} "
+          f"cycles, energy {res.energy:.6g}, aimc channels {aimc:.4f}, "
+          f"mixed layers {mixed} of {len(res.counts)}; {smi}")
+    return res, rec
+
+
+def phase_search(torch, seed, smi, device="cuda"):
+    """The ODiMO search on the card (phase 11): full-width ResNet20
+    (`RESNET20_CFG`) on diana through `SearchPipeline` with the port's
+    image stream on the card, at each of `SEARCH_LAMS` (same seed and
+    steps): larger lambda must not give a dearer mapping (latency at 5e-7
+    <= 1.05 x at 1e-9).  The 5e-7 mapping is deployed: lowered strictly
+    with the handle, bound at full coverage, one deploy-mode forward on
+    `SEARCH_DEPLOY_BATCH` eval images with the launch counts reset just
+    before and read just after (= the plan's histogram), every kernel call
+    held against its plain version as it is made, the plain versions' run
+    bit-identical, the deployed accuracy and the distance from the
+    finetune-mode logits printed; then the artifact served by ``python -m
+    repro_torch.launch.serve --arch cnn:resnet20 --mapping ...
+    --require-full-coverage``.  Returns the phase's record."""
+    from repro_torch import api as A
+    from repro_torch import runtime as rt
+    from repro_torch.api.pipeline import EVAL_DATA_OFFSET
+    from repro_torch.data.pipeline import ImageTaskConfig, image_batch
+    from repro_torch.models import cnn as C
+    from repro_torch.models import managed as mg
+    t_phase = time.perf_counter()
+    cfg = C.RESNET20_CFG
+    handle = A.cnn_handle(cfg)
+    task = ImageTaskConfig(n_classes=cfg.n_classes, img_hw=cfg.img_hw,
+                           in_ch=cfg.in_ch)
+
+    def data_fn(step, batch):
+        return image_batch(task, step, batch, device=device)
+    runs, recs = {}, {}
+    for lam in SEARCH_LAMS:
+        runs[lam], recs[lam] = search_run(torch, handle, data_fn, lam, seed,
+                                          smi, device)
+    hi, lo = SEARCH_LAMS
+    if not runs[hi].latency <= 1.05 * runs[lo].latency:
+        raise AssertionError(f"search: latency {runs[hi].latency} at lambda "
+                             f"{hi:g} against {runs[lo].latency} at {lo:g}")
+    print(f"[search] lambda {hi:g}: latency {runs[hi].latency:.0f} cycles "
+          f"<= 1.05 x {runs[lo].latency:.0f} at lambda {lo:g} (ratio "
+          f"{runs[hi].latency / runs[lo].latency:.4f})")
+
+    res = runs[hi]
+    tag = f"search:deploy:{cfg.name}:diana:B{SEARCH_DEPLOY_BATCH}"
+    path = ROOT / "build" / "chip_smoke" / f"{cfg.name}_searched.json"
+    res.artifact.save(path)
+    spec = A.Platform.get("diana").spec()
+    t0 = time.perf_counter()
+    plan = rt.lower(res.artifact, params=res.params, handle=handle,
+                    strict=True)
+    backend = rt.PlannedBackend(plan, res.params, handle=handle)
+    if not backend.fully_covered:
+        raise AssertionError(f"{tag}: unbound {backend.unbound}")
+    hist = plan.kernel_histogram()
+    print(f"[{tag}] {len(plan.layers)} planned layers {hist}, "
+          f"{backend.coverage()} (lower and bind "
+          f"{time.perf_counter() - t0:.2f} s)"
+          + ("" if "split_ternary" in hist else
+             "; no layer came out mixed: split_ternary not reached"))
+    x, y = image_batch(task, EVAL_DATA_OFFSET, SEARCH_DEPLOY_BATCH,
+                       device=device)
+    calls = {}
+    reset_launches()
+    with checking_cnn_calls(torch, calls), mg.matmul_backend(backend), \
+            torch.no_grad():
+        logits = handle.apply(res.params, x, spec, "deploy", 1.0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    if launches != hist:
+        raise AssertionError(f"{tag}: launches {launches} per forward, "
+                             f"expected the plan's {hist}")
+    check_no_weight_copies(tag)
+    if tuple(logits.shape) != (SEARCH_DEPLOY_BATCH, cfg.n_classes) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: logits of shape "
+                             f"{tuple(logits.shape)} or not finite")
+    if backend.runtime_declines:
+        raise AssertionError(f"{tag}: declined {backend.runtime_declines}")
+    backend.reference = True
+    with mg.matmul_backend(backend), torch.no_grad():
+        ref_logits = handle.apply(res.params, x, spec, "deploy", 1.0)
+    backend.reference = False
+    if kernel_launches() != {k: hist.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"{tag}: the plain-version run launched a "
+                             f"kernel")
+    if not torch.equal(logits, ref_logits):
+        raise AssertionError(
+            f"{tag}: kernel logits differ from the plain run's by "
+            f"{float((logits - ref_logits).abs().max())}")
+    with torch.no_grad():
+        ft_logits = handle.apply(res.params, x, spec, "finetune", 1.0)
+    acc = float((logits.argmax(-1) == y).float().mean())
+    ft_acc = float((ft_logits.argmax(-1) == y).float().mean())
+    ft_diff = float((logits - ft_logits).abs().max())
+    ft_rel = float((logits - ft_logits).norm() /
+                   ft_logits.norm().clamp_min(1e-30))
+    print(f"[{tag}] launches per forward: " + " ".join(
+        f"{k} {v}" for k, v in sorted(launches.items())) +
+        f"; {sum(map(len, calls.values()))} kernel calls bit-identical to "
+        f"their plain versions; logits bit-identical to the plain run's; "
+        f"deployed accuracy {acc:.4f} (finetune mode {ft_acc:.4f}); "
+        f"finetune-mode logits max |diff| {ft_diff:.4g}, relative "
+        f"{ft_rel:.4g}; {smi}")
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           f"cnn:{cfg.name}", "--mapping", str(path),
+           "--require-full-coverage"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"[{tag}] serve: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: serve exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    serve_s = time.perf_counter() - t0
+    print(f"[{tag}] serve --arch cnn:{cfg.name} --mapping {path.name} "
+          f"--require-full-coverage exits 0 ({serve_s:.1f} s)")
+    rec = {"runs": {f"{lam:g}": recs[lam] for lam in SEARCH_LAMS},
+           "deploy": {"histogram": hist, "launches": launches,
+                      "accuracy": acc, "finetune_accuracy": ft_acc,
+                      "finetune_max_abs_diff": ft_diff,
+                      "finetune_rel_diff": ft_rel, "serve_s": serve_s},
+           "phase_s": time.perf_counter() - t_phase}
+    del runs, res, plan, backend, logits, ref_logits, ft_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4268,6 +4493,8 @@ def main(argv=None) -> int:
     mark("zamba")
     serving.update(phase_cnn(torch, args.seed, smi))
     mark("cnn")
+    serving["search"] = phase_search(torch, args.seed, smi)
+    mark("search")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

@@ -5,20 +5,22 @@ values:
     "diana"                 DIANA SoC analytical models (paper Sec. III-C)
     "diana_abstract"        Fig. 5 abstract model, P_idle = P_act
     "diana_ideal_shutdown"  Fig. 5 abstract model, P_idle = 0
+    "tpu_v5e"               the modelled TPU's roofline (int8 vs bf16
+                            domains; `TPUCostModel`)
+    "gap9_like"             GAP9-class 3-domain SoC: digital int8 NE16,
+                            analog 2-bit in-memory array, fp16 DSP cluster
     "gpu_tc_like"           GPU tensor-core pair: int8 MMA @2x fp16
                             throughput (mixed layers fuse to the
                             split_precision kernel)
-
-``tpu_v5e`` (its TPU roofline cost model) and ``gap9_like`` wait for the
-search slice."""
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 from repro_torch.core import quant
 from repro_torch.core.cost_models import (AbstractCostModel, CostModel,
-                                          DianaCostModel)
+                                          DianaCostModel, TPUCostModel)
 from repro_torch.core.odimo import ODiMOSpec
 from repro_torch.core.quant import PrecisionDomain
 
@@ -80,6 +82,10 @@ class Platform:
             raise KeyError(f"unknown platform {name!r}; "
                            f"registered: {sorted(_REGISTRY)}") from None
 
+    @staticmethod
+    def names() -> Sequence[str]:
+        return sorted(_REGISTRY)
+
 
 Platform.register(Platform(
     name="diana",
@@ -100,6 +106,31 @@ Platform.register(Platform(
     cost_model_factory=lambda **kw: AbstractCostModel(ideal_shutdown=True,
                                                       **kw),
     description="Fig. 5 abstract HW, P_idle = 0 (ideal shutdown)"))
+
+Platform.register(Platform(
+    name="tpu_v5e",
+    domains=tuple(quant.TPU_DOMAINS),
+    cost_model_factory=TPUCostModel,
+    description="TPU v5e roofline model: int8 @2x peak vs bf16"))
+
+# GAP9-class 3-domain SoC.  Domain 0 stays the digital int8 accelerator, so
+# the pinning convention (non-searchable layers -> domain 0) keeps its
+# meaning; the analog array is fastest and cheapest but 2-bit, the fp16
+# cluster the slow high-precision escape hatch.
+GAP9_DOMAINS = (
+    PrecisionDomain("ne16", weight_bits=8, act_bits=8),
+    PrecisionDomain("analog", weight_bits=2, act_bits=7),
+    PrecisionDomain("cluster_fp16", weight_bits=16, act_bits=16),
+)
+
+Platform.register(Platform(
+    name="gap9_like",
+    domains=GAP9_DOMAINS,
+    cost_model_factory=lambda **kw: AbstractCostModel(
+        ideal_shutdown=False, domains=GAP9_DOMAINS,
+        p_act=(10.0, 1.0, 40.0), throughput=(4.0, 16.0, 1.0), **kw),
+    description="GAP9-like: digital int8 NE16 + analog 2-bit array + "
+                "fp16 cluster, OP-proportional latency model"))
 
 # GPU tensor-core pair.  The int8 domain comes first so mixed layers match
 # the split_precision kernel's ("q", "f") registry key: int8 columns lead,

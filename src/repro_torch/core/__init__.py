@@ -1,2 +1,3 @@
-"""Quantization, discretization and the cost models the DIANA emission
-needs (``repro.core`` counterparts)."""
+"""The ODiMO core (``repro.core`` counterparts): fake quantization, the
+channel-wise DNAS state, the differentiable cost models and regularizers,
+the baselines, the Fig. 3 discretization and the search's loss builder."""

@@ -1,31 +1,63 @@
-"""The paper's min-cost static mapping (``repro.core.baselines``
-counterparts of ``_layer_cost``, ``min_cost`` and
-``counts_from_assignments``)."""
+"""Baseline mappings of the paper (``repro.core.baselines``
+counterparts; Sec. IV-A):
+
+  all_8bit        : every channel on the digital (8-bit) accelerator
+  all_ternary     : every channel on the AIMC (ternary) accelerator
+  io8_backbone_ter: first and last layers digital, everything else AIMC
+  min_cost        : per-layer channel split statically minimizing Eq. 3 or
+                    Eq. 4, ignoring accuracy; ties maximize digital channels
+
+Assignments are (C_out,) int64 numpy arrays in the cost model's domain
+indexing (0 = digital / 8-bit, 1 = AIMC / ternary on DIANA).
+"""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.cost_models import CostModel, LayerGeometry
 
 
-def _layer_cost(cm: CostModel, geom: LayerGeometry, k_dig: int,
-                objective: str) -> float:
-    counts = np.asarray([k_dig, geom.c_out - k_dig], dtype=np.float32)
-    lat = cm.latency(geom, counts)
-    m = np.max(lat)
+def all_domain(geoms: Sequence[LayerGeometry], domain: int
+               ) -> List[np.ndarray]:
+    return [np.full(g.c_out, domain, dtype=np.int64) for g in geoms]
+
+
+def all_8bit(geoms: Sequence[LayerGeometry]) -> List[np.ndarray]:
+    return all_domain(geoms, 0)
+
+
+def all_ternary(geoms: Sequence[LayerGeometry]) -> List[np.ndarray]:
+    return all_domain(geoms, 1)
+
+
+def io8_backbone_ternary(geoms: Sequence[LayerGeometry]) -> List[np.ndarray]:
+    out = all_domain(geoms, 1)
+    out[0][:] = 0
+    out[-1][:] = 0
+    return out
+
+
+def _split_costs(cm: CostModel, geom: LayerGeometry,
+                 objective: str) -> List[float]:
+    """Cost of every split ``(k digital, C_out - k ternary)``, k = 0 ..
+    C_out, priced in one batched call (each column's float32 arithmetic
+    is that of a single-split call)."""
+    k = torch.arange(geom.c_out + 1, dtype=torch.float32)
+    lat = cm.latency(geom, torch.stack([k, geom.c_out - k]))
+    m = torch.amax(lat, dim=0)
     if objective == "latency":
-        return float(m)
-    p_act, p_idle = cm.p_act(), cm.p_idle()
-    return float(np.sum(p_act * lat + p_idle * (m - lat), dtype=np.float32))
+        return m.tolist()
+    p_act, p_idle = cm.p_act()[:, None], cm.p_idle()[:, None]
+    return torch.sum(p_act * lat + p_idle * (m - lat), dim=0).tolist()
 
 
 def _best_digital_count(cm: CostModel, geom: LayerGeometry,
                         objective: str) -> int:
     best_k, best_cost = 0, float("inf")
-    for k in range(geom.c_out + 1):
-        c = _layer_cost(cm, geom, k, objective)
+    for k, c in enumerate(_split_costs(cm, geom, objective)):
         # ties keep the LARGER digital count (expected to help accuracy)
         rel = abs(best_cost) if best_cost != float("inf") else 1.0
         if c < best_cost - 1e-9 * rel or abs(c - best_cost) <= 1e-9 * rel:

@@ -5,9 +5,13 @@ IV-A.
 BatchNorm is folded into the convolutions (DIANA has no BN hardware), so
 layers are conv + bias.  Each model exposes, as in the JAX package:
 
-    init(gen, cfg, spec=None)           -> params (float32, gen's device)
-    apply(params, x, cfg, spec, mode)   -> logits; x is NHWC
-    plan(cfg)                           -> [(name, LayerGeometry, searchable)]
+    init(gen, cfg, spec=None)                -> params (float32, gen's
+                                                device; with a spec each
+                                                layer carries its ODiMO
+                                                state)
+    apply(params, x, cfg, spec, mode, tau)   -> logits; x is NHWC
+    plan(cfg)                                -> [(name, LayerGeometry,
+                                                searchable)]
 
 Layer names are params paths (``"stem"``, ``"blocks/3/c1"``, ``"head"``),
 which a mapping artifact names and a planned backend binds.  Depthwise
@@ -24,6 +28,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.core.cost_models import LayerGeometry
+from repro_torch.core.odimo import ODiMOSpec
 from repro_torch.models import managed as mg
 
 
@@ -69,7 +74,8 @@ def _resnet_stages(name: str):
     return [(64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2)], 64
 
 
-def resnet_init(gen: torch.Generator, cfg: CNNConfig, spec=None):
+def resnet_init(gen: torch.Generator, cfg: CNNConfig,
+                spec: ODiMOSpec | None = None):
     stages, stem_w = _resnet_stages(cfg.name)
     p = {"stem": mg.init_conv(gen, 3, 3, cfg.in_ch, stem_w, spec)}
     blocks = []
@@ -106,6 +112,7 @@ def resnet_apply(p, x, cfg: CNNConfig, spec=None, mode="fp", tau=1.0):
                                       stride=stride,
                                       name=f"blocks/{bi}/proj")
             x = torch.relu(h + sc)
+            x = mg._maybe_quant_act(x, blk["c2"], spec, mode)
             bi += 1
     x = torch.mean(x, dim=(1, 2))
     return mg.dense(p["head"], x, spec, mode, tau, name="head")
@@ -149,7 +156,8 @@ def _mb_w(c, mult):
     return max(8, int(c * mult))
 
 
-def mbv1_init(gen: torch.Generator, cfg: CNNConfig, spec=None):
+def mbv1_init(gen: torch.Generator, cfg: CNNConfig,
+              spec: ODiMOSpec | None = None):
     c0 = _mb_w(32, cfg.width_mult)
     p = {"stem": mg.init_conv(gen, 3, 3, cfg.in_ch, c0, spec)}
     blocks = []

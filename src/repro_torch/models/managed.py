@@ -1,13 +1,19 @@
-"""ODiMO-managed layer primitives shared by the CNNs (``repro.models.
-managed`` counterpart).
+"""ODiMO-managed layer primitives shared by the CNNs and the façades
+(``repro.models.managed`` counterpart).
 
-A managed layer is a Conv / Dense layer whose weight the ODiMO search
-mixes, discretizes or leaves in floats.  The port serves: mode ``"fp"``
-with no spec, where a matmul backend installed with ``with
-matmul_backend(planned): ...`` (`repro_torch.runtime.PlannedBackend`) runs
-every layer its plan covers through the planned kernel, and the default
-path runs the rest.  An ODiMO spec and the modes ``"search"``,
-``"finetune"`` and ``"deploy"`` wait for the search side (`SEARCH_ITEM`).
+A managed layer is a Conv / Dense layer whose weight passes through the
+ODiMO mixing (mode ``"search"``), the discretized per-channel quantization
+(``"finetune"``), or plain floats (``"fp"``).  Its output activations are
+fake-quantized at the spec's worst-case bit-width in the quantized modes
+(paper Sec. III-B).  Layers built without a spec stay in floats in every
+mode.
+
+Mode ``"deploy"`` executes a mapping: with a matmul backend installed
+(``with matmul_backend(planned): ...``, `repro_torch.runtime.
+PlannedBackend`) every layer its plan covers runs through the planned
+kernel; layers the backend declines, or every layer when none is
+installed, run with the discretized fake-quant weights.  The backend is
+consulted in modes ``"fp"`` and ``"deploy"`` only.
 
 Tensors are NHWC activations and HWIO conv weights, as in the JAX
 package; the default conv path is ``F.conv2d`` over the NCHW view with
@@ -21,56 +27,82 @@ from typing import Literal
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import odimo, quant
 from repro_torch.core.cost_models import LayerGeometry
+from repro_torch.core.odimo import ODiMOSpec
 from repro_torch.models import _backend
 from repro_torch.runtime.execute import _same_pads
 
 Mode = Literal["fp", "search", "finetune", "deploy"]
-
-#: the roadmap item that brings the ODiMO search (specs and the other modes)
-SEARCH_ITEM = "ROADMAP.md Queue 1 item 7 (the search side)"
 
 # Re-exported context manager installing a pluggable matmul backend for every
 # dense and conv primitive of the port.
 matmul_backend = _backend.use
 
 
-def _serving_only(spec, mode: str):
-    if spec is not None or mode != "fp":
-        raise NotImplementedError(
-            f"managed layers with an ODiMO spec or mode {mode!r} wait for "
-            f"{SEARCH_ITEM}")
+def _odimo_state(gen: torch.Generator, p: dict, spec: ODiMOSpec | None):
+    if spec is not None:
+        p["odimo"] = odimo.init_layer_state(gen, p["w"], spec)
+        p["act_log_scale"] = torch.tensor(1.0, device=gen.device)
+    return p
 
 
-def init_conv(gen: torch.Generator, kh, kw, c_in, c_out, spec=None,
-              groups=1):
+def init_conv(gen: torch.Generator, kh, kw, c_in, c_out,
+              spec: ODiMOSpec | None = None, groups=1):
     """``{"w": (kh, kw, C_in/G, C_out) He-normal, "b": zeros}`` in float32,
-    drawn from ``gen`` on its device."""
-    _serving_only(spec, "fp")
+    drawn from ``gen`` on its device; with a spec also the ``"odimo"``
+    state (`odimo.init_layer_state`, drawn after the weight) and
+    ``"act_log_scale"`` 1.0."""
     fan_in = kh * kw * (c_in // groups)
     w = torch.randn((kh, kw, c_in // groups, c_out), generator=gen,
                     device=gen.device, dtype=torch.float32)
-    return {"w": w * (2.0 / fan_in) ** 0.5,
-            "b": torch.zeros(c_out, device=gen.device)}
+    p = {"w": w * (2.0 / fan_in) ** 0.5,
+         "b": torch.zeros(c_out, device=gen.device)}
+    return _odimo_state(gen, p, spec)
 
 
-def init_dense(gen: torch.Generator, c_in, c_out, spec=None,
-               bias: bool = True, scale: float | None = None):
+def init_dense(gen: torch.Generator, c_in, c_out,
+               spec: ODiMOSpec | None = None, bias: bool = True,
+               scale: float | None = None):
     """``{"w": (C_in, C_out) N(0, scale^2), "b"?: zeros}`` in float32
-    (default scale C_in**-0.5), drawn from ``gen`` on its device."""
-    _serving_only(spec, "fp")
+    (default scale C_in**-0.5), drawn from ``gen`` on its device; a spec
+    adds the ODiMO state as in `init_conv`."""
     s = scale if scale is not None else (1.0 / c_in) ** 0.5
     p = {"w": torch.randn((c_in, c_out), generator=gen, device=gen.device,
                           dtype=torch.float32) * s}
     if bias:
         p["b"] = torch.zeros(c_out, device=gen.device)
-    return p
+    return _odimo_state(gen, p, spec)
 
 
-def _conv(p: dict, x: torch.Tensor, stride: int, padding: str,
-          groups: int) -> torch.Tensor:
-    """The default path: NHWC ``x`` conv HWIO ``p["w"]`` (+ bias)."""
-    w = p["w"].to(x.dtype)
+def _weight(p: dict, spec: ODiMOSpec | None, mode: Mode, tau):
+    w = p["w"]
+    if spec is None or mode == "fp" or "odimo" not in p:
+        return w
+    if mode == "search":
+        return odimo.effective_weight(w, p["odimo"], spec, tau)
+    return odimo.discretized_weight(w, p["odimo"], spec)
+
+
+def _maybe_quant_act(x, p, spec: ODiMOSpec | None, mode: Mode):
+    if spec is None or mode == "fp" or "act_log_scale" not in p:
+        return x
+    return quant.fake_quant_act(x, p["act_log_scale"], spec.act_bits)
+
+
+def _backend_call(name, p, x, mode: Mode, **meta):
+    """The installed backend's output for this call site, or None (no
+    backend, a mode it does not serve, or a layer it declines)."""
+    be = _backend.current()
+    if be is None or mode not in ("fp", "deploy"):
+        return None
+    return be(name, p, x, **meta)
+
+
+def _conv(p: dict, w: torch.Tensor, x: torch.Tensor, stride: int,
+          padding: str, groups: int) -> torch.Tensor:
+    """The default path: NHWC ``x`` conv HWIO ``w`` (+ ``p``'s bias)."""
+    w = w.to(x.dtype)
     kh, kw = int(w.shape[0]), int(w.shape[1])
     xc = x.permute(0, 3, 1, 2)
     if padding == "SAME":
@@ -87,39 +119,35 @@ def _conv(p: dict, x: torch.Tensor, stride: int, padding: str,
 
 
 def conv2d_linear(p: dict, x: torch.Tensor, spec=None, mode: Mode = "fp",
-                  tau: float = 1.0, stride: int = 1, padding: str = "SAME",
+                  tau=1.0, stride: int = 1, padding: str = "SAME",
                   groups: int = 1, name: str | None = None) -> torch.Tensor:
     """NHWC conv with an HWIO weight and no activation (residual
     branches).  ``name`` (the layer's params path) routes the call through
     the matmul backend, the geometry travelling as the ``conv`` meta; a
     backend returns the linear conv output, bias applied."""
-    _serving_only(spec, mode)
-    be = _backend.current()
-    if be is not None:
-        y = be(name, p, x, conv={"stride": stride, "padding": padding,
-                                 "groups": groups})
-        if y is not None:
-            return y
-    return _conv(p, x, stride, padding, groups)
+    y = _backend_call(name, p, x, mode, conv={"stride": stride,
+                                              "padding": padding,
+                                              "groups": groups})
+    if y is not None:
+        return y
+    return _conv(p, _weight(p, spec, mode, tau), x, stride, padding, groups)
 
 
 def conv2d(p: dict, x: torch.Tensor, spec=None, mode: Mode = "fp",
-           tau: float = 1.0, stride: int = 1, padding: str = "SAME",
+           tau=1.0, stride: int = 1, padding: str = "SAME",
            groups: int = 1, name: str | None = None) -> torch.Tensor:
-    """`conv2d_linear` followed by a ReLU (on the backend's output too)."""
-    return torch.relu(conv2d_linear(p, x, spec, mode, tau, stride, padding,
-                                    groups, name))
+    """`conv2d_linear`, a ReLU (on the backend's output too), then the
+    activation fake-quant of the quantized modes."""
+    y = conv2d_linear(p, x, spec, mode, tau, stride, padding, groups, name)
+    return _maybe_quant_act(torch.relu(y), p, spec, mode)
 
 
 def dense(p: dict, x: torch.Tensor, spec=None, mode: Mode = "fp",
-          tau: float = 1.0, name: str | None = None) -> torch.Tensor:
-    _serving_only(spec, mode)
-    be = _backend.current()
-    if be is not None:
-        y = be(name, p, x)
-        if y is not None:
-            return y  # planned kernel output, bias applied by the backend
-    y = x @ p["w"].to(x.dtype)
+          tau=1.0, name: str | None = None) -> torch.Tensor:
+    y = _backend_call(name, p, x, mode)
+    if y is not None:
+        return y  # planned kernel output, bias applied by the backend
+    y = x @ _weight(p, spec, mode, tau).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -24,9 +24,10 @@ come out with the padded width, and the padded output columns fall away
 with the inverse permutation.
 
 `PlanSet` binds a bank of plans (precision variants of the same weights)
-to a params dict by layer name and serves the name-keyed matmul-backend
-protocol of `repro_torch.models._backend` (``backend(name, p, x,
-conv=None)``), in the variant `_backend.plan_variant` publishes; prepared
+to a params dict by layer name (or in a model handle's plan order) and
+serves the name-keyed matmul-backend protocol of
+`repro_torch.models._backend` (``backend(name, p, x, conv=None)``), in
+the variant `_backend.plan_variant` publishes; prepared
 tensors of coinciding layers are shared across variants
 (`prepared_nbytes` counts them once).  `PlannedBackend` is its one-variant
 case.  Stacked ``base@r`` layers bind to a list of per-repeat prepared
@@ -397,12 +398,12 @@ def _node_weight_ok(node) -> bool:
 
 class _BoundPlan:
     """One `ExecutionPlan` variant bound to the owning `PlanSet`'s params:
-    layers resolve by artifact layer name as params path, and every
-    prepare goes through the owner's shared prepare cache, so identical
-    (layer plan, weight, domain bits, block) tuples across variants bind
-    to ONE set of prepared tensors."""
+    layers resolve in a handle's plan order, or by artifact layer name as
+    params path, and every prepare goes through the owner's shared
+    prepare cache, so identical (layer plan, weight, domain bits, block)
+    tuples across variants bind to ONE set of prepared tensors."""
 
-    def __init__(self, variant: str, plan: ExecutionPlan, params,
+    def __init__(self, variant: str, plan: ExecutionPlan, params, handle,
                  owner: "PlanSet"):
         self.variant = variant
         self.plan = plan
@@ -411,12 +412,24 @@ class _BoundPlan:
         prep = lambda lp, node: prepare_layer(
             lp, _layer_weight(node), b=node.get("b"),
             domain_bits=domain_bits, block_n=plan.block_n)
+        if handle is not None:
+            dicts = handle.layers(params)
+            if len(dicts) != len(plan.layers):
+                raise ExecutionError(
+                    f"handle resolves {len(dicts)} managed layers but the "
+                    f"plan has {len(plan.layers)}")
+            # node identity for the shared prepare cache: handle position
+            resolved = [(lp, node, ("h", i))
+                        for i, (lp, node) in enumerate(zip(plan.layers,
+                                                           dicts))]
+        else:
+            resolved = [(lp, _walk_path(params, lp.name), ("p", lp.name))
+                        for lp in plan.layers]
         self.by_name: Dict[str, Any] = {}
         self.bound: List[str] = []
         self.unbound: List[str] = []
         stacked: Dict[str, List[Tuple[int, LayerPlan, Any]]] = {}
-        for lp in plan.layers:
-            node = _walk_path(params, lp.name)
+        for lp, node, nkey in resolved:
             base, _, rep = lp.name.partition("@")
             if rep:
                 stacked.setdefault(base, []).append((int(rep), lp, node))
@@ -424,7 +437,7 @@ class _BoundPlan:
             if not _node_weight_ok(node):
                 self.unbound.append(lp.name)
                 continue
-            key = ("layer", ("p", lp.name), owner._plan_sig(lp), dsig,
+            key = ("layer", nkey, owner._plan_sig(lp), dsig,
                    int(plan.block_n))
             self.by_name[lp.name] = owner._memo(
                 key, variant, lp.name, lambda: prep(lp, node))
@@ -436,7 +449,8 @@ class _BoundPlan:
                 raise ExecutionError(
                     f"{base}: stacked plan repeats {reps} are not the "
                     f"contiguous range 0..{len(reps) - 1}")
-            stack_w = _layer_weight(_walk_path(params, base))
+            stack_w = None if handle is not None else \
+                _layer_weight(_walk_path(params, base))
             if getattr(stack_w, "ndim", 0) == 3 and \
                     int(stack_w.shape[0]) != len(reps):
                 raise ExecutionError(
@@ -487,8 +501,9 @@ class PlanSet:
     ``variant:name`` in banks of more than one variant.
     """
 
-    def __init__(self, variants: Dict[str, ExecutionPlan], params, *,
-                 default: str | None = None, reference: bool = False):
+    def __init__(self, variants: Dict[str, ExecutionPlan], params,
+                 handle=None, *, default: str | None = None,
+                 reference: bool = False):
         if not variants:
             raise ValueError("PlanSet needs at least one plan variant")
         for v in variants:
@@ -507,7 +522,8 @@ class PlanSet:
         self._sig_cache: Dict[int, str] = {}
         self._variants: Dict[str, _BoundPlan] = {}
         for vname, plan in variants.items():
-            self._variants[vname] = _BoundPlan(vname, plan, params, self)
+            self._variants[vname] = _BoundPlan(vname, plan, params, handle,
+                                               self)
 
     # ---- shared prepare cache -------------------------------------------
 
@@ -652,9 +668,10 @@ class PlannedBackend(PlanSet):
     the one variant, and ``runtime_declines`` keys stay bare layer
     names."""
 
-    def __init__(self, plan: ExecutionPlan, params, *,
+    def __init__(self, plan: ExecutionPlan, params, handle=None, *,
                  reference: bool = False):
-        super().__init__({"default": plan}, params, reference=reference)
+        super().__init__({"default": plan}, params, handle=handle,
+                         reference=reference)
 
     @property
     def plan(self) -> ExecutionPlan:

@@ -2,7 +2,8 @@
 (``repro.runtime.lower`` counterpart; both give the same plan JSON).
 
 The compiler takes the artifact (object or plain dict — this module never
-imports `repro_torch.api`) plus, optionally, the model's params, and emits
+imports `repro_torch.api`) plus, optionally, the model's params (and a
+model handle that locates its layers), and emits
 an `ExecutionPlan`:
 
   * reorg: `core.discretize.stable_perm` groups each layer's output channels
@@ -102,18 +103,28 @@ def _walk_path(params, name: str):
     return node
 
 
-def resolve_layer_params(artifact, params=None):
+def resolve_layer_params(artifact, params=None, handle=None):
     """Per artifact layer, the param node it names: a managed-layer dict
     (``{"w": ..., "b"?, "odimo"?, "act_log_scale"?}``), a bare weight leaf,
     or None when unresolvable / no params were given.
 
-    Artifact layer names are resolved as slash-separated paths into
-    ``params`` (the `launch/train.emit_static_mapping` convention);
-    ``base@r`` names address repeat ``r`` of a scan-stacked node (leaves
-    with a leading R axis).
+    With a ``handle`` (any object with ``layers(params)``, e.g. a
+    `repro_torch.api.ModelHandle`), layers come back in plan order, which
+    is artifact order by construction.  Otherwise artifact layer names are
+    resolved as slash-separated paths into ``params`` (the
+    `launch/train.emit_static_mapping` convention); ``base@r`` names
+    address repeat ``r`` of a scan-stacked node (leaves with a leading R
+    axis).
     """
     art = _artifact_dict(artifact)
     names = [l["name"] for l in art["layers"]]
+    if handle is not None and params is not None:
+        dicts = handle.layers(params)
+        if len(dicts) != len(names):
+            raise LoweringError(
+                f"handle resolves {len(dicts)} managed layers but the "
+                f"artifact has {len(names)}")
+        return list(zip(names, dicts))
     if params is None:
         return [(n, None) for n in names]
     return [(n, _walk_path(params, n)) for n in names]
@@ -164,12 +175,12 @@ def _layer_scales(art_layer: dict, node) -> Tuple[List[float] | None,
     return None, None
 
 
-def lower(artifact, params=None, *, block_n: int = 128,
+def lower(artifact, params=None, handle=None, *, block_n: int = 128,
           strict: bool = False, tuning=None) -> ExecutionPlan:
     """Compile ``artifact`` into an `ExecutionPlan`.
 
-    ``params`` enables shape validation and scale recovery (see
-    `resolve_layer_params`); without them the plan is lowered from the
+    ``params`` / ``handle`` enable shape validation and scale recovery
+    (see `resolve_layer_params`); without them the plan is lowered from the
     artifact alone.  ``strict=True`` turns capability fallbacks (layers that
     would silently run fp) into `LoweringError`s; shape mismatches always
     raise.  ``tuning`` optionally maps a layer name (or ``"*"`` for every
@@ -182,7 +193,7 @@ def lower(artifact, params=None, *, block_n: int = 128,
     domain_bits = [int(d["weight_bits"]) for d in domains]
     n_domains = len(domains)
     tuning = tuning or {}
-    resolved = resolve_layer_params(art, params=params)
+    resolved = resolve_layer_params(art, params=params, handle=handle)
 
     layers: List[LayerPlan] = []
     for art_layer, (name, node) in zip(art["layers"], resolved):

@@ -910,3 +910,101 @@ def test_fault_of_each_kind_contained_on_the_card(cuda, tmp_path, kind):
     assert eng.stats["faults_injected"] == 1
     key = "heartbeat_trips" if kind == "stuck" else "faults_detected"
     assert eng.stats[key] >= 1
+
+
+@pytest.fixture
+def no_tf32():
+    """TF32 off for the test's float32 convs and matmuls, then restored."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _update_rel_by_group(old, new, want):
+    """Relative L2 of the card's update ``new - old`` against the CPU's
+    ``want - old``, by leaf group (the leaves' last key); a group the CPU
+    leaves still must stay still on the card."""
+    from repro_torch.core import tree as T
+    groups = {}
+    for (path, o), n, w in zip(T.leaves_with_paths(old), T.leaves(new),
+                               T.leaves(want)):
+        o = o.cpu()
+        g = groups.setdefault(path[-1], ([], []))
+        g[0].append((n.cpu() - o).ravel())
+        g[1].append((w - o).ravel())
+    rel = {}
+    for key, (a, b) in groups.items():
+        a, b = torch.cat(a).double(), torch.cat(b).double()
+        if not bool(b.any()):
+            assert not bool(a.any()), key
+            continue
+        rel[key] = float((a - b).norm() / b.norm())
+    return rel
+
+
+# dtype -> (loss and task loss rtol, update rtol by leaf group)
+_SEARCH_STEP_TOL = {torch.float64: (1e-6, 1e-4),
+                    torch.float32: (1e-3, 0.3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_search_train_steps_on_the_card_match_the_cpu(cuda, no_tf32, dtype):
+    """Three search-mode train steps of `SearchPipeline` on ResNet20_tiny
+    (diana, lambda 1e-6) on the card, each repeated on the CPU from the
+    card's params, AdamW state and batch: the regularizer within 1e-5
+    relative, all params finite, and by dtype:
+
+    * float64, where no fake-quant rounding goes the other way: the loss
+      and the task loss within 1e-6 relative, each leaf group's update
+      within 1e-4 relative L2 of the CPU's (AdamW computes in float32;
+      readings on an H100 up to 3.5e-7);
+    * float32: cuDNN sums in another order, and a rounding that goes the
+      other way moves the loss by up to 3e-4 (second step on an H100), so
+      the losses within 1e-3 and each group's update within 0.3 relative
+      L2.  Readings on an H100, six runs: up to 0.133 for the 22
+      activation scales of the second step and 0.069 for every other
+      group; a skipped step reads 1, a step at half the rate 0.5.  The
+      readings are printed.
+    """
+    from repro_torch import api as A
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import ImageTaskConfig, image_batch
+    from repro_torch.models import cnn as C
+    from repro_torch.optim import adamw
+    loss_tol, upd_tol = _SEARCH_STEP_TOL[dtype]
+    handle = A.cnn_handle(C.RESNET20_TINY)
+    scfg = A.SearchConfig(lam=1e-6, batch=8)
+    task = ImageTaskConfig(n_classes=10, img_hw=(16, 16))
+    ctx = {dev: A.SearchPipeline(handle, "diana", config=scfg, data_fn=None,
+                                 device=dev)._build_context()
+           for dev in ("cpu", "cuda")}
+    p = T.tree_map(lambda t: t.to(dtype), handle.init(
+        torch.Generator(device="cuda").manual_seed(0), ctx["cuda"].spec))
+    opt = adamw.init(p, ctx["cuda"].ocfg)
+    to_cpu = lambda tree: T.tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    for i in range(3):
+        x, y = image_batch(task, A.pipeline.SEARCH_DATA_OFFSET + i, 8)
+        x = x.to(dtype)
+        tau = float(A.pipeline.odimo.tau_schedule(i, 3, ctx["cuda"].spec))
+        cpu = ctx["cpu"].train_step(
+            to_cpu(p), adamw.AdamWState(opt.step.cpu(), to_cpu(opt.mu),
+                                        to_cpu(opt.nu)),
+            (x.cpu(), y.cpu()), tau, scfg.lr, "search")
+        old = p
+        p, opt, l, task_l, reg = ctx["cuda"].train_step(
+            p, opt, (x, y), tau, scfg.lr, "search")
+        assert all(bool(torch.isfinite(t).all()) for t in T.leaves(p))
+        assert {t.dtype for t in T.leaves(p)} == {dtype}
+        np.testing.assert_allclose(float(reg), float(cpu[4]), rtol=1e-5)
+        np.testing.assert_allclose([float(l), float(task_l)],
+                                   [float(cpu[2]), float(cpu[3])],
+                                   rtol=loss_tol)
+        rel = _update_rel_by_group(old, p, cpu[0])
+        print(f"{dtype} step {i}: loss {float(l)} (CPU {float(cpu[2])}), "
+              f"update relative L2 by leaf group "
+              f"{ {k: f'{v:.3g}' for k, v in rel.items()} }")
+        assert max(rel.values()) < upd_tol, (i, rel)
