@@ -54,7 +54,18 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    and the kernel itself, with both garbage probes, and quant_matmul there
    and at its head (2048, 32000); flash at its heads (B 4, H = KVH 32, D
    64): Sq = Sk 3072, Sq 3000, kv_len 3072 in a 4096 cache, and the long
-   leg's Sq = Sk = kv_len 4096, within the bound.  Then the
+   leg's Sq = Sk = kv_len 4096, within the bound.  h2o-danube-3-4b's
+   shapes (phase 12): split_ternary at its four (K, N) (`DANUBE_RAW`) x M
+   {4, 128, 512} at its planned raw boundaries, through the op and the
+   kernel itself, with both garbage probes, and quant_matmul there and at
+   its head (3840, 32000); flash at its heads (B 2, H 32, KVH 8, D 120) at
+   `DANUBE_FLASH_CASES` (Sq = Sk 8192 with the window 4096, a ragged Sq
+   3000, kv_len 3072 in a 4096 cache, window 1000, no window), within the
+   bound.  nemotron-4-15b's and command-r-35b's new shapes
+   (`DENSE_FIXED_KN`: their FFN projections, K up to 24576, which the
+   decode GEMM stages in slices of up to 48 chunks, and nemotron's
+   (6144, 256000) head) x M {4, 128}: split_ternary at the planned raw
+   boundary and quant_matmul, bit for bit.  Then the
    entry point of ternary_packed, which no serving path calls, is driven
    once at each of the ten (M, K, N) with the launch counts read around
    that run.
@@ -81,7 +92,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    (4, 3072, 32, 128), k / v (4, 4096, 4, 128), causal, kv_len 3072);
    zamba2's split_ternary calls at M {4, 128, 512} and its head, summed
    per decode, chunk and prefill forward (`zamba_layers`), and flash at
-   its long leg's call (q (4, 4096, 32, 1, 64), kv_len 4096) x 6 uses.
+   its long leg's call (q (4, 4096, 32, 1, 64), kv_len 4096) x 6 uses;
+   h2o's long leg's call (q (2, 8192, 8, 4, 120), k / v (2, 9216, 8, 120),
+   kv_len 8192, window 4096) x 24 layers and each of `DANUBE_FLASH_CASES`,
+   with SDPA through a boolean window mask where there is a window (PyTorch
+   picks a backend that takes a mask; its kernel's name is printed).
    Then the split sweep: the wgmma GEMM of split_precision and of
    ternary_matmul at M 512 x (4096, 512) at each K split of SWEEP_SPLITS,
    each checked against the plain version and timed as above.
@@ -270,7 +285,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                          launches = 19 x `ZAMBA_HIST`, 0 weight copies,
                          tokens against the plain run by the margin rule;
                          a warm run;
-     engine_paged_mixed  engine_mixed's trace (at vocab 32000) through the
+     engine_paged_mixed  engine_mixed's trace (at vocab 32000) cut to 8
+                         requests (`ZAMBA_MIXED`) through the
                          paged engine (the prefix cache off: recurrent
                          state is not page-resident), and engine_mixed
                          through the dense one: launches = forwards x
@@ -318,12 +334,43 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    -m repro_torch.launch.serve --arch cnn:resnet20 --mapping
    build/chip_smoke/resnet20_searched.json --require-full-coverage`` must
    exit 0.
-12. one JSON line of kernel records, the nvidia-smi line, and the contract
+12. the rest of the dense family, each model freed before the next:
+     danube     h2o-danube-3-4b at full width and depth (24 layers, head
+                dim 120, window 4096, 3.96 B random bf16 params from
+                --seed, int8 KV), emitted on diana at ``max_cout=10240``
+                (every projection but the head mixed: `DANUBE_HIST` = 168
+                split_ternary + 1 quant_matmul per forward); legs fixed
+                (serve_batch 4 x 128 + 16: launches = 19 x the histogram,
+                the first forward's calls checked as made, tokens and
+                prefill logits identical to the plain run's),
+                engine_paged_mixed (prefix cache on; `DANUBE_MIXED`:
+                engine_mixed's trace cut to 6 requests, against its plain
+                run by the margin rule), and long (`DANUBE_LONG`: 1 x 8192
+                + 8 in a 9216-slot cache, one dense prefill at M 8192: 24
+                flash calls at D 120 with the window, each within the bound
+                on its own inputs; the prefill logits within
+                SENSITIVITY_FACTOR x the float64-attention plain run's
+                distance, tokens by the margin rule; the window's controls,
+                `WINDOW_CONTROLS`: each call's output and the prefill
+                logits farther from the plain version and run with another
+                window than from the right one);
+     nemotron   nemotron-4-15b at full width and depth (15.6 B params) on
+                diana at ``max_cout=24576``, the fixed batch only (192
+                split_ternary + 1 quant_matmul per forward);
+     command_r  command-r-35b at full width, 8 of its 40 layers (all 40
+                do not fit the card with their codes), on diana at
+                ``max_cout=22528``, the fixed batch only (56 split_ternary
+                per forward; the tied head on torch.matmul).
+   Each fixed batch: launches = 19 x the histogram, 0 weight copies, the
+   first chunk's calls bit-identical to the plain versions, tokens and
+   prefill logits identical to the plain run's.
+13. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -522,10 +569,91 @@ ZAMBA_FLASH_CASES = [(3072, 3072, True, None), (3000, 3000, True, None),
                      (LONG_PROMPT, LONG_CACHE, True, LONG_PROMPT),
                      (ZAMBA_LONG_SQ, ZAMBA_LONG_SQ, True, ZAMBA_LONG_SQ)]
 #: the zamba2 phase's traffic: the fixed batch is phase 5's; the engine
-#: legs are engine_paged_mixed's and engine_mixed's; the long leg is
-#: engine_long's; the bank serves the planset phase's trace shape
+#: legs are engine_paged_mixed's and engine_mixed's cut to 8 requests
+#: (the script's time limit, once phase 12 came: the traffic of phase 12
+#: was cut first); the long leg is engine_long's; the bank serves the
+#: planset phase's trace shape
+ZAMBA_MIXED = dict(ENGINE_MIXED, requests=8)
 ZAMBA_LONG = dict(ENGINE_LONG)
 ZAMBA_BANK = dict(PLANSET)
+#: h2o-danube-3-4b (phase 12), full width and depth: 24 layers, d_model
+#: 3840, 32 heads / 8 KV of head dim 120, d_ff 10240, vocab 32000, the
+#: sliding window 4096.  Emitted with max_cout 10240 (the FFN's width):
+#: diana's min-cost split then searches every projection but the
+#: 32000-wide head and mixes all of them (the raw boundary: int8 columns
+#: below it, ternary above), so a forward is 7 x 24 split_ternary + 1
+#: quant_matmul
+DANUBE = "h2o-danube-3-4b"
+DANUBE_MAX_COUT = 10240
+DANUBE_RAW = {(3840, 3840): 60, (3840, 960): 15, (3840, 10240): 150,
+              (10240, 3840): 60}
+DANUBE_HEAD = (3840, 32000)
+DANUBE_HIST = {"quant_matmul": 1, "split_ternary": 168}
+#: split_ternary / quant_matmul checked at these M: decode, a paged chunk
+#: (4 x 32) and the fixed batch's 512
+DANUBE_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
+#: the phase's engine traffic: engine_mixed's trace cut to 6 requests,
+#: through the paged engine only (the script's time limit: with 12
+#: requests through both layouts and 2 long prompts the script ran 1128 s
+#: and 1290 s of its 1200 s on two H100 hosts)
+DANUBE_MIXED = dict(ENGINE_MIXED, requests=6)
+#: the long leg: 1 request x 8192 prompt + 8 new in a 9216-slot cache (a
+#: multiple of 1024, as the chunked prefill needs), one dense admission
+#: group bucketed at 8192: one prefill at M 8192 whose 24 layers launch
+#: flash at D 120 with the window
+DANUBE_LONG = dict(prompts=(8192,), new=8, max_batch=1, max_len=9216,
+                   prefill_bucket=8192, kv_layout="dense")
+DANUBE_WINDOW = 4096
+#: flash_attention at the long leg's call: (B, H, KVH, D)
+DANUBE_LONG_HEADS = (len(DANUBE_LONG["prompts"]), 32, 8, 120)
+#: the long leg's controls of the window, name -> (window, factor per
+#: flash call, factor on the prefill logits or None): the plain version
+#: with the control's window must lie the call's factor x farther from
+#: each call's output than the plain version with the right one, and a
+#: plain run with it the logits' factor x farther from the kernel run's
+#: prefill logits than the plain run.  A kernel that ignored the window,
+#: or put its edge a key tile (128 keys) too low, fails them.  Measured
+#: on an H100 (PERF.md): per call at least 15.7x (none) and 3.4x (tile),
+#: the logits 8.8x (none); a window a tile wider moves the logits only
+#: 1.5x the kernel run's distance, so the logits hold the no-window
+#: control
+WINDOW_CONTROLS = {"none": (None, 4.0, 4.0),
+                   "tile": (DANUBE_WINDOW + 128, 2.0, None)}
+#: flash_attention at h2o's heads (B, H, KVH, D) = (2, 32, 8, 120):
+#: (Sq, Sk, kv_len, window), all causal: the long leg's shape, a ragged
+#: Sq, kv_len 3072 in a 4096 cache, a window that is no multiple of the
+#: 128-key tile, and D 120 without a window
+DANUBE_FLASH_HEADS = (2, 32, 8, 120)
+DANUBE_FLASH_CASES = [(8192, 8192, None, DANUBE_WINDOW),
+                      (3000, 3000, None, DANUBE_WINDOW),
+                      (3072, 4096, 3072, DANUBE_WINDOW),
+                      (4096, 4096, None, 1000),
+                      (4096, 4096, None, None)]
+#: nemotron-4-15b (full width and depth: 32 layers, d_model 6144, 48 / 8
+#: heads, d_ff 24576 squared-ReLU ungated, vocab 256000; LayerNorm) and
+#: command-r-35b (full width, 8 of its 40 layers: all 40 are ~30.3 B
+#: params, ~60.6 GB in bf16, and their int8 codes ~28 GB more, over the
+#: card's 80 GB; d_model 8192, 64 / 8 heads, d_ff 22528, vocab 256000,
+#: LayerNorm, parallel block, the head tied to the embedding and run by
+#: torch.matmul).  Each emitted at max_cout = its d_ff (every projection
+#: but the head searched and mixed) and served at the fixed batch:
+#: (config name, layers served, max_cout, launches per forward, raw
+#: boundary per (K, N), the (K, N) checked in phase 3 beside its head)
+DENSE_FIXED = {
+    "nemotron": ("nemotron-4-15b", 32, 24576,
+                 {"quant_matmul": 1, "split_ternary": 192},
+                 {(6144, 6144): 90, (6144, 1024): 15, (6144, 24576): 361,
+                  (24576, 6144): 90}),
+    "command_r": ("command-r-35b", 8, 22528, {"split_ternary": 56},
+                  {(8192, 8192): 120, (8192, 1024): 15, (8192, 22528): 331,
+                   (22528, 8192): 120}),
+}
+#: the (K, N) of phase 3's checks at the fixed-batch models' shapes at M
+#: {4, 128}: split_ternary at the raw boundary where DENSE_FIXED has one,
+#: quant_matmul at each, nemotron's (6144, 256000) head
+DENSE_FIXED_KN = [(6144, 24576), (24576, 6144), (6144, 256000),
+                  (8192, 22528), (22528, 8192)]
+DENSE_FIXED_MS = (DECODE_M, REQUESTS * CHUNK)
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
@@ -762,16 +890,21 @@ def bound_ms(m, k, n, weight_bytes, int8_cols=None, bf16_cols=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bound_ms(B, H, KVH, Sq, kv_end, D, causal=True):
+def flash_bound_ms(B, H, KVH, Sq, kv_end, D, causal=True, window=None):
     """Least time of the H100 SXM for one flash_attention call, and what
     bounds it: 4 * D bf16 flops per attended (query, key) pair (``sum_i
-    min(i + 1, kv_end)`` per head when causal) against q read and o written
-    once plus the k / v rows some query reads (``min(kv_end, Sq)`` when
-    causal), all bf16."""
+    min(i + 1, window, kv_end)`` per head when causal; D the real head
+    dim, 120 for h2o-danube, not the 128 the kernel lays it out as)
+    against q read and o written once plus the k / v rows some query reads
+    (``min(kv_end, Sq)`` when causal), all bf16."""
     if causal:
         full = min(Sq, kv_end)
-        pairs = full * (full + 1) // 2 + (Sq - full) * kv_end
         rows = full
+        if window is None:
+            pairs = full * (full + 1) // 2 + (Sq - full) * kv_end
+        else:   # row i reads keys max(0, i - window + 1) .. min(i, kv_end - 1)
+            pairs = sum(max(0, min(i, kv_end - 1) - max(0, i - window + 1)
+                            + 1) for i in range(Sq))
     else:
         pairs, rows = Sq * kv_end, kv_end
     t_ops = 4.0 * D * B * H * pairs / BF16_FLOPS_PER_S * 1e3
@@ -795,13 +928,14 @@ def flash_operands(torch, B, H, KVH, Sq, Sk, D, gen, layout="bhsd"):
     return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
-def check_flash(torch, q, k, v, got, causal, kv_len, what):
+def check_flash(torch, q, k, v, got, causal, kv_len, what, window=None):
     """One flash_attention output against the plain version on the same
     (B, H, S, D) operands within `flash_error_bound`; returns (max |err|,
     max err / bound)."""
     from repro_torch.kernels.flash_attention import (flash_attention_plain,
                                                      flash_error_bound)
-    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                 window=window)
     torch.cuda.synchronize()
     err = (got.double() - want.double()).abs()
     bound = flash_error_bound(q, k, v, want, kv_len=kv_len)
@@ -1089,6 +1223,57 @@ def phase_kernels(torch, gen):
                   f"{aligned(raw, n)}, and raw through the kernel), both "
                   f"garbage probes, and quant_matmul bit-identical")
     quant_both_layouts(DECODE_M, *ZAMBA_HEAD)
+    # h2o-danube-3-4b's projections on diana (phase 12), as zamba2's; and
+    # the fixed-batch models' new shapes
+    for m in DANUBE_MS:
+        for (k, n), raw in DANUBE_RAW.items():
+            split_probes(m, k, n, raw, "K-major", quiet=True,
+                         kernel_raw=True)
+            x, w_q, _, sx, sw = operands(m, k, n, n, gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw),
+                f"h2o M={m} K={k} N={n} K-major", quiet=True)
+            print(f"[kernels] h2o M={m:<4d} K={k:<5d} N={n:<5d}: "
+                  f"split_ternary at raw boundary {raw} (aligned "
+                  f"{aligned(raw, n)}, and raw through the kernel), both "
+                  f"garbage probes, and quant_matmul bit-identical")
+        x, w_q, _, sx, sw = operands(m, *DANUBE_HEAD, DANUBE_HEAD[1], gen)
+        exact("quant_matmul", ops.quant_matmul_op(
+            x, w_q.t().contiguous().t(), sx, sw),
+            quant_matmul_plain(x, w_q, sx, sw),
+            f"h2o head M={m} K={DANUBE_HEAD[0]} N={DANUBE_HEAD[1]} K-major")
+    raws = {kn: raw for *_, bounds in DENSE_FIXED.values()
+            for kn, raw in bounds.items()}
+    for m in DENSE_FIXED_MS:
+        for k, n in DENSE_FIXED_KN:
+            what = "quant_matmul"
+            if (k, n) in raws:
+                split_probes(m, k, n, raws[(k, n)], "K-major", quiet=True,
+                             kernel_raw=True)
+                what = (f"split_ternary at raw boundary {raws[(k, n)]} "
+                        f"(both garbage probes) and quant_matmul")
+            x, w_q, _, sx, sw = operands(m, k, n, n, gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw),
+                f"M={m} K={k} N={n} K-major", quiet=True)
+            del x, w_q
+            print(f"[kernels] dense family M={m:<4d} K={k:<5d} N={n:<6d}: "
+                  f"{what} bit-identical")
+    B, H, KVH, D = DANUBE_FLASH_HEADS
+    for Sq, Sk, kv_len, window in DANUBE_FLASH_CASES:
+        q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen)
+        got = ops.flash_attention(q, k, v, causal=True, kv_len=kv_len,
+                                  window=window)
+        what = (f"B={B} H={H} KVH={KVH} D={D} Sq={Sq} Sk={Sk} causal "
+                f"kv_len={kv_len} window={window}")
+        err, ratio = check_flash(torch, q, k, v, got, True, kv_len, what,
+                                 window)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        print(f"[kernels] flash_attention {what}: max |err| {err:.4g} = "
+              f"{ratio:.4g} of the bound")
+        del q, k, v, got
     flash_sets = [(FLASH_HEADS, FLASH_CASES),
                   (ZAMBA_FLASH_HEADS, ZAMBA_FLASH_CASES)]
     for (B, H, KVH, D), Sq, Sk, causal, kv_len in (
@@ -1354,13 +1539,45 @@ def phase_split_sweep(torch, gen):
     return out
 
 
+def sdpa_masked(torch, q, k, v, kv_end, window):
+    """The library yardstick of a windowed call: scaled_dot_product_attention
+    (GQA) over the ``kv_end`` keys the call reads with a boolean (Sq,
+    kv_end) causal-window mask, (B, H, S, D) operands; returns (fn, the
+    name of its longest device kernel in one profiled call: PyTorch's
+    flash backend takes no mask, so another backend runs it)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    Sq = q.shape[2]
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(kv_end, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    kh, vh = k[:, :, :kv_end], v[:, :, :kv_end]
+
+    def lib():
+        return F.scaled_dot_product_attention(q, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+    lib()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lib()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            kernels[e.name()] = kernels.get(e.name(), 0) + e.duration_ns()
+    name = max(kernels, key=kernels.get) if kernels else "not measured"
+    return lib, name
+
+
 def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
-                      sk=LONG_CACHE):
+                      sk=LONG_CACHE, window=None):
     """Times of a long prefill's flash_attention call as the path makes it
     (`attention.chunked_attention` on the model layout, bf16, causal,
-    kv_len ``sq``; by default diana_long's: q (4, 3072, 4, 8, 128), k / v
-    (4, 4096, 4, 128)), its plain version on the same layout, and
-    scaled_dot_product_attention (causal, GQA) over the ``sq`` keys the
+    kv_len ``sq``, the sliding ``window`` if any; by default diana_long's:
+    q (4, 3072, 4, 8, 128), k / v (4, 4096, 4, 128)), its plain version on
+    the same layout, and scaled_dot_product_attention (causal, GQA; with a
+    window through a boolean mask, `sdpa_masked`) over the ``sq`` keys the
     call reads; returns the record."""
     import torch.nn.functional as F
     from repro_torch.models import attention as A
@@ -1369,10 +1586,11 @@ def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
                              layout="model")
 
     def run():
-        return A.chunked_attention(q, k, v, kv_len=sq)
+        return A.chunked_attention(q, k, v, kv_len=sq, window=window)
 
     def plain():
-        return A.attention_plain(q, k, v, causal=True, kv_len=sq)
+        return A.attention_plain(q, k, v, causal=True, kv_len=sq,
+                                 window=window)
     qh = q.reshape(B, sq, H, D).transpose(1, 2)
     kh = k[:, :sq].transpose(1, 2)
     vh = v[:, :sq].transpose(1, 2)
@@ -1381,11 +1599,17 @@ def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
         return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                               enable_gqa=True)
     rec = {"plain_ms": cuda_ms(plain, 3)}
+    if window is not None:
+        lib, rec["library_kernel"] = sdpa_masked(torch, qh, kh, vh, sq,
+                                                 window)
     for key, xs in graph_rounds({"ms": run, "library_ms": lib}, 5).items():
         spread(rec, key, xs)
-    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(B, H, KVH, sq, sq, D)
+    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(B, H, KVH, sq, sq, D,
+                                                      window=window)
+    lib_what = ("" if window is None else
+                f" (masked, kernel {rec['library_kernel'][:60]})")
     print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Sq="
-          f"{sq} Sk={sk} kv_len={sq} causal: "
+          f"{sq} Sk={sk} kv_len={sq} window={window} causal{lib_what}: "
           f"kernel {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
           f"{rec['max_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  sdpa "
           f"{rec['library_ms']:.4f} ms ({rec['library_min_ms']:.4f}-"
@@ -1393,6 +1617,58 @@ def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
           f"({rec['bound_by']})  share {rec['bound_ms'] / rec['ms']:.3f}"
           f"  factor {rec['ms'] / rec['library_ms']:.3f}")
     return rec
+
+
+def phase_danube_flash_times(torch, gen):
+    """Times of flash_attention at each of `DANUBE_FLASH_CASES` (h2o's
+    heads, D 120; (B, H, S, D) operands), the plain version once after a
+    warm-up, and scaled_dot_product_attention over the keys the call
+    reads (causal; with a window through a boolean mask, `sdpa_masked`),
+    beside the bound; returns {case: record}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    B, H, KVH, D = DANUBE_FLASH_HEADS
+    out = {}
+    for Sq, Sk, kv_len, window in DANUBE_FLASH_CASES:
+        q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen)
+        kv_end = Sk if kv_len is None else kv_len
+        kw = dict(causal=True, kv_len=kv_len, window=window)
+
+        def run():
+            return ops.flash_attention(q, k, v, **kw)
+
+        def plain():
+            return flash_attention_plain(q, k, v, **kw)
+        rec = {"plain_ms": cuda_ms(plain, 1)}
+        if window is None:
+            kh, vh = k[:, :, :kv_end], v[:, :, :kv_end]
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q, kh, vh, is_causal=True, enable_gqa=True)
+        else:
+            lib, rec["library_kernel"] = sdpa_masked(torch, q, k, v, kv_end,
+                                                     window)
+        for key, xs in graph_rounds({"ms": run, "library_ms": lib},
+                                    3).items():
+            spread(rec, key, xs)
+        rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
+            B, H, KVH, Sq, kv_end, D, window=window)
+        lib_what = ("" if window is None else
+                    f" (masked, kernel {rec['library_kernel'][:60]})")
+        print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Sq={Sq}"
+              f" Sk={Sk} kv_len={kv_len} window={window} causal: kernel "
+              f"{rec['ms']:.4f} ms ({rec['min_ms']:.4f}-{rec['max_ms']:.4f})"
+              f"  plain {rec['plain_ms']:.4f} ms  sdpa{lib_what} "
+              f"{rec['library_ms']:.4f} ms ({rec['library_min_ms']:.4f}-"
+              f"{rec['library_max_ms']:.4f})  bound {rec['bound_ms']:.4f} ms"
+              f" ({rec['bound_by']})  share "
+              f"{rec['bound_ms'] / rec['ms']:.3f}  factor "
+              f"{rec['ms'] / rec['library_ms']:.3f}")
+        out[f"Sq={Sq} Sk={Sk} kv_len={kv_len} window={window}"] = rec
+        del q, k, v
+    return out
 
 
 #: record keys summed over a forward pass or a run (medians, and the
@@ -1827,7 +2103,7 @@ def plain_float64_attention():
     from repro_torch.kernels.flash_attention import PLAIN_Q_BLOCK
     from repro_torch.models import attention as A
 
-    def plain64(q, k, v, *, causal, kv_len):
+    def plain64(q, k, v, *, causal, kv_len, window=None):
         B, Sq, KVH, G, hd = q.shape
         Sk = k.shape[1]
         f64 = torch.float64
@@ -1845,6 +2121,8 @@ def plain_float64_attention():
                 mask &= kpos <= qpos
             if kv_len is not None:
                 mask &= kpos < kv_len
+            if window is not None:
+                mask &= kpos > qpos - window
             s = s.masked_fill(~mask, float("-inf"))
             p = torch.exp(s - s.amax(dim=-1, keepdim=True))
             l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
@@ -2246,8 +2524,8 @@ def engine_run(torch, cfg, params, backend, trace, leg, calls=None,
         engine = Engine(cfg, params, max_batch=leg["max_batch"],
                         max_len=leg["max_len"], backend=backend,
                         **{key: leg[key] for key in
-                           ("kv_layout", "prefill_chunk", "prefix_cache")
-                           if key in leg})
+                           ("kv_layout", "prefill_chunk", "prefix_cache",
+                            "prefill_bucket") if key in leg})
     reset_launches()
     with (recording_logits(calls) if calls is not None
           else contextlib.nullcontext()):
@@ -3475,7 +3753,6 @@ def phase_zamba(torch, seed, smi, device="cuda"):
     fixed, engine_paged_mixed, engine_mixed, long, bank and spec; returns
     {leg: record}.  ``device`` "cpu" serves a rehearsal, with the config
     reduced and the CUDA-only calls stubbed by the caller."""
-    import numpy as np
     from repro_torch.configs import base as cfgbase
     from repro_torch.launch.serve import (build_planset, check_coverage,
                                           kv_cache_for,
@@ -3483,8 +3760,7 @@ def phase_zamba(torch, seed, smi, device="cuda"):
                                           print_planset_report, serve_batch)
     from repro_torch.launch.train import emit_static_mapping
     from repro_torch.models import transformer as T
-    from repro_torch.serving import (Request, poisson_arrivals,
-                                     synthetic_trace)
+    from repro_torch.serving import poisson_arrivals, synthetic_trace
     t_phase = time.perf_counter()
 
     def at():
@@ -3591,176 +3867,16 @@ def phase_zamba(torch, seed, smi, device="cuda"):
                     "warm_decode_tok_per_s": warm["tok_per_s"]}
     del prompts
 
-    # engine traffic: engine_paged_mixed's trace through the paged engine,
-    # engine_mixed's through the dense one; each against its plain run
-    # (the integer kernels are bit-exact, so the margin rule compares
-    # every token), and the layouts against each other for the record
-    leg = ENGINE_MIXED
-    trace = poisson_arrivals(synthetic_trace(
-        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
-        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
-        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
-    print_traffic("zamba:engine_paged_mixed", trace, ENGINE_PAGED_MIXED)
-    engine, results, ptok, pfirst, pmargins, st = paged_run(
-        torch, "zamba:engine_paged_mixed", kcfg, params, backend,
-        ZAMBA_HIST, trace, ENGINE_PAGED_MIXED)
-    if engine.prefix_cache:
-        raise AssertionError("zamba: the prefix cache is on for a "
-                             "recurrent arch")
-    backend.reference = True
-    calls = []
-    _, rres, _ = engine_run(torch, kcfg, params, backend, trace,
-                            ENGINE_PAGED_MIXED, calls)
-    rfirst, rmargins = paged_request_logits(torch, trace, rres, calls)
-    compared, total, _ = margin_rule(
-        torch, "zamba:engine_paged_mixed vs plain", ptok, pfirst,
-        [r.tokens for r in rres], rfirst, rmargins)
-    calls = []
-    backend.reference = False
-    dense, dres, dl = engine_run(torch, kcfg, params, backend, trace,
-                                 ENGINE_MIXED, calls)
-    dst = dense.stats
-    dforwards = dst["prefill_calls"] + dst["decode_steps"]
-    zamba_launches("zamba:engine_mixed", dl,
-                   {k: ZAMBA_HIST.get(k, 0) * dforwards for k in KERNELS},
-                   dforwards)
-    dfirst = engine_first_logits(torch, dres, calls)
-    dtok = [r.tokens for r in dres]
-    backend.reference = True
-    calls = []
-    _, rres, _ = engine_run(torch, kcfg, params, backend, trace,
-                            ENGINE_MIXED, calls)
-    backend.reference = False
-    rdfirst = engine_first_logits(torch, rres, calls)
-    del calls
-    if dtok != [r.tokens for r in rres] or not all(
-            torch.equal(a, b) for a, b in zip(dfirst, rdfirst)):
-        raise AssertionError("zamba:engine_mixed: kernel and plain-version "
-                             "runs disagree")
-    # dense and paged sum the SSD in other chunks (256 and 32 steps): in
-    # bf16 their logits part, so the layouts are compared for the record
-    dist = max(float((a - b).abs().max()) for a, b in zip(dfirst, pfirst))
-    same = sum(a == b for a, b in zip(dtok, ptok))
-    print(f"[zamba:engine_mixed] dense: {dst['prefill_calls']} prefill "
-          f"calls + {dst['decode_steps']} decode steps, launches "
-          f"{ZAMBA_HIST} per forward; tokens and prefill logits identical "
-          f"to the plain run's; against the paged layout: {same} of "
-          f"{len(dtok)} requests' tokens identical, prefill logits max "
-          f"|diff| {dist:.4g} ({at()})")
-    _, _, prec = warm_paged(torch, "zamba:engine_paged_mixed", kcfg,
-                            params, backend, trace, ENGINE_PAGED_MIXED,
-                            ptok, smi)
-
-    def profiled():
-        eng, _, _ = engine_run(torch, kcfg, params, backend, trace,
-                               ENGINE_PAGED_MIXED)
-        return eng.stats["wall_s"] * 1e3
-    busy = profile_device(torch, "zamba:engine_paged_mixed", profiled)
-    prec.update(device_busy_ms=busy,
-                idle_share=1.0 - busy / (prec["wall_s"] * 1e3),
-                forwards=st["prefill_calls"] + st["decode_steps"])
-    print(f"[profile:zamba:engine_paged_mixed] device busy {busy:.3f} ms "
-          f"of the warm run's {prec['wall_s'] * 1e3:.3f} ms wall: idle "
-          f"share {prec['idle_share']:.3f} ({at()})")
-    out["engine_paged_mixed"] = prec
-    prec.update(plain_tokens_compared=compared, tokens_total=total)
-    out["engine_mixed"] = dict(print_engine_run(
-        "zamba:engine_mixed", dense, dres, smi), forwards=dforwards,
-        vs_paged_max_abs_diff=dist, vs_paged_requests_identical=same)
-    del engine, dense
-
+    out.update(mixed_legs(torch, "zamba", kcfg, params, backend, ZAMBA_HIST,
+                          seed, smi, ZAMBA_MIXED, prefix_cache=False))
+    print(f"[zamba] engine legs done ({at()})")
     # long: one dense admission group padded to 4096 tokens, its shared
     # block's 6 uses through flash at head dim 64
-    rng = np.random.default_rng(seed)
-    leg = ZAMBA_LONG
-    long_trace = [Request(rid=f"l{i}", prompt=rng.integers(0, cfg.vocab, n),
-                          max_new_tokens=leg["new"])
-                  for i, n in enumerate(leg["prompts"])]
-    print_traffic("zamba:long", long_trace, leg)
-    uses = ZAMBA_USES
-    flash_calls, calls = [], []
-    with recording_flash(flash_calls):
-        eng, lres, ll = engine_run(torch, kcfg, params, backend, long_trace,
-                                   leg, calls)
-    lst = dict(eng.stats)
-    lforwards = lst["prefill_calls"] + lst["decode_steps"]
-    want = {k: ZAMBA_HIST.get(k, 0) * lforwards for k in KERNELS}
-    want["flash_attention"] = uses
-    got = zamba_launches("zamba:long", ll, want, lforwards)
-    worst = worst_ratio = 0.0
-    for i, (q, k, v, kw, o) in enumerate(flash_calls):
-        if q.shape[-1] != cfg.hd or q.shape[2] != ZAMBA_LONG_SQ:
-            raise AssertionError(f"zamba:long flash call {i}: q "
-                                 f"{tuple(q.shape)}")
-        err, ratio = check_flash(torch, q, k, v, o, kw["causal"],
-                                 kw["kv_len"], f"zamba:long use {i}")
-        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-    print(f"[zamba:long] {lst['prefill_calls']} prefill + "
-          f"{lst['decode_steps']} decode steps: launches {got}; the "
-          f"{len(flash_calls)} flash calls (q {tuple(flash_calls[0][0].shape)}"
-          f", D {cfg.hd}, kv_len {flash_calls[0][3]['kv_len']}) within the "
-          f"bound "
-          f"of the plain version on their own inputs: max |err| "
-          f"{worst:.4g}, at most {worst_ratio:.4g} of it")
-    del flash_calls
-    first = engine_first_logits(torch, lres, calls)
-    tokens = [r.tokens for r in lres]
-    del calls
-    backend.reference = True
-    ref_calls = []
-    _, rres, _ = engine_run(torch, kcfg, params, backend, long_trace, leg,
-                            ref_calls)
-    ref_first = engine_first_logits(torch, rres, ref_calls)
-    decodes = [lg for kind, lg, _ in ref_calls if kind == "decode"]
-    ref_tokens = [r.tokens for r in rres]
-    ref_margins = [[float(top2_margin(torch, ref_first[i]))] +
-                   [float(top2_margin(torch, lg[i]))
-                    for lg in decodes[:len(ref_tokens[i]) - 1]]
-                   for i in range(len(ref_tokens))]
-    del ref_calls, decodes
-    f64_calls = []
-    with plain_float64_attention():
-        _, f64_res, _ = engine_run(torch, kcfg, params, backend, long_trace,
-                                   leg, f64_calls)
-    backend.reference = False
-    f64_first = engine_first_logits(torch, f64_res, f64_calls)
-    del f64_calls
-    ref_stack = torch.stack(ref_first)
-    spread, spread_rms = logit_distance(torch, torch.stack(f64_first),
-                                        ref_stack)
-    diff, diff_rms = logit_distance(torch, torch.stack(first), ref_stack)
-    other, other_rms = logit_distance(torch, ref_stack.roll(1, dims=0),
-                                      ref_stack)
-    tol, tol_rms = SENSITIVITY_FACTOR * spread, SENSITIVITY_FACTOR * spread_rms
-    compared, total = compare_requests("zamba:long vs plain", tokens,
-                                       ref_tokens, ref_margins,
-                                       [tol] * len(tokens))
-    print(f"[zamba:long] plain run in float64 attention: prefill logits max "
-          f"|diff| {spread:.4g}, RMS {spread_rms:.4g} from the plain run; "
-          f"another request's: {other:.4g}, RMS {other_rms:.4g}; kernel run "
-          f"vs plain: max {diff:.4g} (ratio {diff / max(spread, 1e-30):.3g})"
-          f", RMS {diff_rms:.4g} (ratio "
-          f"{diff_rms / max(spread_rms, 1e-30):.3g}); tokens identical over "
-          f"{compared} of {total} (request, step) pairs before the first "
-          f"plain top-2 margin below {tol:.4g} ({at()})")
-    if diff > tol or diff_rms > tol_rms:
-        raise AssertionError(f"zamba:long: prefill logits differ from the "
-                             f"plain run's by max {diff} > {tol} or RMS "
-                             f"{diff_rms} > {tol_rms}")
-    torch.cuda.reset_peak_memory_stats()
-    eng, wres, _ = engine_run(torch, kcfg, params, backend, long_trace, leg)
-    if [r.tokens for r in wres] != tokens:
-        raise AssertionError("zamba:long: the warm run's tokens differ")
-    out["long"] = dict(print_engine_run("zamba:long", eng, wres, smi),
-                       flash_calls=uses, flash_worst_error=worst,
-                       flash_worst_error_over_bound=worst_ratio,
-                       float64_plain_max_abs_diff=spread,
-                       float64_plain_rms_diff=spread_rms,
-                       prefill_logits_max_abs_diff=diff,
-                       prefill_logits_rms_diff=diff_rms,
-                       tokens_compared=compared, tokens_total=total,
-                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    del eng, plan, backend
+    out["long"] = dense_long_leg(torch, "zamba", kcfg, params, backend,
+                                 ZAMBA_HIST, ZAMBA_LONG, seed, smi,
+                                 ZAMBA_USES, ZAMBA_LONG_SQ)
+    print(f"[zamba] long done ({at()})")
+    del plan, backend
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3849,6 +3965,469 @@ def phase_zamba(torch, seed, smi, device="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits):
+    """``serve_batch`` of the fixed traffic (REQUESTS x PROMPT_LEN +
+    GEN_LEN, the paged engine: 4 chunk calls and 15 decode steps) with the
+    first ``limits[kernel]`` calls of each int8 kernel held bit for bit
+    against the plain version as they are made, launches = ``hist`` x the
+    forwards, 0 weight copies; then the plain run (``reference=True``):
+    tokens and prefill logits identical.  Returns the record."""
+    from repro_torch.launch.serve import serve_batch
+    forwards = -(-PROMPT_LEN // CHUNK) + GEN_LEN - 1
+    checked, calls = {}, []
+    reset_launches()
+    with checking_matmuls(checked, limits), recording_logits(calls):
+        tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
+                                    backend=backend)
+    want = {k: hist.get(k, 0) * forwards for k in KERNELS}
+    got = zamba_launches(tag, kernel_launches(), want, forwards)
+    if {k: n for k, (n, _) in checked.items() if n} != {
+            k: limits[k] for k in hist}:
+        raise AssertionError(f"{tag}: calls checked {checked}")
+    first, _ = batch_logits(torch, tokens, calls)
+    del calls
+    if tuple(tokens.shape) != (REQUESTS, GEN_LEN) or \
+            tuple(first.shape) != (REQUESTS, cfg.vocab) or \
+            not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"{tag}: output has the wrong shape or is not "
+                             f"finite")
+    backend.reference = True
+    ref_calls = []
+    with recording_logits(ref_calls):
+        ref_tokens, ref_stats = serve_batch(cfg, params, prompts, GEN_LEN,
+                                            backend=backend)
+    backend.reference = False
+    if kernel_launches() != want:
+        raise AssertionError(f"{tag}: the plain run launched a kernel")
+    ref_first, _ = batch_logits(torch, ref_tokens, ref_calls)
+    del ref_calls
+    if not (torch.equal(tokens, ref_tokens) and torch.equal(first,
+                                                            ref_first)):
+        raise AssertionError(f"{tag}: kernel and plain runs disagree (max "
+                             f"|diff| of the prefill logits "
+                             f"{float((first - ref_first).abs().max())})")
+    print(f"[{tag}] {REQUESTS} x {PROMPT_LEN} + {GEN_LEN} through "
+          f"serve_batch (paged engine, {forwards} forwards): launches {got} "
+          f"({hist} per forward), weights copied per call 0; the first "
+          + " and the first ".join(f"{n} {k} calls (largest M {m})"
+                                   for k, (n, m) in checked.items() if n) +
+          f" bit-identical to the plain version on their own inputs; "
+          f"tokens and prefill logits identical to the plain run's; prefill "
+          f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{stats['decode_s'] * 1e3:.3f} ms "
+          f"({stats['decode_s'] * 1e3 / (GEN_LEN - 1):.3f} ms/step) with "
+          f"the checks inline; plain run prefill "
+          f"{ref_stats['prefill_s'] * 1e3:.3f} ms; sample tokens "
+          f"{tokens[:2, :8].tolist()}")
+    return {"forwards": forwards, "launches": want,
+            "calls_checked": {k: n for k, (n, _) in checked.items()},
+            "tokens_identical_to_plain": True,
+            "prefill_logits_identical_to_plain": True,
+            "checked_prefill_ms": stats["prefill_s"] * 1e3,
+            "checked_decode_ms_per_step":
+                stats["decode_s"] * 1e3 / (GEN_LEN - 1),
+            "plain_prefill_ms": ref_stats["prefill_s"] * 1e3}
+
+
+def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
+               prefix_cache, dense=True):
+    """``leg``'s trace (engine_mixed's shape) through the paged engine
+    (engine_paged_mixed, whose prefix cache must be on exactly when
+    ``prefix_cache``: attention KV is page-resident, recurrent state is
+    not) and, when ``dense``, through the dense one (engine_mixed), each
+    against its plain run: the integer kernels are bit-exact and neither
+    leg reaches flash, so the margin rule compares every paged token and
+    the dense runs are identical.  The layouts are compared for the record
+    (zamba2's SSD sums in other chunks in the two, so in bf16 their logits
+    part).  Then a warm paged run and a profiled one (idle share).
+    Returns {leg: record}."""
+    from repro_torch.serving import poisson_arrivals, synthetic_trace
+    t0 = time.perf_counter()
+    paged = dict(leg, kv_layout="paged")
+    trace = poisson_arrivals(synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    print_traffic(f"{tag}:engine_paged_mixed", trace, paged)
+    engine, _, ptok, pfirst, _, st = paged_run(
+        torch, f"{tag}:engine_paged_mixed", cfg, params, backend, hist,
+        trace, paged)
+    if engine.prefix_cache != prefix_cache:
+        raise AssertionError(f"{tag}: the prefix cache is "
+                             f"{'on' if engine.prefix_cache else 'off'}")
+    backend.reference = True
+    calls = []
+    _, rres, _ = engine_run(torch, cfg, params, backend, trace, paged,
+                            calls)
+    rfirst, rmargins = paged_request_logits(torch, trace, rres, calls)
+    compared, total, _ = margin_rule(
+        torch, f"{tag}:engine_paged_mixed vs plain", ptok, pfirst,
+        [r.tokens for r in rres], rfirst, rmargins)
+    backend.reference = False
+    out = {"engine_paged_mixed": warm_profiled(
+        torch, tag, cfg, params, backend, trace, paged, ptok, smi, st, t0)}
+    out["engine_paged_mixed"].update(plain_tokens_compared=compared,
+                                     tokens_total=total)
+    if dense:
+        out["engine_mixed"] = dense_mixed(torch, tag, cfg, params, backend,
+                                          hist, trace, leg, ptok, pfirst,
+                                          smi, t0)
+    return out
+
+
+def dense_mixed(torch, tag, cfg, params, backend, hist, trace, leg, ptok,
+                pfirst, smi, t0):
+    """`mixed_legs`' dense leg: ``trace`` through the dense engine, held
+    against its plain run (identical) and, for the record, against the
+    paged run's tokens ``ptok`` and prefill logits ``pfirst``; returns the
+    record."""
+    calls = []
+    dense, dres, dl = engine_run(torch, cfg, params, backend, trace, leg,
+                                 calls)
+    dst = dense.stats
+    dforwards = dst["prefill_calls"] + dst["decode_steps"]
+    zamba_launches(f"{tag}:engine_mixed", dl,
+                   {k: hist.get(k, 0) * dforwards for k in KERNELS},
+                   dforwards)
+    dfirst = engine_first_logits(torch, dres, calls)
+    dtok = [r.tokens for r in dres]
+    backend.reference = True
+    calls = []
+    _, rres, _ = engine_run(torch, cfg, params, backend, trace, leg, calls)
+    backend.reference = False
+    rdfirst = engine_first_logits(torch, rres, calls)
+    del calls
+    if dtok != [r.tokens for r in rres] or not all(
+            torch.equal(a, b) for a, b in zip(dfirst, rdfirst)):
+        raise AssertionError(f"{tag}:engine_mixed: kernel and plain-version "
+                             f"runs disagree")
+    dist = max(float((a - b).abs().max()) for a, b in zip(dfirst, pfirst))
+    same = sum(a == b for a, b in zip(dtok, ptok))
+    print(f"[{tag}:engine_mixed] dense: {dst['prefill_calls']} prefill "
+          f"calls + {dst['decode_steps']} decode steps, launches {hist} per "
+          f"forward; tokens and prefill logits identical to the plain run's;"
+          f" against the paged layout: {same} of {len(dtok)} requests' "
+          f"tokens identical, prefill logits max |diff| {dist:.4g} "
+          f"({time.perf_counter() - t0:.1f} s into the legs)")
+    return dict(print_engine_run(f"{tag}:engine_mixed", dense, dres, smi),
+                forwards=dforwards, vs_paged_max_abs_diff=dist,
+                vs_paged_requests_identical=same)
+
+
+def warm_profiled(torch, tag, cfg, params, backend, trace, paged, ptok, smi,
+                  st, t0):
+    """`mixed_legs`' warm paged run and its profiled one (idle share);
+    returns the warm run's record."""
+    _, _, prec = warm_paged(torch, f"{tag}:engine_paged_mixed", cfg, params,
+                            backend, trace, paged, ptok, smi)
+
+    def profiled():
+        eng, _, _ = engine_run(torch, cfg, params, backend, trace, paged)
+        return eng.stats["wall_s"] * 1e3
+    busy = profile_device(torch, f"{tag}:engine_paged_mixed", profiled)
+    prec.update(device_busy_ms=busy,
+                idle_share=1.0 - busy / (prec["wall_s"] * 1e3),
+                forwards=st["prefill_calls"] + st["decode_steps"])
+    print(f"[profile:{tag}:engine_paged_mixed] device busy {busy:.3f} ms of "
+          f"the warm run's {prec['wall_s'] * 1e3:.3f} ms wall: idle share "
+          f"{prec['idle_share']:.3f} ({time.perf_counter() - t0:.1f} s into "
+          f"the legs)")
+    return prec
+
+
+def dense_long_leg(torch, tag, cfg, params, backend, hist, leg, seed, smi,
+                   flash_calls, sq):
+    """``leg``'s requests (``leg["prompts"]``, ``leg["new"]`` new tokens
+    each, at step 0) through the dense engine: one admission group whose
+    prefill (Sq ``sq`` > 2048) takes the chunked path and launches flash
+    ``flash_calls`` times at head dim ``cfg.hd`` with ``cfg``'s sliding
+    window, each call held against the plain version on its own inputs
+    within the bound.  The matmul kernels being bit-exact, the kernel run
+    differs from the plain run (``reference=True``) only in flash's
+    summation order; a plain run in float64 attention differs from it by
+    another valid one: the prefill logits must lie within
+    SENSITIVITY_FACTOR times that distance (max and RMS), tokens by the
+    margin rule.  With a window, `WINDOW_CONTROLS` are the controls: each
+    call's output must lie the control's factor x farther from the plain
+    version with the control's window than from the right one's, and the
+    prefill logits (where the control has a factor for them) farther from
+    a plain run with it than from the plain run.  Then a warm run.
+    Returns the record."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.serving import Request
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    trace = [Request(rid=f"l{i}", prompt=rng.integers(0, cfg.vocab, n),
+                     max_new_tokens=leg["new"])
+             for i, n in enumerate(leg["prompts"])]
+    print_traffic(f"{tag}:long", trace, leg)
+    recorded, calls = [], []
+    with recording_flash(recorded):
+        eng, res, launches = engine_run(torch, cfg, params, backend, trace,
+                                        leg, calls)
+    st = dict(eng.stats)
+    forwards = st["prefill_calls"] + st["decode_steps"]
+    want = {k: hist.get(k, 0) * forwards for k in KERNELS}
+    want["flash_attention"] = flash_calls
+    got = zamba_launches(f"{tag}:long", launches, want, forwards)
+    worst = worst_ratio = 0.0
+    # per control: the least over the calls of max |out - control| /
+    # max |out - plain|
+    control = dict.fromkeys(WINDOW_CONTROLS, float("inf"))
+    for i, (q, k, v, kw, o) in enumerate(recorded):
+        if q.shape[-1] != cfg.hd or q.shape[2] != sq or \
+                kw["window"] != cfg.sliding_window:
+            raise AssertionError(f"{tag}:long flash call {i}: q "
+                                 f"{tuple(q.shape)}, window {kw['window']}")
+        err, ratio = check_flash(torch, q, k, v, o, kw["causal"],
+                                 kw["kv_len"], f"{tag}:long call {i}",
+                                 kw["window"])
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        for key, (window, _, _) in (WINDOW_CONTROLS.items() if kw["window"]
+                                    else ()):
+            far = float((o.double() - flash_attention_plain(
+                q, k, v, causal=kw["causal"], kv_len=kw["kv_len"],
+                window=window).double()).abs().max())
+            control[key] = min(control[key], far / max(err, 1e-30))
+    print(f"[{tag}:long] {st['prefill_calls']} prefill + "
+          f"{st['decode_steps']} decode steps: launches {got}; the "
+          f"{len(recorded)} flash calls (q {tuple(recorded[0][0].shape)}, D "
+          f"{cfg.hd}, kv_len {recorded[0][3]['kv_len']}, window "
+          f"{recorded[0][3]['window']}) within the bound of the plain "
+          f"version on their own inputs: max |err| {worst:.4g}, at most "
+          f"{worst_ratio:.4g} of it ({time.perf_counter() - t0:.1f} s into "
+          f"the leg)")
+    if cfg.sliding_window:
+        print(f"[{tag}:long] window controls: each call's output at least "
+              + ", ".join(f"{control[key]:.4g} x (window {w}; at least "
+                          f"{f} required)" for key, (w, f, _) in
+                          WINDOW_CONTROLS.items()) +
+              f" farther from the plain version with that window than "
+              f"from the right one's")
+    del recorded
+    first = engine_first_logits(torch, res, calls)
+    tokens = [r.tokens for r in res]
+    del calls
+    backend.reference = True
+    ref_calls = []
+    _, rres, _ = engine_run(torch, cfg, params, backend, trace, leg,
+                            ref_calls)
+    ref_first = engine_first_logits(torch, rres, ref_calls)
+    decodes = [lg for kind, lg, _ in ref_calls if kind == "decode"]
+    ref_tokens = [r.tokens for r in rres]
+    ref_margins = [[float(top2_margin(torch, ref_first[i]))] +
+                   [float(top2_margin(torch, lg[i]))
+                    for lg in decodes[:len(ref_tokens[i]) - 1]]
+                   for i in range(len(ref_tokens))]
+    del ref_calls, decodes
+    f64_calls = []
+    with plain_float64_attention():
+        _, f64_res, _ = engine_run(torch, cfg, params, backend, trace, leg,
+                                   f64_calls)
+    backend.reference = False
+    if kernel_launches() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"{tag}:long: a plain run launched a kernel")
+    f64_first = engine_first_logits(torch, f64_res, f64_calls)
+    del f64_calls
+    ref_stack = torch.stack(ref_first)
+    spread_max, spread_rms = logit_distance(torch, torch.stack(f64_first),
+                                            ref_stack)
+    diff, diff_rms = logit_distance(torch, torch.stack(first), ref_stack)
+    other, other_rms = logit_distance(torch, ref_stack.roll(1, dims=0),
+                                      ref_stack)
+    # per control: the prefill logits' max |diff| from the plain run's
+    others = {}
+    for key, (window, _, factor) in (WINDOW_CONTROLS.items()
+                                     if cfg.sliding_window else ()):
+        if factor is None:
+            continue
+        backend.reference = True
+        ctrl_calls = []
+        _, ctrl_res, _ = engine_run(
+            torch, dataclasses.replace(cfg, sliding_window=window), params,
+            backend, trace, leg, ctrl_calls)
+        backend.reference = False
+        others[key] = logit_distance(torch, torch.stack(engine_first_logits(
+            torch, ctrl_res, ctrl_calls)), ref_stack)[0]
+        del ctrl_calls
+    tol = SENSITIVITY_FACTOR * spread_max
+    tol_rms = SENSITIVITY_FACTOR * spread_rms
+    compared, total = compare_requests(f"{tag}:long vs plain", tokens,
+                                       ref_tokens, ref_margins,
+                                       [tol] * len(tokens))
+    print(f"[{tag}:long] plain run in float64 attention: prefill logits max "
+          f"|diff| {spread_max:.4g}, RMS {spread_rms:.4g} from the plain "
+          f"run; " + (f"another request's: {other:.4g}, RMS {other_rms:.4g}; "
+                      if len(trace) > 1 else "") +
+          "".join(f"a plain run with window {WINDOW_CONTROLS[key][0]}: "
+                  f"{d:.4g} ({d / max(diff, 1e-30):.3g} x the kernel "
+                  f"run's); " for key, d in others.items()) +
+          f"kernel run vs plain: max {diff:.4g} (ratio "
+          f"{diff / max(spread_max, 1e-30):.3g}), RMS {diff_rms:.4g} (ratio "
+          f"{diff_rms / max(spread_rms, 1e-30):.3g}); tokens identical over "
+          f"{compared} of {total} (request, step) pairs before the first "
+          f"plain top-2 margin below {tol:.4g} "
+          f"({time.perf_counter() - t0:.1f} s into the leg)")
+    if diff > tol or diff_rms > tol_rms:
+        raise AssertionError(f"{tag}:long: prefill logits differ from the "
+                             f"plain run's by max {diff} > {tol} or RMS "
+                             f"{diff_rms} > {tol_rms}")
+    if cfg.sliding_window and (
+            any(control[key] < f for key, (_, f, _) in
+                WINDOW_CONTROLS.items()) or
+            any(d < WINDOW_CONTROLS[key][2] * diff
+                for key, d in others.items())):
+        raise AssertionError(f"{tag}:long: the checks do not tell the "
+                             f"window from another: calls {control}, "
+                             f"logits {others} against {diff}")
+    torch.cuda.reset_peak_memory_stats()
+    eng, wres, _ = engine_run(torch, cfg, params, backend, trace, leg)
+    if [r.tokens for r in wres] != tokens:
+        raise AssertionError(f"{tag}:long: the warm run's tokens differ")
+    return dict(print_engine_run(f"{tag}:long", eng, wres, smi),
+                flash_calls=flash_calls, flash_worst_error=worst,
+                flash_worst_error_over_bound=worst_ratio,
+                float64_plain_max_abs_diff=spread_max,
+                float64_plain_rms_diff=spread_rms,
+                prefill_logits_max_abs_diff=diff,
+                prefill_logits_rms_diff=diff_rms,
+                tokens_compared=compared, tokens_total=total,
+                window_control_call_ratios=(control if cfg.sliding_window
+                                            else None),
+                window_control_logits_max_abs_diff=others or None,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def plan_dense(torch, tag, cfg, params, max_cout, hist, raws):
+    """Emit ``cfg``'s diana artifact at ``max_cout`` (static activation
+    scales), lower and bind it at full coverage; the plan's histogram must
+    be ``hist`` and each (K, N)'s raw boundary ``raws[(K, N)]`` (the
+    layers of repeat 0).  Returns (artifact, plan, backend, KV config)."""
+    from repro_torch.launch.serve import (check_coverage, kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.launch.train import emit_static_mapping
+    t0 = time.perf_counter()
+    art = emit_static_mapping(
+        params, cfg, "diana",
+        ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana.json",
+        max_cout=max_cout, act_log_scale=2.0)
+    plan, backend = plan_mapping_execution(params, art)
+    check_coverage(tag, backend, require_full=True)
+    for line in plan.histogram_lines():
+        print(f"[{tag}] {line}")
+    if plan.kernel_histogram() != hist:
+        raise AssertionError(f"{tag}: kernel histogram "
+                             f"{plan.kernel_histogram()}, expected {hist}")
+    seen = {}
+    for name in ("wq", "wk", "wo", "up", "down"):
+        part = "attn" if name.startswith("w") else "ffn"
+        lp = plan[f"units/0/{part}/{name}@0"]
+        seen[(lp.c_in, lp.c_out)] = lp
+    for (k, n), raw in raws.items():
+        lp = seen[(k, n)]
+        if lp.boundaries[0] != raw:
+            raise AssertionError(f"{tag} ({k} x {n}): raw boundary "
+                                 f"{lp.boundaries}, expected {raw}")
+        print(f"[{tag}] {lp.name} ({k} x {n}): counts {lp.counts}, raw "
+              f"boundary {lp.boundaries}, aligned {lp.aligned_boundaries}")
+    kcfg = kv_cache_for(cfg, art)
+    print(f"[{tag}] diana at max_cout {max_cout}: {backend.coverage()}; "
+          f"{len(plan.layers)} planned layers, {sum(hist.values())} "
+          f"launches per forward {hist}; kv {kcfg.kv_cache_dtype} (map, "
+          f"lower and bind {time.perf_counter() - t0:.1f} s)")
+    return art, plan, backend, kcfg
+
+
+def phase_danube(torch, seed, smi, device="cuda"):
+    """h2o-danube-3-4b at full width and depth (module docstring, phase
+    12): legs fixed, engine_paged_mixed, engine_mixed and long; returns
+    {leg: record}.  ``device`` "cpu" serves a rehearsal, with the config
+    reduced and the CUDA-only calls stubbed by the caller."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+    cfg = cfgbase.get(DANUBE)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(gen, cfg)
+    print(f"[danube] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"head_dim {cfg.hd}, sliding window {cfg.sliding_window}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; params "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B ({smi})")
+    hist = DANUBE_HIST
+    _, plan, backend, kcfg = plan_dense(torch, "danube", cfg, params,
+                                        DANUBE_MAX_COUT, hist, DANUBE_RAW)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    out = {"fixed": fixed_batch(torch, "danube:fixed", kcfg, params, backend,
+                                hist, prompts, dict(hist))}
+    del prompts
+    print(f"[danube] fixed done ({at()})")
+
+    out.update(mixed_legs(torch, "danube", kcfg, params, backend, hist,
+                          seed, smi, DANUBE_MIXED, prefix_cache=True,
+                          dense=False))
+    print(f"[danube] engine legs done ({at()})")
+    # long: one dense admission group of 2 x 8192 tokens; each layer's
+    # attention through flash at D 120 with the window
+    out["long"] = dense_long_leg(torch, "danube", kcfg, params, backend,
+                                 hist, DANUBE_LONG, seed, smi, cfg.n_layers,
+                                 DANUBE_LONG["prompts"][0])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[danube] phase {out['seconds']:.1f} s, long-leg peak memory "
+          f"{out['long']['peak_gib']:.2f} GiB ({smi})")
+    del plan, backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_fixed(torch, key, seed, smi, device="cuda"):
+    """nemotron-4-15b or command-r-35b (``key`` of `DENSE_FIXED`; module
+    docstring, phase 12) at full width on diana, the fixed batch only;
+    returns its record.  ``device`` "cpu" serves a rehearsal."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    name, layers, max_cout, hist, raws = DENSE_FIXED[key]
+    t_phase = time.perf_counter()
+    cfg = cfgbase.get(name)
+    full = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=min(layers, full))
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(gen, cfg)
+    print(f"[{key}] {cfg.name}: {cfg.n_layers} of {full} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"head_dim {cfg.hd}, d_ff {cfg.d_ff} ({cfg.act}, "
+          f"{'gated' if cfg.gated_ffn else 'ungated'}), vocab {cfg.vocab}, "
+          f"{cfg.norm}, parallel block {cfg.parallel_block}, tied head "
+          f"{cfg.tie_embeddings}; params "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B (init "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi})")
+    _, plan, backend, kcfg = plan_dense(torch, key, cfg, params, max_cout,
+                                        hist, raws)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    rec = fixed_batch(torch, f"{key}:fixed", kcfg, params, backend, hist,
+                      prompts, dict(hist))
+    rec.update(layers=cfg.n_layers, layers_in_config=full,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[{key}] phase {rec['seconds']:.1f} s, peak memory "
+          f"{rec['peak_gib']:.2f} GiB ({smi})")
+    del prompts, plan, backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def fault_spec(markers):
@@ -4416,6 +4995,11 @@ def main(argv=None) -> int:
     flash_rec = phase_flash_times(torch, gen)
     zamba_flash = phase_flash_times(torch, gen, ZAMBA_FLASH_HEADS,
                                     ZAMBA_LONG_SQ, ZAMBA_LONG_SQ)
+    danube_sq = DANUBE_LONG["prompts"][0]
+    danube_flash = phase_flash_times(torch, gen, DANUBE_LONG_HEADS,
+                                     danube_sq, DANUBE_LONG["max_len"],
+                                     window=DANUBE_WINDOW)
+    danube_cases = phase_danube_flash_times(torch, gen)
     mark("kernel times")
     for kernel in KERNELS:
         path = LAUNCH_PATH[kernel]
@@ -4449,6 +5033,15 @@ def main(argv=None) -> int:
         zamba_flash["bound_by"]
     print_mix(f"per long prefill forward of {ZAMBA} ({uses} uses)",
               "flash_attention", zamba_mix["flash_attention long prefill"])
+    # h2o's long prefill makes one windowed flash call per layer
+    danube_mix = {key: danube_flash[key] * 24 for key in
+                  ("ms", "min_ms", "max_ms", "plain_ms", "library_ms",
+                   "library_min_ms", "library_max_ms", "bound_ms")}
+    danube_mix["bound_by"] = danube_flash["bound_by"]
+    print_mix(f"per long prefill forward of {DANUBE} (24 layers, window "
+              f"{DANUBE_WINDOW}; sdpa masked, kernel "
+              f"{danube_flash['library_kernel'][:60]})", "flash_attention",
+              danube_mix)
 
     from repro_torch.configs import base as cfgbase
     from repro_torch.models import transformer as T
@@ -4495,6 +5088,14 @@ def main(argv=None) -> int:
     mark("cnn")
     serving["search"] = phase_search(torch, args.seed, smi)
     mark("search")
+    serving["danube"] = phase_danube(torch, args.seed, smi)
+    serving["danube"]["flash_long_call"] = danube_flash
+    serving["danube"]["flash_long_prefill"] = danube_mix
+    serving["danube"]["flash_cases"] = danube_cases
+    mark("danube")
+    for key in DENSE_FIXED:
+        serving[key] = phase_dense_fixed(torch, key, args.seed, smi)
+        mark(key)
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

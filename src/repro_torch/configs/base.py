@@ -86,12 +86,24 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
+#: the JAX package's archs that the port does not serve yet, and what
+#: each waits for
+PENDING = {"arctic-480b": "MoE", "deepseek-v2-lite-16b": "MoE and MLA",
+           "xlstm-1.3b": "xLSTM blocks",
+           "llama-3.2-vision-11b": "the vision frontend",
+           "seamless-m4t-large-v2": "the audio encoder-decoder"}
+
+
 def get(name: str) -> ArchConfig:
     if not _REGISTRY:
         load_all()
     try:
         return _REGISTRY[name]
     except KeyError:
+        if name in PENDING:
+            raise KeyError(f"arch {name!r} waits for a later slice of the "
+                           f"port ({PENDING[name]}); the port serves "
+                           f"{names()}") from None
         raise KeyError(f"unknown arch {name!r}; the port registers "
                        f"{names()}") from None
 
@@ -104,7 +116,8 @@ def names():
 
 def load_all():
     """Import every config module of the port (each self-registers)."""
-    from repro_torch.configs import yi_9b, zamba2_1_2b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        command_r_35b, h2o_danube_3_4b, nemotron_4_15b, yi_9b, zamba2_1_2b)
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:

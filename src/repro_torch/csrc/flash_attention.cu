@@ -8,7 +8,10 @@
 // kpos <= qpos with positions from 0, keys at kpos >= kv_end masked, the
 // running max and denominator in f32, p rounded to bf16 for the PV product
 // (the denominator sums the unrounded p), an f32 accumulator, and
-// acc / max(l, 1e-30) stored as bf16.
+// acc / max(l, 1e-30) stored as bf16.  A sliding window (window > 0) also
+// masks keys at kpos <= qpos - window, as the JAX model's
+// chunked_attention(window=) does (src/repro/models/attention.py); a row
+// with no key left stores 0.
 //
 // Bound: at the prefill shapes by bf16 tensor-core operations (4 * D flops
 // per attended (query, key) pair against about 2 bytes of q and o per
@@ -25,7 +28,11 @@
 //     D) layout is read through its transposed views without a copy.
 //     Rows of D = 128 split into two 64-column chunks with a 128-byte
 //     swizzle, rows of D = 64 are one such chunk, rows of D = 16 take a
-//     32-byte swizzle;
+//     32-byte swizzle.  D = 120 (no multiple of wgmma's k16) is laid out
+//     as D = 128: its maps have the real width 120, so TMA zero-fills
+//     columns 120-127 of the second chunk, which adds 0 to QK^T and gives
+//     PV's columns 120-127 zeros that the store leaves out (in the model
+//     layout they are the next head's first columns);
 //   - S = Q K^T runs on wgmma m64n128k16 bf16 -> f32, A (Q) and B (K) from
 //     shared memory, both K-major as stored; the softmax runs on the S
 //     accumulator in registers, in the log2 domain (exp2f of scores
@@ -36,9 +43,14 @@
 //     and B = the V tile, MN-major, read with the transpose bit;
 //   - the G query heads of one KV head take adjacent blocks, so their K /
 //     V tiles hit in L2, and causal query tiles launch heaviest first;
-//   - key tiles wholly above the diagonal or past kv_end are never loaded;
-//     the mask is evaluated only on tiles that cross the diagonal or
-//     kv_end.
+//   - key tiles wholly above the diagonal, past kv_end or below the
+//     window of every row of the query tile are never loaded (producer and
+//     consumers start at the same first tile, max(0, q0 - window + 1) /
+//     128, so the ring's stage and parity agree); the mask is evaluated
+//     only on tiles that cross the diagonal, kv_end or the window's lower
+//     edge.  The window is a template parameter: a call without one runs
+//     an instantiation whose loop and mask are the causal / kv_end ones
+//     alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,7 +67,11 @@ constexpr int kStages = 2;      // depth of the K / V ring
 constexpr int kThreads = 384;   // consumer warpgroups 0, 1; producer 2
 constexpr int kConsumers = 256;
 
+// The width a head dim is laid out with in shared memory: D = 120 as 128.
 template <int D>
+constexpr int kPadded = D > 64 ? 128 : D;
+
+template <int D>  // D: the padded width
 struct Tile {
   static constexpr int kSw = D >= 64 ? 128 : 2 * D;  // swizzle = row bytes
   static constexpr int kCols = kSw / 2;              // bf16 per chunk row
@@ -76,7 +92,8 @@ struct Params {
   long long o_b, o_h, o_s;
   // position (1..3) of the (s, h, b) coordinates in each tensor map
   int qpos[3], kpos[3], vpos[3];
-  float scale_log2;  // D^-0.5 * log2(e)
+  float scale_log2;  // D^-0.5 * log2(e), with the real D
+  int window;        // 0: none
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -109,13 +126,17 @@ __device__ __forceinline__ void mma_pv(float (&o)[D / 2],
     hopper::mma_bf16_m64n16k16_rs_tb(o, a, db, 1);
 }
 
-template <int D>
+// D: the real head dim; DP: the width it is laid out and multiplied with.
+// kWindow: the sliding window is on (p.window > 0); without it the kernel
+// compiles to the causal / kv_end mask alone
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
               const __grid_constant__ Params p) {
-  using T = Tile<D>;
+  constexpr int DP = kPadded<D>;
+  using T = Tile<DP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -139,6 +160,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   int kv_stop = p.kv_end;
   if (p.causal) kv_stop = min(kv_stop, q0 + kBQ);
   const int n_tiles = (kv_stop + kBK - 1) / kBK;
+  // the first key tile some row of the tile reads: below it every key is
+  // outside the window of row q0, the tile's first
+  const int t0 = kWindow ? max(0, q0 - p.window + 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -159,10 +183,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < T::kChunks; ++c)
         load_box(qs + c * kBQ * T::kSw, &qmap, qbar, p.qpos, c * T::kCols,
                  q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages)
-          hopper::mbar_wait(&empty[s], (t / kStages - 1) & 1);
+      for (int t = t0; t < n_tiles; ++t) {
+        const int i = t - t0;  // ring position
+        const int s = i % kStages;
+        if (i >= kStages)
+          hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
         uint8_t* kd = kv + s * 2 * T::kKVBytes;
         uint8_t* vd = kd + T::kKVBytes;
         hopper::mbar_expect_tx(&full[s], 2 * T::kKVBytes);
@@ -186,16 +211,27 @@ __global__ void __launch_bounds__(kThreads, 1)
                       r_lo + warp * 16 + lane / 4 + 8};
   const uint8_t* qw = qs + wg * 64 * T::kSw;
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
   float l_run[2] = {0.f, 0.f};              // this lane's partial sums
+  // with the window, the keys each of the lane's two rows reads,
+  // inclusive: from row - window + 1, below kv_end, up to the row when
+  // causal (two compares per score on the tiles that need a mask)
+  int key_lo[2], key_hi[2];
+  if constexpr (kWindow) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      key_hi[r] = p.causal ? min(row[r], p.kv_end - 1) : p.kv_end - 1;
+      key_lo[r] = row[r] - p.window + 1;
+    }
+  }
 
   hopper::mbar_wait(qbar, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+  for (int t = t0; t < n_tiles; ++t) {
+    const int s = (t - t0) % kStages;
+    hopper::mbar_wait(&full[s], ((t - t0) / kStages) & 1);
     const uint8_t* kd = kv + s * 2 * T::kKVBytes;
     const uint8_t* vd = kd + T::kKVBytes;
 
@@ -204,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float sc[kBK / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       const int c = kk * 16 / T::kCols, off = (kk * 16 % T::kCols) * 2;
       const uint64_t da = hopper::make_desc(qw + c * kBQ * T::kSw + off, 16,
                                             8 * T::kSw, T::kLayout);
@@ -217,16 +253,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     hopper::fence_operands(sc);
 
     const int k0 = t * kBK;
-    const bool edge =
-        k0 + kBK > p.kv_end || (p.causal && k0 + kBK - 1 > r_lo);
+    const bool edge = k0 + kBK > p.kv_end ||
+                      (p.causal && k0 + kBK - 1 > r_lo) ||
+                      (kWindow && k0 <= r_lo + 63 - p.window);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) {
       float v = sc[i] * p.scale_log2;
       if (edge) {
         const int key = k0 + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
-        const bool ok =
-            key < p.kv_end && (!p.causal || key <= row[(i >> 1) & 1]);
+        const int r = (i >> 1) & 1;
+        bool ok;
+        if constexpr (kWindow)
+          ok = (key >= key_lo[r]) & (key <= key_hi[r]);
+        else
+          ok = key < p.kv_end && (!p.causal || key <= row[r]);
         v = ok ? v : -INFINITY;
       }
       sc[i] = v;
@@ -250,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P V: P's A fragment for keys 16 kk .. 16 kk + 15 is sc[8 kk ..
     // 8 kk + 7] rounded to bf16
@@ -263,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      mma_pv<D>(o, pa[kk],
+      mma_pv<DP>(o, pa[kk],
                 hopper::make_desc(vd + kk * 16 * T::kSw, kBK * T::kSw,
                                   8 * T::kSw, T::kLayout));
     hopper::wgmma_commit();
@@ -284,23 +325,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row[r] >= p.Sq) continue;
     __nv_bfloat16* orow = ob + row[r] * p.o_s + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j)  // the real columns only
       *reinterpret_cast<uint32_t*>(orow + j * 8) = pack_bf16(
           o[4 * j + 2 * r] / l_run[r], o[4 * j + 2 * r + 1] / l_run[r]);
   }
 }
 
 // Tensor map of a bf16 (batch, heads, rows, D) operand with unit stride in
-// D: D innermost in boxes of kCols columns, then the (rows, heads, batch)
-// dimensions of more than one element ordered by stride, those of one
-// element outermost; a box spans `box_rows` rows of one head.  pos[i]
+// D: D innermost in boxes of kCols columns (the real width D, so columns
+// past it up to the padded width are zero-filled), then the (rows, heads,
+// batch) dimensions of more than one element ordered by stride, those of
+// one element outermost; a box spans `box_rows` rows of one head.  pos[i]
 // receives the map position of rows (i = 0), heads (1) and batch (2).
 template <int D>
 int encode_operand(CUtensorMap* map, const void* base, long long rows,
                    long long s_rows, long long heads, long long s_heads,
                    long long batch, long long s_batch, int box_rows,
                    int (&pos)[3]) {
-  using T = Tile<D>;
+  using T = Tile<kPadded<D>>;
   struct Dim {
     long long n, stride;
     int which;
@@ -335,6 +377,19 @@ int encode_operand(CUtensorMap* map, const void* base, long long rows,
                             gdim, gstride, box, T::kMapSwizzle);
 }
 
+template <int D, bool kWindow>
+int start(const CUtensorMap& qm, const CUtensorMap& km,
+          const CUtensorMap& vm, const Params& p, cudaStream_t stream) {
+  constexpr int smem = Tile<kPadded<D>>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd<D, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const unsigned grid = static_cast<unsigned>(p.n_qtiles) * p.B * p.H;
+  flash_fwd<D, kWindow><<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, Params& p,
            long long Sq, long long kv_end, long long q_b, long long q_h,
@@ -349,13 +404,8 @@ int launch(const void* q, const void* k, const void* v, Params& p,
     rc = encode_operand<D>(&vm, v, kv_end, v_s, p.KVH, v_h, p.B, v_b, kBK,
                            p.vpos);
   if (rc) return rc;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<D>::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned grid = static_cast<unsigned>(p.n_qtiles) * p.B * p.H;
-  flash_fwd<D><<<grid, kThreads, Tile<D>::kSmem, stream>>>(qm, km, vm, p);
-  return static_cast<int>(cudaGetLastError());
+  return p.window > 0 ? start<D, true>(qm, km, vm, p, stream)
+                      : start<D, false>(qm, km, vm, p, stream);
 }
 
 }  // namespace
@@ -365,7 +415,7 @@ extern "C" int flash_attention_launch(
     int KVH, int Sq, int kv_end, int D, long long q_b, long long q_h,
     long long q_s, long long k_b, long long k_h, long long k_s,
     long long v_b, long long v_h, long long v_s, long long o_b,
-    long long o_h, long long o_s, int causal, void* stream) {
+    long long o_h, long long o_s, int causal, int window, void* stream) {
   Params p{};
   p.o = static_cast<__nv_bfloat16*>(o);
   p.B = B;
@@ -375,6 +425,7 @@ extern "C" int flash_attention_launch(
   p.Sq = Sq;
   p.kv_end = kv_end;
   p.causal = causal;
+  p.window = window;
   p.n_qtiles = (Sq + kBQ - 1) / kBQ;
   p.o_b = o_b;
   p.o_h = o_h;
@@ -388,6 +439,9 @@ extern "C" int flash_attention_launch(
     case 64:
       return launch<64>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h, k_s,
                         v_b, v_h, v_s, s);
+    case 120:
+      return launch<120>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h,
+                         k_s, v_b, v_h, v_s, s);
     case 128:
       return launch<128>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h,
                          k_s, v_b, v_h, v_s, s);

@@ -76,7 +76,9 @@ constexpr int kChunk = 64;      // K bytes per chunk (two m16n8k32 products)
 constexpr int kUnroll = 4;      // chunks of loads in flight per warp
 constexpr int kMaxBN = 128;
 constexpr int kMaxSplit = 8;    // portable cluster size
-constexpr int kMaxSpan = 32;    // chunks of K per block (shared x slice)
+// chunks of K per block (the shared x slice): K up to 8 x 48 x 64 = 24576,
+// nemotron-4-15b's FFN input
+constexpr int kMaxSpan = 48;
 
 // Row stride of the staged x slice of `span` chunks: = 64 mod 128 bytes.
 __host__ __device__ inline int x_stride(int span) {

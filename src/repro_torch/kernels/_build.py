@@ -39,9 +39,9 @@ SIGNATURES = {
     # x, w_packed, sx, sw, out, M, N, K, Kp, ...
     "ternary_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, B, H, KVH, Sq, kv_end, D, the (b, h, s) strides of q, k,
-    # v and o, causal, stream
+    # v and o, causal, window (0: none), stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        *[_L] * 12, _I, _P],
+                        *[_L] * 12, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

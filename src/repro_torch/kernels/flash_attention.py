@@ -6,7 +6,10 @@ The CUDA kernel (``csrc/flash_attention.cu``, sm_90a) replaces the Pallas
 TPU kernel ``flash_attention`` of ``repro/kernels/flash_attention.py``.
 What it computes is the TPU kernel's function: scores ``q k^T * D**-0.5``
 summed in float32, the causal mask ``kpos <= qpos`` (positions from 0),
-keys at ``kpos >= kv_len`` masked, running max and denominator in float32,
+keys at ``kpos >= kv_len`` masked, and with a sliding ``window`` the keys
+at ``kpos <= qpos - window`` (the JAX model's ``chunked_attention(window=)``,
+which the Pallas kernel has no form of), running max and denominator in
+float32,
 ``p`` rounded to ``v.dtype`` before the PV product, a float32 accumulator
 and ``acc / max(l, 1e-30)`` stored as bf16.  What bounds it on an H100 at
 the prefill shapes: bf16 tensor-core operations (4 * D flops per causal
@@ -14,8 +17,10 @@ the prefill shapes: bf16 tensor-core operations (4 * D flops per causal
 64 per consumer warpgroup; a producer thread streams K / V tiles of 128
 keys by TMA through a 2-stage ring, and the consumers run ``wgmma`` bf16 ->
 f32 for QK^T (both operands from shared memory) and PV (P from registers)
-with the softmax in registers.  Key tiles wholly above the diagonal or
-past ``kv_len`` are never loaded.
+with the softmax in registers.  Key tiles wholly above the diagonal, past
+``kv_len`` or below the window are never loaded.  Head dim 120
+(h2o-danube) is laid out as 128 in shared memory, its last 8 columns
+zero-filled by TMA and never stored.
 
 `flash_attention` launches the kernel for CUDA tensors and runs
 `flash_attention_plain` only for CPU tensors.  ``flash_attention.launches``
@@ -27,14 +32,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the kernel is instantiated for: yi-9b's 128, zamba2-1.2b's
-#: 64 and the reduced configs' 16
-HEAD_DIMS = (16, 64, 128)
+#: head dims the kernel is instantiated for: yi-9b's, nemotron's and
+#: command-r's 128, h2o-danube's 120, zamba2-1.2b's 64 and the reduced
+#: configs' 16
+HEAD_DIMS = (16, 64, 120, 128)
 #: query rows per plain-version step: bounds its float32 score block
 PLAIN_Q_BLOCK = 512
 
 
-def _check(q, k, v, kv_len):
+def _check(q, k, v, kv_len, window=None):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: expected (B, H, Sq, D) and two "
@@ -50,10 +56,13 @@ def _check(q, k, v, kv_len):
     if kv_len is not None and (isinstance(kv_len, torch.Tensor)
                                or int(kv_len) < 1):
         raise ValueError(f"kv_len must be None or an int >= 1, got {kv_len}")
+    if window is not None and (isinstance(window, torch.Tensor)
+                               or int(window) < 1):
+        raise ValueError(f"window must be None or an int >= 1, got {window}")
     return B, H, KVH, Sq, Sk, D
 
 
-def _scores(qb, k, q0, causal, kv_len):
+def _scores(qb, k, q0, causal, kv_len, window=None):
     """float32 scores of query rows ``q0 ..`` (B, KVH, G, n, D) against k
     (B, KVH, Sk, D), and the mask of the keys each row may read."""
     D, Sk = k.shape[-1], k.shape[2]
@@ -66,25 +75,30 @@ def _scores(qb, k, q0, causal, kv_len):
         mask &= kpos <= qpos
     if kv_len is not None:
         mask &= kpos < kv_len
+    if window is not None:
+        mask &= kpos > qpos - window
     return s, mask
 
 
-def flash_attention_plain(q, k, v, *, causal=True, kv_len=None):
+def flash_attention_plain(q, k, v, *, causal=True, kv_len=None,
+                          window=None):
     """Plain PyTorch version of the kernel's arithmetic: float32 scores,
     ``p = exp(s - rowmax)`` rounded to ``v.dtype`` for the PV product,
-    float32 denominator of the unrounded ``p``, ``acc / max(l, 1e-30)``.
-    Rows are independent, so it runs `PLAIN_Q_BLOCK` query rows at a time
-    to bound its float32 score block."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len)
+    float32 denominator of the unrounded ``p``, ``acc / max(l, 1e-30)``
+    (0 for a row that the mask leaves no key).  Rows are independent, so
+    it runs `PLAIN_Q_BLOCK` query rows at a time to bound its float32
+    score block."""
+    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len, window)
     G = H // KVH
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     vf = v.to(torch.float32)
     for q0 in range(0, Sq, PLAIN_Q_BLOCK):
         n = min(PLAIN_Q_BLOCK, Sq - q0)
         qb = q[:, :, q0:q0 + n].reshape(B, KVH, G, n, D)
-        s, mask = _scores(qb, k, q0, causal, kv_len)
+        s, mask = _scores(qb, k, q0, causal, kv_len, window)
         s = s.masked_fill(~mask, float("-inf"))
         m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
         p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)
         acc = torch.einsum("bkgqs,bksd->bkgqd",
@@ -94,13 +108,17 @@ def flash_attention_plain(q, k, v, *, causal=True, kv_len=None):
     return out
 
 
-def flash_attention_ref(q, k, v, causal=True, kv_len=None):
+def flash_attention_ref(q, k, v, causal=True, kv_len=None, window=None):
     """Oracle (``repro.kernels.ref.flash_attention_ref``): float32 softmax
-    and PV, output in ``q.dtype``; keys at ``kpos >= kv_len`` masked."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len)
+    and PV, output in ``q.dtype``; keys at ``kpos >= kv_len`` and, with a
+    ``window``, at ``kpos <= qpos - window`` masked; 0 for a row that the
+    mask leaves no key, as the kernel stores."""
+    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len, window)
     G = H // KVH
-    s, mask = _scores(q.reshape(B, KVH, G, Sq, D), k, 0, causal, kv_len)
+    s, mask = _scores(q.reshape(B, KVH, G, Sq, D), k, 0, causal, kv_len,
+                      window)
     p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    p = p * mask.any(dim=-1, keepdim=True)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
     return o.reshape(B, H, Sq, D).to(q.dtype)
 
@@ -113,16 +131,19 @@ def _strides_ok(t) -> bool:
             and all(s % 8 == 0 for s in t.stride()[:-1]))
 
 
-def flash_attention(q, k, v, *, causal=True, kv_len=None, out=None):
+def flash_attention(q, k, v, *, causal=True, kv_len=None, window=None,
+                    out=None):
     """q (B, H, Sq, D); k, v (B, KVH, Sk, D) with H = KVH * G; kv_len: None
-    or an int >= 1 (keys at ``kpos >= kv_len`` are masked).  Any strides
-    with a unit stride in D (the model's (B, S, H, D) layout as a permuted
-    view).  ``out``: optional (B, H, Sq, D) view to write, e.g. a permuted
-    view of a (B, Sq, H, D) buffer.  CUDA operands must be bf16 with D in
-    `HEAD_DIMS`."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len)
+    or an int >= 1 (keys at ``kpos >= kv_len`` are masked); window: None
+    or an int >= 1 (keys at ``kpos <= qpos - window`` are masked).  Any
+    strides with a unit stride in D (the model's (B, S, H, D) layout as a
+    permuted view).  ``out``: optional (B, H, Sq, D) view to write, e.g. a
+    permuted view of a (B, Sq, H, D) buffer; the kernel writes its D
+    columns only.  CUDA operands must be bf16 with D in `HEAD_DIMS`."""
+    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len, window)
     if q.device.type == "cpu":
-        o = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+        o = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                  window=window)
         return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
@@ -144,14 +165,13 @@ def flash_attention(q, k, v, *, causal=True, kv_len=None, out=None):
             "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, H, KVH, Sq, kv_end, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], int(bool(causal)),
+            *out.stride()[:3], int(bool(causal)), int(window or 0),
             torch.cuda.current_stream(q.device).cuda_stream)
         flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
-
 
 
 def flash_error_bound(q, k, v, o_plain, *, kv_len=None):

@@ -143,11 +143,12 @@ def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
 
 #: the decode GEMM (``csrc/int8_gemv.cuh``): its column tiles, its K
 #: splits (the cluster sizes), the K bytes of a chunk and the most chunks
-#: of K one block stages, and its warps per block
+#: of K one block stages (K up to 8 x 48 x 64 = 24576, nemotron-4-15b's FFN
+#: input), and its warps per block
 DECODE_BN = (128, 64, 32, 16)
 DECODE_SPLITS = (1, 2, 4, 8)
 DECODE_CHUNK = 64
-DECODE_SPAN = 32
+DECODE_SPAN = 48
 DECODE_WARPS = 8
 #: the decode GEMM takes M up to this
 DECODE_M = 16

@@ -23,7 +23,16 @@ the int8 KV cache.  The hybrid ``--arch zamba2-1.2b`` serves the same way
 prefix cache off); at full width every projection is wider than the
 emission's default ``max_cout=512``, so an artifact emitted with
 ``max_cout=8384`` searches all but the head (106 split_ternary + 1
-quant_matmul launches per forward on diana).
+quant_matmul launches per forward on diana).  The rest of the dense family
+serves the same way: ``--arch h2o-danube-3-4b`` (sliding window 4096, head
+dim 120; a prompt over 2048 tokens in a dense prefill runs the windowed
+flash kernel), ``nemotron-4-15b`` (LayerNorm, squared-ReLU ungated FFN)
+and ``command-r-35b`` (LayerNorm, attention and FFN in parallel, the head
+tied to the embedding and computed as ``h @ emb.T``, never planned); emit
+their artifacts with ``max_cout`` at the widest non-head projection
+(10240, 24576 and 22528) to search every layer but the head.  The JAX
+package's other archs (MoE, MLA, xLSTM, the frontends) are refused with
+what each waits for.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\
@@ -620,7 +629,10 @@ def main(argv=None):
         return serve_cnn(args, args.arch.split(":", 1)[1])
 
     cfgbase.load_all()
-    cfg = cfgbase.get(args.arch)
+    try:
+        cfg = cfgbase.get(args.arch)
+    except KeyError as e:
+        ap.error(f"--arch: {e.args[0]}")
     if args.reduce:
         cfg = cfgbase.reduce_for_smoke(cfg)
     dev = torch.device(args.device)

@@ -147,13 +147,13 @@ def chunked_attention_plain(q, k, v, *, causal, window, q_chunk, k_chunk,
     return out
 
 
-def attention_plain(q, k, v, *, causal, kv_len):
+def attention_plain(q, k, v, *, causal, kv_len, window=None):
     """The flash kernel's plain version on the model layout: what a
     planned backend with ``reference=True`` runs on the card."""
     B, Sq, KVH, G, hd = q.shape
     o = flash_attention_plain(q.reshape(B, Sq, KVH * G, hd).transpose(1, 2),
                               k.transpose(1, 2), v.transpose(1, 2),
-                              causal=causal, kv_len=kv_len)
+                              causal=causal, kv_len=kv_len, window=window)
     return o.transpose(1, 2).reshape(B, Sq, KVH, G, v.shape[-1])
 
 
@@ -166,10 +166,10 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
 
     On the CPU it runs `chunked_attention_plain`.  On a CUDA tensor it
     launches the flash-attention kernel on the model layout through
-    strides (no copy of q, k or v), or, when the installed matmul backend
-    asks for its plain versions (``reference=True``), runs
-    `attention_plain`.  A window or a per-slot ``kv_len`` has no kernel
-    yet and raises NotImplementedError there."""
+    strides (no copy of q, k or v), with the sliding ``window`` when one
+    is given, or, when the installed matmul backend asks for its plain
+    versions (``reference=True``), runs `attention_plain`.  A per-slot
+    ``kv_len`` has no kernel yet and raises NotImplementedError there."""
     B, Sq, KVH, G, hd = q.shape
     Sk = k.shape[1]
     qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
@@ -179,18 +179,19 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
     if q.device.type == "cpu":
         return chunked_attention_plain(q, k, v, causal=causal, window=window,
                                        q_chunk=qc, k_chunk=kc, kv_len=kv_len)
-    if window is not None or isinstance(kv_len, torch.Tensor):
+    if isinstance(kv_len, torch.Tensor):
         raise NotImplementedError(
-            "chunked_attention on the card: a sliding window or per-slot "
-            "kv_len waits for a later slice of the port")
+            "chunked_attention on the card: a per-slot kv_len waits for a "
+            "later slice of the port")
     if getattr(_backend.current(), "reference", False):
-        return attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+        return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                               window=window)
     H = KVH * G
     out = torch.empty((B, Sq, KVH, G, v.shape[-1]), dtype=q.dtype,
                       device=q.device)
     flash_attention(q.reshape(B, Sq, H, hd).transpose(1, 2),
                     k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                    kv_len=kv_len,
+                    kv_len=kv_len, window=window,
                     out=out.view(B, Sq, H, -1).transpose(1, 2))
     return out
 

@@ -47,17 +47,30 @@ def dense(p, x, name=None):
     return y
 
 
-def init_norm(d, dtype=torch.bfloat16, repeats=None, device=None):
+def init_norm(d, dtype=torch.bfloat16, repeats=None, device=None,
+              kind="rmsnorm"):
+    """``{"scale": ones}``, and LayerNorm's ``"bias"`` zeros, stacked on a
+    leading ``repeats`` axis when given."""
     lead = () if repeats is None else (repeats,)
-    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+    return p
 
 
 def norm(p, x, kind="rmsnorm", eps=1e-5):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"{kind} waits for a later slice")
+    """RMSNorm, or LayerNorm (``kind="layernorm"``): mean and variance in
+    float32, then the scale, then the bias when ``p`` has one."""
     xf = x.to(torch.float32)
-    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    else:
+        mu = torch.mean(xf, -1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, -1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * p["scale"].to(torch.float32)
+    if "bias" in p:
+        y = y + p["bias"].to(torch.float32)
     return y.to(x.dtype)
 
 

@@ -1,6 +1,11 @@
 """Config-driven LM assembly (``repro.models.transformer`` counterpart) for
 the dense attention-only ``("attn",)`` pattern and zamba2's hybrid one
-(five Mamba2 blocks, then one shared attention + FFN block).
+(five Mamba2 blocks, then one shared attention + FFN block).  Dense blocks
+take either norm (RMSNorm, or LayerNorm with a bias: ``cfg.norm``), a
+gated or ungated FFN, attention and FFN in parallel on one norm
+(``cfg.parallel_block``: command-r), a sliding window
+(``cfg.sliding_window``: h2o-danube) and a head tied to the embedding
+(``cfg.tie_embeddings``: no ``params["head"]``, logits ``h @ emb.T``).
 
 Params are the JAX package's pytree as a nested dict of tensors: the
 layers are ``pattern_repeats`` repeats of the block pattern, one block per
@@ -71,13 +76,11 @@ SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",))
 
 def _check_supported(cfg: ArchConfig):
     if (cfg.pattern not in SUPPORTED_PATTERNS or cfg.moe is not None
-            or cfg.mla or cfg.frontend or cfg.encoder_layers
-            or cfg.parallel_block or cfg.tie_embeddings
-            or cfg.norm != "rmsnorm"):
+            or cfg.mla or cfg.frontend or cfg.encoder_layers):
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense attention-only ('attn',) "
-            f"archs and zamba2's hybrid pattern; the other families wait "
-            f"for later slices")
+            f"archs and zamba2's hybrid pattern; MoE, MLA, xLSTM, frontends "
+            f"and encoders wait for later slices")
 
 
 def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
@@ -106,13 +109,15 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
     given.  A ``shared_attn`` block holds only its per-use input norm; its
     weights live in ``params["shared"]`` (`init_shared_block`)."""
     dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
-    p = {"norm1": L.init_norm(d, dt, repeats=repeats, device=dev)}
+    nk = dict(repeats=repeats, device=dev, kind=cfg.norm)
+    p = {"norm1": L.init_norm(d, dt, **nk)}
     if kind == "attn":
         p["attn"] = A.init_attn(gen, _attn_cfg(cfg), dt, repeats=repeats)
         if cfg.d_ff:
             p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt,
                                   repeats=repeats)
-            p["norm2"] = L.init_norm(d, dt, repeats=repeats, device=dev)
+            if not cfg.parallel_block:
+                p["norm2"] = L.init_norm(d, dt, **nk)
     elif kind == "mamba":
         p["mamba"] = S.init_mamba2(gen, _mamba_cfg(cfg), dt, repeats=repeats)
     elif kind != "shared_attn":
@@ -125,7 +130,7 @@ def init_shared_block(gen: torch.Generator, cfg: ArchConfig):
     dt, d = _dtype(cfg), cfg.d_model
     return {"attn": A.init_attn(gen, _attn_cfg(cfg), dt),
             "ffn": L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt),
-            "norm2": L.init_norm(d, dt, device=gen.device)}
+            "norm2": L.init_norm(d, dt, device=gen.device, kind=cfg.norm)}
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig):
@@ -133,7 +138,7 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
     package's tree, shapes and scales (the numbers differ: the generators
     do): ``units`` a tuple of one stacked block per pattern position,
     zamba2's ``rem`` a list of its remainder blocks and its ``shared``
-    block."""
+    block; no ``head`` under ``cfg.tie_embeddings``."""
     _check_supported(cfg)
     dt, dev = _dtype(cfg), gen.device
     d, R, period = cfg.d_model, cfg.pattern_repeats, len(cfg.pattern)
@@ -141,12 +146,11 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
                       dtype=torch.float32) * 0.02
     units = tuple(init_block(gen, cfg, kind, repeats=R)
                   for kind in cfg.pattern)
-    params = {
-        "emb": emb.to(dt),
-        "final_norm": L.init_norm(d, dt, device=dev),
-        "head": L.init_dense(gen, d, cfg.vocab, dt, scale=d ** -0.5),
-        "units": units,
-    }
+    params = {"emb": emb.to(dt),
+              "final_norm": L.init_norm(d, dt, device=dev, kind=cfg.norm)}
+    if not cfg.tie_embeddings:
+        params["head"] = L.init_dense(gen, d, cfg.vocab, dt, scale=d ** -0.5)
+    params["units"] = units
     rem = _zamba_remainder(cfg)
     if rem:
         params["rem"] = [init_block(gen, cfg, cfg.pattern[i % period])
@@ -189,7 +193,9 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     fixed names ``"shared/attn"`` and ``"shared/ffn"`` (one copy, many
     call sites).
 
-    ``attn`` / ``shared_attn``: pre-norm GQA + FFN; ``pages`` (B, W)
+    ``attn`` / ``shared_attn``: pre-norm GQA + FFN (under
+    ``cfg.parallel_block`` both read the one norm: ``x + attn + ffn``);
+    ``pages`` (B, W)
     switches the attention KV to the paged pool, where ``length_mask`` (B,
     S) sends the writes of padding (and of masked slots) to the trash
     page.  ``mamba``: a Mamba2 block whose new state is copied into
@@ -213,6 +219,8 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     ao, nc = A.gqa(p["attn"], h, positions, _attn_cfg(cfg), cache=cache,
                    cache_index=cache_index, name=attn_name, chunked=chunked,
                    pages=pages, write_mask=length_mask)
+    if cfg.parallel_block and kind == "attn" and "ffn" in p:
+        return x + ao + L.ffn(p["ffn"], h, cfg.act, ffn_name), nc
     x = x + ao
     if "ffn" in p:
         x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
@@ -254,7 +262,11 @@ def _project_logits(params, cfg: ArchConfig, h):
     installed (planned execution of the head).  A planned head quantizes
     ``h`` to int8, which maps NaN to a finite code: rows of ``h`` that are
     not finite give NaN logits, so that the engine's screen sees a
-    corrupted KV page under a planned backend too."""
+    corrupted KV page under a planned backend too.  A tied head is ``h @
+    emb.T`` in the activation dtype, never planned (as in the JAX
+    package)."""
+    if cfg.tie_embeddings:
+        return L.matmul(h, params["emb"].T).to(torch.float32)
     be = _backend.current()
     if be is not None:
         y = be("head", params["head"], h)

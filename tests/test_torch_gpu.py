@@ -426,12 +426,156 @@ def test_flash_and_chunked_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q48, k48, v48)
     qg = q.transpose(1, 2).reshape(1, 64, 2, 2, 128)
-    with pytest.raises(NotImplementedError, match="window"):
+    with pytest.raises(NotImplementedError, match="kv_len"):
         A.chunked_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
-                            window=16)
+                            kv_len=torch.tensor([64], device=cuda))
+    with pytest.raises(ValueError, match="head dim"):
+        A.chunked_attention(q48.transpose(1, 2).reshape(1, 64, 2, 2, 48),
+                            k48.transpose(1, 2), v48.transpose(1, 2))
     with pytest.raises(ValueError, match="multiple"):
         A.chunked_attention(qg, k.transpose(1, 2), v.transpose(1, 2),
                             q_chunk=48)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n,raw", [(24576, 6144, 90), (22528, 8192, 120),
+                                     (6144, 24576, 361)])
+def test_decode_gemm_at_the_wide_dense_shapes(cuda, m, k, n, raw):
+    """nemotron-4-15b's and command-r-35b's FFN projections at decode: the
+    decode GEMM stages up to 48 chunks of K per block (K 24576 and 22528
+    in 8 splits, K 6144 in 2); quant_matmul and split_ternary (at the raw
+    boundary diana plans, through the kernel) on the K-major codes bit
+    for bit."""
+    x, w, t, sx, sw = _operands(m, k, n, k + m, cuda)
+    wk = w.t().contiguous().t()
+    assert torch.equal(quant_matmul(x, wk, sx, sw),
+                       quant_matmul_plain(x, w, sx, sw))
+    cols = torch.arange(n, device=cuda)[None, :]
+    w_q = torch.where(cols < raw, w, t).to(torch.int8)
+    w_p = pack_ternary(torch.where(cols >= raw, t, 0).to(torch.int8))
+    got = split_ternary(x, w_q.t().contiguous().t(), w_p, sx, sw, raw)
+    assert torch.equal(got, split_ternary_plain(x, w_q, w_p, sx, sw, raw))
+
+
+#: B, H, KVH, Sq, Sk, D, causal, kv_len, window: h2o-danube's head dim
+#: 120 with and without its sliding window, windows that are and are not
+#: multiples of the 128-key tile, ragged Sq / Sk, the window at the other
+#: head dims, and rows that the window and kv_len leave no key (0)
+WINDOW_CASES = [(2, 8, 2, 1024, 1024, 120, True, None, None),
+                (1, 8, 2, 1500, 1500, 120, True, None, 1000),
+                (1, 8, 2, 2048, 2048, 120, True, None, 128),
+                (1, 32, 8, 3000, 3000, 120, True, None, 4096),
+                (2, 4, 2, 390, 517, 120, True, 450, 100),
+                (1, 4, 4, 77, 130, 120, True, 120, None),
+                (1, 4, 2, 300, 400, 120, False, None, 129),
+                (1, 8, 1, 700, 700, 16, True, None, 16),
+                (1, 4, 4, 520, 520, 64, True, None, 300),
+                (1, 4, 2, 600, 600, 128, True, 500, 200),
+                (1, 4, 2, 300, 300, 120, False, 40, 64)]
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,kv_len,window",
+                         WINDOW_CASES)
+def test_flash_attention_window_and_head_dim_120_within_bound(
+        cuda, B, H, KVH, Sq, Sk, D, causal, kv_len, window):
+    q, k, v = _bhsd(B, H, KVH, Sq, Sk, D, cuda, Sq + Sk + (window or 0))
+    q = q * 3   # peaked rows: a wrong key or mask moves the output far
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                 window=window)
+    err = (got.double() - want.double()).abs()
+    bound = flash_error_bound(q, k, v, want, kv_len=kv_len)
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("window", [None, 1000])
+def test_flash_at_head_dim_120_writes_only_its_columns(cuda, window):
+    """In the model's (B, S, H, 120) layout columns 120-127 of head h are
+    the first 8 of head h + 1: the kernel stores 120 columns.  An output
+    view with 8 guard columns after each head, and the model layout with a
+    guard head after the last, keep their guard values."""
+    B, H, KVH, S = 1, 8, 2, 640
+    q, k, v = _bhsd(B, H, KVH, S, S, 120, cuda, 21)
+    want = flash_attention_plain(q, k, v, window=window)
+    buf = torch.full((B, S, H, 128), 7.0, dtype=torch.bfloat16,
+                     device=cuda)
+    flash_attention(q, k, v, window=window,
+                    out=buf[..., :120].transpose(1, 2))
+    model = torch.full((B, S, H + 1, 120), 7.0, dtype=torch.bfloat16,
+                       device=cuda)
+    flash_attention(q, k, v, window=window,
+                    out=model[:, :, :H].transpose(1, 2))
+    torch.cuda.synchronize()
+    assert bool((buf[..., 120:] == 7.0).all())
+    assert bool((model[:, :, H] == 7.0).all())
+    for got in (buf[..., :120].transpose(1, 2),
+                model[:, :, :H].transpose(1, 2)):
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= flash_error_bound(q, k, v, want)).all())
+
+
+@pytest.mark.parametrize("hd,window", [(120, 1000), (128, 300)])
+def test_chunked_attention_launches_flash_with_the_window(cuda, hd, window):
+    """``chunked_attention(window=)`` on the model layout launches the
+    kernel with the window: the numbers of the kernel on contiguous (B, H,
+    S, D) copies; a planned backend asking for plain versions runs
+    `attention_plain` with the window."""
+    rng = np.random.default_rng(9)
+    B, S, KVH, G, Sk = 1, 2048, 2, 4, 3072
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        cuda).to(torch.bfloat16) for s in ((B, S, KVH, G, hd),
+                                           (B, Sk, KVH, hd), (B, Sk, KVH, hd)))
+    before = flash_attention.launches
+    got = A.chunked_attention(q, k, v, kv_len=S, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention(
+        q.reshape(B, S, KVH * G, hd).transpose(1, 2).contiguous(),
+        k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+        kv_len=S, window=window)
+    assert torch.equal(got, want.transpose(1, 2).reshape(got.shape))
+
+    class Plain:
+        reference = True
+    with _backend.use(Plain()):
+        plain = A.chunked_attention(q, k, v, kv_len=S, window=window)
+    assert flash_attention.launches == before + 2
+    assert torch.equal(plain, A.attention_plain(q, k, v, causal=True,
+                                                kv_len=S, window=window))
+
+
+def test_h2o_long_prefill_on_the_card_launches_windowed_flash(cuda):
+    """Reduced h2o-danube (window 16): a 2560-token prefill launches the
+    kernel once per layer, with the window; the logits are finite."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get("h2o-danube-3-4b"))
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 2560), device=cuda,
+                            generator=torch.Generator(device=cuda))
+    windows = []
+    launch = A.flash_attention
+
+    def recording(*args, **kw):
+        windows.append(kw.get("window"))
+        return launch(*args, **kw)
+    A.flash_attention = recording
+    try:
+        before = flash_attention.launches
+        logits, _ = T.prefill(params, cfg, prompts,
+                              T.init_cache(cfg, 2, 3072, device=cuda))
+        torch.cuda.synchronize()
+    finally:
+        A.flash_attention = launch
+    assert flash_attention.launches == before + cfg.n_layers
+    assert windows == [cfg.sliding_window] * cfg.n_layers
+    assert tuple(logits.shape) == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_long_prefill_on_the_card_launches_flash_per_layer(cuda):

@@ -342,6 +342,29 @@ def test_decode_plan_fills_the_card_and_covers_k(m, k, n):
         assert hi - lo <= DECODE_SPAN * DECODE_CHUNK
 
 
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", [(24576, 6144), (22528, 8192), (16448, 64)])
+def test_decode_plan_covers_the_widest_k_in_8_splits(m, k, n):
+    """K past 4 splits of `DECODE_SPAN` chunks (nemotron-4-15b's and
+    command-r-35b's FFN inputs, 24576 and 22528; K 16448): 8 splits, each
+    block's slice within `DECODE_SPAN` chunks, the slices covering K
+    exactly, in order."""
+    from repro_torch.kernels.quant_matmul import (DECODE_CHUNK, DECODE_SPAN,
+                                                  DECODE_WARPS,
+                                                  decode_k_slices,
+                                                  decode_plan)
+    bn, split = decode_plan(m, k, n, 132)
+    assert split == 8 and k > 4 * DECODE_SPAN * DECODE_CHUNK
+    slices = decode_k_slices(k, bn, split)
+    wpg = DECODE_WARPS // (bn // 16)
+    ordered = [slices[(r, w)] for r in range(split) for w in range(wpg)]
+    assert ordered[0][0] == 0 and ordered[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ordered, ordered[1:]))
+    for r in range(split):
+        lo, hi = slices[(r, 0)][0], slices[(r, wpg - 1)][1]
+        assert hi - lo <= DECODE_SPAN * DECODE_CHUNK
+
+
 def test_decode_plan_prefers_wide_tiles_and_few_splits():
     """Two blocks per SM with the widest tile and then the fewest splits;
     where no plan reaches that, the largest grid; M outside 1 .. 16 and K
