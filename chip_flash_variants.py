@@ -6,9 +6,10 @@ against an earlier version of its source, on one H100.
 
 ``DIR`` holds an earlier ``csrc/`` (for example ``git archive <commit>
 src/repro_torch/csrc`` unpacked there).  Each source is built with the
-port's nvcc flags into ``build/flash_variants/<name>/``, its ptxas report
-printed per instantiation (registers, spills), and timed in a process of
-its own (every library carries its own CUDA runtime), in the order
+port's nvcc flags and its instantiated shapes (`flash_attention.SHAPES`,
+which a source from before that list ignores) into
+``build/flash_variants/<name>/``, its ptxas report printed per
+instantiation (registers, spills), and timed in a process of its own (every library carries its own CUDA runtime), in the order
 parent, this, this, parent, so that the two are compared within one call
 on one card:
 
@@ -16,9 +17,11 @@ on one card:
             4096-key cache, kv_len 3072, causal
   zamba2    its long leg's call: B 4, H 32, KVH 32, D 64, Sq = Sk 4096
   h2o       the long leg's call: B 1, H 32, KVH 8, D 120, Sq 8192 in a
-            9216-key cache, kv_len 8192, window 4096 (this source only:
-            the earlier one has no window and no D 120), and the same
-            without the window
+            9216-key cache, kv_len 8192, window 4096 (sources with the
+            window and D 120 only), and the same without the window
+  deepseek  the long leg's call: B 1, H = KVH 16, query / key dim 192,
+            value dim 128, Sq 2560 in a 4096-key cache, kv_len 2560
+            (sources with a value head dim of their own only)
 
 Times are CUDA-event means over 50 launches after 3 warm-up calls, with
 the operands warm in L2.  Each output is held against the plain version
@@ -38,11 +41,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 OUT = ROOT / "build" / "flash_variants"
-#: (tag, B, H, KVH, D, Sq, Sk, kv_len, window)
-CASES = [("yi-9b", 4, 32, 4, 128, 3072, 4096, 3072, None),
-         ("zamba2", 4, 32, 32, 64, 4096, 4096, 4096, None),
-         ("h2o", 1, 32, 8, 120, 8192, 9216, 8192, 4096),
-         ("h2o", 1, 32, 8, 120, 8192, 9216, 8192, None)]
+#: (tag, B, H, KVH, D, Dv, Sq, Sk, kv_len, window)
+CASES = [("yi-9b", 4, 32, 4, 128, 128, 3072, 4096, 3072, None),
+         ("zamba2", 4, 32, 32, 64, 64, 4096, 4096, 4096, None),
+         ("h2o", 1, 32, 8, 120, 120, 8192, 9216, 8192, 4096),
+         ("h2o", 1, 32, 8, 120, 120, 8192, 9216, 8192, None),
+         ("deepseek", 1, 16, 16, 192, 128, 2560, 4096, 2560, None)]
 REPS, WARM = 50, 3
 
 
@@ -55,8 +59,9 @@ def build(sources) -> None:
         d = OUT / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src, d)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{d}", "-o",
-               str(d / "lib.so"), str(d / "flash_attention.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{d}",
+               *_build.include_flags("flash_attention", d / "shapes.h"),
+               "-o", str(d / "lib.so"), str(d / "flash_attention.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
@@ -82,26 +87,34 @@ def time_source(name: str) -> None:
     d = OUT / name
     lib = ctypes.CDLL(str(d / "lib.so"))
     fn = lib.flash_attention_launch
-    windowed = "int window" in (d / "flash_attention.cu").read_text()
+    src = (d / "flash_attention.cu").read_text()
+    windowed = "int window" in src
+    value_dim = "int Dv," in src   # the value head dim is an argument
     sig = list(SIGNATURES["flash_attention"])
+    if not value_dim:
+        del sig[10]
     fn.argtypes = sig if windowed else sig[:-2] + sig[-1:]
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for tag, B, H, KVH, D, sq, sk, kv_len, window in CASES:
-        if (window is not None or D == 120) and not windowed:
+    for tag, B, H, KVH, D, Dv, sq, sk, kv_len, window in CASES:
+        if ((window is not None or D == 120) and not windowed) or \
+                (Dv != D and not value_dim):
             continue
         q = torch.randn((B, H, sq, D), generator=gen, device=dev
                         ).to(torch.bfloat16)
-        k, v = (torch.randn((B, KVH, sk, D), generator=gen, device=dev
-                            ).to(torch.bfloat16) for _ in range(2))
-        o = torch.empty_like(q)
+        k = torch.randn((B, KVH, sk, D), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        v = torch.randn((B, KVH, sk, Dv), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        o = torch.empty((B, H, sq, Dv), dtype=torch.bfloat16, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         tail = ((1, window or 0, stream) if windowed else (1, stream))
+        dims = (D, Dv) if value_dim else (D,)
 
         def call():
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, H, KVH, sq, kv_len, D, *q.stride()[:3],
+                    B, H, KVH, sq, kv_len, *dims, *q.stride()[:3],
                     *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *tail)
             if rc:
                 raise RuntimeError(f"{name}: launch returned {rc}")
@@ -120,8 +133,8 @@ def time_source(name: str) -> None:
                                      window=window)
         ratio = float(((o.double() - want.double()).abs() / flash_error_bound(
             q, k, v, want, kv_len=kv_len)).max())
-        print(f"[time] {name:<6s} {tag:<6s} B={B} H={H} KVH={KVH} D={D} "
-              f"Sq={sq} Sk={sk} kv_len={kv_len} window={window}: "
+        print(f"[time] {name:<6s} {tag:<8s} B={B} H={H} KVH={KVH} D={D} "
+              f"Dv={Dv} Sq={sq} Sk={sk} kv_len={kv_len} window={window}: "
               f"{ms:.4f} ms  error / bound {ratio:.4g}", flush=True)
         if ratio > 1:
             raise SystemExit(f"{name} {tag}: output outside the bound")

@@ -65,7 +65,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    (`DENSE_FIXED_KN`: their FFN projections, K up to 24576, which the
    decode GEMM stages in slices of up to 48 chunks, and nemotron's
    (6144, 256000) head) x M {4, 128}: split_ternary at the planned raw
-   boundary and quant_matmul, bit for bit.  Then the
+   boundary and quant_matmul, bit for bit.  deepseek-v2-lite-16b's
+   shapes (phase 13): split_ternary at its nine (K, N) (`DEEPSEEK_RAW`:
+   wq, kv_a, kv_b, wo, the router, the shared experts' up and down, the
+   first layer's up and down) x M {4, 128, 512} at its planned raw
+   boundaries, through the op and the kernel itself, with both garbage
+   probes, and kv_b also at the rows of the gathered latent it expands on
+   the paged path (`DEEPSEEK_GATHER_MS`); quant_matmul at its head (2048,
+   102400) at M {4, 128}; flash at query / key dim 192 and value dim 128
+   (B 4 and 1, H = KVH 16; `DEEPSEEK_FLASH_CASES`: Sq = Sk 3072, Sq 3000,
+   kv_len 3072 in a 4096 cache), within the bound.  Then the
    entry point of ternary_packed, which no serving path calls, is driven
    once at each of the ten (M, K, N) with the launch counts read around
    that run.
@@ -96,7 +105,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    h2o's long leg's call (q (2, 8192, 8, 4, 120), k / v (2, 9216, 8, 120),
    kv_len 8192, window 4096) x 24 layers and each of `DANUBE_FLASH_CASES`,
    with SDPA through a boolean window mask where there is a window (PyTorch
-   picks a backend that takes a mask; its kernel's name is printed).
+   picks a backend that takes a mask; its kernel's name is printed);
+   deepseek's long leg's call (q (1, 2560, 16, 1, 192), k (1, 4096, 16,
+   192), v (1, 4096, 16, 128) the value half of a (1, 4096, 16, 256) kv_b
+   output as `attention.mla` passes it, kv_len 2560) x 27 layers, SDPA on
+   the same shapes (the kernel its backend ran is printed: PyTorch's flash backend
+   takes no value head dim of its own).
    Then the split sweep: the wgmma GEMM of split_precision and of
    ternary_matmul at M 512 x (4096, 512) at each K split of SWEEP_SPLITS,
    each checked against the plain version and timed as above.
@@ -155,7 +169,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 6. engine: the continuous-batching engine (``repro_torch.serving.Engine``,
    dense KV layout) on the same params and diana artifact, two legs
    (`ENGINE_MIXED`, `ENGINE_LONG`):
-     engine_mixed  ``synthetic_trace(12, vocab=64000, min_prompt=64,
+     engine_mixed  ``synthetic_trace(6, vocab=64000, min_prompt=64,
                    max_prompt=512, min_new=4, max_new=16, seed=--seed)``
                    restamped by ``poisson_arrivals(rate=0.5)``, 4 slots of
                    1024 positions: slots retire and refill while others
@@ -234,7 +248,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
 9. planset: the precision bank (`runtime.PlanSet`) over the same params,
    ``{"target": diana, "draft": diana_ternary}`` from phase 5's
    artifacts, served with the config's bf16 KV cache (`PLANSET`: one
-   seeded trace of 6 requests, prompts 64-256, 8-16 new tokens, Poisson
+   seeded trace of 5 requests, prompts 64-256, 8-16 new tokens, Poisson
    arrivals at 0.5 per step, 4 slots of 1024, pages of 16, chunks of 32):
      bank         bind time, peak memory, `memory_report()`; every layer
                   bound in both variants (`PLANSET_HISTS`) and
@@ -250,9 +264,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                   = the tokens committed, tokens against target-only under
                   the margin rule (the distance read from each verify
                   chunk's logits against target-only's at the same
-                  position and history); acceptance, rounds, TTFT, decode
-                  tok/s and idle share (recorded and profiled runs) beside
-                  target-only's;
+                  position and history); acceptance, rounds, TTFT and
+                  decode tok/s beside target-only's (no profiled run, for
+                  the script's time limit: its idle share is not
+                  measured);
      slo          ``slo_routes={"interactive": "draft", "batch":
                   "target"}``, classes alternating by request: each
                   request against its variant's run, ``by_slo`` with both
@@ -285,7 +300,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                          launches = 19 x `ZAMBA_HIST`, 0 weight copies,
                          tokens against the plain run by the margin rule;
                          a warm run;
-     engine_paged_mixed  engine_mixed's trace (at vocab 32000) cut to 8
+     engine_paged_mixed  engine_mixed's trace (at vocab 32000) cut to 4
                          requests (`ZAMBA_MIXED`) through the
                          paged engine (the prefix cache off: recurrent
                          state is not page-resident), and engine_mixed
@@ -319,8 +334,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    ``diana``: ``SearchPipeline(cnn_handle(cfg), "diana",
    config=SearchConfig(lam, objective="latency"), device="cuda")`` with
    the port's synthetic image stream drawn on the card, SearchConfig's
-   batch 64 and 8 eval batches and its steps halved (`SEARCH_STEPS`: 150
-   pretrain, 200 search, 150 finetune), at lambda 5e-7 and 1e-9 (same
+   batch 64 and 8 eval batches and a quarter of its steps (`SEARCH_STEPS`:
+   75 pretrain, 100 search, 75 finetune), at lambda 5e-7 and 1e-9 (same
    seed): per stage its wall and
    first / last loss, the search's last task / reg losses and tau, then
    accuracy, exact latency (cycles), energy, the aimc channel share and
@@ -344,7 +359,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                 the first forward's calls checked as made, tokens and
                 prefill logits identical to the plain run's),
                 engine_paged_mixed (prefix cache on; `DANUBE_MIXED`:
-                engine_mixed's trace cut to 6 requests, against its plain
+                engine_mixed's trace cut to 4 requests, against its plain
                 run by the margin rule), and long (`DANUBE_LONG`: 1 x 8192
                 + 8 in a 9216-slot cache, one dense prefill at M 8192: 24
                 flash calls at D 120 with the window, each within the bound
@@ -364,7 +379,25 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    Each fixed batch: launches = 19 x the histogram, 0 weight copies, the
    first chunk's calls bit-identical to the plain versions, tokens and
    prefill logits identical to the plain run's.
-13. one JSON line of kernel records, the nvidia-smi line, and the contract
+13. deepseek: deepseek-v2-lite-16b at full width and depth (27 layers:
+   layer 0 a dense FFN of 10944, then 26 MLA + MoE blocks of 64 routed
+   experts top-6 and 2 shared; ~15.7 B random bf16 params from --seed,
+   int8 latent cache), emitted on diana at ``max_cout=10944`` (every
+   projection but the head mixed: `DEEPSEEK_HIST` = 215 split_ternary + 1
+   quant_matmul per prefill or chunk forward, `DEEPSEEK_DECODE_HIST` =
+   188 + 1 per decode forward, whose absorbed MLA folds kv_b's weight);
+   legs fixed (serve_batch 4 x 128 + 16: launches = 4 x the chunk
+   histogram + 15 x the decode one, the first chunk's calls checked as
+   made, tokens and prefill logits identical to the plain run's),
+   engine_paged_mixed (`DEEPSEEK_MIXED`, 4 requests; the prefix cache
+   off, as in the JAX package under MoE; the (token, k) pairs capacity
+   dropped over the recorded run; against its plain run by the margin
+   rule) and long (`DEEPSEEK_LONG`: 1 x 2560 + 4 in a 4096-slot cache, one
+   dense prefill whose 27 layers launch flash at 192 / 128, each call
+   within the bound on its own inputs; the prefill logits within
+   SENSITIVITY_FACTOR x the float64-attention plain run's distance, tokens
+   by the margin rule).  The model is freed before the last lines.
+14. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -476,8 +509,12 @@ LAUNCH_PATH = {"quant_matmul": "diana", "split_ternary": "diana",
 #: the engine phase's traffic on the diana artifact (engine_mixed: mixed
 #: prompt lengths and Poisson arrivals, slots retire and refill while
 #: others decode; engine_long: one admission group whose prefill pads to
-#: 4096 tokens and takes the chunked (flash) attention)
-ENGINE_MIXED = dict(requests=12, min_prompt=64, max_prompt=512, min_new=4,
+#: 4096 tokens and takes the chunked (flash) attention).  engine_mixed is
+#: cut from 12 requests to 6 for the script's time limit, after the newest
+#: phases' traffic was cut: with 12 the script ran 1229.4 s on one H100
+#: host and 1041.8 s on another; with 8 (and the cuts below) 1148.5 s on a
+#: host whose phases ran 1.3x those of the 1041.8 s one
+ENGINE_MIXED = dict(requests=6, min_prompt=64, max_prompt=512, min_new=4,
                     max_new=16, rate=0.5, max_batch=4, max_len=1024,
                     kv_layout="dense")
 ENGINE_LONG = dict(prompts=(3000, 3000, 200, 200), new=8, max_batch=4,
@@ -513,12 +550,14 @@ CNN_HIST = {
                                          "split_precision": 14},
 }
 #: the int8 kernels a CNN path runs, and its timed warm forwards
-#: the planset phase's traffic: one seeded trace for every leg (6
-#: requests, cut from 8 to hold the phase near 150 s on the card; prompts
+#: the planset phase's traffic: one seeded trace for every leg (5
+#: requests, cut from 8 to hold the phase near 150 s on the card, then
+#: from 6 for the script's time limit; fewer would leave the degrade leg
+#: no request admitted after its transition; prompts
 #: 64-256, 8-16 new tokens, Poisson arrivals at 0.5 per step), 4 slots of
 #: 1024 positions in pages of 16, chunks of 32; the faults leg's
 #: heartbeat deadline in steps
-PLANSET = dict(requests=6, min_prompt=64, max_prompt=256, min_new=8,
+PLANSET = dict(requests=5, min_prompt=64, max_prompt=256, min_new=8,
                max_new=16, rate=0.5, max_batch=4, max_len=1024,
                page_size=16, prefill_chunk=32, draft_k=4,
                heartbeat_steps=4)
@@ -569,13 +608,14 @@ ZAMBA_FLASH_CASES = [(3072, 3072, True, None), (3000, 3000, True, None),
                      (LONG_PROMPT, LONG_CACHE, True, LONG_PROMPT),
                      (ZAMBA_LONG_SQ, ZAMBA_LONG_SQ, True, ZAMBA_LONG_SQ)]
 #: the zamba2 phase's traffic: the fixed batch is phase 5's; the engine
-#: legs are engine_paged_mixed's and engine_mixed's cut to 8 requests
-#: (the script's time limit, once phase 12 came: the traffic of phase 12
-#: was cut first); the long leg is engine_long's; the bank serves the
-#: planset phase's trace shape
-ZAMBA_MIXED = dict(ENGINE_MIXED, requests=8)
+#: legs are engine_paged_mixed's and engine_mixed's cut to 4 requests
+#: (the script's time limit: to 8 once phase 12 came, to 4 once phase 13
+#: came, each after the newer phase's traffic was cut); the long leg is
+#: engine_long's; the bank serves the planset phase's trace shape at its
+#: 6 requests
+ZAMBA_MIXED = dict(ENGINE_MIXED, requests=4)
 ZAMBA_LONG = dict(ENGINE_LONG)
-ZAMBA_BANK = dict(PLANSET)
+ZAMBA_BANK = dict(PLANSET, requests=6)
 #: h2o-danube-3-4b (phase 12), full width and depth: 24 layers, d_model
 #: 3840, 32 heads / 8 KV of head dim 120, d_ff 10240, vocab 32000, the
 #: sliding window 4096.  Emitted with max_cout 10240 (the FFN's width):
@@ -592,11 +632,12 @@ DANUBE_HIST = {"quant_matmul": 1, "split_ternary": 168}
 #: split_ternary / quant_matmul checked at these M: decode, a paged chunk
 #: (4 x 32) and the fixed batch's 512
 DANUBE_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
-#: the phase's engine traffic: engine_mixed's trace cut to 6 requests,
+#: the phase's engine traffic: engine_mixed's trace cut to 4 requests,
 #: through the paged engine only (the script's time limit: with 12
 #: requests through both layouts and 2 long prompts the script ran 1128 s
-#: and 1290 s of its 1200 s on two H100 hosts)
-DANUBE_MIXED = dict(ENGINE_MIXED, requests=6)
+#: and 1290 s of its 1200 s on two H100 hosts; cut from 6 to 4 once phase
+#: 13 came)
+DANUBE_MIXED = dict(ENGINE_MIXED, requests=4)
 #: the long leg: 1 request x 8192 prompt + 8 new in a 9216-slot cache (a
 #: multiple of 1024, as the chunked prefill needs), one dense admission
 #: group bucketed at 8192: one prefill at M 8192 whose 24 layers launch
@@ -654,18 +695,77 @@ DENSE_FIXED = {
 DENSE_FIXED_KN = [(6144, 24576), (24576, 6144), (6144, 256000),
                   (8192, 22528), (22528, 8192)]
 DENSE_FIXED_MS = (DECODE_M, REQUESTS * CHUNK)
+#: deepseek-v2-lite-16b (phase 13), full width and depth: 27 layers (layer
+#: 0 a dense FFN of 10944, then 26 MLA + MoE blocks: 64 routed experts
+#: top-6 of d_ff 1408 and 2 shared), d_model 2048, 16 heads, MLA latent
+#: 512 + rope 64 (query / key dim 128 + 64, value dim 128), vocab 102400.
+#: Emitted with max_cout 10944 (the first layer's FFN width): diana's
+#: min-cost split searches every projection but the 102400-wide head and
+#: mixes all of them (raw boundaries from the cost model, computed on the
+#: CPU), so a prefill or chunk forward is 26 x 8 (wq, kv_a, kv_b, wo, the
+#: router, the shared experts' gate / up / down) + 7 (the first layer's
+#: attention and FFN) split_ternary + 1 quant_matmul; the absorbed decode
+#: folds kv_b's weight instead of running its planned layer, so a decode
+#: forward launches 27 split_ternary fewer.  The routed experts' einsums
+#: are torch.einsum in bf16, as in the JAX package (jnp, no Pallas kernel)
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_MAX_COUT = 10944
+DEEPSEEK_RAW = {(2048, 3072): 45, (2048, 576): 15, (512, 4096): 60,
+                (2048, 2048): 30, (2048, 64): 7, (2048, 2816): 45,
+                (2816, 2048): 30, (2048, 10944): 165, (10944, 2048): 30}
+#: the planned layer of repeat 0 (or of the first layer) each (K, N) of
+#: `DEEPSEEK_RAW` is read from
+DEEPSEEK_LAYERS = ("units/0/attn/wq@0", "units/0/attn/kv_a@0",
+                   "units/0/attn/kv_b@0", "units/0/attn/wo@0",
+                   "units/0/moe/router@0", "units/0/moe/shared/up@0",
+                   "units/0/moe/shared/down@0", "first_dense/ffn/up",
+                   "first_dense/ffn/down")
+DEEPSEEK_HEAD = (2048, 102400)
+DEEPSEEK_HIST = {"quant_matmul": 1, "split_ternary": 215}
+DEEPSEEK_DECODE_HIST = {"quant_matmul": 1, "split_ternary": 188}
+#: split_ternary checked at these M (decode, a paged chunk, the fixed
+#: batch's 512) and kv_b also at the rows of the latent it expands on the
+#: paged path: slots x slot capacity (the fixed batch's 4 x 144, the mixed
+#: leg's 4 x 1024)
+DEEPSEEK_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
+DEEPSEEK_GATHER_MS = (REQUESTS * (PROMPT_LEN + GEN_LEN), REQUESTS * 1024)
+#: the phase's engine traffic: engine_mixed's trace cut to 4 requests,
+#: through the paged engine only (prefix cache off under MoE); the
+#: script's time limit: with h2o's 6 requests the phase ran 73.9 s on an
+#: H100, 60 s of it in the engine legs, which put the script at ~1085 s
+#: on the host of PR 25's final 1000.9 s call, over its ~1080 s budget
+DEEPSEEK_MIXED = dict(ENGINE_MIXED, requests=4)
+#: the long leg: 1 request x 2560 prompt + 4 new in a 4096-slot cache, one
+#: dense admission group bucketed at 2560: one prefill at M 2560 (over
+#: 2048, so chunked) whose 27 layers launch flash at query / key dim 192,
+#: value dim 128; cut from 3072 for the script's time limit (with 3072 and
+#: the 4-request trace the script ran 1081.5 s on an H100, over its ~1080 s
+#: budget)
+DEEPSEEK_LONG = dict(prompts=(2560,), new=4, max_batch=1, max_len=4096,
+                     prefill_bucket=2560, kv_layout="dense")
+DEEPSEEK_DIMS = (192, 128)
+#: MLA's rope part of the query / key dim (192 = 128 nope + 64 rope)
+DEEPSEEK_ROPE = 64
+#: flash_attention at deepseek's heads (H = KVH 16, D 192, Dv 128), B 4
+#: and 1: (Sq, Sk, kv_len), causal: Sq = Sk 3072, a ragged Sq 3000, kv_len
+#: 3072 in a 4096 cache
+DEEPSEEK_FLASH_HEADS = [(REQUESTS, 16, 16, 192), (1, 16, 16, 192)]
+DEEPSEEK_FLASH_CASES = [(3072, 3072, None), (3000, 3000, None),
+                        (3072, 4096, 3072)]
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
 #: the search phase: full-width ResNet20 on diana, the latency objective
 #: at two lambdas (the deployed mapping's first), SearchConfig's batch 64
-#: and 8 eval batches, its steps (300 / 400 / 300) halved in both runs: an
-#: eager search step is ~21,500 ATen calls, ~100 ms of host time on the
-#: card, and the phase has ~120 s (at four fifths of the steps it took
-#: 132 s); and the deploy forward's batch
+#: and 8 eval batches, a quarter of its steps (300 / 400 / 300) in both
+#: runs: an eager search step is ~21,500 ATen calls, ~100 ms of host time
+#: on the card (at four fifths of the steps the phase took 132 s; halved,
+#: 91.7-131.8 s over four H100 hosts, before the script's time limit asked
+#: for the second halving; a CPU run at a quarter keeps the lambda check's
+#: latency ratio at 0.25); and the deploy forward's batch
 SEARCH_LAMS = (5e-7, 1e-9)
-SEARCH_STEPS = dict(pretrain_steps=150, search_steps=200,
-                    finetune_steps=150)
+SEARCH_STEPS = dict(pretrain_steps=75, search_steps=100,
+                    finetune_steps=75)
 SEARCH_DEPLOY_BATCH = 256
 #: the paged_update call (0-based, 96 per forward: k and v of 48 layers)
 #: whose inputs each paged leg holds against the CPU: layer 5's k in the
@@ -890,13 +990,16 @@ def bound_ms(m, k, n, weight_bytes, int8_cols=None, bf16_cols=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bound_ms(B, H, KVH, Sq, kv_end, D, causal=True, window=None):
+def flash_bound_ms(B, H, KVH, Sq, kv_end, D, causal=True, window=None,
+                   Dv=None):
     """Least time of the H100 SXM for one flash_attention call, and what
-    bounds it: 4 * D bf16 flops per attended (query, key) pair (``sum_i
-    min(i + 1, window, kv_end)`` per head when causal; D the real head
-    dim, 120 for h2o-danube, not the 128 the kernel lays it out as)
-    against q read and o written once plus the k / v rows some query reads
-    (``min(kv_end, Sq)`` when causal), all bf16."""
+    bounds it: 2 * (D + Dv) bf16 flops per attended (query, key) pair
+    (``sum_i min(i + 1, window, kv_end)`` per head when causal; D the real
+    query / key head dim, 120 for h2o-danube, not the 128 the kernel lays
+    it out as; Dv the value head dim, D unless given: 128 beside MLA's
+    192) against q read and o written once plus the k / v rows some query
+    reads (``min(kv_end, Sq)`` when causal), all bf16."""
+    Dv = D if Dv is None else Dv
     if causal:
         full = min(Sq, kv_end)
         rows = full
@@ -907,24 +1010,26 @@ def flash_bound_ms(B, H, KVH, Sq, kv_end, D, causal=True, window=None):
                             + 1) for i in range(Sq))
     else:
         pairs, rows = Sq * kv_end, kv_end
-    t_ops = 4.0 * D * B * H * pairs / BF16_FLOPS_PER_S * 1e3
-    nbytes = 2 * (2 * B * H * Sq * D + 2 * B * KVH * rows * D)
+    t_ops = 2.0 * (D + Dv) * B * H * pairs / BF16_FLOPS_PER_S * 1e3
+    nbytes = 2 * (B * H * Sq * (D + Dv) + B * KVH * rows * (D + Dv))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_operands(torch, B, H, KVH, Sq, Sk, D, gen, layout="bhsd"):
+def flash_operands(torch, B, H, KVH, Sq, Sk, D, gen, layout="bhsd",
+                   Dv=None):
     """bf16 q, k, v with q ~ N(0, 9) (so that each softmax row is peaked,
     as a trained model's are, and a wrong key or mask moves the output by
     far more than the bound), k, v ~ N(0, 1); ``layout`` "bhsd": q (B, H,
     Sq, D), k / v (B, KVH, Sk, D); "model": q (B, Sq, KVH, G, D), k / v
-    (B, Sk, KVH, D)."""
+    (B, Sk, KVH, D).  v's head dim is ``Dv`` when given (MLA: 128 beside
+    D 192)."""
     dev = gen.device
     shapes = ((B, H, Sq, D), (B, KVH, Sk, D)) if layout == "bhsd" else \
         ((B, Sq, KVH, H // KVH, D), (B, Sk, KVH, D))
     q = torch.randn(shapes[0], generator=gen, device=dev) * 3.0
     k = torch.randn(shapes[1], generator=gen, device=dev)
-    v = torch.randn(shapes[1], generator=gen, device=dev)
+    v = torch.randn(shapes[1][:-1] + (Dv or D,), generator=gen, device=dev)
     return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
@@ -1274,6 +1379,46 @@ def phase_kernels(torch, gen):
         print(f"[kernels] flash_attention {what}: max |err| {err:.4g} = "
               f"{ratio:.4g} of the bound")
         del q, k, v, got
+    # deepseek-v2-lite's projections on diana (phase 13): split_ternary at
+    # its planned raw boundaries, through the op and the kernel itself,
+    # with both garbage probes; kv_b also at the gathered latent's rows;
+    # quant_matmul at its head; flash at query / key dim 192, value 128
+    for m in DEEPSEEK_MS:
+        for (k, n), raw in DEEPSEEK_RAW.items():
+            split_probes(m, k, n, raw, "K-major", quiet=True,
+                         kernel_raw=True)
+        print(f"[kernels] deepseek M={m:<4d}: split_ternary at "
+              f"{len(DEEPSEEK_RAW)} (K, N) at their raw boundaries "
+              + ", ".join(f"{k}x{n}:{raw}" for (k, n), raw in
+                          DEEPSEEK_RAW.items()) +
+              " (aligned, and raw through the kernel), both garbage probes, "
+              "bit-identical")
+    for m in DEEPSEEK_GATHER_MS:
+        split_probes(m, 512, 4096, DEEPSEEK_RAW[(512, 4096)], "K-major",
+                     quiet=True, kernel_raw=True)
+        print(f"[kernels] deepseek kv_b over the gathered latent M={m}: "
+              f"split_ternary bit-identical")
+    for m in (DECODE_M, REQUESTS * CHUNK):
+        x, w_q, _, sx, sw = operands(m, *DEEPSEEK_HEAD, DEEPSEEK_HEAD[1],
+                                     gen)
+        exact("quant_matmul", ops.quant_matmul_op(
+            x, w_q.t().contiguous().t(), sx, sw),
+            quant_matmul_plain(x, w_q, sx, sw),
+            f"deepseek head M={m} K={DEEPSEEK_HEAD[0]} "
+            f"N={DEEPSEEK_HEAD[1]} K-major")
+        del x, w_q
+    dv = DEEPSEEK_DIMS[1]
+    for (B, H, KVH, D), (Sq, Sk, kv_len) in itertools.product(
+            DEEPSEEK_FLASH_HEADS, DEEPSEEK_FLASH_CASES):
+        q, k, v = flash_operands(torch, B, H, KVH, Sq, Sk, D, gen, Dv=dv)
+        got = ops.flash_attention(q, k, v, causal=True, kv_len=kv_len)
+        what = (f"B={B} H={H} KVH={KVH} D={D} Dv={dv} Sq={Sq} Sk={Sk} "
+                f"causal kv_len={kv_len}")
+        err, ratio = check_flash(torch, q, k, v, got, True, kv_len, what)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        print(f"[kernels] flash_attention {what}: max |err| {err:.4g} = "
+              f"{ratio:.4g} of the bound")
+        del q, k, v, got
     flash_sets = [(FLASH_HEADS, FLASH_CASES),
                   (ZAMBA_FLASH_HEADS, ZAMBA_FLASH_CASES)]
     for (B, H, KVH, D), Sq, Sk, causal, kv_len in (
@@ -1546,7 +1691,6 @@ def sdpa_masked(torch, q, k, v, kv_end, window):
     name of its longest device kernel in one profiled call: PyTorch's
     flash backend takes no mask, so another backend runs it)."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     Sq = q.shape[2]
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(kv_end, device=q.device)[None, :]
@@ -1556,34 +1700,47 @@ def sdpa_masked(torch, q, k, v, kv_end, window):
     def lib():
         return F.scaled_dot_product_attention(q, kh, vh, attn_mask=mask,
                                               enable_gqa=True)
-    lib()
+    return lib, longest_kernel(torch, lib)
+
+
+def longest_kernel(torch, fn):
+    """The name of the device kernel that takes the longest in one
+    profiled call of ``fn`` (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lib()
+        fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == cuda:
             kernels[e.name()] = kernels.get(e.name(), 0) + e.duration_ns()
-    name = max(kernels, key=kernels.get) if kernels else "not measured"
-    return lib, name
+    return max(kernels, key=kernels.get) if kernels else "not measured"
 
 
 def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
-                      sk=LONG_CACHE, window=None):
+                      sk=LONG_CACHE, window=None, dv=None):
     """Times of a long prefill's flash_attention call as the path makes it
     (`attention.chunked_attention` on the model layout, bf16, causal,
-    kv_len ``sq``, the sliding ``window`` if any; by default diana_long's:
-    q (4, 3072, 4, 8, 128), k / v (4, 4096, 4, 128)), its plain version on
-    the same layout, and scaled_dot_product_attention (causal, GQA; with a
-    window through a boolean mask, `sdpa_masked`) over the ``sq`` keys the
-    call reads; returns the record."""
+    kv_len ``sq``, the sliding ``window`` if any, value head dim ``dv`` if
+    it is not D, with v the value half of a (B, Sk, H, (D - 64) + dv)
+    buffer, as `attention.mla` slices it from kv_b's output; by default
+    diana_long's: q (4, 3072, 4, 8, 128), k / v (4, 4096, 4, 128)), its
+    plain version on the same layout, and
+    scaled_dot_product_attention (causal, GQA; with a window through a
+    boolean mask, `sdpa_masked`) over the ``sq`` keys the call reads; with
+    ``dv`` the name of the kernel SDPA's backend ran (its flash backend
+    may refuse Ev != E); returns the record."""
     import torch.nn.functional as F
     from repro_torch.models import attention as A
     B, H, KVH, D = heads
     q, k, v = flash_operands(torch, B, H, KVH, sq, sk, D, gen,
-                             layout="model")
+                             layout="model", Dv=dv)
+    if dv is not None:   # MLA: kv_b's output is k_nope ‖ v per head
+        v = torch.cat([k[..., :D - DEEPSEEK_ROPE], v], dim=-1)[
+            ..., D - DEEPSEEK_ROPE:]
 
     def run():
         return A.chunked_attention(q, k, v, kv_len=sq, window=window)
@@ -1602,13 +1759,17 @@ def phase_flash_times(torch, gen, heads=FLASH_HEADS, sq=LONG_PROMPT,
     if window is not None:
         lib, rec["library_kernel"] = sdpa_masked(torch, qh, kh, vh, sq,
                                                  window)
+    elif dv is not None:
+        rec["library_kernel"] = longest_kernel(torch, lib)
     for key, xs in graph_rounds({"ms": run, "library_ms": lib}, 5).items():
         spread(rec, key, xs)
     rec["bound_ms"], rec["bound_by"] = flash_bound_ms(B, H, KVH, sq, sq, D,
-                                                      window=window)
-    lib_what = ("" if window is None else
-                f" (masked, kernel {rec['library_kernel'][:60]})")
-    print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Sq="
+                                                      window=window, Dv=dv)
+    lib_what = ("" if "library_kernel" not in rec else
+                f" ({'masked, ' if window else ''}kernel "
+                f"{rec['library_kernel'][:60]})")
+    print(f"[times] flash_attention B={B} H={H} KVH={KVH} D={D} Dv="
+          f"{dv or D} Sq="
           f"{sq} Sk={sk} kv_len={sq} window={window} causal{lib_what}: "
           f"kernel {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
           f"{rec['max_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  sdpa "
@@ -2905,20 +3066,20 @@ def check_paged_capture(torch, tag, store):
 
 
 def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
-              engine=None):
+              engine=None, decode_hist=None):
     """A recorded paged run: launch counts (each planned kernel once per
-    chunk call and decode step, flash never), weight copies, finish
-    reasons, the captured paged_update call against the CPU; returns
-    (engine, results, tokens, first, margins, stats)."""
+    chunk call and decode step, flash never; ``decode_hist`` per decode
+    step where it is not ``hist``), weight copies, finish reasons, the
+    captured paged_update call against the CPU; returns (engine, results,
+    tokens, first, margins, stats)."""
     calls, store = [], {}
     with capturing_paged_update(store, CAPTURE_CALL):
         engine, results, launches = engine_run(
             torch, cfg, params, backend, trace, leg, calls, engine)
     st = dict(engine.stats)
     forwards = st["prefill_calls"] + st["decode_steps"]
-    want = dict.fromkeys(KERNELS, 0)
-    for kernel, count in hist.items():
-        want[kernel] += count * forwards
+    want = forward_launches(hist, st["prefill_calls"], st["decode_steps"],
+                            decode_hist)
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches}, expected {want} "
                              f"({st['prefill_calls']} chunk calls + "
@@ -2935,7 +3096,7 @@ def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
     del calls
     print(f"[engine:{tag}] recorded run {st['wall_s']:.3f} s: every request "
           f"finished; launches " + " ".join(
-              f"{k} {v} ({v // forwards} per forward)"
+              f"{k} {v} ({v / forwards:g} per forward)"
               for k, v in launches.items() if v) +
           f" over {st['prefill_calls']} chunk calls + {st['decode_steps']} "
           f"decode steps (flash 0: chunks attend through full_attention); "
@@ -3502,11 +3663,11 @@ def phase_planset(torch, cfg, params, seed, smi):
           f"{leg['max_batch']}, max_len {leg['max_len']}, page_size "
           f"{leg['page_size']}, prefill_chunk {leg['prefill_chunk']}")
 
-    def profiled(**kw):
+    def profiled():
         def run():
             _, _, _, _, r = planset_run(torch, "profiled", cfg, params,
                                         bank, hists, trace, smi,
-                                        record=False, **kw)
+                                        record=False)
             return r["wall_s"] * 1e3
         return run
 
@@ -3595,10 +3756,10 @@ def phase_planset(torch, cfg, params, seed, smi):
                     (lg[b, j] - ref["seqs"][rid][t]).abs().max()))
     compared, total = follow_rule(torch, "spec vs target_only", res, ref,
                                   dists)
-    busy = profile_device(torch, "planset:spec", profiled(**spec_kw))
-    rec.update(device_busy_ms=busy,
-               idle_share=1.0 - busy / (rec["wall_s"] * 1e3),
-               spec_rounds=st["spec_rounds"],
+    # no profiled run of this leg (the script's time limit: ~70 s on a
+    # slow host, the events of ~1.2 M launches included); its idle share
+    # is not measured
+    rec.update(spec_rounds=st["spec_rounds"],
                spec_drafted=st["spec_drafted"],
                spec_accepted=st["spec_accepted"],
                spec_committed=st["spec_committed"],
@@ -3619,8 +3780,7 @@ def phase_planset(torch, cfg, params, seed, smi):
         f"{t_only['ttft_p50_s'] * 1e3:.3f} ms, p95 "
         f"{rec['ttft_p95_s'] * 1e3:.3f} / {t_only['ttft_p95_s'] * 1e3:.3f} "
         f"ms, decode tok/s {rec['decode_tok_s']:.3f} / "
-        f"{t_only['decode_tok_s']:.3f}, idle share {rec['idle_share']:.3f} "
-        f"/ {t_only['idle_share']:.3f} ({time.perf_counter() - t_leg:.1f} "
+        f"{t_only['decode_tok_s']:.3f} ({time.perf_counter() - t_leg:.1f} "
         f"s; {smi})")
     out["spec"] = rec
 
@@ -3737,6 +3897,45 @@ def phase_planset(torch, cfg, params, seed, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def forward_launches(hist, calls, steps, decode_hist=None):
+    """Launches of ``calls`` prefill or chunk forwards at ``hist`` and
+    ``steps`` decode steps at ``decode_hist`` (``hist`` unless given:
+    deepseek's absorbed decode runs no kv_b)."""
+    want = dict.fromkeys(KERNELS, 0)
+    for h, n in ((hist, calls), (decode_hist or hist, steps)):
+        for kernel, count in h.items():
+            want[kernel] += count * n
+    return want
+
+
+def counting_drops(counts):
+    """Context: every MoE dispatch (`moe.dispatch`) adds the (token, k)
+    pairs of valid tokens that capacity dropped to ``counts["dropped"]``
+    and all valid pairs to ``counts["pairs"]`` (device tensors, read once
+    after the run); the dispatch is unchanged."""
+    import contextlib
+    from repro_torch.models import moe as M
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = M.dispatch
+
+        def counting(probs, cfg, length_mask=None):
+            out = orig(probs, cfg, length_mask)
+            onehot, keep = out[2], out[4]
+            valid = onehot.sum(-1) > 0
+            counts["dropped"] = counts.get("dropped", 0) + \
+                (valid & ~keep).sum()
+            counts["pairs"] = counts.get("pairs", 0) + valid.sum()
+            return out
+        M.dispatch = counting
+        try:
+            yield
+        finally:
+            M.dispatch = orig
+    return ctx()
 
 
 def zamba_launches(tag, launches, want, forwards):
@@ -3967,21 +4166,24 @@ def phase_zamba(torch, seed, smi, device="cuda"):
     return out
 
 
-def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits):
+def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
+                decode_hist=None):
     """``serve_batch`` of the fixed traffic (REQUESTS x PROMPT_LEN +
     GEN_LEN, the paged engine: 4 chunk calls and 15 decode steps) with the
     first ``limits[kernel]`` calls of each int8 kernel held bit for bit
     against the plain version as they are made, launches = ``hist`` x the
-    forwards, 0 weight copies; then the plain run (``reference=True``):
-    tokens and prefill logits identical.  Returns the record."""
+    chunk calls + ``decode_hist`` (default ``hist``) x the decode steps, 0
+    weight copies; then the plain run (``reference=True``): tokens and
+    prefill logits identical.  Returns the record."""
     from repro_torch.launch.serve import serve_batch
-    forwards = -(-PROMPT_LEN // CHUNK) + GEN_LEN - 1
+    chunks = -(-PROMPT_LEN // CHUNK)
+    forwards = chunks + GEN_LEN - 1
     checked, calls = {}, []
     reset_launches()
     with checking_matmuls(checked, limits), recording_logits(calls):
         tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
                                     backend=backend)
-    want = {k: hist.get(k, 0) * forwards for k in KERNELS}
+    want = forward_launches(hist, chunks, GEN_LEN - 1, decode_hist)
     got = zamba_launches(tag, kernel_launches(), want, forwards)
     if {k: n for k, (n, _) in checked.items() if n} != {
             k: limits[k] for k in hist}:
@@ -4008,9 +4210,11 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits):
         raise AssertionError(f"{tag}: kernel and plain runs disagree (max "
                              f"|diff| of the prefill logits "
                              f"{float((first - ref_first).abs().max())})")
+    per = (f"{hist} per forward" if decode_hist is None else
+           f"{hist} per chunk call, {decode_hist} per decode step")
     print(f"[{tag}] {REQUESTS} x {PROMPT_LEN} + {GEN_LEN} through "
           f"serve_batch (paged engine, {forwards} forwards): launches {got} "
-          f"({hist} per forward), weights copied per call 0; the first "
+          f"({per}), weights copied per call 0; the first "
           + " and the first ".join(f"{n} {k} calls (largest M {m})"
                                    for k, (n, m) in checked.items() if n) +
           f" bit-identical to the plain version on their own inputs; "
@@ -4032,7 +4236,7 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits):
 
 
 def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
-               prefix_cache, dense=True):
+               prefix_cache, dense=True, decode_hist=None):
     """``leg``'s trace (engine_mixed's shape) through the paged engine
     (engine_paged_mixed, whose prefix cache must be on exactly when
     ``prefix_cache``: attention KV is page-resident, recurrent state is
@@ -4041,8 +4245,12 @@ def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
     leg reaches flash, so the margin rule compares every paged token and
     the dense runs are identical.  The layouts are compared for the record
     (zamba2's SSD sums in other chunks in the two, so in bf16 their logits
-    part).  Then a warm paged run and a profiled one (idle share).
-    Returns {leg: record}."""
+    part).  Then a warm paged run and a profiled one (idle share).  Under
+    MoE (``cfg.moe``) the recorded paged run also counts the (token, k)
+    pairs capacity dropped (`counting_drops`).  ``decode_hist``: the
+    launches per decode step where they are not ``hist``.  Returns {leg:
+    record}."""
+    import contextlib
     from repro_torch.serving import poisson_arrivals, synthetic_trace
     t0 = time.perf_counter()
     paged = dict(leg, kv_layout="paged")
@@ -4051,12 +4259,26 @@ def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
         max_prompt=leg["max_prompt"], min_new=leg["min_new"],
         max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
     print_traffic(f"{tag}:engine_paged_mixed", trace, paged)
-    engine, _, ptok, pfirst, _, st = paged_run(
-        torch, f"{tag}:engine_paged_mixed", cfg, params, backend, hist,
-        trace, paged)
+    drops = {}
+    with (counting_drops(drops) if cfg.moe is not None
+          else contextlib.nullcontext()):
+        engine, _, ptok, pfirst, _, st = paged_run(
+            torch, f"{tag}:engine_paged_mixed", cfg, params, backend, hist,
+            trace, paged, decode_hist=decode_hist)
     if engine.prefix_cache != prefix_cache:
         raise AssertionError(f"{tag}: the prefix cache is "
                              f"{'on' if engine.prefix_cache else 'off'}")
+    print(f"[engine:{tag}:engine_paged_mixed] prefix cache "
+          f"{'on' if engine.prefix_cache else 'off'}"
+          + ("" if prefix_cache or cfg.moe is None else
+             " (as in the JAX package under MoE: dispatch couples a "
+             "batch's slots)"))
+    if drops:
+        drops = {k: int(v) for k, v in drops.items()}
+        print(f"[engine:{tag}:engine_paged_mixed] MoE dispatch over the "
+              f"recorded run: {drops['dropped']} of {drops['pairs']} valid "
+              f"(token, k) pairs dropped by capacity (factor "
+              f"{cfg.moe.capacity_factor})")
     backend.reference = True
     calls = []
     _, rres, _ = engine_run(torch, cfg, params, backend, trace, paged,
@@ -4069,7 +4291,10 @@ def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
     out = {"engine_paged_mixed": warm_profiled(
         torch, tag, cfg, params, backend, trace, paged, ptok, smi, st, t0)}
     out["engine_paged_mixed"].update(plain_tokens_compared=compared,
-                                     tokens_total=total)
+                                     tokens_total=total,
+                                     prefix_cache=engine.prefix_cache,
+                                     **{f"moe_{k}": v
+                                        for k, v in drops.items()})
     if dense:
         out["engine_mixed"] = dense_mixed(torch, tag, cfg, params, backend,
                                           hist, trace, leg, ptok, pfirst,
@@ -4138,15 +4363,17 @@ def warm_profiled(torch, tag, cfg, params, backend, trace, paged, ptok, smi,
 
 
 def dense_long_leg(torch, tag, cfg, params, backend, hist, leg, seed, smi,
-                   flash_calls, sq):
+                   flash_calls, sq, decode_hist=None, dims=None):
     """``leg``'s requests (``leg["prompts"]``, ``leg["new"]`` new tokens
     each, at step 0) through the dense engine: one admission group whose
     prefill (Sq ``sq`` > 2048) takes the chunked path and launches flash
-    ``flash_calls`` times at head dim ``cfg.hd`` with ``cfg``'s sliding
-    window, each call held against the plain version on its own inputs
-    within the bound.  The matmul kernels being bit-exact, the kernel run
-    differs from the plain run (``reference=True``) only in flash's
-    summation order; a plain run in float64 attention differs from it by
+    ``flash_calls`` times at head dims ``dims`` (query / key, value;
+    ``cfg.hd`` both unless given) with ``cfg``'s sliding window, each call
+    held against the plain version on its own inputs within the bound;
+    the matmul kernels ``hist`` per prefill, ``decode_hist`` (default
+    ``hist``) per decode step.  The matmul kernels being bit-exact, the
+    kernel run differs from the plain run (``reference=True``) only in
+    flash's summation order; a plain run in float64 attention differs from it by
     another valid one: the prefill logits must lie within
     SENSITIVITY_FACTOR times that distance (max and RMS), tokens by the
     margin rule.  With a window, `WINDOW_CONTROLS` are the controls: each
@@ -4170,18 +4397,21 @@ def dense_long_leg(torch, tag, cfg, params, backend, hist, leg, seed, smi,
                                         leg, calls)
     st = dict(eng.stats)
     forwards = st["prefill_calls"] + st["decode_steps"]
-    want = {k: hist.get(k, 0) * forwards for k in KERNELS}
+    want = forward_launches(hist, st["prefill_calls"], st["decode_steps"],
+                            decode_hist)
     want["flash_attention"] = flash_calls
     got = zamba_launches(f"{tag}:long", launches, want, forwards)
+    dims = dims or (cfg.hd, cfg.hd)
     worst = worst_ratio = 0.0
     # per control: the least over the calls of max |out - control| /
     # max |out - plain|
     control = dict.fromkeys(WINDOW_CONTROLS, float("inf"))
     for i, (q, k, v, kw, o) in enumerate(recorded):
-        if q.shape[-1] != cfg.hd or q.shape[2] != sq or \
+        if (q.shape[-1], v.shape[-1]) != dims or q.shape[2] != sq or \
                 kw["window"] != cfg.sliding_window:
             raise AssertionError(f"{tag}:long flash call {i}: q "
-                                 f"{tuple(q.shape)}, window {kw['window']}")
+                                 f"{tuple(q.shape)}, v {tuple(v.shape)}, "
+                                 f"window {kw['window']}")
         err, ratio = check_flash(torch, q, k, v, o, kw["causal"],
                                  kw["kv_len"], f"{tag}:long call {i}",
                                  kw["window"])
@@ -4195,7 +4425,8 @@ def dense_long_leg(torch, tag, cfg, params, backend, hist, leg, seed, smi,
     print(f"[{tag}:long] {st['prefill_calls']} prefill + "
           f"{st['decode_steps']} decode steps: launches {got}; the "
           f"{len(recorded)} flash calls (q {tuple(recorded[0][0].shape)}, D "
-          f"{cfg.hd}, kv_len {recorded[0][3]['kv_len']}, window "
+          f"{dims[0]}, Dv {dims[1]}, kv_len {recorded[0][3]['kv_len']}, "
+          f"window "
           f"{recorded[0][3]['window']}) within the bound of the plain "
           f"version on their own inputs: max |err| {worst:.4g}, at most "
           f"{worst_ratio:.4g} of it ({time.perf_counter() - t0:.1f} s into "
@@ -4301,11 +4532,12 @@ def dense_long_leg(torch, tag, cfg, params, backend, hist, leg, seed, smi,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def plan_dense(torch, tag, cfg, params, max_cout, hist, raws):
+def plan_dense(torch, tag, cfg, params, max_cout, hist, raws, names=None):
     """Emit ``cfg``'s diana artifact at ``max_cout`` (static activation
     scales), lower and bind it at full coverage; the plan's histogram must
-    be ``hist`` and each (K, N)'s raw boundary ``raws[(K, N)]`` (the
-    layers of repeat 0).  Returns (artifact, plan, backend, KV config)."""
+    be ``hist`` and each (K, N)'s raw boundary ``raws[(K, N)]``, read from
+    the plan layers ``names`` (by default wq, wk, wo, up and down of
+    repeat 0).  Returns (artifact, plan, backend, KV config)."""
     from repro_torch.launch.serve import (check_coverage, kv_cache_for,
                                           plan_mapping_execution)
     from repro_torch.launch.train import emit_static_mapping
@@ -4322,9 +4554,10 @@ def plan_dense(torch, tag, cfg, params, max_cout, hist, raws):
         raise AssertionError(f"{tag}: kernel histogram "
                              f"{plan.kernel_histogram()}, expected {hist}")
     seen = {}
-    for name in ("wq", "wk", "wo", "up", "down"):
-        part = "attn" if name.startswith("w") else "ffn"
-        lp = plan[f"units/0/{part}/{name}@0"]
+    for name in names or [
+            f"units/0/{'attn' if n.startswith('w') else 'ffn'}/{n}@0"
+            for n in ("wq", "wk", "wo", "up", "down")]:
+        lp = plan[name]
         seen[(lp.c_in, lp.c_out)] = lp
     for (k, n), raw in raws.items():
         lp = seen[(k, n)]
@@ -4428,6 +4661,62 @@ def phase_dense_fixed(torch, key, seed, smi, device="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def phase_deepseek(torch, seed, smi, device="cuda"):
+    """deepseek-v2-lite-16b at full width and depth (module docstring,
+    phase 13): legs fixed, engine_paged_mixed and long; returns {leg:
+    record}.  ``device`` "cpu" serves a rehearsal, with the config reduced
+    and the CUDA-only calls stubbed by the caller."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+    cfg = cfgbase.get(DEEPSEEK)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(gen, cfg)
+    m, moe = cfg.mla, cfg.moe
+    print(f"[deepseek] {cfg.name}: {cfg.n_layers} layers (layer 0 a dense "
+          f"FFN of {cfg.dense_ff}), d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, MLA latent {m.kv_lora_rank} + rope {m.qk_rope_dim}, "
+          f"query / key dim {m.qk_nope_dim + m.qk_rope_dim}, value dim "
+          f"{m.v_head_dim}; {moe.n_experts} routed experts top-{moe.top_k} "
+          f"of d_ff {moe.d_ff} + {moe.n_shared} shared, capacity factor "
+          f"{moe.capacity_factor}; vocab {cfg.vocab}; params "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B (init "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi})")
+    hist, dhist = DEEPSEEK_HIST, DEEPSEEK_DECODE_HIST
+    _, plan, backend, kcfg = plan_dense(torch, "deepseek", cfg, params,
+                                        DEEPSEEK_MAX_COUT, hist, DEEPSEEK_RAW,
+                                        names=DEEPSEEK_LAYERS)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    out = {"fixed": fixed_batch(torch, "deepseek:fixed", kcfg, params,
+                                backend, hist, prompts, dict(hist),
+                                decode_hist=dhist)}
+    del prompts
+    print(f"[deepseek] fixed done ({at()})")
+    out.update(mixed_legs(torch, "deepseek", kcfg, params, backend, hist,
+                          seed, smi, DEEPSEEK_MIXED, prefix_cache=False,
+                          dense=False, decode_hist=dhist))
+    print(f"[deepseek] engine legs done ({at()})")
+    # long: one dense admission group of 1 x 2560 tokens; each layer's MLA
+    # through flash at query / key dim 192, value dim 128
+    out["long"] = dense_long_leg(torch, "deepseek", kcfg, params, backend,
+                                 hist, DEEPSEEK_LONG, seed, smi,
+                                 cfg.n_layers, DEEPSEEK_LONG["prompts"][0],
+                                 decode_hist=dhist, dims=DEEPSEEK_DIMS)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[deepseek] phase {out['seconds']:.1f} s, long-leg peak memory "
+          f"{out['long']['peak_gib']:.2f} GiB ({smi})")
+    del plan, backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def fault_spec(markers):
@@ -5000,6 +5289,9 @@ def main(argv=None) -> int:
                                      danube_sq, DANUBE_LONG["max_len"],
                                      window=DANUBE_WINDOW)
     danube_cases = phase_danube_flash_times(torch, gen)
+    deepseek_flash = phase_flash_times(
+        torch, gen, DEEPSEEK_FLASH_HEADS[1], DEEPSEEK_LONG["prompts"][0],
+        DEEPSEEK_LONG["max_len"], dv=DEEPSEEK_DIMS[1])
     mark("kernel times")
     for kernel in KERNELS:
         path = LAUNCH_PATH[kernel]
@@ -5096,6 +5388,19 @@ def main(argv=None) -> int:
     for key in DENSE_FIXED:
         serving[key] = phase_dense_fixed(torch, key, args.seed, smi)
         mark(key)
+    serving["deepseek"] = phase_deepseek(torch, args.seed, smi)
+    layers = cfgbase.get(DEEPSEEK).n_layers
+    serving["deepseek"]["flash_long_call"] = deepseek_flash
+    serving["deepseek"]["flash_long_prefill"] = {
+        key: deepseek_flash[key] * layers for key in
+        ("ms", "min_ms", "max_ms", "plain_ms", "library_ms",
+         "library_min_ms", "library_max_ms", "bound_ms")}
+    print_mix(f"per long prefill forward of {DEEPSEEK} ({layers} layers, "
+              f"D 192 / Dv 128; sdpa kernel "
+              f"{deepseek_flash['library_kernel'][:60]})", "flash_attention",
+              dict(serving["deepseek"]["flash_long_prefill"],
+                   bound_by=deepseek_flash["bound_by"]))
+    mark("deepseek")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

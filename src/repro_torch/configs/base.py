@@ -5,19 +5,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-
-@dataclasses.dataclass(frozen=True)
-class MoEConfig:
-    """Field-for-field copy of ``repro.models.moe.MoEConfig`` (the port has
-    no MoE model yet; configs carry it as data)."""
-    n_experts: int
-    top_k: int
-    d_ff: int
-    n_shared: int = 0
-    capacity_factor: float = 1.25
-    act: str = "silu"
-    gated: bool = True
-    router_dtype: str = "float32"
+from repro_torch.models.moe import MoEConfig  # noqa: F401 (configs use it)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +76,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 #: the JAX package's archs that the port does not serve yet, and what
 #: each waits for
-PENDING = {"arctic-480b": "MoE", "deepseek-v2-lite-16b": "MoE and MLA",
+PENDING = {"arctic-480b": "the dense residual FFN beside the MoE, and a "
+                          "load path for its 26.8 GB of expert weights per "
+                          "layer",
            "xlstm-1.3b": "xLSTM blocks",
            "llama-3.2-vision-11b": "the vision frontend",
            "seamless-m4t-large-v2": "the audio encoder-decoder"}
@@ -117,7 +107,8 @@ def names():
 def load_all():
     """Import every config module of the port (each self-registers)."""
     from repro_torch.configs import (  # noqa: F401
-        command_r_35b, h2o_danube_3_4b, nemotron_4_15b, yi_9b, zamba2_1_2b)
+        command_r_35b, deepseek_v2_lite_16b, h2o_danube_3_4b, nemotron_4_15b,
+        yi_9b, zamba2_1_2b)
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:

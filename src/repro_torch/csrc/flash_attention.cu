@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py).  It computes that kernel's function, not its block
 // structure: query head h reads KV head h / G (KV never repeated in
-// memory), scores q k^T * D^-0.5 summed in f32, the causal mask
+// memory), scores q k^T * D^-0.5 summed in f32 (D the query / key head
+// dim; the value head dim Dv may differ: MLA's 192 / 128), the causal mask
 // kpos <= qpos with positions from 0, keys at kpos >= kv_end masked, the
 // running max and denominator in f32, p rounded to bf16 for the PV product
 // (the denominator sums the unrounded p), an f32 accumulator, and
@@ -27,8 +28,11 @@
 //     order the (s, h, b) dimensions by stride, so the model's (B, S, H,
 //     D) layout is read through its transposed views without a copy.
 //     Rows of D = 128 split into two 64-column chunks with a 128-byte
-//     swizzle, rows of D = 64 are one such chunk, rows of D = 16 take a
-//     32-byte swizzle.  D = 120 (no multiple of wgmma's k16) is laid out
+//     swizzle, rows of D = 64 are one such chunk, rows of D = 192 (MLA's
+//     queries and keys, 128 nope + 64 rope) three, rows of D = 16 take a
+//     32-byte swizzle; V tiles are laid out by their own width Dv, so
+//     deepseek's 192 / 128 block holds Q 48 KiB + 2 x (K 48 + V 32) KiB
+//     = 208 KiB, where a uniform 192 would need 240.  D = 120 (no multiple of wgmma's k16) is laid out
 //     as D = 128: its maps have the real width 120, so TMA zero-fills
 //     columns 120-127 of the second chunk, which adds 0 to QK^T and gives
 //     PV's columns 120-127 zeros that the store leaves out (in the model
@@ -38,7 +42,7 @@
 //     accumulator in registers, in the log2 domain (exp2f of scores
 //     pre-scaled by D^-0.5 * log2 e), each row's max and sum reduced over
 //     the 4 lanes of a quad;
-//   - O += P V runs on wgmma m64nDk16 with A = P in registers (the S
+//   - O += P V runs on wgmma m64nDvk16 with A = P in registers (the S
 //     accumulator rounded to bf16, register for register the A fragment)
 //     and B = the V tile, MN-major, read with the transpose bit;
 //   - the G query heads of one KV head take adjacent blocks, so their K /
@@ -51,6 +55,11 @@
 //     edge.  The window is a template parameter: a call without one runs
 //     an instantiation whose loop and mask are the causal / kv_end ones
 //     alone.
+//
+// The (D, Dv, windowed) triples instantiated come from the build:
+// FLASH_SHAPES is a list of X(D, Dv, windowed) that kernels/_build.py
+// defines from kernels/flash_attention.py's SHAPES; another triple returns
+// cudaErrorInvalidValue.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -58,6 +67,10 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+
+#ifndef FLASH_SHAPES
+#error "FLASH_SHAPES (the X(D, Dv, windowed) list) is defined by the build"
+#endif
 
 namespace {
 
@@ -67,12 +80,13 @@ constexpr int kStages = 2;      // depth of the K / V ring
 constexpr int kThreads = 384;   // consumer warpgroups 0, 1; producer 2
 constexpr int kConsumers = 256;
 
-// The width a head dim is laid out with in shared memory: D = 120 as 128.
+// The width a head dim is laid out with in shared memory: D = 120 as 128;
+// 192 stays 192 (three 64-column chunks).
 template <int D>
-constexpr int kPadded = D > 64 ? 128 : D;
+constexpr int kPadded = D > 128 ? D : D > 64 ? 128 : D;
 
-template <int D>  // D: the padded width
-struct Tile {
+template <int D>  // D: the padded width of one operand's rows
+struct Rows {
   static constexpr int kSw = D >= 64 ? 128 : 2 * D;  // swizzle = row bytes
   static constexpr int kCols = kSw / 2;              // bf16 per chunk row
   static constexpr int kChunks = D / kCols;
@@ -80,10 +94,16 @@ struct Tile {
       kSw == 128 ? hopper::kSwizzle128 : hopper::kSwizzle32;
   static constexpr CUtensorMapSwizzle kMapSwizzle =
       kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;  // one K or V tile
-  static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
+};
+
+template <int DQ, int DV>  // the padded query / key and value widths
+struct Tile {
+  static constexpr int kQBytes = kBQ * DQ * 2;
+  static constexpr int kKBytes = kBK * DQ * 2;  // one K tile
+  static constexpr int kVBytes = kBK * DV * 2;  // one V tile
+  static constexpr int kBarOffset = kQBytes + kStages * (kKBytes + kVBytes);
   static constexpr int kSmem = kBarOffset + 64 + 1024;  // + align slack
+  static_assert(kSmem <= 227 * 1024, "over the block's shared memory");
 };
 
 struct Params {
@@ -92,7 +112,7 @@ struct Params {
   long long o_b, o_h, o_s;
   // position (1..3) of the (s, h, b) coordinates in each tensor map
   int qpos[3], kpos[3], vpos[3];
-  float scale_log2;  // D^-0.5 * log2(e), with the real D
+  float scale_log2;  // D^-0.5 * log2(e), with the real query / key D
   int window;        // 0: none
 };
 
@@ -126,22 +146,26 @@ __device__ __forceinline__ void mma_pv(float (&o)[D / 2],
     hopper::mma_bf16_m64n16k16_rs_tb(o, a, db, 1);
 }
 
-// D: the real head dim; DP: the width it is laid out and multiplied with.
-// kWindow: the sliding window is on (p.window > 0); without it the kernel
-// compiles to the causal / kv_end mask alone
-template <int D, bool kWindow>
+// D: the real query / key head dim, Dv the value one; DP and DVP: the
+// widths they are laid out and multiplied with.  kWindow: the sliding
+// window is on (p.window > 0); without it the kernel compiles to the
+// causal / kv_end mask alone
+template <int D, int Dv, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
               const __grid_constant__ Params p) {
-  constexpr int DP = kPadded<D>;
-  using T = Tile<DP>;
+  constexpr int DP = kPadded<D>, DVP = kPadded<Dv>;
+  using T = Tile<DP, DVP>;
+  using RQ = Rows<DP>;   // Q and K tiles
+  using RV = Rows<DVP>;  // V tiles
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;
-  uint8_t* kv = smem + T::kQBytes;  // stage s: K at kv + 2 s kKVBytes, V after
+  // stage s: K at kv + s (kKBytes + kVBytes), V after it
+  uint8_t* kv = smem + T::kQBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOffset);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -180,23 +204,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 2 * 128) {
       hopper::mbar_expect_tx(qbar, T::kQBytes);
 #pragma unroll
-      for (int c = 0; c < T::kChunks; ++c)
-        load_box(qs + c * kBQ * T::kSw, &qmap, qbar, p.qpos, c * T::kCols,
+      for (int c = 0; c < RQ::kChunks; ++c)
+        load_box(qs + c * kBQ * RQ::kSw, &qmap, qbar, p.qpos, c * RQ::kCols,
                  q0, h, b);
       for (int t = t0; t < n_tiles; ++t) {
         const int i = t - t0;  // ring position
         const int s = i % kStages;
         if (i >= kStages)
           hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
-        uint8_t* kd = kv + s * 2 * T::kKVBytes;
-        uint8_t* vd = kd + T::kKVBytes;
-        hopper::mbar_expect_tx(&full[s], 2 * T::kKVBytes);
+        uint8_t* kd = kv + s * (T::kKBytes + T::kVBytes);
+        uint8_t* vd = kd + T::kKBytes;
+        hopper::mbar_expect_tx(&full[s], T::kKBytes + T::kVBytes);
+        // K and V chunk c in turn (with Dv = D the loads of one chunk
+        // pair issue together)
 #pragma unroll
-        for (int c = 0; c < T::kChunks; ++c) {
-          load_box(kd + c * kBK * T::kSw, &kmap, &full[s], p.kpos,
-                   c * T::kCols, t * kBK, kvh, b);
-          load_box(vd + c * kBK * T::kSw, &vmap, &full[s], p.vpos,
-                   c * T::kCols, t * kBK, kvh, b);
+        for (int c = 0; c < (RQ::kChunks > RV::kChunks ? RQ::kChunks
+                                                       : RV::kChunks); ++c) {
+          if (c < RQ::kChunks)
+            load_box(kd + c * kBK * RQ::kSw, &kmap, &full[s], p.kpos,
+                     c * RQ::kCols, t * kBK, kvh, b);
+          if (c < RV::kChunks)
+            load_box(vd + c * kBK * RV::kSw, &vmap, &full[s], p.vpos,
+                     c * RV::kCols, t * kBK, kvh, b);
         }
       }
     }
@@ -209,11 +238,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r_lo = q0 + wg * 64;  // first query row of this warpgroup
   const int row[2] = {r_lo + warp * 16 + lane / 4,
                       r_lo + warp * 16 + lane / 4 + 8};
-  const uint8_t* qw = qs + wg * 64 * T::kSw;
+  const uint8_t* qw = qs + wg * 64 * RQ::kSw;
 
-  float o[DP / 2];
+  float o[DVP / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
   float l_run[2] = {0.f, 0.f};              // this lane's partial sums
   // with the window, the keys each of the lane's two rows reads,
@@ -232,8 +261,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int t = t0; t < n_tiles; ++t) {
     const int s = (t - t0) % kStages;
     hopper::mbar_wait(&full[s], ((t - t0) / kStages) & 1);
-    const uint8_t* kd = kv + s * 2 * T::kKVBytes;
-    const uint8_t* vd = kd + T::kKVBytes;
+    const uint8_t* kd = kv + s * (T::kKBytes + T::kVBytes);
+    const uint8_t* vd = kd + T::kKBytes;
 
     // S = Q K^T: sc[4 j + i] is row row[i / 2], key k0 + 8 j + 2 (lane %
     // 4) + i % 2
@@ -241,11 +270,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const int c = kk * 16 / T::kCols, off = (kk * 16 % T::kCols) * 2;
-      const uint64_t da = hopper::make_desc(qw + c * kBQ * T::kSw + off, 16,
-                                            8 * T::kSw, T::kLayout);
-      const uint64_t db = hopper::make_desc(kd + c * kBK * T::kSw + off, 16,
-                                            8 * T::kSw, T::kLayout);
+      const int c = kk * 16 / RQ::kCols, off = (kk * 16 % RQ::kCols) * 2;
+      const uint64_t da = hopper::make_desc(qw + c * kBQ * RQ::kSw + off, 16,
+                                            8 * RQ::kSw, RQ::kLayout);
+      const uint64_t db = hopper::make_desc(kd + c * kBK * RQ::kSw + off, 16,
+                                            8 * RQ::kSw, RQ::kLayout);
       hopper::mma_bf16_m64n128k16_ss(sc, da, db, kk > 0);
     }
     hopper::wgmma_commit();
@@ -291,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DVP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P V: P's A fragment for keys 16 kk .. 16 kk + 15 is sc[8 kk ..
     // 8 kk + 7] rounded to bf16
@@ -304,9 +333,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      mma_pv<DP>(o, pa[kk],
-                hopper::make_desc(vd + kk * 16 * T::kSw, kBK * T::kSw,
-                                  8 * T::kSw, T::kLayout));
+      mma_pv<DVP>(o, pa[kk],
+                 hopper::make_desc(vd + kk * 16 * RV::kSw, kBK * RV::kSw,
+                                   8 * RV::kSw, RV::kLayout));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_operands(o);
@@ -325,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row[r] >= p.Sq) continue;
     __nv_bfloat16* orow = ob + row[r] * p.o_s + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)  // the real columns only
+    for (int j = 0; j < Dv / 8; ++j)  // the real columns only
       *reinterpret_cast<uint32_t*>(orow + j * 8) = pack_bf16(
           o[4 * j + 2 * r] / l_run[r], o[4 * j + 2 * r + 1] / l_run[r]);
   }
@@ -342,7 +371,7 @@ int encode_operand(CUtensorMap* map, const void* base, long long rows,
                    long long s_rows, long long heads, long long s_heads,
                    long long batch, long long s_batch, int box_rows,
                    int (&pos)[3]) {
-  using T = Tile<kPadded<D>>;
+  using T = Rows<kPadded<D>>;
   struct Dim {
     long long n, stride;
     int which;
@@ -377,20 +406,20 @@ int encode_operand(CUtensorMap* map, const void* base, long long rows,
                             gdim, gstride, box, T::kMapSwizzle);
 }
 
-template <int D, bool kWindow>
+template <int D, int Dv, bool kWindow>
 int start(const CUtensorMap& qm, const CUtensorMap& km,
           const CUtensorMap& vm, const Params& p, cudaStream_t stream) {
-  constexpr int smem = Tile<kPadded<D>>::kSmem;
+  constexpr int smem = Tile<kPadded<D>, kPadded<Dv>>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<D, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<D, Dv, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const unsigned grid = static_cast<unsigned>(p.n_qtiles) * p.B * p.H;
-  flash_fwd<D, kWindow><<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
+  flash_fwd<D, Dv, kWindow><<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int Dv, bool kWindowed>
 int launch(const void* q, const void* k, const void* v, Params& p,
            long long Sq, long long kv_end, long long q_b, long long q_h,
            long long q_s, long long k_b, long long k_h, long long k_s,
@@ -401,18 +430,21 @@ int launch(const void* q, const void* k, const void* v, Params& p,
     rc = encode_operand<D>(&km, k, kv_end, k_s, p.KVH, k_h, p.B, k_b, kBK,
                            p.kpos);
   if (!rc)
-    rc = encode_operand<D>(&vm, v, kv_end, v_s, p.KVH, v_h, p.B, v_b, kBK,
-                           p.vpos);
+    rc = encode_operand<Dv>(&vm, v, kv_end, v_s, p.KVH, v_h, p.B, v_b, kBK,
+                            p.vpos);
   if (rc) return rc;
-  return p.window > 0 ? start<D, true>(qm, km, vm, p, stream)
-                      : start<D, false>(qm, km, vm, p, stream);
+  if (p.window <= 0) return start<D, Dv, false>(qm, km, vm, p, stream);
+  if constexpr (kWindowed)
+    return start<D, Dv, true>(qm, km, vm, p, stream);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int KVH, int Sq, int kv_end, int D, long long q_b, long long q_h,
+    int KVH, int Sq, int kv_end, int D, int Dv, long long q_b, long long q_h,
     long long q_s, long long k_b, long long k_h, long long k_s,
     long long v_b, long long v_h, long long v_s, long long o_b,
     long long o_h, long long o_s, int causal, int window, void* stream) {
@@ -432,22 +464,13 @@ extern "C" int flash_attention_launch(
   p.o_s = o_s;
   p.scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(D)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h, k_s,
-                        v_b, v_h, v_s, s);
-    case 64:
-      return launch<64>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h, k_s,
-                        v_b, v_h, v_s, s);
-    case 120:
-      return launch<120>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h,
-                         k_s, v_b, v_h, v_s, s);
-    case 128:
-      return launch<128>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, k_b, k_h,
-                         k_s, v_b, v_h, v_s, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define X(d, dv, windowed)                                               \
+  if (D == d && Dv == dv)                                                 \
+    return launch<d, dv, windowed>(q, k, v, p, Sq, kv_end, q_b, q_h, q_s, \
+                                   k_b, k_h, k_s, v_b, v_h, v_s, s);
+  FLASH_SHAPES
+#undef X
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` compiles, at first use, into its own shared library
 under ``build/torch_ext/`` at the repository root, named by a hash of the
-sources so an edit rebuilds.  The libraries have a plain C interface
-(pointers, ints and the CUDA stream as ``void*``), so the build includes no
-PyTorch header.  `build_all` starts one ``nvcc`` per source at once.
+sources and of the macros its Python module gives it, so an edit rebuilds.
+The libraries have a plain C interface (pointers, ints and the CUDA stream
+as ``void*``), so the build includes no PyTorch header.  `build_all` starts
+one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -38,9 +40,9 @@ SIGNATURES = {
                         _P],
     # x, w_packed, sx, sw, out, M, N, K, Kp, ...
     "ternary_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, B, H, KVH, Sq, kv_end, D, the (b, h, s) strides of q, k,
-    # v and o, causal, window (0: none), stream
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, B, H, KVH, Sq, kv_end, D, Dv, the (b, h, s) strides of
+    # q, k, v and o, causal, window (0: none), stream
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         *[_L] * 12, _I, _I, _P],
 }
 
@@ -60,12 +62,32 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def defines(name: str) -> Dict[str, str]:
+    """The macros that kernel ``name``'s module (``repro_torch.kernels.
+    <name>``) defines for its source as ``NVCC_DEFINES`` (e.g. the shapes
+    to instantiate); none if it defines none."""
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    return dict(getattr(module, "NVCC_DEFINES", {}))
+
+
+def include_flags(name: str, header: Path) -> list:
+    """Write `defines` of ``name`` to ``header`` and return the nvcc flags
+    that include it before the source (none if it has no macros)."""
+    macros = defines(name)
+    if not macros:
+        return []
+    header.write_text("".join(f"#define {k} {v}\n"
+                              for k, v in macros.items()))
+    return ["-include", str(header)]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(defines(name).items())).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
@@ -79,7 +101,8 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}",
+               *include_flags(name, tmp.with_suffix(".h")), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

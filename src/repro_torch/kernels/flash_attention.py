@@ -1,6 +1,8 @@
 """Causal flash attention with online softmax and grouped-query heads:
-q (B, H, Sq, D) x k, v (B, KVH, Sk, D) -> (B, H, Sq, D), query head h
-reading KV head ``h // (H // KVH)``.
+q (B, H, Sq, D) x k (B, KVH, Sk, D), v (B, KVH, Sk, Dv) -> (B, H, Sq, Dv),
+query head h reading KV head ``h // (H // KVH)``.  The value head dim Dv
+is D, or 128 beside deepseek's MLA query / key dim 192 (128 nope + 64
+rope).
 
 The CUDA kernel (``csrc/flash_attention.cu``, sm_90a) replaces the Pallas
 TPU kernel ``flash_attention`` of ``repro/kernels/flash_attention.py``.
@@ -20,7 +22,8 @@ f32 for QK^T (both operands from shared memory) and PV (P from registers)
 with the softmax in registers.  Key tiles wholly above the diagonal, past
 ``kv_len`` or below the window are never loaded.  Head dim 120
 (h2o-danube) is laid out as 128 in shared memory, its last 8 columns
-zero-filled by TMA and never stored.
+zero-filled by TMA and never stored; the V tiles take their own width,
+so MLA's 192 / 128 block fits the card's shared memory.
 
 `flash_attention` launches the kernel for CUDA tensors and runs
 `flash_attention_plain` only for CPU tensors.  ``flash_attention.launches``
@@ -32,19 +35,28 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the kernel is instantiated for: yi-9b's, nemotron's and
-#: command-r's 128, h2o-danube's 120, zamba2-1.2b's 64 and the reduced
-#: configs' 16
-HEAD_DIMS = (16, 64, 120, 128)
+#: (D, Dv, windowed) the kernel is instantiated for, the one list of them
+#: (`_build` hands it to the source as ``FLASH_SHAPES``): query / key head
+#: dims 128 (yi-9b, nemotron, command-r), 120 (h2o-danube), 64
+#: (zamba2-1.2b) and 16 (the reduced configs), each with and without the
+#: sliding window, and deepseek's MLA, 192 beside a value dim of 128, with
+#: no window
+SHAPES = ((16, 16, True), (64, 64, True), (120, 120, True), (128, 128, True),
+          (192, 128, False))
+HEAD_DIMS = tuple(d for d, _, _ in SHAPES)
+_WINDOWED = {(d, dv): w for d, dv, w in SHAPES}
+NVCC_DEFINES = {"FLASH_SHAPES": " ".join(
+    f"X({d}, {dv}, {str(w).lower()})" for d, dv, w in SHAPES)}
 #: query rows per plain-version step: bounds its float32 score block
 PLAIN_Q_BLOCK = 512
 
 
 def _check(q, k, v, kv_len, window=None):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: expected (B, H, Sq, D) and two "
-                         f"(B, KVH, Sk, D)")
+                         f"{tuple(v.shape)}: expected (B, H, Sq, D), (B, "
+                         f"KVH, Sk, D) and (B, KVH, Sk, Dv)")
     B, H, Sq, D = q.shape
     KVH, Sk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or KVH == 0 or H % KVH or not Sk:
@@ -59,7 +71,7 @@ def _check(q, k, v, kv_len, window=None):
     if window is not None and (isinstance(window, torch.Tensor)
                                or int(window) < 1):
         raise ValueError(f"window must be None or an int >= 1, got {window}")
-    return B, H, KVH, Sq, Sk, D
+    return B, H, KVH, Sq, Sk, D, v.shape[3]
 
 
 def _scores(qb, k, q0, causal, kv_len, window=None):
@@ -88,9 +100,9 @@ def flash_attention_plain(q, k, v, *, causal=True, kv_len=None,
     (0 for a row that the mask leaves no key).  Rows are independent, so
     it runs `PLAIN_Q_BLOCK` query rows at a time to bound its float32
     score block."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len, window)
+    B, H, KVH, Sq, Sk, D, Dv = _check(q, k, v, kv_len, window)
     G = H // KVH
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
     vf = v.to(torch.float32)
     for q0 in range(0, Sq, PLAIN_Q_BLOCK):
         n = min(PLAIN_Q_BLOCK, Sq - q0)
@@ -104,7 +116,7 @@ def flash_attention_plain(q, k, v, *, causal=True, kv_len=None,
         acc = torch.einsum("bkgqs,bksd->bkgqd",
                            p.to(v.dtype).to(torch.float32), vf)
         o = acc / l.clamp_min(1e-30)
-        out[:, :, q0:q0 + n] = o.reshape(B, H, n, D).to(q.dtype)
+        out[:, :, q0:q0 + n] = o.reshape(B, H, n, Dv).to(q.dtype)
     return out
 
 
@@ -113,14 +125,14 @@ def flash_attention_ref(q, k, v, causal=True, kv_len=None, window=None):
     and PV, output in ``q.dtype``; keys at ``kpos >= kv_len`` and, with a
     ``window``, at ``kpos <= qpos - window`` masked; 0 for a row that the
     mask leaves no key, as the kernel stores."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len, window)
+    B, H, KVH, Sq, Sk, D, Dv = _check(q, k, v, kv_len, window)
     G = H // KVH
     s, mask = _scores(q.reshape(B, KVH, G, Sq, D), k, 0, causal, kv_len,
                       window)
     p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
     p = p * mask.any(dim=-1, keepdim=True)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, Dv).to(q.dtype)
 
 
 def _strides_ok(t) -> bool:
@@ -133,14 +145,17 @@ def _strides_ok(t) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, kv_len=None, window=None,
                     out=None):
-    """q (B, H, Sq, D); k, v (B, KVH, Sk, D) with H = KVH * G; kv_len: None
+    """q (B, H, Sq, D); k (B, KVH, Sk, D), v (B, KVH, Sk, Dv) with H = KVH *
+    G; kv_len: None
     or an int >= 1 (keys at ``kpos >= kv_len`` are masked); window: None
     or an int >= 1 (keys at ``kpos <= qpos - window`` are masked).  Any
     strides with a unit stride in D (the model's (B, S, H, D) layout as a
-    permuted view).  ``out``: optional (B, H, Sq, D) view to write, e.g. a
-    permuted view of a (B, Sq, H, D) buffer; the kernel writes its D
-    columns only.  CUDA operands must be bf16 with D in `HEAD_DIMS`."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len, window)
+    permuted view).  ``out``: optional (B, H, Sq, Dv) view to write, e.g. a
+    permuted view of a (B, Sq, H, Dv) buffer; the kernel writes its Dv
+    columns only.  CUDA operands must be bf16 with (D, Dv) a pair of
+    `SHAPES`, and a window only where it is instantiated with one: another
+    call raises, there is no fallback."""
+    B, H, KVH, Sq, Sk, D, Dv = _check(q, k, v, kv_len, window)
     if q.device.type == "cpu":
         o = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                   window=window)
@@ -150,20 +165,25 @@ def flash_attention(q, k, v, *, causal=True, kv_len=None, window=None,
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise TypeError(f"bf16 operands expected, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    windowed = _WINDOWED.get((D, Dv))
+    if windowed is None:
+        raise ValueError(f"head dims (D, Dv) = ({D}, {Dv}): the kernel is "
+                         f"instantiated for {[s[:2] for s in SHAPES]}")
+    if window is not None and not windowed:
+        raise ValueError(f"no window at head dims ({D}, {Dv}): the kernel "
+                         f"is instantiated without one there")
     if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    elif (tuple(out.shape) != tuple(q.shape) or out.dtype != q.dtype
+        out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
+    elif (tuple(out.shape) != (B, H, Sq, Dv) or out.dtype != q.dtype
           or out.device != q.device or not _strides_ok(out)):
-        raise ValueError("out must be a bf16 (B, H, Sq, D) view on q's "
+        raise ValueError("out must be a bf16 (B, H, Sq, Dv) view on q's "
                          "device with the kernel's stride layout")
     q, k, v = (t if _strides_ok(t) else t.contiguous() for t in (q, k, v))
     kv_end = Sk if kv_len is None else min(Sk, int(kv_len))
     if B * H and Sq:
         _build.launch(
             "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, KVH, Sq, kv_end, D,
+            out.data_ptr(), B, H, KVH, Sq, kv_end, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(bool(causal)), int(window or 0),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -176,7 +196,8 @@ flash_attention.launches = 0
 
 def flash_error_bound(q, k, v, o_plain, *, kv_len=None):
     """Worst-case |kernel - plain version| of each output element, from
-    where the two round differently (float64, (B, H, Sq, D)):
+    where the two round differently (float64, (B, H, Sq, Dv); D below is
+    the query / key head dim):
 
     * ``p`` rounded to bf16 for PV, each within a relative 2**-8 of its
       float32 value, in the kernel against its running max and in the
@@ -194,7 +215,7 @@ def flash_error_bound(q, k, v, o_plain, *, kv_len=None):
 
     max|v| and max|k_j| are taken per (batch, KV head) over the keys the
     call reads."""
-    B, H, KVH, Sq, Sk, D = _check(q, k, v, kv_len)
+    B, H, KVH, Sq, Sk, D, _ = _check(q, k, v, kv_len)
     G = H // KVH
     kv_end = Sk if kv_len is None else min(Sk, int(kv_len))
     f64 = torch.float64

@@ -30,9 +30,15 @@ flash kernel), ``nemotron-4-15b`` (LayerNorm, squared-ReLU ungated FFN)
 and ``command-r-35b`` (LayerNorm, attention and FFN in parallel, the head
 tied to the embedding and computed as ``h @ emb.T``, never planned); emit
 their artifacts with ``max_cout`` at the widest non-head projection
-(10240, 24576 and 22528) to search every layer but the head.  The JAX
-package's other archs (MoE, MLA, xLSTM, the frontends) are refused with
-what each waits for.
+(10240, 24576 and 22528) to search every layer but the head.
+``--arch deepseek-v2-lite-16b`` (MLA with the latent cache, MoE with
+capacity dispatch, layer 0 a dense FFN) serves the same way on both
+engines, the prefix cache off and speculation refused under MoE as in
+the JAX package; ``max_cout=10944`` searches all but the head (215
+split_ternary + 1 quant_matmul per prefill or chunk forward, 188 + 1 per
+decode forward: the absorbed decode folds ``kv_b``'s weight).  The JAX
+package's other archs (arctic's MoE with a dense residual FFN, xLSTM,
+the frontends) are refused with what each waits for.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\

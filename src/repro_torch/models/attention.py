@@ -1,5 +1,6 @@
-"""Grouped-query attention with a dense KV cache (``repro.models.attention``
-counterparts of ``gqa``, ``full_attention`` and ``cache_update``).
+"""Grouped-query attention and multi-head latent attention with a dense or
+paged KV cache (``repro.models.attention`` counterparts of ``gqa``,
+``mla``, ``full_attention``, ``chunked_attention`` and ``cache_update``).
 
 Shapes: hidden (B, S, D); q (B, S, H, hd); kv (B, S, KVH, hd).  GQA is
 computed grouped -- q reshaped to (B, S, KVH, G, hd) -- so KV heads are
@@ -9,7 +10,9 @@ in the caller's buffer, which saves a copy of the cache per layer).
 Long prefills (``gqa(chunked=True)``) use `chunked_attention`, which on
 the card is the flash-attention kernel of `repro_torch.kernels`.  The
 paged KV pool of the serving engine (`paged_update`, `paged_gather`,
-``gqa(pages=)``) is written in place too; MLA waits for a later slice.
+``gqa(pages=)``, ``mla(pages=)``) is written in place too.  `mla`
+caches the compressed latent and decodes one token through the absorbed
+path (``kv_b`` folded into the query and output sides).
 """
 from __future__ import annotations
 
@@ -54,22 +57,16 @@ def init_attn(gen, cfg: AttnConfig, dtype=torch.bfloat16, repeats=None):
     }
 
 
-def _einsum(eq, a, b):
-    """``torch.einsum`` with JAX's type promotion of the two operands."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
-
-
 def _grouped_scores_softmax_out(q, k, v, mask, scale):
     """q (B,Sq,KVH,G,hd); k,v (B,Sk,KVH,hd); mask (Sq,Sk) or (B,Sq,Sk) bool
     or None."""
-    s = _einsum("bqkgd,bskd->bkgqs", q, k).to(torch.float32) * scale
+    s = L.einsum("bqkgd,bskd->bkgqs", q, k).to(torch.float32) * scale
     if mask is not None:
         if mask.dim() == 3:
             mask = mask[:, None, None]
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
-    return _einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return L.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
 
 
 def _is_per_slot(t) -> bool:
@@ -124,7 +121,7 @@ def chunked_attention_plain(q, k, v, *, causal, window, q_chunk, k_chunk,
         qpos = q0 + torch.arange(q_chunk, device=dev)[:, None]
         for k0 in range(0, Sk, k_chunk):
             kb, vb = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
-            s = _einsum("bqkgd,bskd->bkgqs", qb, kb).to(torch.float32) * scale
+            s = L.einsum("bqkgd,bskd->bkgqs", qb, kb).to(torch.float32) * scale
             kpos = k0 + torch.arange(k_chunk, device=dev)[None, :]
             mask = torch.ones((q_chunk, k_chunk), dtype=torch.bool,
                               device=dev)
@@ -139,7 +136,7 @@ def chunked_attention_plain(q, k, v, *, causal, window, q_chunk, k_chunk,
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
-            pv = _einsum("bkgqs,bskd->bqkgd", p.to(vb.dtype), vb)
+            pv = L.einsum("bkgqs,bskd->bqkgd", p.to(vb.dtype), vb)
             o = o * alpha.permute(0, 3, 1, 2)[..., None] + pv.to(torch.float32)
             m = m_new
         o = o / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
@@ -333,6 +330,127 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
         # a planned wo quantizes ``out`` to int8, which maps NaN (read from
         # a corrupted page) to a finite code: keep such rows non-finite,
         # so that the paged engine's logit screen sees the fault
+        y = torch.where(torch.isfinite(out).all(dim=-1, keepdim=True), y,
+                        float("nan"))
+    return y, cache
+
+
+# ---------------------------------------------------------------- MLA layer
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def init_mla(gen, cfg: MLAConfig, dtype=torch.bfloat16, repeats=None):
+    H, d, r = cfg.n_heads, cfg.d_model, cfg.kv_lora_rank
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    kw = dict(dtype=dtype, repeats=repeats)
+    return {
+        "wq": L.init_dense(gen, d, H * qd, **kw),
+        "kv_a": L.init_dense(gen, d, r + cfg.qk_rope_dim, **kw),
+        "kv_norm": L.init_norm(r, dtype, repeats=repeats, device=gen.device),
+        "kv_b": L.init_dense(gen, r, H * (cfg.qk_nope_dim + cfg.v_head_dim),
+                             **kw),
+        "wo": L.init_dense(gen, H * cfg.v_head_dim, d,
+                           scale=(H * cfg.v_head_dim) ** -0.5, **kw),
+    }
+
+
+def _absorbed(p, q_nope, q_rope, latent, k_rope, kv_len, cfg: MLAConfig,
+              dtype):
+    """The ABSORBED decode (DeepSeek-V2, appendix): ``kv_b``'s weight folded
+    into the query and output sides, so one query row attends over the
+    compressed latent cache directly.  It reads ``p["kv_b"]["w"]`` (the
+    weight itself, as the JAX package does, under a planned backend too),
+    scores in float32 with the per-slot ``kv_len`` mask; returns (B, 1, H *
+    v_head_dim)."""
+    B, S, H, nd = q_nope.shape
+    r, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    w_kvb = p["kv_b"]["w"].reshape(r, H, nd + vd)
+    w_uk, w_uv = w_kvb[..., :nd], w_kvb[..., nd:]
+    q_abs = L.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    f32 = torch.float32
+    scale = (nd + cfg.qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs.to(f32), latent.to(f32))
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32),
+                             k_rope.to(f32))) * scale
+    kl = kv_len.reshape(-1, 1, 1, 1) if _is_per_slot(kv_len) else kv_len
+    mask = torch.arange(latent.shape[1],
+                        device=latent.device)[None, None, None, :] < kl
+    pw = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", pw, latent.to(f32))
+    out = L.einsum("bqhr,rhv->bqhv", o_lat.to(dtype), w_uv)
+    return out.reshape(B, S, H * vd)
+
+
+def mla(p, x, positions, cfg: MLAConfig, *, cache=None, cache_index=None,
+        name=None, chunked=False, pages=None, write_mask=None):
+    """Multi-head Latent Attention (DeepSeek-V2).  The cache holds the
+    compressed latent and the shared rope key, ``latent ‖ k_rope``: a dense
+    {"latent": (B, S_max, r + rd)} or, with ``pages``, the shared (num_pages
+    + 1, page_size, r + rd) pool, written and read as in `gqa` (bf16, or
+    `_kv_encode` int8 codes).  A one-token step with a cache takes the
+    absorbed path (`_absorbed`: ``kv_b`` is not run through the matmul
+    backend); otherwise ``kv_b`` expands the whole cached latent (the
+    gathered pages on the paged path) and attention is MHA over
+    ``k = k_nope ‖ k_rope``, query / key dim ``nd + rd``, value dim ``vd``
+    (`chunked_attention` for a long prefill, else `full_attention`).
+    Returns (out, cache)."""
+    B, S, D = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = L.dense(p["wq"], x, _j(name, "wq")).reshape(B, S, H, nd + rd)
+    q_nope = q[..., :nd]
+    q_rope = L.rope(q[..., nd:], positions, cfg.rope_theta)
+    kv = L.dense(p["kv_a"], x, _j(name, "kv_a"))
+    latent = L.norm(p["kv_norm"], kv[..., :r])
+    k_rope = L.rope(kv[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+
+    kv_len = None
+    if cache is not None:
+        packed = torch.cat([latent, k_rope], dim=-1)
+        buf = cache["latent"]
+        if buf.dtype == torch.int8:
+            packed = _kv_encode(packed)
+        if pages is not None:
+            paged_update(buf, packed, pages, cache_index, write_mask)
+            seq = paged_gather(buf, pages)
+        else:
+            seq = cache_update(buf, packed, cache_index)
+        if buf.dtype == torch.int8:
+            seq = seq.to(x.dtype) * (1.0 / KV_QSCALE)
+        latent, k_rope = seq[..., :r], seq[..., r:]
+        kv_len = cache_index + S
+
+    if cache is not None and S == 1:
+        out = _absorbed(p, q_nope, q_rope, latent, k_rope, kv_len, cfg,
+                        x.dtype)
+    else:
+        Sk = latent.shape[1]
+        kvb = L.dense(p["kv_b"], latent,
+                      _j(name, "kv_b")).reshape(B, Sk, H, nd + vd)
+        k_nope, v = kvb[..., :nd], kvb[..., nd:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype)
+                       .expand(B, Sk, H, rd)], dim=-1)
+        qg = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1, nd + rd)
+        if chunked and S > 1:
+            out = chunked_attention(qg, k, v, causal=True, kv_len=kv_len)
+        else:
+            q_pos0 = cache_index if cache is not None else 0
+            out = full_attention(qg, k, v, causal=True, q_pos0=q_pos0,
+                                 kv_len=kv_len)
+        out = out.reshape(B, S, H * vd)
+    y = L.dense(p["wo"], out, _j(name, "wo"))
+    if pages is not None:
+        # as in `gqa`: a row read from a non-finite page stays non-finite
+        # through a planned wo
         y = torch.where(torch.isfinite(out).all(dim=-1, keepdim=True), y,
                         float("nan"))
     return y, cache

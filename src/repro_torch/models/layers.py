@@ -15,6 +15,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ b.to(dt)
 
 
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's type promotion of the two operands."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
 def init_dense(gen: torch.Generator, d_in, d_out, dtype=torch.bfloat16,
                scale=None, bias=False, repeats=None):
     """``{"w": N(0, scale^2) (d_in, d_out)}`` (default scale d_in**-0.5),

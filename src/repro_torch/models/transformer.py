@@ -1,6 +1,9 @@
 """Config-driven LM assembly (``repro.models.transformer`` counterpart) for
-the dense attention-only ``("attn",)`` pattern and zamba2's hybrid one
-(five Mamba2 blocks, then one shared attention + FFN block).  Dense blocks
+the dense attention-only ``("attn",)`` pattern, zamba2's hybrid one (five
+Mamba2 blocks, then one shared attention + FFN block) and deepseek's
+``("mla",)`` one (multi-head latent attention, then a MoE FFN; its layer
+0 a dense FFN of width ``cfg.dense_ff``, unstacked as
+``params["first_dense"]`` and run before the repeats).  Dense blocks
 take either norm (RMSNorm, or LayerNorm with a bias: ``cfg.norm``), a
 gated or ungated FFN, attention and FFN in parallel on one norm
 (``cfg.parallel_block``: command-r), a sliding window
@@ -16,7 +19,9 @@ same weights in both packages.  zamba2's two blocks past its last whole
 repeat are unstacked (``params["rem"]``, named ``rem/{i}``), and its
 shared block's weights are one copy (``params["shared"]``, named
 ``shared/attn`` and ``shared/ffn`` at every use) with a per-use input norm
-stacked in its pattern position.  Where the JAX package runs
+stacked in its pattern position.  deepseek's ``first_dense`` block is
+named ``first_dense`` and its cache is ``caches["first"]``; its stacked
+units hold ``n_layers - 1`` repeats.  Where the JAX package runs
 ``jax.lax.scan`` over the repeats, `backbone` loops in Python and
 publishes the repeat index with `_backend.scan_slot`.
 
@@ -46,8 +51,11 @@ bit for bit unchanged at masked steps.  A prompt longer than 2048 tokens
 prefills through the chunked (flash) attention, as the JAX package's
 ``_prefill_body`` does; like the JAX package's, that path needs a cache
 length that is a multiple of ``min(1024, S_max)`` and a prompt length
-that is a multiple of ``min(512, S)``.  MoE, MLA, xLSTM, cross-attention
-and encoder-decoder archs wait for later slices.  The dense serving
+that is a multiple of ``min(512, S)``.  ``length_mask`` also drops masked
+tokens from MoE dispatch before the capacity cumsum, so padding and
+retired slots never take an expert's place.  arctic's MoE with a dense
+residual FFN, xLSTM, cross-attention and encoder-decoder archs wait for
+later slices.  The dense serving
 engine (`repro_torch.serving.Engine(kv_layout="dense")`) prefills
 admission groups with ``prefill(lengths=)``, moves them into its slot pool
 with `scatter_cache` and decodes all slots with a per-slot ``index``; the
@@ -64,23 +72,37 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import _backend
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 _j = _backend.join
 
 
-#: the block patterns the port serves: dense attention-only archs and
+#: the block patterns the port serves: dense attention-only archs,
 #: zamba2's hybrid (five Mamba2 blocks, then the shared attention block)
-SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",))
+#: and deepseek's MLA + MoE blocks
+SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",),
+                      ("mla",))
 
 
 def _check_supported(cfg: ArchConfig):
-    if (cfg.pattern not in SUPPORTED_PATTERNS or cfg.moe is not None
-            or cfg.mla or cfg.frontend or cfg.encoder_layers):
+    mla = cfg.pattern == ("mla",)
+    why = None
+    if cfg.frontend or cfg.encoder_layers:
+        why = "frontends and encoders wait for later slices"
+    elif cfg.moe is not None and cfg.moe_dense_residual:
+        why = ("MoE with a dense residual FFN beside it (arctic) waits for "
+               "later slices")
+    elif cfg.pattern not in SUPPORTED_PATTERNS:
+        why = f"the pattern {cfg.pattern} (xLSTM) waits for later slices"
+    elif mla != (cfg.mla is not None) or mla != (cfg.moe is not None):
+        why = ("MLA without MoE blocks, or MoE without MLA, waits for "
+               "later slices")
+    if why:
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense attention-only ('attn',) "
-            f"archs and zamba2's hybrid pattern; MoE, MLA, xLSTM, frontends "
-            f"and encoders wait for later slices")
+            f"archs, zamba2's hybrid pattern and deepseek's ('mla',) "
+            f"MoE blocks; {why}")
 
 
 def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
@@ -88,6 +110,14 @@ def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, rope_theta=cfg.rope_theta,
         sliding_window=cfg.sliding_window)
+
+
+def _mla_cfg(cfg: ArchConfig) -> A.MLAConfig:
+    m = cfg.mla
+    return A.MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                       kv_lora_rank=m.kv_lora_rank, qk_nope_dim=m.qk_nope_dim,
+                       qk_rope_dim=m.qk_rope_dim, v_head_dim=m.v_head_dim,
+                       rope_theta=cfg.rope_theta)
 
 
 def _mamba_cfg(cfg: ArchConfig) -> S.Mamba2Config:
@@ -103,11 +133,20 @@ def _zamba_remainder(cfg: ArchConfig) -> int:
     return cfg.n_layers - (cfg.n_layers // period) * period
 
 
+def _unit_repeats(cfg: ArchConfig) -> int:
+    """Repeats of the stacked units: deepseek's layer 0 lives unstacked in
+    ``params["first_dense"]``."""
+    first = 1 if cfg.moe_first_dense and len(cfg.pattern) == 1 else 0
+    return cfg.pattern_repeats - first
+
+
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
-               repeats=None):
+               repeats=None, first_dense=False):
     """One block of ``kind``, stacked on a leading ``repeats`` axis when
     given.  A ``shared_attn`` block holds only its per-use input norm; its
-    weights live in ``params["shared"]`` (`init_shared_block`)."""
+    weights live in ``params["shared"]`` (`init_shared_block`).  An
+    ``mla`` block holds MLA, ``norm2`` and a MoE FFN, or with
+    ``first_dense`` a dense FFN of width ``cfg.dense_ff``."""
     dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
     nk = dict(repeats=repeats, device=dev, kind=cfg.norm)
     p = {"norm1": L.init_norm(d, dt, **nk)}
@@ -118,6 +157,14 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
                                   repeats=repeats)
             if not cfg.parallel_block:
                 p["norm2"] = L.init_norm(d, dt, **nk)
+    elif kind == "mla":
+        p["attn"] = A.init_mla(gen, _mla_cfg(cfg), dt, repeats=repeats)
+        if first_dense:
+            p["ffn"] = L.init_ffn(gen, d, cfg.dense_ff, cfg.gated_ffn, dt,
+                                  repeats=repeats)
+        else:
+            p["moe"] = M.init_moe(gen, d, cfg.moe, dt, repeats=repeats)
+        p["norm2"] = L.init_norm(d, dt, **nk)
     elif kind == "mamba":
         p["mamba"] = S.init_mamba2(gen, _mamba_cfg(cfg), dt, repeats=repeats)
     elif kind != "shared_attn":
@@ -138,10 +185,11 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
     package's tree, shapes and scales (the numbers differ: the generators
     do): ``units`` a tuple of one stacked block per pattern position,
     zamba2's ``rem`` a list of its remainder blocks and its ``shared``
-    block; no ``head`` under ``cfg.tie_embeddings``."""
+    block, deepseek's ``first_dense`` block; no ``head`` under
+    ``cfg.tie_embeddings``."""
     _check_supported(cfg)
     dt, dev = _dtype(cfg), gen.device
-    d, R, period = cfg.d_model, cfg.pattern_repeats, len(cfg.pattern)
+    d, R, period = cfg.d_model, _unit_repeats(cfg), len(cfg.pattern)
     emb = torch.randn((cfg.vocab, d), generator=gen, device=dev,
                       dtype=torch.float32) * 0.02
     units = tuple(init_block(gen, cfg, kind, repeats=R)
@@ -157,6 +205,9 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
                          for i in range(rem)]
     if "shared_attn" in cfg.pattern:
         params["shared"] = init_shared_block(gen, cfg)
+    if cfg.moe_first_dense:
+        params["first_dense"] = init_block(gen, cfg, cfg.pattern[0],
+                                           first_dense=True)
     return params
 
 
@@ -201,8 +252,21 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     page.  ``mamba``: a Mamba2 block whose new state is copied into
     ``cache`` in place; ``length_mask`` makes its masked steps exact
     identities on the state (dt = 0, the conv carry kept), on either KV
-    layout."""
+    layout.  ``mla``: MLA (latent cache, absorbed decode), then the MoE
+    FFN with ``length_mask`` dropping masked tokens from dispatch, or the
+    first dense layer's FFN."""
     h = L.norm(p["norm1"], x, cfg.norm)
+    if kind == "mla":
+        ao, nc = A.mla(p["attn"], h, positions, _mla_cfg(cfg), cache=cache,
+                       cache_index=cache_index, name=_j(name, "attn"),
+                       chunked=chunked, pages=pages, write_mask=length_mask)
+        x = x + ao
+        h2 = L.norm(p["norm2"], x, cfg.norm)
+        if "moe" in p:
+            mo, _ = M.moe_ffn(p["moe"], h2, cfg.moe, name=_j(name, "moe"),
+                              length_mask=length_mask)
+            return x + mo, nc
+        return x + L.ffn(p["ffn"], h2, cfg.act, _j(name, "ffn")), nc
     if kind == "mamba":
         mo, ns = S.mamba2(p["mamba"], h, _mamba_cfg(cfg), state=cache,
                           name=_j(name, "mamba"), length_mask=length_mask)
@@ -230,8 +294,9 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
              cache_index=None, chunked=False, length_mask=None, pages=None):
-    """Run all layers; returns (final-normed hidden, caches).  The
-    pattern's blocks run once per repeat under `_backend.scan_slot`, then
+    """Run all layers; returns (final-normed hidden, caches).  deepseek's
+    ``first_dense`` block first (unstacked, outside any repeat), then the
+    pattern's blocks once per repeat under `_backend.scan_slot`, then
     zamba2's remainder blocks (``rem/{i}``).  ``chunked``: attention
     through `attention.chunked_attention` (long prefill); ``length_mask``
     / ``pages``: see `block_apply`."""
@@ -240,6 +305,10 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
     repeats = units[0]["norm1"]["scale"].shape[0]
     kw = dict(cache_index=cache_index, shared=shared, chunked=chunked,
               length_mask=length_mask, pages=pages)
+    if "first_dense" in params:
+        c = caches["first"] if caches is not None else None
+        x, _ = block_apply(params["first_dense"], x, cfg.pattern[0], cfg,
+                           positions, cache=c, name="first_dense", **kw)
     for r in range(repeats):
         # stacked layers are named by their base path ("units/0/attn/wq");
         # a name-keyed backend selects repeat r's prepared kernels
@@ -307,6 +376,9 @@ def _block_cache_spec(cfg: ArchConfig, kind: str, B: int, S_max: int):
     if kind in ("attn", "shared_attn"):
         shape = (B, S_max, cfg.n_kv_heads, cfg.hd)
         return {"k": (shape, kv), "v": (shape, kv)}
+    if kind == "mla":
+        m = cfg.mla
+        return {"latent": ((B, S_max, m.kv_lora_rank + m.qk_rope_dim), kv)}
     if kind == "mamba":
         mc = _mamba_cfg(cfg)
         return {"ssm": ((B, mc.n_heads, mc.head_dim, mc.d_state),
@@ -319,9 +391,9 @@ def _assemble_caches(cfg: ArchConfig, block_fn, stacked, plain):
     """The layout walk shared by every cache-shaped tree (the JAX
     package's): ``block_fn(kind)`` gives one block's ``{key: spec}``;
     ``stacked(spec, repeats)`` builds a ``"units"`` leaf, ``plain(spec)``
-    a ``"rem"`` one."""
+    a ``"rem"`` or ``"first"`` one."""
     _check_supported(cfg)
-    period, R = len(cfg.pattern), cfg.pattern_repeats
+    period, R = len(cfg.pattern), _unit_repeats(cfg)
     caches = {"units": tuple(
         {key: stacked(sp, R) for key, sp in block_fn(kind).items()}
         for kind in cfg.pattern)}
@@ -330,6 +402,9 @@ def _assemble_caches(cfg: ArchConfig, block_fn, stacked, plain):
         caches["rem"] = [{key: plain(sp) for key, sp in
                           block_fn(cfg.pattern[i % period]).items()}
                          for i in range(rem)]
+    if cfg.moe_first_dense:
+        caches["first"] = {key: plain(sp) for key, sp in
+                           block_fn(cfg.pattern[0]).items()}
     return caches
 
 
@@ -428,11 +503,12 @@ def copy_pages(caches, src, dst, kv_axes):
 def cache_batch_axes(caches):
     """Tree (matching ``caches``) of each leaf's BATCH axis: the
     ``"units"`` leaves are stacked with a leading repeats axis, so batch
-    is axis 1; ``"rem"`` leaves carry batch first.  This is the layout
-    knowledge `scatter_cache` needs to address slots."""
+    is axis 1; ``"rem"`` and ``"first"`` leaves carry batch first.  This
+    is the layout knowledge `scatter_cache` needs to address slots."""
     axes = {"units": _tree_map(lambda _: 1, caches["units"])}
-    if "rem" in caches:
-        axes["rem"] = _tree_map(lambda _: 0, caches["rem"])
+    for key in ("rem", "first"):
+        if key in caches:
+            axes[key] = _tree_map(lambda _: 0, caches[key])
     return axes
 
 

@@ -2,7 +2,10 @@
 120 (h2o-danube-3-4b) against the JAX package on the CPU: against JAX's
 ``chunked_attention(window=)`` (the function the kernel ports on the card;
 the Pallas kernel has no window), and without a window against JAX's
-``flash_attention_op`` in interpret mode at D 120.
+``flash_attention_op`` in interpret mode at D 120.  With a value head dim
+of its own (deepseek's MLA: query / key 192, value 128), the plain version
+and the oracle against JAX's ``chunked_attention``, which takes ``vd !=
+hd``.
 
 Tolerances as in ``test_torch_attention.py``: float32 within atol 1e-5
 (the frameworks sum in other orders), and the JAX algorithm's bf16 copy
@@ -170,5 +173,56 @@ def test_flash_rejects_a_bad_window(window):
         flash_attention(_bhsd(tq), _bhsd(tk), _bhsd(tv), window=window)
 
 
+#: (D, Dv): a reduced pair and deepseek-v2-lite's MLA (128 nope + 64 rope,
+#: value 128)
+VALUE_DIM_PAIRS = [(24, 16), (192, 128)]
+
+
+@pytest.mark.parametrize("kv_len", [None, 512])
+@pytest.mark.parametrize("D,Dv", VALUE_DIM_PAIRS)
+def test_flash_plain_and_ref_at_a_value_dim_of_its_own_match_jax(D, Dv,
+                                                                 kv_len):
+    """q, k at D and v at Dv, G 1 as MLA calls it, causal; with ``kv_len``
+    a 512-query prefill in a 768-key cache.  The plain version (what the
+    card's kernel is held to) and the oracle against JAX's
+    ``chunked_attention`` within atol 1e-5 (float32); the output is
+    (B, H, Sq, Dv) and the op on the CPU is the plain version."""
+    heads, sq = 4, 512
+    sk = sq if kv_len is None else 768
+    rng = np.random.default_rng(D + Dv + (kv_len or 0))
+    qa = rng.standard_normal((1, sq, heads, 1, D), dtype=np.float32) * 2
+    ka = rng.standard_normal((1, sk, heads, D), dtype=np.float32)
+    va = rng.standard_normal((1, sk, heads, Dv), dtype=np.float32)
+    want = np.asarray(JA.chunked_attention(
+        jnp.asarray(qa), jnp.asarray(ka), jnp.asarray(va), causal=True,
+        q_chunk=CHUNK, k_chunk=CHUNK, kv_len=kv_len), np.float32)
+    assert want.shape == (1, sq, heads, 1, Dv)
+    q, k, v = (_bhsd(torch.from_numpy(a)) for a in (qa, ka, va))
+    for f in (flash_attention_plain, ref.flash_attention_ref):
+        got = f(q, k, v, causal=True, kv_len=kv_len)
+        assert tuple(got.shape) == (1, heads, sq, Dv)
+        np.testing.assert_allclose(got.transpose(1, 2).reshape(want.shape),
+                                   want, rtol=0, atol=1e-5)
+    assert torch.equal(flash_attention(q, k, v, kv_len=kv_len),
+                       flash_attention_plain(q, k, v, kv_len=kv_len))
+
+
 def test_head_dims_take_h2o_danube():
     assert 120 in HEAD_DIMS and 48 not in HEAD_DIMS
+
+
+def test_the_build_instantiates_the_shapes_of_the_list(tmp_path):
+    """The source's dispatch list is written from `SHAPES` (the one list
+    of instantiated (D, Dv, windowed)) into a header the build includes;
+    192 / 128 is instantiated without the window."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import SHAPES
+    assert (192, 128, False) in SHAPES and (128, 128, True) in SHAPES
+    flags = _build.include_flags("flash_attention", tmp_path / "f.h")
+    assert flags == ["-include", str(tmp_path / "f.h")]
+    want = " ".join(f"X({d}, {dv}, {str(w).lower()})" for d, dv, w in SHAPES)
+    assert (tmp_path / "f.h").read_text() == \
+        f"#define FLASH_SHAPES {want}\n"
+    assert _build.include_flags("quant_matmul", tmp_path / "q.h") == []
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "FLASH_SHAPES" in src and "D == 192" not in src

@@ -594,6 +594,144 @@ def test_long_prefill_on_the_card_launches_flash_per_layer(cuda):
     assert bool(torch.isfinite(logits).all())
 
 
+#: B, H, KVH, Sq, Sk, causal, kv_len at deepseek's MLA head dims (query /
+#: key 192, value 128): its long prefill's shape (G 1), ragged and off the
+#: tiles, kv_len inside a longer cache, G 4 and not causal
+MLA_CASES = [(1, 16, 16, 3072, 3072, True, None),
+             (2, 4, 4, 300, 400, True, 350),
+             (1, 16, 16, 1000, 2048, True, 1000),
+             (1, 8, 2, 391, 645, True, 520),
+             (1, 4, 4, 77, 130, False, 100)]
+
+
+def _mla_operands(B, H, KVH, Sq, Sk, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        dev).to(torch.bfloat16)
+        for s in ((B, H, Sq, 192), (B, KVH, Sk, 192), (B, KVH, Sk, 128))]
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Sk,causal,kv_len", MLA_CASES)
+def test_flash_attention_mla_head_dims_within_bound(cuda, B, H, KVH, Sq, Sk,
+                                                    causal, kv_len):
+    q, k, v = _mla_operands(B, H, KVH, Sq, Sk, cuda, Sq + Sk)
+    q = q * 2
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert tuple(got.shape) == (B, H, Sq, 128)
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    err = (got.double() - want.double()).abs()
+    bound = flash_error_bound(q, k, v, want, kv_len=kv_len)
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def test_flash_at_mla_head_dims_writes_only_its_value_columns(cuda):
+    """An output view with guard columns past Dv 128 keeps them; the model
+    layout of `attention.mla` (v a strided view of ``kv_b``'s output, k
+    the concatenation of k_nope and k_rope) through `chunked_attention`
+    gives the kernel's numbers on contiguous copies; an uninstantiated
+    pair, and a window at 192 / 128 (instantiated without one), raise."""
+    B, H, S = 1, 16, 1024
+    q, k, v = _mla_operands(B, H, H, S, S, cuda, 31)
+    want = flash_attention_plain(q, k, v)
+    buf = torch.full((B, S, H, 136), 7.0, dtype=torch.bfloat16, device=cuda)
+    flash_attention(q, k, v, out=buf[..., :128].transpose(1, 2))
+    torch.cuda.synchronize()
+    assert bool((buf[..., 128:] == 7.0).all())
+    got = buf[..., :128].transpose(1, 2)
+    assert bool(((got.double() - want.double()).abs()
+                 <= flash_error_bound(q, k, v, want)).all())
+    kvb = torch.randn((B, S, H, 256), device=cuda).to(torch.bfloat16)
+    krope = torch.randn((B, S, 64), device=cuda).to(torch.bfloat16)
+    km = torch.cat([kvb[..., :128], krope[:, :, None].expand(B, S, H, 64)],
+                   dim=-1)
+    vm = kvb[..., 128:]
+    qm = q.transpose(1, 2).reshape(B, S, H, 1, 192)
+    before = flash_attention.launches
+    out = A.chunked_attention(qm, km, vm, kv_len=S)
+    assert flash_attention.launches == before + 1
+    ref = flash_attention(qm.reshape(B, S, H, 192).transpose(1, 2)
+                          .contiguous(), km.transpose(1, 2).contiguous(),
+                          vm.transpose(1, 2).contiguous(), kv_len=S)
+    assert torch.equal(out, ref.transpose(1, 2).reshape(out.shape))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :128], k[..., :128], v[..., :64])
+    with pytest.raises(ValueError, match="no window"):
+        flash_attention(q, k, v, window=64)
+
+
+#: (M, K, N, raw boundary) of deepseek-v2-lite's planned projections on
+#: diana (max_cout 10944): wq, kv_a, kv_b, wo, the router, the shared
+#: experts' up and down, the first dense layer's up and down, at decode
+#: and a paged chunk's rows; kv_b also at a paged chunk's gathered latent
+DEEPSEEK_SPLIT = [(m, k, n, raw) for m in (4, 128) for k, n, raw in (
+    (2048, 3072, 45), (2048, 576, 15), (512, 4096, 60), (2048, 2048, 30),
+    (2048, 64, 7), (2048, 2816, 45), (2816, 2048, 30), (2048, 10944, 165),
+    (10944, 2048, 30))] + [(4 * 256, 512, 4096, 60)]
+
+
+@pytest.mark.parametrize("m,k,n,raw", DEEPSEEK_SPLIT)
+def test_split_ternary_at_deepseek_shapes(cuda, m, k, n, raw):
+    """Through the op (the boundary aligned as a served layer's) on K-major
+    codes, bit for bit."""
+    x, w, t, sx, sw = _operands(m, k, n, k + n + m, cuda)
+    cols = torch.arange(n, device=cuda)[None, :]
+    b_al = min(ops.align_boundary(raw, 128), n)
+    w_q = torch.where(cols < b_al, w, t).to(torch.int8)
+    packed = pack_ternary(torch.where(cols >= b_al, t, 0).to(
+        torch.int8).contiguous())
+    got = ops.split_ternary_op(x, w_q.t().contiguous().t(), packed, sx, sw,
+                               raw)
+    assert torch.equal(got, split_ternary_plain(x, w_q, packed, sx, sw,
+                                                b_al))
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_quant_matmul_at_the_deepseek_head(cuda, m):
+    x, w, _, sx, sw = _operands(m, 2048, 102400, m, cuda)
+    got = quant_matmul(x, w.t().contiguous().t(), sx, sw)
+    assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
+
+
+def test_deepseek_long_prefill_on_the_card_launches_mla_flash(cuda):
+    """Reduced deepseek (query / key dim 24 is no kernel instantiation, so
+    the reduced MLA dims are widened to the full model's 128 nope + 64
+    rope, v 128): a 2560-token prefill launches the kernel once per layer
+    at 192 / 128; the logits are finite."""
+    import dataclasses
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get("deepseek-v2-lite-16b"))
+    cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128))
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab, (2, 2560), device=cuda,
+                            generator=torch.Generator(device=cuda))
+    shapes = []
+    launch = A.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.append((q.shape[-1], v.shape[-1]))
+        return launch(q, k, v, **kw)
+    A.flash_attention = recording
+    try:
+        before = flash_attention.launches
+        logits, _ = T.prefill(params, cfg, prompts,
+                              T.init_cache(cfg, 2, 3072, device=cuda))
+        torch.cuda.synchronize()
+    finally:
+        A.flash_attention = launch
+    assert flash_attention.launches == before + cfg.n_layers
+    assert shapes == [(192, 128)] * cfg.n_layers
+    assert tuple(logits.shape) == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+
+
 @pytest.mark.parametrize("m,n", [(16, 17024), (512, 512)])
 @pytest.mark.parametrize("first", ["quant_matmul", "ternary_matmul"])
 def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first, m,
