@@ -74,10 +74,20 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    the paged path (`DEEPSEEK_GATHER_MS`); quant_matmul at its head (2048,
    102400) at M {4, 128}; flash at query / key dim 192 and value dim 128
    (B 4 and 1, H = KVH 16; `DEEPSEEK_FLASH_CASES`: Sq = Sk 3072, Sq 3000,
-   kv_len 3072 in a 4096 cache), within the bound.  Then the
-   entry point of ternary_packed, which no serving path calls, is driven
-   once at each of the ten (M, K, N) with the launch counts read around
-   that run.
+   kv_len 3072 in a 4096 cache), within the bound.  xlstm-1.3b's shapes
+   (phase 14): split_ternary at its four (K, N) (`XLSTM_RAW`: mLSTM's up,
+   w_if and down, sLSTM's w_in; sLSTM's down is mLSTM's shape) x M {4,
+   128, 512} at its planned raw boundaries, through the op and the kernel
+   itself, with both garbage probes (w_if's N 8 lies below every column
+   tile: the op's aligned boundary makes all 8 columns int8, the kernel
+   splits at 7), ternary_matmul there at M 4 (the bank leg's draft), and
+   quant_matmul at its head (2048, 50304) at M {4, 128}; arctic-480b's
+   (phase 15): split_ternary at its five (K, N) (`ARCTIC_RAW`: wq and wo,
+   wk and wv, the router, the residual FFN's gate / up and down) x M {4,
+   128, 512} in the same way, and quant_matmul at its head (7168, 32000).
+   Then the entry point of ternary_packed, which no serving path calls, is
+   driven once at each of the ten (M, K, N) with the launch counts read
+   around that run.
 4. times of each kernel and its library yardstick in ROUNDS = 5
    interleaved rounds (kernel, library, kernel, library, ...; the median
    and the range of each printed, share and the factor kernel / library
@@ -110,7 +120,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    192), v (1, 4096, 16, 128) the value half of a (1, 4096, 16, 256) kv_b
    output as `attention.mla` passes it, kv_len 2560) x 27 layers, SDPA on
    the same shapes (the kernel its backend ran is printed: PyTorch's flash backend
-   takes no value head dim of its own).
+   takes no value head dim of its own); xlstm-1.3b's split_ternary calls at
+   M {4, 128} and its head, summed per decode and chunk forward.
    Then the split sweep: the wgmma GEMM of split_precision and of
    ternary_matmul at M 512 x (4096, 512) at each K split of SWEEP_SPLITS,
    each checked against the plain version and timed as above.
@@ -245,9 +256,12 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    Each kernel's calls are also timed through PyTorch's library on the
    same inputs (`cnn_library_call`: ``torch._int_mm`` + the epilogue,
    split_precision's two calls) in the same graph rounds.
-9. planset: the precision bank (`runtime.PlanSet`) over the same params,
-   ``{"target": diana, "draft": diana_ternary}`` from phase 5's
-   artifacts, served with the config's bf16 KV cache (`PLANSET`: one
+9. planset: the precision bank (`runtime.PlanSet`) over the same params
+   at full width and their first `PLANSET_LAYERS` (12) of 48 layers (the
+   stacked leaves' first 12 repeats, views), ``{"target": diana, "draft":
+   diana_ternary}`` from phase 5's artifacts filtered to those layers
+   (`cut_depth`; `PLANSET_HISTS`: 61 quant_matmul + 24 split_ternary or
+   ternary_matmul), served with the config's bf16 KV cache (`PLANSET`: one
    seeded trace of 5 requests, prompts 64-256, 8-16 new tokens, Poisson
    arrivals at 0.5 per step, 4 slots of 1024, pages of 16, chunks of 32):
      bank         bind time, peak memory, `memory_report()`; every layer
@@ -259,8 +273,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                   whose TTFT and tok/s are the leg's);
      draft_only   the trace under ``plan_variant("draft")``;
      spec         ``speculate=("draft", "target"), draft_k=4``: launches
-                  per round 241 (k + 1) quant_matmul + 96 k ternary_matmul
-                  + 96 split_ternary beyond the chunk calls, spec_committed
+                  per round 61 (k + 1) quant_matmul + 24 k ternary_matmul
+                  + 24 split_ternary beyond the chunk calls, spec_committed
                   = the tokens committed, tokens against target-only under
                   the margin rule (the distance read from each verify
                   chunk's logits against target-only's at the same
@@ -396,8 +410,33 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    dense prefill whose 27 layers launch flash at 192 / 128, each call
    within the bound on its own inputs; the prefill logits within
    SENSITIVITY_FACTOR x the float64-attention plain run's distance, tokens
-   by the margin rule).  The model is freed before the last lines.
-14. one JSON line of kernel records, the nvidia-smi line, and the contract
+   by the margin rule).  The model is freed before the next phase.
+14. xlstm: xlstm-1.3b at full width and depth (48 blocks: 6 x seven mLSTM
+   blocks + one sLSTM block, d_model 2048, 4 heads of 1024, vocab 50304;
+   ~2.2 B random bf16 params from --seed; ~705 MB of mLSTM memory per
+   slot), emitted on diana at ``max_cout=16384`` (every projection but
+   the head mixed: `XLSTM_HIST` = 138 split_ternary + 1 quant_matmul per
+   forward); legs fixed (serve_batch 4 x 128 + 16: launches = 19 x the
+   histogram, EVERY planned call held bit for bit against its plain
+   version as it is made, tokens and prefill logits identical to the plain
+   run's, 0 weight copies), engine_paged_mixed (`XLSTM_MIXED`, 4 requests,
+   the prefix cache off: recurrent state; against its plain run by the
+   margin rule; a warm and a profiled run: idle share) and the bank
+   (``PlanSet({"target": diana, "draft": diana biased all-ternary})``,
+   `XLSTM_BANK`: target-only, the same with the mLSTM summed in float64
+   (its logit distance is the spread), then ``speculate=("draft",
+   "target"), draft_k=4`` against target-only by `spec_step_rule`, with
+   the replay chunks counted by wrapping ``Engine._replay``: at least one
+   replays a partial accept over the restored mLSTM and sLSTM state).
+15. arctic: arctic-480b at full width, `ARCTIC_LAYERS` (2) of its 35
+   layers (each layer's 128 experts are ~26.8 GB of bf16; the expert
+   products are bf16 einsums over all experts, as in the JAX package),
+   emitted on diana at ``max_cout=7168`` (`ARCTIC_HIST` = 16 split_ternary
+   + 1 quant_matmul per forward), the fixed batch only: every planned call
+   checked as it is made, tokens and prefill logits identical to the plain
+   run's, the (token, k) pairs capacity dropped in the kernel run, the
+   init and serving peak memory.
+16. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -562,11 +601,26 @@ PLANSET = dict(requests=5, min_prompt=64, max_prompt=256, min_new=8,
                page_size=16, prefill_chunk=32, draft_k=4,
                heartbeat_steps=4)
 #: the bank's variants: the artifacts of phase 5 they are lowered from,
-#: and the kernel histogram each lowers to (the 241 pinned layers on
-#: quant_matmul in both)
+#: and the kernel histogram each lowers to at the bank's depth
 PLANSET_VARIANTS = {"target": "diana", "draft": "diana_ternary"}
-PLANSET_HISTS = {"target": {"quant_matmul": 241, "split_ternary": 96},
-                 "draft": {"quant_matmul": 241, "ternary_matmul": 96}}
+#: the bank serves yi-9b at full width and its first 12 of 48 layers (the
+#: stacked leaves' first 12 repeats, views; the artifacts filtered to
+#: those layers' names): the script's time limit (at all 48 the phase ran
+#: 252-299 s on two H100 hosts, host-paced); its shapes and kernels are
+#: full width's
+PLANSET_LAYERS = 12
+
+
+def planset_hists(layers):
+    """The bank's variants' histograms at ``layers`` yi-9b layers: per
+    layer wq, wo, gate, up and down pinned to quant_matmul (c_out > 512),
+    wk and wv on the variant's kernel, and the head on quant_matmul."""
+    pinned = {"quant_matmul": 5 * layers + 1}
+    return {"target": dict(pinned, split_ternary=2 * layers),
+            "draft": dict(pinned, ternary_matmul=2 * layers)}
+
+
+PLANSET_HISTS = planset_hists(PLANSET_LAYERS)
 #: zamba2-1.2b (phase 10), full width.  Emitted with max_cout 8384, the
 #: widest non-head projection (in_proj: 2 x 4096 + 2 x 64 + 64): with the
 #: default 512 every projection (all >= 2048 wide) is pinned to int8, a
@@ -752,6 +806,70 @@ DEEPSEEK_ROPE = 64
 DEEPSEEK_FLASH_HEADS = [(REQUESTS, 16, 16, 192), (1, 16, 16, 192)]
 DEEPSEEK_FLASH_CASES = [(3072, 3072, None), (3000, 3000, None),
                         (3072, 4096, 3072)]
+#: xlstm-1.3b (phase 14), full width and depth: 48 blocks, 6 repeats of
+#: seven mLSTM blocks and one sLSTM block, d_model 2048, 4 heads of
+#: d_inner / 4 = 1024, vocab 50304.  Emitted with max_cout 16384 (sLSTM's
+#: w_in, the widest projection but the head; at the default 512 every
+#: projection would be pinned to int8): diana's min-cost split then
+#: searches every projection but the 50304-wide head and mixes all of
+#: them, raw boundaries from the cost model (computed on the CPU, equal in
+#: the JAX package's min_cost): mLSTM's up (2048, 8192), w_if (4096, 8)
+#: and down (4096, 2048), sLSTM's w_in (2048, 16384) and down (4096,
+#: 2048); a forward is 42 x 3 + 6 x 2 = 138 split_ternary + 1 quant_matmul
+#: (w_if's 8 columns lie below every column tile: the aligned boundary
+#: makes all 8 int8, through split_ternary).  The block-diagonal q / k / v,
+#: the conv and sLSTM's recurrent mixing are plain PyTorch, as in the JAX
+#: package (jnp, no Pallas kernel)
+XLSTM = "xlstm-1.3b"
+XLSTM_MAX_COUT = 16384
+XLSTM_RAW = {(2048, 8192): 120, (4096, 8): 7, (4096, 2048): 30,
+             (2048, 16384): 240}
+#: the planned layers of repeat 0 the raw boundaries are read from, and the
+#: layers per forward at each (K, N)
+XLSTM_NAMES = ("units/0/core/up@0", "units/0/core/w_if@0",
+               "units/0/core/down@0", "units/7/core/w_in@0",
+               "units/7/core/down@0")
+XLSTM_LAYERS = {(2048, 8192): 42, (4096, 8): 42, (4096, 2048): 48,
+                (2048, 16384): 6}
+XLSTM_HEAD = (2048, 50304)
+XLSTM_HIST = {"quant_matmul": 1, "split_ternary": 138}
+#: the bank leg's draft, diana biased all-ternary: its searchable layers on
+#: ternary_matmul (its decode steps at M <= 4 on xLSTM's (K, N))
+XLSTM_DRAFT_HIST = {"quant_matmul": 1, "ternary_matmul": 138}
+#: split_ternary checked at these M (decode, a paged chunk, the fixed
+#: batch's 512) and timed at the first two; ternary_matmul checked at the
+#: draft's decode M
+XLSTM_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
+#: the engine leg: engine_mixed's trace cut to 4 requests, paged only
+#: (the prefix cache off: recurrent state); the bank leg: the planset
+#: phase's trace shape at 4 requests (each slot's snapshot clones ~707 MB
+#: of recurrent state).  At 2 requests the rounds replayed partial accepts
+#: on an H100, but one request's tokens parted from target-only's at its
+#: first small-margin step, which left `spec_step_rule` 11 of 25 tokens to
+#: compare, under its half
+XLSTM_MIXED = dict(ENGINE_MIXED, requests=4)
+XLSTM_BANK = dict(PLANSET, requests=4)
+#: arctic-480b (phase 15), full width, 2 of its 35 layers: each layer's 128
+#: experts x 3 x 7168 x 4864 are ~26.8 GB of bf16 (as the JAX package's
+#: jnp einsums, the port's expert products read all of them), so the card
+#: holds 2 layers (~55 GB with attention, the dense residual FFN, the
+#: embedding and the head; 3 are ~83 GB).  d_model 7168, 56 heads / 8 KV of
+#: head dim 128, 128 experts top-2 of d_ff 4864 beside a dense residual
+#: FFN of 4864, vocab 32000.  Emitted with max_cout 7168 (d_model, the
+#: widest projection but the head): a forward is 2 x 8 split_ternary (wq,
+#: wk, wv, wo, the router, the residual FFN's gate, up and down) + 1
+#: quant_matmul
+ARCTIC = "arctic-480b"
+ARCTIC_LAYERS = 2
+ARCTIC_MAX_COUT = 7168
+ARCTIC_RAW = {(7168, 7168): 105, (7168, 1024): 15, (7168, 128): 7,
+              (7168, 4864): 75, (4864, 7168): 105}
+ARCTIC_NAMES = ("units/0/attn/wq@0", "units/0/attn/wk@0",
+                "units/0/moe/router@0", "units/0/ffn/up@0",
+                "units/0/ffn/down@0")
+ARCTIC_HEAD = (7168, 32000)
+ARCTIC_HIST = {"quant_matmul": 1, "split_ternary": 16}
+ARCTIC_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
@@ -1419,6 +1537,35 @@ def phase_kernels(torch, gen):
         print(f"[kernels] flash_attention {what}: max |err| {err:.4g} = "
               f"{ratio:.4g} of the bound")
         del q, k, v, got
+    # xlstm-1.3b's projections on diana (phase 14) and arctic-480b's
+    # (phase 15): split_ternary at their planned raw boundaries, through
+    # the op and the kernel itself, with both garbage probes (xLSTM's w_if
+    # at N 8, below every column tile); the xLSTM bank leg's all-ternary
+    # draft on ternary_matmul at its decode M; quant_matmul at both heads
+    for tag, raws, ms in (("xlstm", XLSTM_RAW, XLSTM_MS),
+                          ("arctic", ARCTIC_RAW, ARCTIC_MS)):
+        for m in ms:
+            for (k, n), raw in raws.items():
+                split_probes(m, k, n, raw, "K-major", quiet=True,
+                             kernel_raw=True)
+            print(f"[kernels] {tag} M={m:<4d}: split_ternary at "
+                  f"{len(raws)} (K, N) at their raw boundaries "
+                  + ", ".join(f"{k}x{n}:{raw}" for (k, n), raw in
+                              raws.items()) +
+                  " (aligned, and raw through the kernel), both garbage "
+                  "probes, bit-identical")
+    for k, n in XLSTM_RAW:
+        ternary_k_major(DECODE_M, k, n)
+    print(f"[kernels] xlstm draft M={DECODE_M}: ternary_matmul K-major at "
+          + ", ".join(f"{k}x{n}" for k, n in XLSTM_RAW) + " bit-identical")
+    for tag, (k, n) in (("xlstm", XLSTM_HEAD), ("arctic", ARCTIC_HEAD)):
+        for m in (DECODE_M, REQUESTS * CHUNK):
+            x, w_q, _, sx, sw = operands(m, k, n, n, gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw),
+                f"{tag} head M={m} K={k} N={n} K-major")
+            del x, w_q
     flash_sets = [(FLASH_HEADS, FLASH_CASES),
                   (ZAMBA_FLASH_HEADS, ZAMBA_FLASH_CASES)]
     for (B, H, KVH, D), Sq, Sk, causal, kv_len in (
@@ -1502,6 +1649,11 @@ def phase_times(torch, gen):
         for (k, n), raw in ZAMBA_RAW.items():
             calls[("split_ternary", m, k, n)] = raw
     calls[("quant_matmul", DECODE_M) + ZAMBA_HEAD] = None
+    # xlstm-1.3b's calls on diana (phase 14) at decode and a paged chunk
+    for m in (DECODE_M, REQUESTS * CHUNK):
+        for (k, n), raw in XLSTM_RAW.items():
+            calls[("split_ternary", m, k, n)] = raw
+    calls[("quant_matmul", DECODE_M) + XLSTM_HEAD] = None
     for (kernel, m, k, n), raw in calls.items():
         raw = n if raw is None else raw
         b_al = aligned(raw, n)
@@ -1851,13 +2003,14 @@ def entry_mix(times, only_m=None):
     return tot
 
 
-def zamba_layers(prefill_m=PREFILL_M):
+def zamba_layers(prefill_m=PREFILL_M, layers=None, head=ZAMBA_HEAD):
     """zamba2-1.2b's planned layers per forward on diana (`ZAMBA_LAYERS`,
-    the head): (K, N) -> (kernel, count, rows at a prefill of
-    ``prefill_m`` tokens); every layer has M = B rows at decode."""
+    the head), or those of ``layers`` and ``head`` (xlstm-1.3b's): (K, N)
+    -> (kernel, count, rows at a prefill of ``prefill_m`` tokens); every
+    layer has M = B rows at decode."""
     out = {kn: ("split_ternary", count, prefill_m)
-           for kn, count in ZAMBA_LAYERS.items()}
-    out[ZAMBA_HEAD] = ("quant_matmul", 1, DECODE_M)
+           for kn, count in (layers or ZAMBA_LAYERS).items()}
+    out[head] = ("quant_matmul", 1, DECODE_M)
     return out
 
 
@@ -2308,8 +2461,10 @@ def plain_float64_ssm():
     """Context: the Mamba2 blocks sum their SSM in float64 (the chunked
     SSD and the per-step recurrence, `ssm._ssd_chunked` / `ssm._ssd_step`,
     on float64 copies of their float32 inputs; the state and outputs
-    rounded back to float32) -- another valid summation, for the
-    sensitivity run of zamba2's speculative leg."""
+    rounded back to float32), and so do the mLSTM blocks (`ssm.
+    _mlstm_chunked` / `ssm._mlstm_step`, gates and state in float64) --
+    another valid summation, for the sensitivity run of zamba2's and
+    xlstm's speculative legs (sLSTM steps alike in verify and decode)."""
     import contextlib
     import torch
     from repro_torch.models import ssm
@@ -2321,14 +2476,26 @@ def plain_float64_ssm():
             return h.to(torch.float32), y.to(torch.float32)
         return run
 
+    def mlstm_f64(fn):
+        def run(q, k, v, ig, fg, state, *args, **kw):
+            st, h = fn(q, k, v, ig.double(), fg.double(),
+                       tuple(t.double() for t in state), *args, **kw)
+            return (tuple(t.to(torch.float32) for t in st),
+                    h.to(torch.float32))
+        return run
+
+    names = ("_ssd_chunked", "_ssd_step", "_mlstm_chunked", "_mlstm_step")
+
     @contextlib.contextmanager
     def ctx():
-        orig = ssm._ssd_chunked, ssm._ssd_step
-        ssm._ssd_chunked, ssm._ssd_step = map(f64, orig)
+        orig = [getattr(ssm, name) for name in names]
+        for name, fn in zip(names, orig):
+            setattr(ssm, name, (f64 if "ssd" in name else mlstm_f64)(fn))
         try:
             yield
         finally:
-            ssm._ssd_chunked, ssm._ssd_step = orig
+            for name, fn in zip(names, orig):
+                setattr(ssm, name, fn)
     return ctx()
 
 
@@ -3070,8 +3237,10 @@ def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
     """A recorded paged run: launch counts (each planned kernel once per
     chunk call and decode step, flash never; ``decode_hist`` per decode
     step where it is not ``hist``), weight copies, finish reasons, the
-    captured paged_update call against the CPU; returns (engine, results,
-    tokens, first, margins, stats)."""
+    captured paged_update call against the CPU (an arch without attention
+    KV, xlstm's, makes none); returns (engine, results, tokens, first,
+    margins, stats)."""
+    from repro_torch.models import transformer as T
     calls, store = [], {}
     with capturing_paged_update(store, CAPTURE_CALL):
         engine, results, launches = engine_run(
@@ -3101,7 +3270,15 @@ def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
           f" over {st['prefill_calls']} chunk calls + {st['decode_steps']} "
           f"decode steps (flash 0: chunks attend through full_attention); "
           f"weights copied per call: 0")
-    check_paged_capture(torch, tag, store)
+    if any(ax.startswith("page")
+           for ax in T.tree_leaves(T.cache_kv_axes(cfg))):
+        check_paged_capture(torch, tag, store)
+    elif store:
+        raise AssertionError(f"{tag}: a paged_update call on an arch "
+                             f"without page-resident KV")
+    else:
+        print(f"[engine:{tag}] no paged_update call: the arch holds no "
+              f"attention KV, only per-slot recurrent state")
     return engine, results, [r.tokens for r in results], first, margins, st
 
 
@@ -3111,7 +3288,8 @@ def print_paged(tag, st, smi):
           f"{st['kv_peak_pages']} x {st['kv_page_bytes']} B = kv_peak_bytes "
           f"{st['kv_peak_bytes']} of kv_capacity_bytes "
           f"{st['kv_capacity_bytes']} (ratio "
-          f"{st['kv_peak_bytes'] / st['kv_capacity_bytes']:.3f}); prefix "
+          f"{st['kv_peak_bytes'] / max(st['kv_capacity_bytes'], 1):.3f}; "
+          f"0 of 0 where the arch holds no attention KV); prefix "
           f"lookups {st['prefix_lookups']}, hit requests "
           f"{st['prefix_hit_requests']}, hit tokens "
           f"{st['prefix_hit_tokens']}, cow copies {st['cow_copies']}, "
@@ -3593,10 +3771,28 @@ def planset_run(torch, tag, cfg, params, bank, hists, trace, smi, *,
     return engine, results, seqs, launches, rec
 
 
+def cut_depth(cfg, params, art, layers):
+    """``cfg`` and ``params`` of an attention-only model at its first
+    ``layers`` layers (the stacked leaves' first repeats, as views: no
+    copy), and ``art`` (a `MappingArtifact`) filtered to those layers'
+    names (``units/...@r`` with r < ``layers``; the head and the other
+    unstacked layers kept)."""
+    from repro_torch.models import transformer as T
+
+    def kept(name):
+        return "@" not in name or int(name.rsplit("@", 1)[1]) < layers
+    params = dict(params, units=T._tree_map(lambda t: t[:layers],
+                                            params["units"]))
+    art = dataclasses.replace(art, layers=[lay for lay in art.layers
+                                           if kept(lay["name"])])
+    return dataclasses.replace(cfg, n_layers=layers), params, art
+
+
 def phase_planset(torch, cfg, params, seed, smi):
     """The precision bank and the engine features on it (module docstring,
     phase 9): legs bank, target-only, draft-only, spec, slo, degrade and
-    faults.  Returns {leg: record}."""
+    faults, on the first `PLANSET_LAYERS` layers of ``params``.  Returns
+    {leg: record}."""
     from repro_torch.api import MappingArtifact
     from repro_torch.launch.serve import (build_planset, check_coverage,
                                           print_planset_report)
@@ -3605,13 +3801,21 @@ def phase_planset(torch, cfg, params, seed, smi):
                                      synthetic_trace)
     leg = PLANSET
     out = {}
-    print(f"[planset] kv cache {cfg.kv_cache_dtype} (the config's default: "
-          f"corrupt_page faults write NaN into float KV); {smi}")
+    layers = min(PLANSET_LAYERS, cfg.n_layers)
+    arts = {}
+    full = cfg.n_layers
+    for v, path in PLANSET_VARIANTS.items():
+        art = MappingArtifact.load(str(ROOT / "build" / "chip_smoke" /
+                                       f"{cfg.name}_{path}.json"))
+        pcfg, pparams, arts[v] = cut_depth(cfg, params, art, layers)
+    cfg, params = pcfg, pparams
+    print(f"[planset] {cfg.name} at full width, its first {layers} of "
+          f"{full} layers (views of the stacked repeats; the artifacts "
+          f"filtered to their {len(arts['target'].layers)} layers); kv "
+          f"cache {cfg.kv_cache_dtype} (the config's default: corrupt_page "
+          f"faults write NaN into float KV); {smi}")
 
     # bank: one PlanSet over the params, the pinned layers shared
-    arts = {v: MappingArtifact.load(str(ROOT / "build" / "chip_smoke" /
-                                        f"{cfg.name}_{path}.json"))
-            for v, path in PLANSET_VARIANTS.items()}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3650,7 +3854,8 @@ def phase_planset(torch, cfg, params, seed, smi):
                                        "sum_variant_bytes",
                                        "dedup_saved_bytes")}
     out["bank"].update(shared_entries=len(shared), shared_layers=shared_n,
-                       bind_s=bind_s, peak_gib=peak)
+                       bind_s=bind_s, peak_gib=peak, layers=layers,
+                       layers_in_config=full)
 
     trace = poisson_arrivals(synthetic_trace(
         leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
@@ -3947,6 +4152,84 @@ def zamba_launches(tag, launches, want, forwards):
     return " ".join(f"{k} {v}" for k, v in launches.items() if v)
 
 
+def spec_replay_legs(torch, tag, cfg, params, bank, hists, leg, seed, smi,
+                     at):
+    """A recurrent arch's bank legs (phases 10 and 14): ``leg``'s trace
+    target-only, the same with the SSM / mLSTM summed in float64 (its
+    logit distance is the spread), then ``speculate=("draft", "target")``
+    against target-only by `spec_step_rule`, with each replay chunk
+    counted by wrapping ``Engine._replay``.  The verify chunk sums the
+    recurrences over k + 1 steps where target-only steps them one at a
+    time: in bf16 their logits part, so the rule holds each step within
+    the float64 run's distance.  Returns (target-only record, spec
+    record) with the replay counts (slot replays; those after a partial
+    accept, at least one draft accepted and one rejected)."""
+    from repro_torch.serving import poisson_arrivals, synthetic_trace
+    trace = poisson_arrivals(synthetic_trace(
+        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
+        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
+        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    print_traffic(f"{tag}:bank", trace, leg)
+    _, res, seqs, _, trec = planset_run(
+        torch, f"{tag}:target_only", cfg, params, bank, hists, trace, smi,
+        leg=leg)
+    ref = {"tokens": {r.rid: r.tokens for r in res},
+           "margins": {rid: [float(top2_margin(torch, lg)) for lg in seq]
+                       for rid, seq in seqs.items()},
+           "seqs": seqs}
+    with plain_float64_ssm():
+        _, res64, seqs64, _, _ = planset_run(
+            torch, f"{tag}:target_only:float64_ssm", cfg, params, bank,
+            hists, trace, smi, leg=leg)
+    spread = max(matched_distance(torch, r.tokens, ref["tokens"][r.rid],
+                                  seqs64[r.rid], seqs[r.rid])
+                 for r in res64)
+    same64 = sum(r.tokens == ref["tokens"][r.rid] for r in res64)
+    print(f"[{tag}:target_only] float64-SSM run: logits max |diff| "
+          f"{spread:.4g} from the target-only run's over the steps where "
+          f"their histories agree; {same64} of {len(res64)} requests' "
+          f"tokens identical ({at()})")
+    del seqs64
+    replays = []
+
+    def count_replays(engine):
+        replay = engine._replay
+
+        def counting(x, drafted, caches, snap, valid):
+            replays.append(valid.copy())
+            return replay(x, drafted, caches, snap, valid)
+        engine._replay = counting
+    k = leg["draft_k"]
+    eng, res, seqs, launches, srec = planset_run(
+        torch, f"{tag}:spec", cfg, params, bank, hists, trace, smi, leg=leg,
+        on_engine=count_replays, speculate=("draft", "target"), draft_k=k)
+    st = dict(eng.stats)
+    calls, rounds = eng.recorded
+    compared, total, dist = spec_step_rule(
+        torch, f"{tag}:spec vs target_only", trace, res, seqs, calls,
+        rounds, ref, k, spread)
+    del calls, eng
+    slots = sum(int((v > 0).sum()) for v in replays)
+    partial = sum(int((v > 1).sum()) for v in replays)
+    print(f"[{tag}:spec] k {k}: {st['spec_rounds']} rounds, acceptance "
+          f"{st['spec_acceptance']}, {st['spec_tokens_per_round']} tokens per"
+          f" round, launches "
+          f"{' '.join(f'{kk} {v}' for kk, v in launches.items() if v)}; "
+          f"{len(replays)} replay chunks ({slots} slot replays, {partial} "
+          f"after a partial accept: at least one draft accepted, then one "
+          f"rejected) of the restored recurrent state; decode "
+          f"{srec['decode_tok_s']:.3f} tok/s against target-only's "
+          f"{trec['decode_tok_s']:.3f} ({at()})")
+    return trec, dict(srec, spec_rounds=st["spec_rounds"],
+                      spec_acceptance=st["spec_acceptance"],
+                      spec_tokens_per_round=st["spec_tokens_per_round"],
+                      replay_chunks=len(replays), slot_replays=slots,
+                      partial_accept_replays=partial,
+                      tokens_compared=compared, tokens_total=total,
+                      max_logit_distance=dist,
+                      float64_ssm_max_abs_diff=spread)
+
+
 def phase_zamba(torch, seed, smi, device="cuda"):
     """zamba2-1.2b at full width (module docstring, phase 10): legs
     fixed, engine_paged_mixed, engine_mixed, long, bank and spec; returns
@@ -3959,7 +4242,6 @@ def phase_zamba(torch, seed, smi, device="cuda"):
                                           print_planset_report, serve_batch)
     from repro_torch.launch.train import emit_static_mapping
     from repro_torch.models import transformer as T
-    from repro_torch.serving import poisson_arrivals, synthetic_trace
     t_phase = time.perf_counter()
 
     def at():
@@ -4088,74 +4370,14 @@ def phase_zamba(torch, seed, smi, device="cuda"):
     plan_hists = {v: plans[v].kernel_histogram() for v in plans}
     if plan_hists != {v: ZAMBA_PLAN_HISTS[v] for v in plans}:
         raise AssertionError(f"zamba bank histograms {plan_hists}")
-    hists = ZAMBA_BANK_HISTS
     bcfg = kv_cache_for(cfg, arts["target"])
-    leg = ZAMBA_BANK
-    trace = poisson_arrivals(synthetic_trace(
-        leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
-        max_prompt=leg["max_prompt"], min_new=leg["min_new"],
-        max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
-    eng, res, seqs, _, trec = planset_run(
-        torch, "zamba:target_only", bcfg, params, bank, hists, trace, smi,
-        leg=leg)
-    ref = {"tokens": {r.rid: r.tokens for r in res},
-           "margins": {rid: [float(top2_margin(torch, lg)) for lg in seq]
-                       for rid, seq in seqs.items()},
-           "seqs": seqs}
-    # the sensitivity run: the same trace with the SSM summed in float64
-    with plain_float64_ssm():
-        _, res64, seqs64, _, _ = planset_run(
-            torch, "zamba:target_only:float64_ssm", bcfg, params, bank,
-            hists, trace, smi, leg=leg)
-    spread = max(matched_distance(torch, r.tokens, ref["tokens"][r.rid],
-                                  seqs64[r.rid], seqs[r.rid])
-                 for r in res64)
-    same64 = sum(r.tokens == ref["tokens"][r.rid] for r in res64)
-    print(f"[zamba:target_only] float64-SSM run: logits max |diff| "
-          f"{spread:.4g} from the target-only run's over the steps where "
-          f"their histories agree; {same64} of {len(res64)} requests' "
-          f"tokens identical ({at()})")
-    del seqs64
-    replays = []
-
-    def count_replays(engine):
-        replay = engine._replay
-
-        def counting(x, drafted, caches, snap, valid):
-            replays.append(int((valid > 0).sum()))
-            return replay(x, drafted, caches, snap, valid)
-        engine._replay = counting
-    k = leg["draft_k"]
-    eng, res, seqs, _, srec = planset_run(
-        torch, "zamba:spec", bcfg, params, bank, hists, trace, smi, leg=leg,
-        on_engine=count_replays, speculate=("draft", "target"), draft_k=k)
-    st = dict(eng.stats)
-    calls, rounds = eng.recorded
-    # the verify chunk sums the SSD over k + 1 steps, target-only decoding
-    # steps the recurrence: in bf16 their logits part, so the rule holds
-    # each step within the float64-SSM run's distance
-    compared, total, dist = spec_step_rule(
-        torch, "zamba:spec vs target_only", trace, res, seqs, calls, rounds,
-        ref, k, spread)
-    del calls, eng
-    print(f"[zamba:spec] k {k}: {st['spec_rounds']} rounds, acceptance "
-          f"{st['spec_acceptance']}, {st['spec_tokens_per_round']} tokens per"
-          f" round, {len(replays)} replay chunks ({sum(replays)} slot "
-          f"replays) of the recurrent state; decode "
-          f"{srec['decode_tok_s']:.3f} tok/s against target-only's "
-          f"{trec['decode_tok_s']:.3f} ({at()})")
-    if not replays:
+    trec, srec = spec_replay_legs(torch, "zamba", bcfg, params, bank,
+                                  ZAMBA_BANK_HISTS, ZAMBA_BANK, seed, smi,
+                                  at)
+    if not srec["replay_chunks"]:
         raise AssertionError("zamba:spec: no round replayed a partial "
                              "accept")
-    out["target_only"] = trec
-    out["spec"] = dict(srec, spec_rounds=st["spec_rounds"],
-                       spec_acceptance=st["spec_acceptance"],
-                       spec_tokens_per_round=st["spec_tokens_per_round"],
-                       replay_chunks=len(replays),
-                       slot_replays=sum(replays),
-                       tokens_compared=compared, tokens_total=total,
-                       max_logit_distance=dist,
-                       float64_ssm_max_abs_diff=spread)
+    out["target_only"], out["spec"] = trec, srec
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[zamba] phase {out['seconds']:.1f} s, peak memory "
@@ -4167,20 +4389,24 @@ def phase_zamba(torch, seed, smi, device="cuda"):
 
 
 def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
-                decode_hist=None):
+                decode_hist=None, drops=None):
     """``serve_batch`` of the fixed traffic (REQUESTS x PROMPT_LEN +
     GEN_LEN, the paged engine: 4 chunk calls and 15 decode steps) with the
     first ``limits[kernel]`` calls of each int8 kernel held bit for bit
     against the plain version as they are made, launches = ``hist`` x the
     chunk calls + ``decode_hist`` (default ``hist``) x the decode steps, 0
     weight copies; then the plain run (``reference=True``): tokens and
-    prefill logits identical.  Returns the record."""
+    prefill logits identical.  ``drops`` (a dict): the kernel run's MoE
+    capacity drops (`counting_drops`).  Returns the record."""
+    import contextlib
     from repro_torch.launch.serve import serve_batch
     chunks = -(-PROMPT_LEN // CHUNK)
     forwards = chunks + GEN_LEN - 1
     checked, calls = {}, []
     reset_launches()
-    with checking_matmuls(checked, limits), recording_logits(calls):
+    with checking_matmuls(checked, limits), recording_logits(calls), \
+            (counting_drops(drops) if drops is not None
+             else contextlib.nullcontext()):
         tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
                                     backend=backend)
     want = forward_launches(hist, chunks, GEN_LEN - 1, decode_hist)
@@ -4717,6 +4943,151 @@ def phase_deepseek(torch, seed, smi, device="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def phase_xlstm(torch, seed, smi, device="cuda"):
+    """xlstm-1.3b at full width and depth (module docstring, phase 14):
+    legs fixed, engine_paged_mixed and the bank's target-only and spec;
+    returns {leg: record}.  ``device`` "cpu" serves a rehearsal, with the
+    config reduced and the CUDA-only calls stubbed by the caller."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (build_planset, check_coverage,
+                                          kv_cache_for,
+                                          print_planset_report)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+    cfg = cfgbase.get(XLSTM)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(gen, cfg)
+    xc = T._xlstm_cfg(cfg)
+    specs = T.cache_specs(cfg, 1, 1)
+    state = sum(t.numel() * t.element_size() for t in T.tree_leaves(specs))
+    print(f"[xlstm] {cfg.name}: {cfg.n_layers} blocks ({cfg.pattern_repeats}"
+          f" x {cfg.pattern.count('mlstm')} mLSTM + "
+          f"{cfg.pattern.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+          f"{xc.n_heads} heads of head dim {xc.head_dim} (d_inner "
+          f"{xc.d_inner}), conv {xc.conv_kernel}, vocab {cfg.vocab}; params "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B; recurrent "
+          f"state {state / 1e6:.1f} MB per slot (init "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi})")
+    hist = XLSTM_HIST
+    art, plan, backend, kcfg = plan_dense(torch, "xlstm", cfg, params,
+                                          XLSTM_MAX_COUT, hist, XLSTM_RAW,
+                                          names=XLSTM_NAMES)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    forwards = -(-PROMPT_LEN // CHUNK) + GEN_LEN - 1
+    # every planned call of the fixed batch checked as it is made
+    out = {"fixed": fixed_batch(torch, "xlstm:fixed", kcfg, params, backend,
+                                hist, prompts,
+                                {k: v * forwards for k, v in hist.items()})}
+    del prompts
+    print(f"[xlstm] fixed done ({at()})")
+    out.update(mixed_legs(torch, "xlstm", kcfg, params, backend, hist, seed,
+                          smi, XLSTM_MIXED, prefix_cache=False, dense=False))
+    print(f"[xlstm] engine legs done ({at()})")
+    del plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bank: diana's target and its all-ternary draft, speculative against
+    # target-only
+    arts = {"target": art, "draft": emit_static_mapping(
+        params, cfg, "diana",
+        ROOT / "build" / "chip_smoke" / f"{cfg.name}_diana_ternary.json",
+        max_cout=XLSTM_MAX_COUT, act_log_scale=2.0, bias=("aimc", 1.0))}
+    plans, bank = build_planset(params, arts, "target")
+    print_planset_report("xlstm:bank", plans, bank)
+    check_coverage("xlstm:bank", bank, require_full=True)
+    hists = {"target": XLSTM_HIST, "draft": XLSTM_DRAFT_HIST}
+    plan_hists = {v: plans[v].kernel_histogram() for v in plans}
+    if plan_hists != hists:
+        raise AssertionError(f"xlstm bank histograms {plan_hists}, expected "
+                             f"{hists}")
+    bcfg = kv_cache_for(cfg, arts["target"])
+    trec, srec = spec_replay_legs(torch, "xlstm", bcfg, params, bank, hists,
+                                  XLSTM_BANK, seed, smi, at)
+    if not srec["partial_accept_replays"]:
+        raise AssertionError("xlstm:spec: no round replayed a partial "
+                             "accept")
+    out["target_only"], out["spec"] = trec, srec
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[xlstm] phase {out['seconds']:.1f} s, peak memory "
+          f"{out['peak_gib']:.2f} GiB ({smi})")
+    del plans, bank, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_arctic(torch, seed, smi, device="cuda"):
+    """arctic-480b at full width, `ARCTIC_LAYERS` of its 35 layers (module
+    docstring, phase 15), on diana: the fixed batch, every planned call
+    checked as it is made, with the MoE's capacity drops and the peak
+    memory; returns its record.  ``device`` "cpu" serves a rehearsal."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = cfgbase.get(ARCTIC)
+    full = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=min(ARCTIC_LAYERS, full))
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = T.init_lm(gen, cfg)
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    moe = cfg.moe
+    experts = sum(params["units"][0]["moe"][key].numel()
+                  for key in ("up", "gate", "down"))
+    print(f"[arctic] {cfg.name}: {cfg.n_layers} of {full} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"head_dim {cfg.hd}; {moe.n_experts} experts top-{moe.top_k} of "
+          f"d_ff {moe.d_ff} (capacity factor {moe.capacity_factor}) beside a "
+          f"dense residual FFN of {cfg.dense_ff}; vocab {cfg.vocab}; params "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B, of them "
+          f"expert weights {experts * 2 / 1e9:.2f} GB bf16; device bytes "
+          f"{(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB (beside "
+          f"{base / 1e9:.2f} GB of earlier phases'), init "
+          f"peak {init_peak:.2f} GiB (init "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi})")
+    hist = ARCTIC_HIST
+    _, plan, backend, kcfg = plan_dense(torch, "arctic", cfg, params,
+                                        ARCTIC_MAX_COUT, hist, ARCTIC_RAW,
+                                        names=ARCTIC_NAMES)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    forwards = -(-PROMPT_LEN // CHUNK) + GEN_LEN - 1
+    drops = {}
+    rec = fixed_batch(torch, "arctic:fixed", kcfg, params, backend, hist,
+                      prompts, {k: v * forwards for k, v in hist.items()},
+                      drops=drops)
+    drops = {k: int(v) for k, v in drops.items()}
+    rec.update(layers=cfg.n_layers, layers_in_config=full,
+               init_peak_gib=init_peak,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               moe_dropped=drops["dropped"], moe_pairs=drops["pairs"],
+               seconds=time.perf_counter() - t_phase)
+    print(f"[arctic:fixed] MoE dispatch over the kernel run: "
+          f"{drops['dropped']} of {drops['pairs']} valid (token, k) pairs "
+          f"dropped by capacity ({drops['dropped'] / drops['pairs']:.4f}; "
+          f"factor {moe.capacity_factor}: {moe.n_experts} experts, top-"
+          f"{moe.top_k})")
+    print(f"[arctic] phase {rec['seconds']:.1f} s, peak memory "
+          f"{rec['peak_gib']:.2f} GiB (init {init_peak:.2f}; {smi})")
+    del prompts, plan, backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def fault_spec(markers):
@@ -5315,6 +5686,16 @@ def main(argv=None) -> int:
                               layers=zamba_layers(rows))
             zamba_mix[f"{kernel} {what}"] = mix
             print_mix(f"per {what} forward of {ZAMBA} on diana", kernel, mix)
+    xlstm_mix = {}
+    for kernel in XLSTM_HIST:
+        for what, phase, rows in (("decode", "decode", PREFILL_M),
+                                  (f"chunk (M {REQUESTS * CHUNK})",
+                                   "prefill", REQUESTS * CHUNK)):
+            mix = forward_mix(times, None, kernel, phase, rows,
+                              layers=zamba_layers(rows, XLSTM_LAYERS,
+                                                  XLSTM_HEAD))
+            xlstm_mix[f"{kernel} {what}"] = mix
+            print_mix(f"per {what} forward of {XLSTM} on diana", kernel, mix)
     # the long leg's dense prefill makes one flash call per shared-block use
     uses = ZAMBA_USES
     zamba_mix["flash_attention long prefill"] = {
@@ -5401,6 +5782,11 @@ def main(argv=None) -> int:
               dict(serving["deepseek"]["flash_long_prefill"],
                    bound_by=deepseek_flash["bound_by"]))
     mark("deepseek")
+    serving["xlstm"] = phase_xlstm(torch, args.seed, smi)
+    serving["xlstm"]["kernel_mix"] = xlstm_mix
+    mark("xlstm")
+    serving["arctic"] = phase_arctic(torch, args.seed, smi)
+    mark("arctic")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

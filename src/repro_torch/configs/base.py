@@ -76,11 +76,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 #: the JAX package's archs that the port does not serve yet, and what
 #: each waits for
-PENDING = {"arctic-480b": "the dense residual FFN beside the MoE, and a "
-                          "load path for its 26.8 GB of expert weights per "
-                          "layer",
-           "xlstm-1.3b": "xLSTM blocks",
-           "llama-3.2-vision-11b": "the vision frontend",
+PENDING = {"llama-3.2-vision-11b": "the vision frontend",
            "seamless-m4t-large-v2": "the audio encoder-decoder"}
 
 
@@ -107,8 +103,8 @@ def names():
 def load_all():
     """Import every config module of the port (each self-registers)."""
     from repro_torch.configs import (  # noqa: F401
-        command_r_35b, deepseek_v2_lite_16b, h2o_danube_3_4b, nemotron_4_15b,
-        yi_9b, zamba2_1_2b)
+        arctic_480b, command_r_35b, deepseek_v2_lite_16b, h2o_danube_3_4b,
+        nemotron_4_15b, xlstm_1_3b, yi_9b, zamba2_1_2b)
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:

@@ -36,9 +36,16 @@ capacity dispatch, layer 0 a dense FFN) serves the same way on both
 engines, the prefix cache off and speculation refused under MoE as in
 the JAX package; ``max_cout=10944`` searches all but the head (215
 split_ternary + 1 quant_matmul per prefill or chunk forward, 188 + 1 per
-decode forward: the absorbed decode folds ``kv_b``'s weight).  The JAX
-package's other archs (arctic's MoE with a dense residual FFN, xLSTM,
-the frontends) are refused with what each waits for.
+decode forward: the absorbed decode folds ``kv_b``'s weight).
+``--arch arctic-480b`` (a MoE of 128 experts top-2 beside a dense
+residual FFN in every attention block) serves the same way, speculation
+refused under MoE; ``max_cout=7168`` searches all but the head (8
+split_ternary per layer + 1 quant_matmul).  ``--arch xlstm-1.3b`` (seven
+mLSTM blocks, then one sLSTM block, per repeat; per-slot recurrent state
+in both KV layouts, the prefix cache off, speculation with the replay of
+partial accepts) serves the same way; ``max_cout=16384`` searches all but
+the head (138 split_ternary + 1 quant_matmul per forward).  The JAX
+package's frontend archs are refused with what each waits for.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\

@@ -1,14 +1,17 @@
 """Config-driven LM assembly (``repro.models.transformer`` counterpart) for
 the dense attention-only ``("attn",)`` pattern, zamba2's hybrid one (five
-Mamba2 blocks, then one shared attention + FFN block) and deepseek's
-``("mla",)`` one (multi-head latent attention, then a MoE FFN; its layer
-0 a dense FFN of width ``cfg.dense_ff``, unstacked as
-``params["first_dense"]`` and run before the repeats).  Dense blocks
-take either norm (RMSNorm, or LayerNorm with a bias: ``cfg.norm``), a
-gated or ungated FFN, attention and FFN in parallel on one norm
-(``cfg.parallel_block``: command-r), a sliding window
-(``cfg.sliding_window``: h2o-danube) and a head tied to the embedding
-(``cfg.tie_embeddings``: no ``params["head"]``, logits ``h @ emb.T``).
+Mamba2 blocks, then one shared attention + FFN block), xlstm's (seven
+mLSTM blocks, then one sLSTM block) and deepseek's ``("mla",)`` one
+(multi-head latent attention, then a MoE FFN; its layer 0 a dense FFN of
+width ``cfg.dense_ff``, unstacked as ``params["first_dense"]`` and run
+before the repeats).  Dense blocks take either norm (RMSNorm, or
+LayerNorm with a bias: ``cfg.norm``), a gated or ungated FFN, attention
+and FFN in parallel on one norm (``cfg.parallel_block``: command-r), a
+sliding window (``cfg.sliding_window``: h2o-danube), a head tied to the
+embedding (``cfg.tie_embeddings``: no ``params["head"]``, logits ``h @
+emb.T``) and, with ``cfg.moe``, a MoE FFN in place of the FFN, beside a
+dense residual FFN of width ``cfg.dense_ff`` on the same norm under
+``cfg.moe_dense_residual`` (arctic).
 
 Params are the JAX package's pytree as a nested dict of tensors: the
 layers are ``pattern_repeats`` repeats of the block pattern, one block per
@@ -44,18 +47,20 @@ Public API:
   copy_pages(caches, src, dst, kv_axes)          -> caches (in place)
 
 Caches are updated in place (see `repro_torch.models.attention`): the
-attention KV (dense per slot, or paged) and the Mamba2 blocks' per-slot
-recurrent state (``ssm`` float32, ``conv`` in the activation dtype),
-which ``length_mask`` (ragged prefill, chunk validity, ``active``) leaves
-bit for bit unchanged at masked steps.  A prompt longer than 2048 tokens
+attention KV (dense per slot, or paged) and the recurrent blocks' per-slot
+state (Mamba2's ``ssm``, mLSTM's ``C`` / ``n`` / ``m``, sLSTM's ``c`` /
+``n`` / ``h`` / ``m``, all float32; the conv carries in the activation
+dtype), which ``length_mask`` (ragged prefill, chunk validity,
+``active``) leaves unchanged at masked steps (bit for bit but mLSTM's
+``m``, which the JAX package's padding step moves by at most log
+sigmoid(80)).  A prompt longer than 2048 tokens
 prefills through the chunked (flash) attention, as the JAX package's
 ``_prefill_body`` does; like the JAX package's, that path needs a cache
 length that is a multiple of ``min(1024, S_max)`` and a prompt length
 that is a multiple of ``min(512, S)``.  ``length_mask`` also drops masked
 tokens from MoE dispatch before the capacity cumsum, so padding and
-retired slots never take an expert's place.  arctic's MoE with a dense
-residual FFN, xLSTM, cross-attention and encoder-decoder archs wait for
-later slices.  The dense serving
+retired slots never take an expert's place.  Cross-attention and
+encoder-decoder archs wait for later slices.  The dense serving
 engine (`repro_torch.serving.Engine(kv_layout="dense")`) prefills
 admission groups with ``prefill(lengths=)``, moves them into its slot pool
 with `scatter_cache` and decodes all slots with a per-slot ``index``; the
@@ -78,31 +83,29 @@ from repro_torch.models import ssm as S
 _j = _backend.join
 
 
-#: the block patterns the port serves: dense attention-only archs,
-#: zamba2's hybrid (five Mamba2 blocks, then the shared attention block)
+#: the block patterns the port serves: attention blocks (dense, or with a
+#: MoE FFN), zamba2's hybrid (five Mamba2 blocks, then the shared
+#: attention block), xlstm's (seven mLSTM blocks, then one sLSTM block)
 #: and deepseek's MLA + MoE blocks
 SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",),
-                      ("mla",))
+                      ("mlstm",) * 7 + ("slstm",), ("mla",))
 
 
 def _check_supported(cfg: ArchConfig):
     mla = cfg.pattern == ("mla",)
     why = None
     if cfg.frontend or cfg.encoder_layers:
-        why = "frontends and encoders wait for later slices"
-    elif cfg.moe is not None and cfg.moe_dense_residual:
-        why = ("MoE with a dense residual FFN beside it (arctic) waits for "
-               "later slices")
+        why = ("frontends and encoders (the vision frontend, the audio "
+               "encoder-decoder) wait for later slices")
     elif cfg.pattern not in SUPPORTED_PATTERNS:
-        why = f"the pattern {cfg.pattern} (xLSTM) waits for later slices"
-    elif mla != (cfg.mla is not None) or mla != (cfg.moe is not None):
-        why = ("MLA without MoE blocks, or MoE without MLA, waits for "
-               "later slices")
+        why = f"the pattern {cfg.pattern} waits for later slices"
+    elif mla != (cfg.mla is not None) or (mla and cfg.moe is None):
+        why = "MLA without MoE blocks waits for later slices"
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention-only ('attn',) "
-            f"archs, zamba2's hybrid pattern and deepseek's ('mla',) "
-            f"MoE blocks; {why}")
+            f"{cfg.name}: the port serves attention blocks (dense or MoE), "
+            f"zamba2's hybrid pattern, xLSTM's mLSTM / sLSTM pattern and "
+            f"deepseek's ('mla',) MoE blocks; {why}")
 
 
 def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
@@ -122,6 +125,16 @@ def _mla_cfg(cfg: ArchConfig) -> A.MLAConfig:
 
 def _mamba_cfg(cfg: ArchConfig) -> S.Mamba2Config:
     return S.Mamba2Config(d_model=cfg.d_model, d_state=cfg.ssm_state)
+
+
+def _xlstm_cfg(cfg: ArchConfig) -> S.XLSTMConfig:
+    return S.XLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_heads)
+
+
+#: recurrent block kinds: (params key, function, its config)
+_RECURRENT = {"mamba": ("mamba", S.mamba2, _mamba_cfg),
+              "mlstm": ("core", S.mlstm, _xlstm_cfg),
+              "slstm": ("core", S.slstm, _xlstm_cfg)}
 
 
 def _dtype(cfg: ArchConfig):
@@ -145,14 +158,25 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
     """One block of ``kind``, stacked on a leading ``repeats`` axis when
     given.  A ``shared_attn`` block holds only its per-use input norm; its
     weights live in ``params["shared"]`` (`init_shared_block`).  An
-    ``mla`` block holds MLA, ``norm2`` and a MoE FFN, or with
-    ``first_dense`` a dense FFN of width ``cfg.dense_ff``."""
+    ``attn`` block under ``cfg.moe`` holds a MoE FFN, and under
+    ``cfg.moe_dense_residual`` also ``norm2`` and a dense FFN of width
+    ``cfg.dense_ff`` (arctic; as in the JAX package, a MoE block without
+    ``norm2`` normalises the FFN's input with ``norm1``).  An ``mla``
+    block holds MLA, ``norm2`` and a MoE FFN, or with ``first_dense`` a
+    dense FFN of width ``cfg.dense_ff``.  ``mlstm`` / ``slstm`` blocks
+    hold their core under ``"core"``."""
     dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
     nk = dict(repeats=repeats, device=dev, kind=cfg.norm)
     p = {"norm1": L.init_norm(d, dt, **nk)}
     if kind == "attn":
         p["attn"] = A.init_attn(gen, _attn_cfg(cfg), dt, repeats=repeats)
-        if cfg.d_ff:
+        if cfg.moe is not None:
+            p["moe"] = M.init_moe(gen, d, cfg.moe, dt, repeats=repeats)
+            if cfg.moe_dense_residual:
+                p["ffn"] = L.init_ffn(gen, d, cfg.dense_ff, cfg.gated_ffn,
+                                      dt, repeats=repeats)
+                p["norm2"] = L.init_norm(d, dt, **nk)
+        elif cfg.d_ff:
             p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt,
                                   repeats=repeats)
             if not cfg.parallel_block:
@@ -167,6 +191,10 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
         p["norm2"] = L.init_norm(d, dt, **nk)
     elif kind == "mamba":
         p["mamba"] = S.init_mamba2(gen, _mamba_cfg(cfg), dt, repeats=repeats)
+    elif kind == "mlstm":
+        p["core"] = S.init_mlstm(gen, _xlstm_cfg(cfg), dt, repeats=repeats)
+    elif kind == "slstm":
+        p["core"] = S.init_slstm(gen, _xlstm_cfg(cfg), dt, repeats=repeats)
     elif kind != "shared_attn":
         raise ValueError(kind)
     return p
@@ -249,12 +277,15 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     ``pages`` (B, W)
     switches the attention KV to the paged pool, where ``length_mask`` (B,
     S) sends the writes of padding (and of masked slots) to the trash
-    page.  ``mamba``: a Mamba2 block whose new state is copied into
-    ``cache`` in place; ``length_mask`` makes its masked steps exact
-    identities on the state (dt = 0, the conv carry kept), on either KV
-    layout.  ``mla``: MLA (latent cache, absorbed decode), then the MoE
-    FFN with ``length_mask`` dropping masked tokens from dispatch, or the
-    first dense layer's FFN."""
+    page.  Under ``cfg.moe`` an ``attn`` block's FFN is the MoE FFN on
+    ``norm2`` (``norm1`` where the block has none), plus the dense
+    residual FFN on the same normed input when the block has one
+    (arctic).  ``mamba``, ``mlstm``, ``slstm``: a
+    recurrent block whose new state is copied into ``cache`` in place;
+    ``length_mask`` makes its masked steps identities on the state (the
+    conv carry kept), on either KV layout.  ``mla``: MLA (latent cache,
+    absorbed decode), then the MoE FFN with ``length_mask`` dropping
+    masked tokens from dispatch, or the first dense layer's FFN."""
     h = L.norm(p["norm1"], x, cfg.norm)
     if kind == "mla":
         ao, nc = A.mla(p["attn"], h, positions, _mla_cfg(cfg), cache=cache,
@@ -267,12 +298,13 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
                               length_mask=length_mask)
             return x + mo, nc
         return x + L.ffn(p["ffn"], h2, cfg.act, _j(name, "ffn")), nc
-    if kind == "mamba":
-        mo, ns = S.mamba2(p["mamba"], h, _mamba_cfg(cfg), state=cache,
-                          name=_j(name, "mamba"), length_mask=length_mask)
+    if kind in _RECURRENT:
+        key, fn, kcfg = _RECURRENT[kind]
+        mo, ns = fn(p[key], h, kcfg(cfg), state=cache, name=_j(name, key),
+                    length_mask=length_mask)
         if cache is not None:
-            cache["ssm"].copy_(ns["ssm"])
-            cache["conv"].copy_(ns["conv"])
+            for leaf, new in ns.items():
+                cache[leaf].copy_(new)
         return x + mo, cache
     if kind == "shared_attn":
         p, attn_name, ffn_name = shared, "shared/attn", "shared/ffn"
@@ -286,10 +318,18 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     if cfg.parallel_block and kind == "attn" and "ffn" in p:
         return x + ao + L.ffn(p["ffn"], h, cfg.act, ffn_name), nc
     x = x + ao
+    if "moe" in p:
+        h2 = L.norm(p.get("norm2", p["norm1"]), x, cfg.norm)
+        mo, _ = M.moe_ffn(p["moe"], h2, cfg.moe, name=_j(name, "moe"),
+                          length_mask=length_mask)
+        if "ffn" in p:      # arctic's dense residual beside the MoE
+            mo = mo + L.ffn(p["ffn"], h2, cfg.act, ffn_name)
+        return x + mo, nc
     if "ffn" in p:
         x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
                       ffn_name)
     return x, nc
+
 
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
@@ -369,9 +409,9 @@ def _block_cache_spec(cfg: ArchConfig, kind: str, B: int, S_max: int):
     """``{key: (shape, dtype)}`` of one block's cache.  The attention KV
     holds int8 codes when ``cfg.kv_cache_dtype == "int8"``, else bfloat16
     (whatever the parameter dtype, as in the JAX package).  The Mamba2
-    conv carry holds activations: the parameter dtype, whatever the KV
-    dtype (the JAX package gives it the KV dtype; the port writes state
-    in place, where an int8 buffer would truncate it every step)."""
+    and mLSTM conv carries hold activations: the parameter dtype, whatever
+    the KV dtype (the JAX package gives them the KV dtype; the port writes
+    state in place, where an int8 buffer would truncate it every step)."""
     kv = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
     if kind in ("attn", "shared_attn"):
         shape = (B, S_max, cfg.n_kv_heads, cfg.hd)
@@ -384,6 +424,16 @@ def _block_cache_spec(cfg: ArchConfig, kind: str, B: int, S_max: int):
         return {"ssm": ((B, mc.n_heads, mc.head_dim, mc.d_state),
                         torch.float32),
                 "conv": ((B, mc.conv_kernel - 1, mc.conv_dim), _dtype(cfg))}
+    if kind in ("mlstm", "slstm"):
+        xc, f32 = _xlstm_cfg(cfg), torch.float32
+        H, hd = xc.n_heads, xc.head_dim
+        if kind == "mlstm":
+            return {"C": ((B, H, hd, hd), f32), "n": ((B, H, hd), f32),
+                    "m": ((B, H), f32),
+                    "conv": ((B, xc.conv_kernel - 1, xc.d_inner),
+                             _dtype(cfg))}
+        return {"c": ((B, H, hd), f32), "n": ((B, H, hd), f32),
+                "h": ((B, H, hd), f32), "m": ((B, H), f32)}
     raise ValueError(kind)
 
 

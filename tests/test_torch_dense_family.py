@@ -409,8 +409,9 @@ def test_serve_cli_engine(arch, capsys):
         assert want in out, want
 
 
-@pytest.mark.parametrize("arch,what", [("arctic-480b", "MoE"),
-                                       ("xlstm-1.3b", "xLSTM")])
+@pytest.mark.parametrize("arch,what", [
+    ("llama-3.2-vision-11b", "vision frontend"),
+    ("seamless-m4t-large-v2", "audio")])
 def test_serve_cli_names_what_a_missing_arch_waits_for(arch, what, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--reduce", "--device", "cpu"])

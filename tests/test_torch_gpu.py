@@ -732,6 +732,92 @@ def test_deepseek_long_prefill_on_the_card_launches_mla_flash(cuda):
     assert bool(torch.isfinite(logits).all())
 
 
+#: (K, N, raw boundary) of xlstm-1.3b's planned projections on diana
+#: (max_cout 16384): mLSTM's w_if (8 columns, below every column tile) and
+#: sLSTM's w_in; and arctic-480b's router (128 columns)
+XLSTM_ARCTIC_SPLIT = [(4096, 8, 7), (2048, 16384, 240), (7168, 128, 7)]
+
+
+@pytest.mark.parametrize("m", [4, 128, 512])
+@pytest.mark.parametrize("k,n,raw", XLSTM_ARCTIC_SPLIT)
+@pytest.mark.parametrize("route", ["op", "kernel"])
+def test_split_ternary_at_xlstm_and_arctic_shapes(cuda, m, k, n, raw,
+                                                  route):
+    """Through the op (the boundary aligned as a served layer's: all 8 of
+    w_if's columns int8) and through the kernel itself at the raw
+    boundary, on K-major codes with garbage in the codes at and above the
+    boundary and in the packed bytes below it, bit for bit."""
+    x, w, t, sx, sw = _operands(m, k, n, k + n + m, cuda)
+    cols = torch.arange(n, device=cuda)[None, :]
+    b = min(ops.align_boundary(raw, ops.block_n(128, n)), n) \
+        if route == "op" else raw
+    w_q = torch.where(cols < b, w, t).to(torch.int8)
+    packed = pack_ternary(torch.where(cols >= b, t, 0).to(
+        torch.int8).contiguous())
+    probe = torch.where(cols < b, w_q, 99).to(torch.int8)
+    probe_p = torch.where(cols < b, 0xFF, packed).to(torch.uint8)
+    want = split_ternary_plain(x, w_q, packed, sx, sw, b)
+    fn = ops.split_ternary_op if route == "op" else split_ternary
+    got = fn(x, probe.t().contiguous().t(), probe_p, sx, sw, raw if route ==
+             "op" else b)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n", [(4096, 8), (2048, 16384), (2048, 50304),
+                                 (7168, 32000)])
+def test_quant_matmul_at_xlstm_and_arctic_shapes(cuda, m, k, n):
+    """w_if and sLSTM's w_in as int8 layers, and both heads, K-major."""
+    x, w, _, sx, sw = _operands(m, k, n, m + n, cuda)
+    got = quant_matmul(x, w.t().contiguous().t(), sx, sw)
+    assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "arctic-480b"])
+def test_reduced_forward_on_the_card_matches_the_plain_backend(cuda, arch,
+                                                               tmp_path):
+    """Reduced xlstm-1.3b and arctic-480b planned on diana: a prefill of
+    40 tokens (xLSTM's chunked mLSTM and sLSTM's step loop; arctic's MoE
+    beside the dense residual) and 3 decode steps launch every planned
+    layer's kernel once per forward, and the logits equal those of the
+    plain versions (``reference=True``) bit for bit."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get(arch))
+    params = T.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    art = emit_static_mapping(params, cfg, "diana", tmp_path / "m.json",
+                              max_cout=64, act_log_scale=2.0)
+    plan, backend = plan_mapping_execution(params, art)
+    assert not backend.unbound
+    cfg = kv_cache_for(cfg, art)
+    hist = plan.kernel_histogram()
+    prompts = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                            generator=torch.Generator(device=cuda))
+
+    def run():
+        caches = T.init_cache(cfg, 2, 48, device=cuda)
+        with _backend.use(backend):
+            out = [T.prefill(params, cfg, prompts, caches)[0]]
+            for i in range(3):
+                tok = out[-1].argmax(-1)
+                out.append(T.decode_step(params, cfg, tok, caches,
+                                         40 + i)[0])
+        torch.cuda.synchronize()
+        return out
+    before = {k: getattr(ops, k).launches for k in hist}
+    got = run()
+    assert {k: getattr(ops, k).launches - before[k] for k in hist} == \
+        {k: 4 * n for k, n in hist.items()}
+    backend.reference = True
+    want = run()
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("m,n", [(16, 17024), (512, 512)])
 @pytest.mark.parametrize("first", ["quant_matmul", "ternary_matmul"])
 def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first, m,
