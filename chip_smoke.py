@@ -84,7 +84,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    quant_matmul at its head (2048, 50304) at M {4, 128}; arctic-480b's
    (phase 15): split_ternary at its five (K, N) (`ARCTIC_RAW`: wq and wo,
    wk and wv, the router, the residual FFN's gate / up and down) x M {4,
-   128, 512} in the same way, and quant_matmul at its head (7168, 32000).
+   128, 512} in the same way, and quant_matmul at its head (7168, 32000);
+   llama-3.2-vision-11b's and seamless-m4t-large-v2's (phases 16-17):
+   split_ternary at their (K, N) (`FRONTEND`: llama's wq / wo, wk / wv,
+   gate / up, down; seamless's attentions', up and down) x M {4, 128, 512,
+   4096} (`FRONTEND_MS`: 4 x 1024 frontend rows reach the cross wk / wv
+   and every encoder projection) in the same way, and quant_matmul at both
+   heads, (4096, 128256) and seamless's odd (1024, 256206), at M {4, 128}.
    Then the entry point of ternary_packed, which no serving path calls, is
    driven once at each of the ten (M, K, N) with the launch counts read
    around that run.
@@ -306,8 +312,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    blocks; vocab 32000), one set of bf16 params from --seed, its diana
    artifact emitted at ``max_cout=ZAMBA_MAX_COUT`` (8384: every
    projection but the head searched; 71 split_ternary layers + the head
-   on quant_matmul, the shared block's 7 bound once and run 6 times, so
-   `ZAMBA_HIST` = 106 + 1 launches per forward), int8 KV:
+   on quant_matmul, the shared block's 7 bound once and run 6 times:
+   `ZAMBA_LONG_HIST` = 106 + 1 launches per forward), int8 KV.  For the
+   script's time limit every leg but the long one serves the first
+   `ZAMBA_REPEATS` (2) repeats and the 2 remainder blocks (14 blocks,
+   `cut_depth`: views, the artifacts filtered; `ZAMBA_HIST` = 38 + 1):
      fixed               ``serve_batch`` 4 x 128 + 16 (19 forwards), every
                          planned call held bit for bit against its plain
                          version as it is made (`checking_matmuls`),
@@ -324,9 +333,10 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
                          layouts compared for the record; a warm paged run
                          and a profiled one (idle share);
      long                engine_long's requests (2 x 3000 + 2 x 200, 8
-                         new) through the dense engine, 4 slots of 4096:
-                         one group padded to 4096 tokens whose shared block
-                         launches flash at D 64 six times, each call held
+                         new) through the dense engine, 4 slots of 4096,
+                         all 38 blocks: one group padded to 4096 tokens
+                         whose shared block launches flash at D 64 six
+                         times, each call held
                          against the plain version within the bound; the
                          prefill logits within SENSITIVITY_FACTOR x the
                          float64-attention plain run's distance, tokens by
@@ -411,12 +421,13 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    within the bound on its own inputs; the prefill logits within
    SENSITIVITY_FACTOR x the float64-attention plain run's distance, tokens
    by the margin rule).  The model is freed before the next phase.
-14. xlstm: xlstm-1.3b at full width and depth (48 blocks: 6 x seven mLSTM
-   blocks + one sLSTM block, d_model 2048, 4 heads of 1024, vocab 50304;
-   ~2.2 B random bf16 params from --seed; ~705 MB of mLSTM memory per
-   slot), emitted on diana at ``max_cout=16384`` (every projection but
-   the head mixed: `XLSTM_HIST` = 138 split_ternary + 1 quant_matmul per
-   forward); legs fixed (serve_batch 4 x 128 + 16: launches = 19 x the
+14. xlstm: xlstm-1.3b at full width, `XLSTM_REPEATS` (2) of its 6 repeats
+   (16 of 48 blocks: 2 x seven mLSTM blocks + one sLSTM block, d_model
+   2048, 4 heads of 1024, vocab 50304; cut for the script's time limit,
+   its shapes and kernels the whole model's; random bf16 params from
+   --seed; ~235 MB of mLSTM memory per slot), emitted on diana at
+   ``max_cout=16384`` (every projection but the head mixed: `XLSTM_HIST` =
+   46 split_ternary + 1 quant_matmul per forward); legs fixed (serve_batch 4 x 128 + 16: launches = 19 x the
    histogram, EVERY planned call held bit for bit against its plain
    version as it is made, tokens and prefill logits identical to the plain
    run's, 0 weight copies), engine_paged_mixed (`XLSTM_MIXED`, 4 requests,
@@ -436,7 +447,30 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    checked as it is made, tokens and prefill logits identical to the plain
    run's, the (token, k) pairs capacity dropped in the kernel run, the
    init and serving peak memory.
-16. one JSON line of kernel records, the nvidia-smi line, and the contract
+16. llama: llama-3.2-vision-11b at full width and depth (40 layers: 8 x
+   four attention blocks + one gated cross-attention block over the
+   request's frontend rows; ~9.8 B random bf16 params from --seed, every
+   cross gate set to `LLAMA_GATE` (JAX's init 0 would add nothing); one
+   stub frontend row of 1024 x 4096 per request, from --seed), emitted on
+   diana at ``max_cout=14336`` (`FRONTEND["llama"]`: 280 split_ternary + 1
+   quant_matmul per chunk forward, 264 + 1 per decode forward, whose cross
+   blocks read the cached memory); legs fixed (serve_batch 4 x 128 + 16
+   with the rows: every planned call held bit for bit against its plain
+   version as it is made, tokens and prefill logits identical to the plain
+   run's, 0 weight copies; the same batch with zeroed rows must move the
+   prefill logits) and engine_paged_mixed (`FRONTEND_MIXED`: engine_mixed's
+   trace at 4 requests and prompts 64-256, the prefix cache off, against
+   its plain run by the margin rule; a warm and a profiled run: idle
+   share).
+17. seamless: seamless-m4t-large-v2 at full width and depth (a 24-layer
+   encoder over the frontend rows and 24 decoder layers, d_model 1024, 16
+   heads of 64, vocab 256206; ~1.6 B random bf16 params), emitted on diana
+   at ``max_cout=8192`` (`FRONTEND["seamless"]`: 384 split_ternary + 1
+   quant_matmul per chunk forward, the encoder's 144 included: the paged
+   engine reruns the encoder over every slot's rows at each chunk, as the
+   JAX package does; 192 + 1 per decode forward); the legs of phase 16,
+   and the encoder's time over the 4 slots' rows (M 4096).
+18. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -639,17 +673,34 @@ ZAMBA_LAYERS = {(2048, 8384): 32, (4096, 2048): 32,
 ZAMBA_RAW = {(2048, 8384): 128, (4096, 2048): 30, (2048, 2048): 30,
              (2048, 8192): 120, (8192, 2048): 30}
 ZAMBA_HEAD = (2048, 32000)
-#: launches per forward: diana, and the bank's digital target and 5 %
-#: ternary draft (the head pinned to quant_matmul in all three)
-ZAMBA_HIST = {"quant_matmul": 1, "split_ternary": 106}
-ZAMBA_BANK_HISTS = {"target": {"quant_matmul": 107},
-                    "draft": {"quant_matmul": 1, "split_ternary": 106}}
-#: the plans' layers per kernel: 60 stacked Mamba2 projections, 4 of the
-#: remainder blocks, the shared block's 7 (bound once, run 6 times) and
-#: the head
-ZAMBA_PLAN_HISTS = {"diana": {"quant_matmul": 1, "split_ternary": 71},
-                    "target": {"quant_matmul": 72},
-                    "draft": {"quant_matmul": 1, "split_ternary": 71}}
+#: the long leg serves the whole model (38 blocks): 106 + 1 launches per
+#: forward on diana, whose plan holds 60 stacked Mamba2 projections, 4 of
+#: the remainder blocks, the shared block's 7 (bound once, run 6 times)
+#: and the head
+ZAMBA_LONG_HIST = {"quant_matmul": 1, "split_ternary": 106}
+ZAMBA_PLAN_HIST = {"quant_matmul": 1, "split_ternary": 71}
+#: the other legs serve the first 2 of its 6 repeats and the 2 remainder
+#: blocks (14 of 38 blocks; `cut_depth`) at full width, their shapes and
+#: kernels those of the whole model (the script's time limit, once phases
+#: 16 and 17 came; ROADMAP item 6a).  Cut to 2 repeats the long leg too
+#: failed its sensitivity rule on an H100 (the kernel run's prefill logits
+#: 4.21 x the float64-attention run's RMS distance, at 2 flash calls), so
+#: it keeps all 38 blocks
+ZAMBA_REPEATS = 2
+_ZAMBA_MAMBA = 2 * (5 * ZAMBA_REPEATS + 2)      # in_proj + out_proj
+#: launches per forward of the cut legs: diana, and the bank's digital
+#: target and 5 % ternary draft (the head pinned to quant_matmul in all
+#: three); the shared block's 7 run once per repeat
+ZAMBA_HIST = {"quant_matmul": 1,
+              "split_ternary": _ZAMBA_MAMBA + 7 * ZAMBA_REPEATS}
+ZAMBA_BANK_HISTS = {"target": {"quant_matmul": sum(ZAMBA_HIST.values())},
+                    "draft": dict(ZAMBA_HIST)}
+#: the cut plans' layers per kernel
+ZAMBA_PLAN_HISTS = {"diana": {"quant_matmul": 1,
+                              "split_ternary": _ZAMBA_MAMBA + 7},
+                    "target": {"quant_matmul": _ZAMBA_MAMBA + 8},
+                    "draft": {"quant_matmul": 1,
+                              "split_ternary": _ZAMBA_MAMBA + 7}}
 #: split_ternary checked and timed at these M: decode, a paged chunk (4 x
 #: 32) and the fixed batch's 512
 ZAMBA_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
@@ -832,10 +883,16 @@ XLSTM_NAMES = ("units/0/core/up@0", "units/0/core/w_if@0",
 XLSTM_LAYERS = {(2048, 8192): 42, (4096, 8): 42, (4096, 2048): 48,
                 (2048, 16384): 6}
 XLSTM_HEAD = (2048, 50304)
-XLSTM_HIST = {"quant_matmul": 1, "split_ternary": 138}
+#: the phase serves the first 2 of the 6 repeats (16 of 48 blocks) at full
+#: width, their shapes and kernels those of the whole model (the script's
+#: time limit, once phases 16 and 17 came; ROADMAP item 6a): 23
+#: split_ternary per repeat (7 mLSTM blocks x 3 + sLSTM's 2)
+XLSTM_REPEATS = 2
+XLSTM_HIST = {"quant_matmul": 1, "split_ternary": 23 * XLSTM_REPEATS}
 #: the bank leg's draft, diana biased all-ternary: its searchable layers on
 #: ternary_matmul (its decode steps at M <= 4 on xLSTM's (K, N))
-XLSTM_DRAFT_HIST = {"quant_matmul": 1, "ternary_matmul": 138}
+XLSTM_DRAFT_HIST = {"quant_matmul": 1,
+                    "ternary_matmul": 23 * XLSTM_REPEATS}
 #: split_ternary checked at these M (decode, a paged chunk, the fixed
 #: batch's 512) and timed at the first two; ternary_matmul checked at the
 #: draft's decode M
@@ -870,6 +927,50 @@ ARCTIC_NAMES = ("units/0/attn/wq@0", "units/0/attn/wk@0",
 ARCTIC_HEAD = (7168, 32000)
 ARCTIC_HIST = {"quant_matmul": 1, "split_ternary": 16}
 ARCTIC_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
+#: the frontend archs (phases 16 and 17), full width and depth, each
+#: request with one stub frontend row of 1024 x d_model drawn from --seed.
+#: llama-3.2-vision-11b: 40 layers (8 repeats of four attention blocks and
+#: one gated cross-attention block), d_model 4096, 32 heads / 8 KV of 128,
+#: d_ff 14336, vocab 128256.  seamless-m4t-large-v2: a 24-layer encoder
+#: over the rows and 24 decoder layers (self-attention, cross-attention to
+#: the encoder's memory, FFN), d_model 1024, 16 heads of 64, d_ff 8192
+#: (GELU, LayerNorm), vocab 256206 (odd: the head's N is no multiple of a
+#: column tile or of a 16-byte row).  Each is emitted on diana at max_cout
+#: its widest non-head projection, so every projection but the head mixes:
+#: (name, max_cout, launches per prefill / chunk forward, per decode
+#: forward, raw boundaries by (K, N), the plan layers they are read from,
+#: the head's (K, N)).  A decode forward runs no cross wk / wv: the
+#: memory is cached (llama 8 x 2, seamless 24 x 2 fewer); a seamless chunk
+#: forward runs the encoder (24 x 6) over every slot's rows
+FRONTEND = {
+    "llama": ("llama-3.2-vision-11b", 14336,
+              {"quant_matmul": 1, "split_ternary": 280},
+              {"quant_matmul": 1, "split_ternary": 264},
+              {(4096, 4096): 60, (4096, 1024): 15, (4096, 14336): 210,
+               (14336, 4096): 60},
+              ("units/0/attn/wq@0", "units/3/attn/wk@0", "units/0/ffn/up@0",
+               "units/0/ffn/down@0"),
+              (4096, 128256)),
+    "seamless": ("seamless-m4t-large-v2", 8192,
+                 {"quant_matmul": 1, "split_ternary": 384},
+                 {"quant_matmul": 1, "split_ternary": 192},
+                 {(1024, 1024): 15, (1024, 8192): 120, (8192, 1024): 15},
+                 ("enc_units/0/attn/wq@0", "units/0/xattn/wk@0",
+                  "units/0/ffn/up@0", "units/0/ffn/down@0"),
+                 (1024, 256206))}
+#: split_ternary checked at these M: decode, a paged chunk, the fixed
+#: batch's 512, and the frontend rows' 4 x 1024 (cross wk / wv, and every
+#: encoder projection)
+FRONTEND_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M, REQUESTS * 1024)
+#: llama's cross-attention gates: JAX's init (0) adds nothing, so both
+#: runs set every gate to this value, where the rows move the logits
+LLAMA_GATE = 1.0
+#: each phase's engine leg: engine_mixed's trace cut to 4 requests and
+#: prompts of at most 256 tokens (the script's time limit: with xlstm cut
+#: to 2 repeats and zamba2's legs but the long one, the script still ran
+#: ~900 s on an H100; 256 halves the chunk calls), paged (the prefix cache
+#: off, as in the JAX package for frontend archs)
+FRONTEND_MIXED = dict(ENGINE_MIXED, requests=4, max_prompt=256)
 CNN_KERNELS = ("quant_matmul", "ternary_matmul", "split_ternary",
                "split_precision")
 CNN_WARM = 5
@@ -1565,6 +1666,29 @@ def phase_kernels(torch, gen):
                 x, w_q.t().contiguous().t(), sx, sw),
                 quant_matmul_plain(x, w_q, sx, sw),
                 f"{tag} head M={m} K={k} N={n} K-major")
+            del x, w_q
+    # the frontend archs' projections on diana (phases 16 and 17):
+    # split_ternary at their planned raw boundaries, through the op and the
+    # kernel itself, with both garbage probes, also at the frontend rows'
+    # M; quant_matmul at both heads (seamless's N 256206 is odd) on the
+    # decode GEMM and on the wgmma GEMM
+    for tag, (_, _, _, _, raws, _, head) in FRONTEND.items():
+        for m in FRONTEND_MS:
+            for (k, n), raw in raws.items():
+                split_probes(m, k, n, raw, "K-major", quiet=True,
+                             kernel_raw=True)
+            print(f"[kernels] {tag} M={m:<4d}: split_ternary at "
+                  f"{len(raws)} (K, N) at their raw boundaries "
+                  + ", ".join(f"{k}x{n}:{raw}" for (k, n), raw in
+                              raws.items()) +
+                  " (aligned, and raw through the kernel), both garbage "
+                  "probes, bit-identical")
+        for m in (DECODE_M, REQUESTS * CHUNK):
+            x, w_q, _, sx, sw = operands(m, *head, head[1], gen)
+            exact("quant_matmul", ops.quant_matmul_op(
+                x, w_q.t().contiguous().t(), sx, sw),
+                quant_matmul_plain(x, w_q, sx, sw),
+                f"{tag} head M={m} K={head[0]} N={head[1]} K-major")
             del x, w_q
     flash_sets = [(FLASH_HEADS, FLASH_CASES),
                   (ZAMBA_FLASH_HEADS, ZAMBA_FLASH_CASES)]
@@ -3205,14 +3329,13 @@ def capturing_paged_update(store, at):
     return ctx()
 
 
-def check_paged_capture(torch, tag, store):
-    """The captured `paged_update` / `paged_gather` call on the card
-    against the same calls on the CPU: the pool outside the trash page
-    and the gathered rows of mapped pages equal."""
+def check_paged_capture(torch, tag, store, at=CAPTURE_CALL):
+    """The captured `paged_update` / `paged_gather` call ``at`` on the
+    card against the same calls on the CPU: the pool outside the trash
+    page and the gathered rows of mapped pages equal."""
     from repro_torch.models import attention as A
     if "after" not in store:
-        raise AssertionError(f"{tag}: paged_update call {CAPTURE_CALL} "
-                             f"never made")
+        raise AssertionError(f"{tag}: paged_update call {at} never made")
     cpu = {k: (v.cpu() if v is not None else None)
            for k, v in store.items()}
     want = A.paged_update(cpu["pool"], cpu["val"], cpu["pages"],
@@ -3225,7 +3348,7 @@ def check_paged_capture(torch, tag, store):
                              f"card differ from the CPU")
     B, S = cpu["val"].shape[:2]
     live = int(cpu["mask"].sum()) if cpu["mask"] is not None else B * S
-    print(f"[engine:{tag}] paged_update call {CAPTURE_CALL} (pool "
+    print(f"[engine:{tag}] paged_update call {at} (pool "
           f"{tuple(want.shape)} {want.dtype}, {B} x {S} rows, {live} "
           f"unmasked) and its paged_gather (B {B}, {int(mapped.sum())} "
           f"mapped positions) equal the same calls on the CPU outside the "
@@ -3233,16 +3356,17 @@ def check_paged_capture(torch, tag, store):
 
 
 def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
-              engine=None, decode_hist=None):
+              engine=None, decode_hist=None, capture=CAPTURE_CALL):
     """A recorded paged run: launch counts (each planned kernel once per
     chunk call and decode step, flash never; ``decode_hist`` per decode
     step where it is not ``hist``), weight copies, finish reasons, the
     captured paged_update call against the CPU (an arch without attention
     KV, xlstm's, makes none); returns (engine, results, tokens, first,
-    margins, stats)."""
+    margins, stats).  ``capture``: the index of the paged_update call held
+    against the CPU."""
     from repro_torch.models import transformer as T
     calls, store = [], {}
-    with capturing_paged_update(store, CAPTURE_CALL):
+    with capturing_paged_update(store, capture):
         engine, results, launches = engine_run(
             torch, cfg, params, backend, trace, leg, calls, engine)
     st = dict(engine.stats)
@@ -3272,7 +3396,7 @@ def paged_run(torch, tag, cfg, params, backend, hist, trace, leg,
           f"weights copied per call: 0")
     if any(ax.startswith("page")
            for ax in T.tree_leaves(T.cache_kv_axes(cfg))):
-        check_paged_capture(torch, tag, store)
+        check_paged_capture(torch, tag, store, capture)
     elif store:
         raise AssertionError(f"{tag}: a paged_update call on an arch "
                              f"without page-resident KV")
@@ -3771,21 +3895,23 @@ def planset_run(torch, tag, cfg, params, bank, hists, trace, smi, *,
     return engine, results, seqs, launches, rec
 
 
-def cut_depth(cfg, params, art, layers):
-    """``cfg`` and ``params`` of an attention-only model at its first
-    ``layers`` layers (the stacked leaves' first repeats, as views: no
-    copy), and ``art`` (a `MappingArtifact`) filtered to those layers'
-    names (``units/...@r`` with r < ``layers``; the head and the other
-    unstacked layers kept)."""
+def cut_depth(cfg, params, art, repeats):
+    """``cfg`` and ``params`` at the first ``repeats`` repeats of the block
+    pattern (an attention-only model's first ``repeats`` layers; the
+    stacked leaves' first repeats, as views: no copy; zamba2's remainder
+    and shared blocks kept), and ``art`` (a `MappingArtifact`) filtered to
+    those layers' names (``units/...@r`` with r < ``repeats``; the head and
+    the other unstacked layers kept)."""
     from repro_torch.models import transformer as T
 
     def kept(name):
-        return "@" not in name or int(name.rsplit("@", 1)[1]) < layers
-    params = dict(params, units=T._tree_map(lambda t: t[:layers],
+        return "@" not in name or int(name.rsplit("@", 1)[1]) < repeats
+    params = dict(params, units=T._tree_map(lambda t: t[:repeats],
                                             params["units"]))
     art = dataclasses.replace(art, layers=[lay for lay in art.layers
                                            if kept(lay["name"])])
-    return dataclasses.replace(cfg, n_layers=layers), params, art
+    n_layers = repeats * len(cfg.pattern) + T._zamba_remainder(cfg)
+    return dataclasses.replace(cfg, n_layers=n_layers), params, art
 
 
 def phase_planset(torch, cfg, params, seed, smi):
@@ -4270,7 +4396,7 @@ def phase_zamba(torch, seed, smi, device="cuda"):
     hist = plan.kernel_histogram()
     for line in plan.histogram_lines():
         print(f"[zamba] {line}")
-    if hist != ZAMBA_PLAN_HISTS["diana"]:
+    if hist != ZAMBA_PLAN_HIST:
         raise AssertionError(f"zamba diana: kernel histogram {hist}")
     for (k, n), raw in ZAMBA_RAW.items():
         name = {(2048, 8384): "units/0/mamba/in_proj@0",
@@ -4286,8 +4412,23 @@ def phase_zamba(torch, seed, smi, device="cuda"):
               f"boundary {lp.boundaries}, aligned {lp.aligned_boundaries}")
     kcfg = kv_cache_for(cfg, arts["diana"])
     print(f"[zamba] diana: {backend.coverage()}; {len(plan.layers)} planned "
-          f"layers, {sum(ZAMBA_HIST.values())} launches per forward "
-          f"{ZAMBA_HIST}; kv {kcfg.kv_cache_dtype} ({at()})")
+          f"layers, {sum(ZAMBA_LONG_HIST.values())} launches per forward "
+          f"{ZAMBA_LONG_HIST}; kv {kcfg.kv_cache_dtype} ({at()})")
+    # every leg but the long one at the first ZAMBA_REPEATS repeats
+    full_cfg, full_params, full_plan, full_backend = cfg, params, plan, \
+        backend
+    cfg, params, cart = cut_depth(cfg, params, arts["diana"], ZAMBA_REPEATS)
+    plan, backend = plan_mapping_execution(params, cart)
+    check_coverage("zamba", backend, require_full=True)
+    if plan.kernel_histogram() != ZAMBA_PLAN_HISTS["diana"]:
+        raise AssertionError(f"zamba diana at {cfg.n_layers} blocks: kernel "
+                             f"histogram {plan.kernel_histogram()}")
+    long_kcfg, kcfg = kcfg, kv_cache_for(cfg, cart)
+    print(f"[zamba] legs fixed, mixed, bank and spec at {cfg.n_layers} of "
+          f"{full_cfg.n_layers} blocks ({ZAMBA_REPEATS} repeats + "
+          f"{len(params['rem'])} remainder blocks, views), the long leg at "
+          f"all {full_cfg.n_layers}: {backend.coverage()}, "
+          f"{sum(ZAMBA_HIST.values())} launches per forward {ZAMBA_HIST}")
     out = {}
 
     # fixed batch: serve_batch, every planned call checked as it is made
@@ -4348,22 +4489,29 @@ def phase_zamba(torch, seed, smi, device="cuda"):
                     "warm_decode_tok_per_s": warm["tok_per_s"]}
     del prompts
 
+    # the shared block's k and v once per repeat: 4 paged_update calls
+    # per forward; the third forward's second
     out.update(mixed_legs(torch, "zamba", kcfg, params, backend, ZAMBA_HIST,
-                          seed, smi, ZAMBA_MIXED, prefix_cache=False))
+                          seed, smi, ZAMBA_MIXED, prefix_cache=False,
+                          capture=2 * 2 * ZAMBA_REPEATS + 1))
     print(f"[zamba] engine legs done ({at()})")
-    # long: one dense admission group padded to 4096 tokens, its shared
-    # block's 6 uses through flash at head dim 64
-    out["long"] = dense_long_leg(torch, "zamba", kcfg, params, backend,
-                                 ZAMBA_HIST, ZAMBA_LONG, seed, smi,
-                                 ZAMBA_USES, ZAMBA_LONG_SQ)
-    print(f"[zamba] long done ({at()})")
     del plan, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    # long: one dense admission group padded to 4096 tokens, its shared
+    # block's 6 uses through flash at head dim 64, at full depth
+    out["long"] = dense_long_leg(torch, "zamba", long_kcfg, full_params,
+                                 full_backend, ZAMBA_LONG_HIST, ZAMBA_LONG,
+                                 seed, smi, ZAMBA_USES, ZAMBA_LONG_SQ)
+    print(f"[zamba] long done ({at()})")
+    del full_plan, full_backend
     gc.collect()
     torch.cuda.empty_cache()
 
     # bank: the JAX CI's pair, speculative against target-only
     plans, bank = build_planset(
-        params, {"target": arts["target"], "draft": arts["draft"]},
+        params, {v: cut_depth(full_cfg, full_params, arts[v],
+                              ZAMBA_REPEATS)[2] for v in ("target", "draft")},
         "target")
     print_planset_report("zamba:bank", plans, bank)
     check_coverage("zamba:bank", bank, require_full=True)
@@ -4382,14 +4530,14 @@ def phase_zamba(torch, seed, smi, device="cuda"):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[zamba] phase {out['seconds']:.1f} s, peak memory "
           f"{out['peak_gib']:.2f} GiB ({smi})")
-    del plans, bank, params
+    del plans, bank, params, full_params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
-                decode_hist=None, drops=None):
+                decode_hist=None, drops=None, frontend=None, keep=None):
     """``serve_batch`` of the fixed traffic (REQUESTS x PROMPT_LEN +
     GEN_LEN, the paged engine: 4 chunk calls and 15 decode steps) with the
     first ``limits[kernel]`` calls of each int8 kernel held bit for bit
@@ -4397,7 +4545,9 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
     chunk calls + ``decode_hist`` (default ``hist``) x the decode steps, 0
     weight copies; then the plain run (``reference=True``): tokens and
     prefill logits identical.  ``drops`` (a dict): the kernel run's MoE
-    capacity drops (`counting_drops`).  Returns the record."""
+    capacity drops (`counting_drops`).  ``frontend``: each request's
+    frontend row (a frontend arch); ``keep`` (a dict) receives the kernel
+    run's prefill logits under "first".  Returns the record."""
     import contextlib
     from repro_torch.launch.serve import serve_batch
     chunks = -(-PROMPT_LEN // CHUNK)
@@ -4408,7 +4558,7 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
             (counting_drops(drops) if drops is not None
              else contextlib.nullcontext()):
         tokens, stats = serve_batch(cfg, params, prompts, GEN_LEN,
-                                    backend=backend)
+                                    frontend=frontend, backend=backend)
     want = forward_launches(hist, chunks, GEN_LEN - 1, decode_hist)
     got = zamba_launches(tag, kernel_launches(), want, forwards)
     if {k: n for k, (n, _) in checked.items() if n} != {
@@ -4425,6 +4575,7 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
     ref_calls = []
     with recording_logits(ref_calls):
         ref_tokens, ref_stats = serve_batch(cfg, params, prompts, GEN_LEN,
+                                            frontend=frontend,
                                             backend=backend)
     backend.reference = False
     if kernel_launches() != want:
@@ -4451,6 +4602,8 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
           f"the checks inline; plain run prefill "
           f"{ref_stats['prefill_s'] * 1e3:.3f} ms; sample tokens "
           f"{tokens[:2, :8].tolist()}")
+    if keep is not None:
+        keep["first"] = first
     return {"forwards": forwards, "launches": want,
             "calls_checked": {k: n for k, (n, _) in checked.items()},
             "tokens_identical_to_plain": True,
@@ -4462,7 +4615,8 @@ def fixed_batch(torch, tag, cfg, params, backend, hist, prompts, limits,
 
 
 def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
-               prefix_cache, dense=True, decode_hist=None):
+               prefix_cache, dense=True, decode_hist=None, frontend=None,
+               capture=CAPTURE_CALL):
     """``leg``'s trace (engine_mixed's shape) through the paged engine
     (engine_paged_mixed, whose prefix cache must be on exactly when
     ``prefix_cache``: attention KV is page-resident, recurrent state is
@@ -4474,8 +4628,10 @@ def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
     part).  Then a warm paged run and a profiled one (idle share).  Under
     MoE (``cfg.moe``) the recorded paged run also counts the (token, k)
     pairs capacity dropped (`counting_drops`).  ``decode_hist``: the
-    launches per decode step where they are not ``hist``.  Returns {leg:
-    record}."""
+    launches per decode step where they are not ``hist``.  ``frontend``
+    (a frontend arch): ``frontend(n)`` gives n requests' rows;
+    ``capture``: the paged_update call held against the CPU.  Returns
+    {leg: record}."""
     import contextlib
     from repro_torch.serving import poisson_arrivals, synthetic_trace
     t0 = time.perf_counter()
@@ -4484,13 +4640,16 @@ def mixed_legs(torch, tag, cfg, params, backend, hist, seed, smi, leg,
         leg["requests"], vocab=cfg.vocab, min_prompt=leg["min_prompt"],
         max_prompt=leg["max_prompt"], min_new=leg["min_new"],
         max_new=leg["max_new"], seed=seed), leg["rate"], seed=seed)
+    if frontend is not None:
+        for req, row in zip(trace, frontend(len(trace))):
+            req.frontend = row
     print_traffic(f"{tag}:engine_paged_mixed", trace, paged)
     drops = {}
     with (counting_drops(drops) if cfg.moe is not None
           else contextlib.nullcontext()):
         engine, _, ptok, pfirst, _, st = paged_run(
             torch, f"{tag}:engine_paged_mixed", cfg, params, backend, hist,
-            trace, paged, decode_hist=decode_hist)
+            trace, paged, decode_hist=decode_hist, capture=capture)
     if engine.prefix_cache != prefix_cache:
         raise AssertionError(f"{tag}: the prefix cache is "
                              f"{'on' if engine.prefix_cache else 'off'}")
@@ -4961,6 +5120,8 @@ def phase_xlstm(torch, seed, smi, device="cuda"):
     def at():
         return f"{time.perf_counter() - t_phase:.1f} s into the phase"
     cfg = cfgbase.get(XLSTM)
+    full = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=XLSTM_REPEATS * len(cfg.pattern))
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.reset_peak_memory_stats()
@@ -4968,8 +5129,8 @@ def phase_xlstm(torch, seed, smi, device="cuda"):
     xc = T._xlstm_cfg(cfg)
     specs = T.cache_specs(cfg, 1, 1)
     state = sum(t.numel() * t.element_size() for t in T.tree_leaves(specs))
-    print(f"[xlstm] {cfg.name}: {cfg.n_layers} blocks ({cfg.pattern_repeats}"
-          f" x {cfg.pattern.count('mlstm')} mLSTM + "
+    print(f"[xlstm] {cfg.name}: {cfg.n_layers} of {full} blocks "
+          f"({cfg.pattern_repeats} x {cfg.pattern.count('mlstm')} mLSTM + "
           f"{cfg.pattern.count('slstm')} sLSTM), d_model {cfg.d_model}, "
           f"{xc.n_heads} heads of head dim {xc.head_dim} (d_inner "
           f"{xc.d_inner}), conv {xc.conv_kernel}, vocab {cfg.vocab}; params "
@@ -5088,6 +5249,107 @@ def phase_arctic(torch, seed, smi, device="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def phase_frontend(torch, key, seed, smi, device="cuda"):
+    """llama-3.2-vision-11b (``key`` "llama", phase 16) or
+    seamless-m4t-large-v2 ("seamless", phase 17) at full width and depth on
+    diana (`FRONTEND`), each request with one stub frontend row drawn from
+    --seed: the fixed batch (every planned call checked as it is made,
+    tokens and prefill logits identical to the plain run's), the same
+    batch with the rows zeroed (its prefill logits must move: the
+    frontend path is live), engine_paged_mixed against its plain run; for
+    seamless also the encoder's time over the 4 slots' rows, which every
+    chunk step reruns.  Returns {leg: record}.  ``device`` "cpu" serves a
+    rehearsal, with the config reduced and the CUDA-only calls stubbed by
+    the caller."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import frontend_rows, serve_batch
+    from repro_torch.models import _backend
+    from repro_torch.models import transformer as T
+    name, max_cout, hist, dhist, raws, names, _ = FRONTEND[key]
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+    cfg = cfgbase.get(name)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_lm(gen, cfg)
+    if "cross" in cfg.pattern:
+        params["units"][cfg.pattern.index("cross")]["gate"].fill_(LLAMA_GATE)
+    print(f"[{key}] {cfg.name}: {cfg.n_layers} layers {cfg.pattern} x "
+          f"{cfg.pattern_repeats}" + (f" + a {cfg.encoder_layers}-layer "
+                                      f"encoder" if cfg.encoder_layers
+                                      else "") +
+          f", d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+          f"kv of {cfg.hd}, d_ff {cfg.d_ff} ({cfg.act}, {cfg.norm}), vocab "
+          f"{cfg.vocab}, {cfg.frontend} frontend rows of "
+          f"{cfg.frontend_tokens} x {cfg.d_model}"
+          + (f", cross gates {LLAMA_GATE}" if "cross" in cfg.pattern else "")
+          + f"; params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B"
+          f" (init {time.perf_counter() - t_phase:.1f} s; {smi})")
+    _, plan, backend, kcfg = plan_dense(torch, key, cfg, params, max_cout,
+                                        hist, raws, names=names)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    rows = frontend_rows(cfg, REQUESTS, gen)
+    chunks = -(-PROMPT_LEN // CHUNK)
+    keep = {}
+    # every planned call of the fixed batch checked as it is made
+    out = {"fixed": fixed_batch(
+        torch, f"{key}:fixed", kcfg, params, backend, hist, prompts,
+        forward_launches(hist, chunks, GEN_LEN - 1, dhist),
+        decode_hist=dhist, frontend=rows, keep=keep)}
+    calls = []
+    with recording_logits(calls):
+        zeroed, _ = serve_batch(kcfg, params, prompts, GEN_LEN,
+                                frontend=torch.zeros_like(rows),
+                                backend=backend)
+    moved = float((batch_logits(torch, zeroed, calls)[0]
+                   - keep["first"]).abs().max())
+    del calls
+    if not moved > 0:
+        raise AssertionError(f"{key}: zeroed frontend rows left the prefill "
+                             f"logits as they were")
+    out["fixed"]["zeroed_rows_logits_max_abs_diff"] = moved
+    print(f"[{key}:fixed] the same batch with its frontend rows zeroed: "
+          f"prefill logits move by max |diff| {moved:.4f} (the frontend "
+          f"path is live; {at()})")
+    del prompts, zeroed
+    out.update(mixed_legs(
+        torch, key, kcfg, params, backend, hist, seed, smi, FRONTEND_MIXED,
+        prefix_cache=False, dense=False, decode_hist=dhist,
+        frontend=lambda n: frontend_rows(cfg, n, gen)))
+    print(f"[{key}] engine legs done ({at()})")
+    if cfg.encoder_layers:
+        # the encoder over every slot's rows, as each chunk step runs it
+        ms = []
+        with _backend.use(backend):
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T.encode(params, cfg, rows)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out["encoder_ms_per_chunk"] = median(ms[1:])
+        print(f"[{key}] the encoder over {REQUESTS} slots' rows (M "
+              f"{REQUESTS * cfg.frontend_tokens}, {cfg.encoder_layers} "
+              f"layers, {6 * cfg.encoder_layers} planned launches), as "
+              f"every chunk step reruns it: median "
+              f"{out['encoder_ms_per_chunk']:.3f} ms of 3 warm runs "
+              f"({', '.join(f'{t:.3f}' for t in ms[1:])}; {smi})")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{key}] phase {out['seconds']:.1f} s, peak memory "
+          f"{out['peak_gib']:.2f} GiB ({smi})")
+    del rows, plan, backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def fault_spec(markers):
@@ -5787,6 +6049,9 @@ def main(argv=None) -> int:
     mark("xlstm")
     serving["arctic"] = phase_arctic(torch, args.seed, smi)
     mark("arctic")
+    for key in FRONTEND:
+        serving[key] = phase_frontend(torch, key, args.seed, smi)
+        mark(key)
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

@@ -1,5 +1,5 @@
 """Architecture config schema + registry (``repro.configs.base``
-counterpart).  Only the configs this port serves are registered."""
+counterpart): every config of the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -74,22 +74,12 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-#: the JAX package's archs that the port does not serve yet, and what
-#: each waits for
-PENDING = {"llama-3.2-vision-11b": "the vision frontend",
-           "seamless-m4t-large-v2": "the audio encoder-decoder"}
-
-
 def get(name: str) -> ArchConfig:
     if not _REGISTRY:
         load_all()
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in PENDING:
-            raise KeyError(f"arch {name!r} waits for a later slice of the "
-                           f"port ({PENDING[name]}); the port serves "
-                           f"{names()}") from None
         raise KeyError(f"unknown arch {name!r}; the port registers "
                        f"{names()}") from None
 
@@ -104,7 +94,8 @@ def load_all():
     """Import every config module of the port (each self-registers)."""
     from repro_torch.configs import (  # noqa: F401
         arctic_480b, command_r_35b, deepseek_v2_lite_16b, h2o_danube_3_4b,
-        nemotron_4_15b, xlstm_1_3b, yi_9b, zamba2_1_2b)
+        llama_3_2_vision_11b, nemotron_4_15b, seamless_m4t_large_v2,
+        xlstm_1_3b, yi_9b, zamba2_1_2b)
 
 
 def reduce_for_smoke(cfg: ArchConfig) -> ArchConfig:

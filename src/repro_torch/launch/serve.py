@@ -44,8 +44,17 @@ split_ternary per layer + 1 quant_matmul).  ``--arch xlstm-1.3b`` (seven
 mLSTM blocks, then one sLSTM block, per repeat; per-slot recurrent state
 in both KV layouts, the prefix cache off, speculation with the replay of
 partial accepts) serves the same way; ``max_cout=16384`` searches all but
-the head (138 split_ternary + 1 quant_matmul per forward).  The JAX
-package's frontend archs are refused with what each waits for.
+the head (138 split_ternary + 1 quant_matmul per forward).  The frontend
+archs serve the same way, each request carrying a stub frontend row of
+``frontend_tokens`` x d_model drawn from ``--seed`` (the JAX package's
+frontends are stubs too): ``--arch llama-3.2-vision-11b`` (a gated
+cross-attention block every fifth layer over the request's row) and
+``--arch seamless-m4t-large-v2`` (a 24-layer encoder over the row, whose
+memory every decoder layer cross-attends; the paged engine reruns the
+encoder over all slots' rows at every chunk, as in the JAX package); the
+prefix cache is off and speculation refused on both, as in the JAX
+package.  ``max_cout=14336`` (llama) and ``8192`` (seamless) search all
+but the head.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --requests 4 --prompt-len 128 --gen-len 16 --mapping m.json \\
@@ -217,17 +226,20 @@ def check_coverage(tag, backend, require_full: bool):
         sys.exit(2)
 
 
-def serve_batch(cfg, params, prompts, gen_len: int, backend=None):
+def serve_batch(cfg, params, prompts, gen_len: int, frontend=None,
+                backend=None):
     """Greedy generation for same-length ``prompts (B, P)``: the B prompts
     are submitted as B requests with a shared generation budget to an
     `Engine` of B slots and ``max_len = P + gen_len`` (paged KV, as the
-    JAX package's ``serve_batch``).  Returns (tokens (B, gen_len) on the
-    prompts' device, stats with ``prefill_s``, ``decode_s`` and
-    ``tok_per_s``)."""
+    JAX package's ``serve_batch``).  ``frontend`` (B, frontend_tokens,
+    d_model): each request's frontend row on a frontend arch.  Returns
+    (tokens (B, gen_len) on the prompts' device, stats with
+    ``prefill_s``, ``decode_s`` and ``tok_per_s``)."""
     from repro_torch.serving import Engine, Request
     B, P = prompts.shape
     prompts_np = prompts.cpu().numpy()
-    reqs = [Request(rid=b, prompt=prompts_np[b], max_new_tokens=gen_len)
+    reqs = [Request(rid=b, prompt=prompts_np[b], max_new_tokens=gen_len,
+                    frontend=None if frontend is None else frontend[b])
             for b in range(B)]
     engine = Engine(cfg, params, max_batch=B, max_len=P + gen_len,
                     backend=backend, prefill_bucket=P)
@@ -237,6 +249,14 @@ def serve_batch(cfg, params, prompts, gen_len: int, backend=None):
     return tokens, {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
                     "tok_per_s": B * (gen_len - 1) / max(st["decode_s"],
                                                          1e-9)}
+
+
+def frontend_rows(cfg, n, gen):
+    """``n`` stub frontend rows (n, frontend_tokens, d_model) drawn from
+    ``gen`` on its device, rounded to bfloat16 (the JAX package's CLI
+    draws them in bfloat16)."""
+    return torch.randn((n, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                       device=gen.device).to(torch.bfloat16)
 
 
 def kv_cache_for(cfg, art):
@@ -307,6 +327,10 @@ def serve_engine(args, cfg, params, backend=None):
         print(f"[serve] open-loop arrivals: Poisson at {args.poisson} "
               f"req/step (last arrival step "
               f"{max(r.arrival_step for r in trace)})")
+    if cfg.frontend:
+        gen = torch.Generator().manual_seed(args.seed)
+        for r in trace:
+            r.frontend = frontend_rows(cfg, 1, gen)[0]
     max_len = args.max_len or max(r.prompt_len + r.max_new_tokens
                                   for r in trace)
     injector = (FaultInjector.parse(args.fault_spec, seed=args.seed)
@@ -717,9 +741,11 @@ def main(argv=None):
 
     prompts = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
                             generator=gen, device=dev)
+    frontend = (frontend_rows(cfg, args.requests, gen) if cfg.frontend
+                else None)
     try:
         tokens, stats = serve_batch(cfg, params, prompts, args.gen_len,
-                                    backend=backend)
+                                    frontend=frontend, backend=backend)
     except ExecutionError as e:
         print(f"[serve] ERROR: {e}", file=sys.stderr)
         sys.exit(2)

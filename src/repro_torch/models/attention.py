@@ -267,8 +267,12 @@ def _kv_encode(t):
 
 
 def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
-        name=None, chunked=False, pages=None, write_mask=None):
-    """Grouped-query attention.  ``cache``: optional {"k", "v"} of
+        name=None, chunked=False, pages=None, write_mask=None,
+        kv_override=None):
+    """Grouped-query attention.  ``kv_override`` supplies precomputed (k,
+    v) (B, T, KVH, hd) for cross-attention: ``wk`` / ``wv`` and rope are
+    skipped, and without a cache every query attends to all T keys under
+    ``cfg.causal``.  ``cache``: optional {"k", "v"} of
     (B, S_max, KVH, hd), written at ``cache_index`` (int or (B,) tensor);
     an int8 cache holds `_kv_encode` codes.  ``chunked`` (long prefill,
     cache written from position 0): attention through `chunked_attention`
@@ -284,11 +288,14 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KVH
     q = L.dense(p["wq"], x, _j(name, "wq")).reshape(B, S, H, hd)
-    k = L.dense(p["wk"], x, _j(name, "wk")).reshape(B, S, KVH, hd)
-    v = L.dense(p["wv"], x, _j(name, "wv")).reshape(B, S, KVH, hd)
-    if cfg.rotary:
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = L.dense(p["wk"], x, _j(name, "wk")).reshape(B, S, KVH, hd)
+        v = L.dense(p["wv"], x, _j(name, "wv")).reshape(B, S, KVH, hd)
+        if cfg.rotary:
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
 
     if pages is not None:
         def upd(buf, val):

@@ -1,13 +1,18 @@
 """Config-driven LM assembly (``repro.models.transformer`` counterpart) for
 the dense attention-only ``("attn",)`` pattern, zamba2's hybrid one (five
 Mamba2 blocks, then one shared attention + FFN block), xlstm's (seven
-mLSTM blocks, then one sLSTM block) and deepseek's ``("mla",)`` one
+mLSTM blocks, then one sLSTM block), deepseek's ``("mla",)`` one
 (multi-head latent attention, then a MoE FFN; its layer 0 a dense FFN of
 width ``cfg.dense_ff``, unstacked as ``params["first_dense"]`` and run
-before the repeats).  Dense blocks take either norm (RMSNorm, or
-LayerNorm with a bias: ``cfg.norm``), a gated or ungated FFN, attention
-and FFN in parallel on one norm (``cfg.parallel_block``: command-r), a
-sliding window (``cfg.sliding_window``: h2o-danube), a head tied to the
+before the repeats), llama-3.2-vision's (four attention blocks and one
+gated ``cross``-attention block to the frontend's rows) and seamless's
+encoder-decoder ``("dec",)`` one (self-attention, cross-attention to the
+encoder's memory, FFN; the encoder's non-causal rotary blocks stacked as
+``params["enc_units"]``, named ``enc_units/0/...``).  Dense blocks take
+either norm (RMSNorm, or LayerNorm with a bias: ``cfg.norm``), a gated or
+ungated FFN, attention and FFN in parallel on one norm
+(``cfg.parallel_block``: command-r), a sliding window
+(``cfg.sliding_window``: h2o-danube), a head tied to the
 embedding (``cfg.tie_embeddings``: no ``params["head"]``, logits ``h @
 emb.T``) and, with ``cfg.moe``, a MoE FFN in place of the FFN, beside a
 dense residual FFN of width ``cfg.dense_ff`` on the same norm under
@@ -31,10 +36,12 @@ publishes the repeat index with `_backend.scan_slot`.
 Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
   params_from_jax(tree, device)                  -> params
-  prefill(params, cfg, tokens, caches, lengths=, variant=)
+  prefill(params, cfg, tokens, caches, lengths=, variant=, cross_source=)
                                                  -> (last_logits, caches)
   prefill_chunk(params, cfg, tokens, caches, index, valid, pages,
-                variant=, full_logits=)          -> (logits, caches)
+                variant=, full_logits=, cross_source=)
+                                                 -> (logits, caches)
+  encode(params, cfg, frames)                    -> encoder memory
   decode_step(params, cfg, token, caches, index, active=, pages=,
               variant=)                          -> (logits, caches)
   cache_specs(cfg, B, S_max)                     -> tree of meta tensors
@@ -59,8 +66,10 @@ prefills through the chunked (flash) attention, as the JAX package's
 length that is a multiple of ``min(1024, S_max)`` and a prompt length
 that is a multiple of ``min(512, S)``.  ``length_mask`` also drops masked
 tokens from MoE dispatch before the capacity cumsum, so padding and
-retired slots never take an expert's place.  Cross-attention and
-encoder-decoder archs wait for later slices.  The dense serving
+retired slots never take an expert's place.  The cross-attention
+memory (``ck`` / ``cv`` of the ``cross`` and ``dec`` blocks) is written
+at prefill and at every chunk from ``cross_source`` and read at decode;
+it is per-slot state, bfloat16 in every KV dtype.  The dense serving
 engine (`repro_torch.serving.Engine(kv_layout="dense")`) prefills
 admission groups with ``prefill(lengths=)``, moves them into its slot pool
 with `scatter_cache` and decodes all slots with a per-slot ``index``; the
@@ -70,6 +79,8 @@ the JAX package; recurrent state carried across chunks) and decodes with
 ``decode_step(pages=)``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -85,34 +96,36 @@ _j = _backend.join
 
 #: the block patterns the port serves: attention blocks (dense, or with a
 #: MoE FFN), zamba2's hybrid (five Mamba2 blocks, then the shared
-#: attention block), xlstm's (seven mLSTM blocks, then one sLSTM block)
-#: and deepseek's MLA + MoE blocks
+#: attention block), xlstm's (seven mLSTM blocks, then one sLSTM block),
+#: deepseek's MLA + MoE blocks, llama-vision's (a gated cross-attention
+#: block fourth of five) and seamless's encoder-decoder blocks
 SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",),
-                      ("mlstm",) * 7 + ("slstm",), ("mla",))
+                      ("mlstm",) * 7 + ("slstm",), ("mla",),
+                      ("attn", "attn", "attn", "cross", "attn"), ("dec",))
 
 
 def _check_supported(cfg: ArchConfig):
     mla = cfg.pattern == ("mla",)
     why = None
-    if cfg.frontend or cfg.encoder_layers:
-        why = ("frontends and encoders (the vision frontend, the audio "
-               "encoder-decoder) wait for later slices")
-    elif cfg.pattern not in SUPPORTED_PATTERNS:
+    if cfg.pattern not in SUPPORTED_PATTERNS:
         why = f"the pattern {cfg.pattern} waits for later slices"
     elif mla != (cfg.mla is not None) or (mla and cfg.moe is None):
         why = "MLA without MoE blocks waits for later slices"
     if why:
         raise NotImplementedError(
             f"{cfg.name}: the port serves attention blocks (dense or MoE), "
-            f"zamba2's hybrid pattern, xLSTM's mLSTM / sLSTM pattern and "
-            f"deepseek's ('mla',) MoE blocks; {why}")
+            f"zamba2's hybrid pattern, xLSTM's mLSTM / sLSTM pattern, "
+            f"deepseek's ('mla',) MoE blocks, llama-vision's cross blocks "
+            f"and seamless's ('dec',) blocks; {why}")
 
 
-def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
+def _attn_cfg(cfg: ArchConfig, causal=True, cross=False) -> A.AttnConfig:
+    """A cross-attention has no window, no rope and is not causal."""
     return A.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-        sliding_window=cfg.sliding_window)
+        sliding_window=None if cross else cfg.sliding_window,
+        causal=causal and not cross, rotary=not cross)
 
 
 def _mla_cfg(cfg: ArchConfig) -> A.MLAConfig:
@@ -164,7 +177,10 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
     ``norm2`` normalises the FFN's input with ``norm1``).  An ``mla``
     block holds MLA, ``norm2`` and a MoE FFN, or with ``first_dense`` a
     dense FFN of width ``cfg.dense_ff``.  ``mlstm`` / ``slstm`` blocks
-    hold their core under ``"core"``."""
+    hold their core under ``"core"``.  A ``cross`` block holds its
+    attention, a scalar ``gate`` (zero, as in the JAX package: at init the
+    block adds nothing), an FFN and ``norm2``; a ``dec`` block
+    self-attention, ``xattn``, ``normx``, an FFN and ``norm2``."""
     dt, dev, d = _dtype(cfg), gen.device, cfg.d_model
     nk = dict(repeats=repeats, device=dev, kind=cfg.norm)
     p = {"norm1": L.init_norm(d, dt, **nk)}
@@ -188,6 +204,22 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
                                   repeats=repeats)
         else:
             p["moe"] = M.init_moe(gen, d, cfg.moe, dt, repeats=repeats)
+        p["norm2"] = L.init_norm(d, dt, **nk)
+    elif kind == "cross":
+        p["attn"] = A.init_attn(gen, _attn_cfg(cfg, cross=True), dt,
+                                repeats=repeats)
+        p["gate"] = torch.zeros(() if repeats is None else (repeats,),
+                                dtype=dt, device=dev)
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt,
+                              repeats=repeats)
+        p["norm2"] = L.init_norm(d, dt, **nk)
+    elif kind == "dec":
+        p["attn"] = A.init_attn(gen, _attn_cfg(cfg), dt, repeats=repeats)
+        p["xattn"] = A.init_attn(gen, _attn_cfg(cfg, cross=True), dt,
+                                 repeats=repeats)
+        p["normx"] = L.init_norm(d, dt, **nk)
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, cfg.gated_ffn, dt,
+                              repeats=repeats)
         p["norm2"] = L.init_norm(d, dt, **nk)
     elif kind == "mamba":
         p["mamba"] = S.init_mamba2(gen, _mamba_cfg(cfg), dt, repeats=repeats)
@@ -213,8 +245,9 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
     package's tree, shapes and scales (the numbers differ: the generators
     do): ``units`` a tuple of one stacked block per pattern position,
     zamba2's ``rem`` a list of its remainder blocks and its ``shared``
-    block, deepseek's ``first_dense`` block; no ``head`` under
-    ``cfg.tie_embeddings``."""
+    block, deepseek's ``first_dense`` block, seamless's ``enc_units`` (one
+    ``attn`` block stacked ``cfg.encoder_layers`` times) and ``enc_norm``;
+    no ``head`` under ``cfg.tie_embeddings``."""
     _check_supported(cfg)
     dt, dev = _dtype(cfg), gen.device
     d, R, period = cfg.d_model, _unit_repeats(cfg), len(cfg.pattern)
@@ -236,6 +269,11 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
     if cfg.moe_first_dense:
         params["first_dense"] = init_block(gen, cfg, cfg.pattern[0],
                                            first_dense=True)
+    if cfg.encoder_layers:
+        enc_cfg = dataclasses.replace(cfg, moe=None, parallel_block=False)
+        params["enc_units"] = (init_block(gen, enc_cfg, "attn",
+                                          repeats=cfg.encoder_layers),)
+        params["enc_norm"] = L.init_norm(d, dt, device=dev, kind=cfg.norm)
     return params
 
 
@@ -265,7 +303,7 @@ def _repeat(tree, r: int):
 
 def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
                 cache_index=None, shared=None, name=None, chunked=False,
-                length_mask=None, pages=None):
+                length_mask=None, pages=None, cross_kv=None):
     """One block of ``kind``; returns (x, cache).  ``name`` is the block's
     params path (``"units/3"``, ``"rem/0"``), threaded into every
     projection's backend call; the shared block's weights always use the
@@ -285,7 +323,20 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     ``length_mask`` makes its masked steps identities on the state (the
     conv carry kept), on either KV layout.  ``mla``: MLA (latent cache,
     absorbed decode), then the MoE FFN with ``length_mask`` dropping
-    masked tokens from dispatch, or the first dense layer's FFN."""
+    masked tokens from dispatch, or the first dense layer's FFN.
+
+    ``cross`` / ``dec``: cross-attention over ``cross_kv`` (the projected
+    frontend or encoder memory, `_frontend_kv`), which attention uses as
+    given and the cache's ``ck`` / ``cv`` receive rounded to bfloat16
+    (prefill and chunks); without ``cross_kv`` attention reads the cached
+    memory (decode), as in the JAX package.  ``cross`` adds
+    ``tanh(gate) * attention``, then the FFN; ``dec`` runs GQA with the
+    self-attention KV (``k`` / ``v``) first."""
+    if kind in ("cross", "dec"):
+        return _cross_block(p, x, kind, cfg, positions, cache=cache,
+                            cache_index=cache_index, cross_kv=cross_kv,
+                            name=name, chunked=chunked,
+                            length_mask=length_mask, pages=pages)
     h = L.norm(p["norm1"], x, cfg.norm)
     if kind == "mla":
         ao, nc = A.mla(p["attn"], h, positions, _mla_cfg(cfg), cache=cache,
@@ -331,15 +382,90 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
     return x, nc
 
 
+def _cross_memory(cache, cross_kv):
+    """The cross-attention memory of one block: ``cross_kv`` when given,
+    written into the cache's ``ck`` / ``cv`` rounded to bfloat16; else
+    the cached memory."""
+    if cache is None:
+        return cross_kv
+    if cross_kv is None:
+        return cache["ck"], cache["cv"]
+    cache["ck"].copy_(cross_kv[0])
+    cache["cv"].copy_(cross_kv[1])
+    return cross_kv
+
+
+def _cross_block(p, x, kind, cfg: ArchConfig, positions, *, cache,
+                 cache_index, cross_kv, name, chunked, length_mask, pages):
+    """The ``cross`` and ``dec`` blocks of `block_apply`."""
+    xcfg = _attn_cfg(cfg, cross=True)
+    h = L.norm(p["norm1"], x, cfg.norm)
+    if kind == "cross":
+        ao, _ = A.gqa(p["attn"], h, positions, xcfg,
+                      kv_override=_cross_memory(cache, cross_kv),
+                      name=_j(name, "attn"))
+        gate = torch.tanh(p["gate"])
+        # JAX's promotion: a 0-d float32 gate times a bfloat16 planned
+        # output is float32 (torch would keep the bfloat16)
+        x = x + gate * ao.to(torch.promote_types(gate.dtype, ao.dtype))
+    else:
+        ao, _ = A.gqa(p["attn"], h, positions, _attn_cfg(cfg), cache=cache,
+                      cache_index=cache_index, name=_j(name, "attn"),
+                      chunked=chunked, pages=pages, write_mask=length_mask)
+        x = x + ao
+        xo, _ = A.gqa(p["xattn"], L.norm(p["normx"], x, cfg.norm), positions,
+                      xcfg, kv_override=_cross_memory(cache, cross_kv),
+                      name=_j(name, "xattn"))
+        x = x + xo
+    x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
+                  _j(name, "ffn"))
+    return x, cache
+
+
+def _frontend_kv(p_attn, cross_source, cfg: ArchConfig, name=None):
+    """The frontend rows ``cross_source (B, T, d_model)`` projected by a
+    cross-attention's ``wk`` / ``wv`` to (k, v) (B, T, KVH, hd), without
+    rope."""
+    B, T, _ = cross_source.shape
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    k = L.dense(p_attn["wk"], cross_source, _j(name, "wk"))
+    v = L.dense(p_attn["wv"], cross_source, _j(name, "wv"))
+    return k.reshape(B, T, KVH, hd), v.reshape(B, T, KVH, hd)
+
+
+def encode(params, cfg: ArchConfig, frames):
+    """seamless's encoder: ``frames (B, T, d_model)`` -> the memory (B, T,
+    d_model).  Each repeat of ``params["enc_units"]`` (one ``attn`` block
+    stacked) runs under `_backend.scan_slot`, named ``enc_units/0/attn``
+    and ``enc_units/0/ffn``: non-causal GQA with rope, then the FFN; then
+    ``enc_norm``."""
+    (blocks,) = params["enc_units"]
+    acfg = _attn_cfg(cfg, causal=False)
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames
+    for r in range(blocks["norm1"]["scale"].shape[0]):
+        blk = _repeat(blocks, r)
+        with _backend.scan_slot(r):
+            ao, _ = A.gqa(blk["attn"], L.norm(blk["norm1"], x, cfg.norm),
+                          positions, acfg, name="enc_units/0/attn")
+            x = x + ao
+            x = x + L.ffn(blk["ffn"], L.norm(blk["norm2"], x, cfg.norm),
+                          cfg.act, "enc_units/0/ffn")
+    return L.norm(params["enc_norm"], x, cfg.norm)
+
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
-             cache_index=None, chunked=False, length_mask=None, pages=None):
+             cache_index=None, chunked=False, length_mask=None, pages=None,
+             cross_source=None):
     """Run all layers; returns (final-normed hidden, caches).  deepseek's
     ``first_dense`` block first (unstacked, outside any repeat), then the
     pattern's blocks once per repeat under `_backend.scan_slot`, then
     zamba2's remainder blocks (``rem/{i}``).  ``chunked``: attention
     through `attention.chunked_attention` (long prefill); ``length_mask``
-    / ``pages``: see `block_apply`."""
+    / ``pages``: see `block_apply`.  ``cross_source`` (B, T, d_model):
+    the frontend rows or encoder memory, projected per ``cross`` / ``dec``
+    block and repeat (`_frontend_kv`, named ``units/{i}/attn`` or
+    ``units/{i}/xattn``); None reads the cached memory."""
     units, shared = params["units"], params.get("shared")
     unit_caches = caches["units"] if caches is not None else None
     repeats = units[0]["norm1"]["scale"].shape[0]
@@ -356,9 +482,13 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
             for i, kind in enumerate(cfg.pattern):
                 c = (_repeat(unit_caches[i], r) if unit_caches is not None
                      else None)
-                x, _ = block_apply(_repeat(units[i], r), x, kind, cfg,
-                                   positions, cache=c, name=f"units/{i}",
-                                   **kw)
+                blk, ckv = _repeat(units[i], r), None
+                if kind in ("cross", "dec") and cross_source is not None:
+                    sub = "attn" if kind == "cross" else "xattn"
+                    ckv = _frontend_kv(blk[sub], cross_source, cfg,
+                                       name=f"units/{i}/{sub}")
+                x, _ = block_apply(blk, x, kind, cfg, positions, cache=c,
+                                   name=f"units/{i}", cross_kv=ckv, **kw)
     for i, blk in enumerate(params.get("rem", ())):
         c = caches["rem"][i] if caches is not None else None
         x, _ = block_apply(blk, x, cfg.pattern[i % len(cfg.pattern)], cfg,
@@ -411,11 +541,22 @@ def _block_cache_spec(cfg: ArchConfig, kind: str, B: int, S_max: int):
     (whatever the parameter dtype, as in the JAX package).  The Mamba2
     and mLSTM conv carries hold activations: the parameter dtype, whatever
     the KV dtype (the JAX package gives them the KV dtype; the port writes
-    state in place, where an int8 buffer would truncate it every step)."""
+    state in place, where an int8 buffer would truncate it every step).
+    The cross-attention memory ``ck`` / ``cv`` (B, frontend_tokens, KVH,
+    hd) is bfloat16 whatever the KV dtype: what the JAX package's blocks
+    store (its spec gives them the KV dtype, and its dense engine then
+    truncates them into an int8 pool)."""
     kv = torch.int8 if cfg.kv_cache_dtype == "int8" else torch.bfloat16
-    if kind in ("attn", "shared_attn"):
+    memory = (B, cfg.frontend_tokens, cfg.n_kv_heads, cfg.hd)
+    if kind in ("attn", "dec", "shared_attn"):
         shape = (B, S_max, cfg.n_kv_heads, cfg.hd)
-        return {"k": (shape, kv), "v": (shape, kv)}
+        spec = {"k": (shape, kv), "v": (shape, kv)}
+        if kind == "dec":
+            spec.update(ck=(memory, torch.bfloat16),
+                        cv=(memory, torch.bfloat16))
+        return spec
+    if kind == "cross":
+        return {"ck": (memory, torch.bfloat16), "cv": (memory, torch.bfloat16)}
     if kind == "mla":
         m = cfg.mla
         return {"latent": ((B, S_max, m.kv_lora_rank + m.qk_rope_dim), kv)}
@@ -584,8 +725,16 @@ def scatter_cache(caches, sub, slots):
 CHUNKED_ABOVE = 2048
 
 
+def _cross_source(params, cfg: ArchConfig, cross_source):
+    """The memory the ``cross`` / ``dec`` blocks attend: the frontend rows
+    themselves (vision), or the encoder's output over them (audio)."""
+    if cfg.frontend == "audio" and cross_source is not None:
+        return encode(params, cfg, cross_source)
+    return cross_source
+
+
 def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
-            variant=None):
+            variant=None, cross_source=None):
     """Process the prompts ``tokens (B, S)``, fill the caches, and return
     (logits at each row's last valid position, caches).  ``lengths`` (B,)
     marks right-padded prompts: recurrent state suppresses the padded tail
@@ -594,7 +743,9 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
     chunked attention (see the module docstring).  ``variant`` selects the
     plan variant of a multi-plan backend (`repro_torch.runtime.PlanSet`)
     for this call; None keeps any surrounding ``plan_variant`` selection
-    or the backend's default."""
+    or the backend's default.  ``cross_source`` (B, T, d_model): each
+    row's frontend embeddings (vision: attended as they are; audio: run
+    through `encode` first)."""
     with _backend.plan_variant(variant):
         B, Sq = tokens.shape
         x = params["emb"][tokens]
@@ -603,9 +754,10 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=tokens.device)
             length_mask = steps < lengths[:, None]
-        h, caches = backbone(params, cfg, x, steps, caches=caches,
-                             cache_index=0, chunked=Sq > CHUNKED_ABOVE,
-                             length_mask=length_mask)
+        h, caches = backbone(
+            params, cfg, x, steps, caches=caches, cache_index=0,
+            chunked=Sq > CHUNKED_ABOVE, length_mask=length_mask,
+            cross_source=_cross_source(params, cfg, cross_source))
         if lengths is None:
             h_last = h[:, -1]
         else:
@@ -614,7 +766,8 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
-                  pages, variant=None, full_logits: bool = False):
+                  pages, variant=None, full_logits: bool = False,
+                  cross_source=None):
     """One fixed-size chunk of a paged CHUNKED prefill.
 
     ``tokens`` (B, C) holds the next (up to C) prompt tokens of every
@@ -637,7 +790,11 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
     ``full_logits=True`` returns the logits at EVERY chunk position (B, C,
     V) instead: the speculative verify step reads the target variant's
     prediction after each drafted token from one chunk call (rows past
-    ``valid`` are garbage by the same masking contract)."""
+    ``valid`` are garbage by the same masking contract).
+    ``cross_source`` (B, T, d_model): every slot's frontend rows (see
+    `prefill`); the memory they give is rewritten into every slot's
+    ``ck`` / ``cv`` at each chunk, as in the JAX package (so an audio
+    arch runs its encoder over all B slots' rows at every chunk)."""
     with _backend.plan_variant(variant):
         B, C = tokens.shape
         dev = tokens.device
@@ -645,9 +802,10 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
         steps = torch.arange(C, device=dev)[None, :]
         positions = index[:, None] + steps
         length_mask = steps < valid[:, None]
-        h, caches = backbone(params, cfg, x, positions, caches=caches,
-                             cache_index=index, length_mask=length_mask,
-                             pages=pages)
+        h, caches = backbone(
+            params, cfg, x, positions, caches=caches, cache_index=index,
+            length_mask=length_mask, pages=pages,
+            cross_source=_cross_source(params, cfg, cross_source))
         if full_logits:
             return _project_logits(params, cfg, h), caches
         last = torch.clamp(valid - 1, 0, C - 1)
@@ -665,7 +823,9 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
     paged pool and ``active`` is also the write mask: inactive and
     still-prefilling slots write into the trash page, whatever their
     ``index``; on the dense cache an inactive slot writes its KV at its
-    ``index``.  ``variant`` selects the plan variant (see `prefill`)."""
+    ``index``.  ``variant`` selects the plan variant (see `prefill`).
+    The cross-attention memory is read from the caches (written at
+    prefill), never from a frontend."""
     with _backend.plan_variant(variant):
         x = params["emb"][token][:, None, :]
         B = x.shape[0]

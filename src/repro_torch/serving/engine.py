@@ -88,6 +88,15 @@ admission of the group's real rows, and one decode step per engine step
 over all B slots.  A prompt group over 2048 tokens prefills through the
 chunked (flash) attention.
 
+FRONTEND ARCHS (llama-3.2-vision-11b, seamless-m4t-large-v2): each request
+carries its frontend row (``Request.frontend``, held in bfloat16 as the
+JAX engine holds it; a missing row raises).  The dense layout passes the
+admission group's rows to its prefill, padded with the last row; the paged
+one keeps each slot's row in a buffer that every chunk step passes whole,
+so the cross memory of every slot is rewritten and seamless's encoder
+runs over every slot's rows at each chunk, as in the JAX package.  The
+prefix cache is off and speculation refused for them, as there.
+
 With a `repro_torch.runtime.PlannedBackend` or `PlanSet` passed as
 ``backend``, every forward runs under `_backend.use(backend)`, so each
 covered projection executes its planned kernel and engine latency IS
@@ -310,6 +319,9 @@ class Engine:
         self._stuck: Dict[int, int] = {}
         self._inject_slots: List[int] = []
         self._monitor: Optional[HeartbeatMonitor] = None
+        # paged: each slot's frontend row (max_batch, frontend_tokens,
+        # d_model), passed to every chunk step
+        self._fe_buf: Optional[torch.Tensor] = None
 
     def _validate_multiplan(self, cfg, backend, kv_layout, speculate,
                             sampling, scheduler):
@@ -449,6 +461,20 @@ class Engine:
     def _pages_needed(self, req: Request) -> int:
         total = min(req.prompt_len + req.max_new_tokens, self.slot_cap)
         return self.pool_mgr.pages_for(total)
+
+    def _frontend_row(self, req: Request) -> torch.Tensor:
+        """``req``'s frontend row (frontend_tokens, d_model) on the device
+        in bfloat16, as the JAX engine holds it (a planned projection then
+        returns bfloat16, as JAX's does; an unplanned one promotes to the
+        weights' dtype)."""
+        if req.frontend is None:
+            raise ValueError(
+                f"arch {self.cfg.name} needs a per-request cross-attention "
+                f"`frontend`, missing on: [{req.rid!r}]")
+        row = req.frontend
+        if not isinstance(row, torch.Tensor):
+            row = torch.from_numpy(np.asarray(row, np.float32))
+        return row.to(self.device, torch.bfloat16)
 
     def _route(self, req: Request) -> Optional[str]:
         """The plan variant serving ``req``: the speculative target (all
@@ -673,7 +699,8 @@ class Engine:
         whose real rows are scattered into their slots.  The group is
         padded to ``kp`` rows by repeating the last request, as in the JAX
         package (same shapes, so the same kernels); the padding rows are
-        computed but neither scattered nor read."""
+        computed but neither scattered nor read.  A frontend arch's rows
+        (`_frontend_row`) are padded the same way."""
         slots = [s for s, _ in admits]
         reqs = [r for _, r in admits]
         k = len(reqs)
@@ -688,11 +715,16 @@ class Engine:
         lengths[k:] = lengths[k - 1]
         gens = [self._next_generator() for _ in reqs] + [None] * (kp - k)
         dev = self.device
+        frontend = None
+        if self.cfg.frontend:
+            rows = [self._frontend_row(r) for r in reqs]
+            frontend = torch.stack(rows + [rows[-1]] * (kp - k))
         t0 = time.monotonic()
         fresh = T.init_cache(self.cfg, kp, self.max_len, device=dev)
         logits, fresh = T.prefill(self.params, self.cfg,
                                   torch.from_numpy(prompts).to(dev), fresh,
-                                  lengths=torch.from_numpy(lengths).to(dev))
+                                  lengths=torch.from_numpy(lengths).to(dev),
+                                  cross_source=frontend)
         tok0 = self._pick(logits, gens)
         T.scatter_cache(batch.caches, fresh,
                         torch.tensor(slots, dtype=torch.int64, device=dev))
@@ -721,7 +753,8 @@ class Engine:
         """Map (and with the prefix cache, share) each admitted request's
         pages and zero its slot's recurrent state, which must not leak from
         the slot's previous occupant (resumes included: they prefill their
-        committed tokens again)."""
+        committed tokens again).  A frontend arch's row goes into the
+        slot's row of the frontend buffer that every chunk step reads."""
         cow_pairs = []
         for slot, req in admits:
             meta = self._meta(req)
@@ -742,6 +775,12 @@ class Engine:
                                 t_first=meta["t_first"])
             batch.variant[slot] = meta["variant"]
             batch.gens[slot] = self._next_generator()
+            if self.cfg.frontend:
+                row = self._frontend_row(req)
+                if self._fe_buf is None:
+                    self._fe_buf = row.new_zeros((self.max_batch,
+                                                  *row.shape))
+                self._fe_buf[slot] = row
             for leaf, axis in self._slot_leaves(batch.caches):
                 leaf.select(axis, slot).zero_()
         if cow_pairs:
@@ -803,7 +842,8 @@ class Engine:
             x = self._upload(grp)
             logits, batch.caches = T.prefill_chunk(
                 self.params, self.cfg, x[:, :C], batch.caches, x[:, C],
-                x[:, C + 1], x[:, C + 2:], variant=var)
+                x[:, C + 1], x[:, C + 2:], variant=var,
+                cross_source=self._fe_buf)
             fin = torch.isfinite(logits).all(dim=-1)
             got, fin = self._download(torch.stack([self._pick(logits, gens),
                                                    fin.long()]))
@@ -1331,6 +1371,7 @@ class Engine:
                 device=self.device)
         batch = BatchState(self.max_batch, self._paged_caches,
                            pages_per_slot=self.pages_per_slot)
+        self._fe_buf = None
         t_ready: Dict[int, float] = {}
         step = 0
         # the liveness monitor runs on the STEP clock (host keys are slot

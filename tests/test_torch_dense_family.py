@@ -175,8 +175,7 @@ def test_init_check_refuses_only_the_families_still_missing():
                  dict(tie_embeddings=True), dict(sliding_window=8)):
         T.init_lm(torch.Generator().manual_seed(0),
                   dataclasses.replace(cfg, **over))
-    for over in (dict(pattern=("mlstm", "slstm")), dict(frontend="vision"),
-                 dict(encoder_layers=2)):
+    for over in (dict(pattern=("mlstm", "slstm")),):
         with pytest.raises(NotImplementedError, match="later slices"):
             T.init_lm(torch.Generator().manual_seed(0),
                       dataclasses.replace(cfg, **over))
@@ -407,14 +406,3 @@ def test_serve_cli_engine(arch, capsys):
     out = capsys.readouterr().out
     for want in ("engine[continuous]", "ttft p50", "paged kv:"):
         assert want in out, want
-
-
-@pytest.mark.parametrize("arch,what", [
-    ("llama-3.2-vision-11b", "vision frontend"),
-    ("seamless-m4t-large-v2", "audio")])
-def test_serve_cli_names_what_a_missing_arch_waits_for(arch, what, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", arch, "--reduce", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "later slice" in err and what in err and "h2o-danube-3-4b" in err

@@ -818,6 +818,116 @@ def test_reduced_forward_on_the_card_matches_the_plain_backend(cuda, arch,
         assert torch.equal(a, b)
 
 
+#: (K, N, raw boundary) of the frontend archs' planned projections on
+#: diana: llama-3.2-vision-11b (max_cout 14336: wq / wo, wk / wv, gate /
+#: up, down) and seamless-m4t-large-v2 (max_cout 8192: the attentions'
+#: four, the FFN's up and down, encoder and decoder alike)
+FRONTEND_SPLIT = [(4096, 4096, 60), (4096, 1024, 15), (4096, 14336, 210),
+                  (14336, 4096, 60), (1024, 1024, 15), (1024, 8192, 120),
+                  (8192, 1024, 15)]
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n,raw", FRONTEND_SPLIT)
+@pytest.mark.parametrize("route", ["op", "kernel"])
+def test_split_ternary_at_the_frontend_archs_shapes(cuda, m, k, n, raw,
+                                                    route):
+    """Through the op (the boundary aligned as a served layer's) and
+    through the kernel itself at the raw boundary, on K-major codes with
+    garbage in the codes at and above the boundary and in the packed bytes
+    below it, bit for bit, on the decode GEMM (M 4) and the wgmma GEMM (M
+    128)."""
+    x, w, t, sx, sw = _operands(m, k, n, k + n + m, cuda)
+    cols = torch.arange(n, device=cuda)[None, :]
+    b = min(ops.align_boundary(raw, ops.block_n(128, n)), n) \
+        if route == "op" else raw
+    w_q = torch.where(cols < b, w, t).to(torch.int8)
+    packed = pack_ternary(torch.where(cols >= b, t, 0).to(
+        torch.int8).contiguous())
+    probe = torch.where(cols < b, w_q, 99).to(torch.int8)
+    probe_p = torch.where(cols < b, 0xFF, packed).to(torch.uint8)
+    want = split_ternary_plain(x, w_q, packed, sx, sw, b)
+    fn = ops.split_ternary_op if route == "op" else split_ternary
+    got = fn(x, probe.t().contiguous().t(), probe_p, sx, sw, raw if route ==
+             "op" else b)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n", [(4096, 128256), (1024, 256206)])
+def test_quant_matmul_at_the_frontend_archs_heads(cuda, m, k, n):
+    """Both heads K-major, seamless's N 256206 odd (no multiple of a
+    column tile, rows of the output off 16 bytes): the decode GEMM (M 4)
+    and the wgmma GEMM (M 128) bit for bit, and nothing written past the
+    output's last column."""
+    x, w, _, sx, sw = _operands(m, k, n, m + n, cuda)
+    out = torch.full((m * n + 64,), float("nan"), device=cuda)
+    got = quant_matmul(x, w.t().contiguous().t(), sx, sw)
+    out[:m * n] = got.reshape(-1)
+    assert torch.equal(got, quant_matmul_plain(x, w, sx, sw))
+    assert bool(out[m * n:].isnan().all())
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_reduced_frontend_forward_on_the_card_matches_the_plain_backend(
+        cuda, arch, tmp_path):
+    """Reduced llama-3.2-vision-11b (gates 1) and seamless-m4t-large-v2
+    planned on diana: a prefill of 40 tokens with a frontend row per
+    request (llama's cross wk / wv over the rows; seamless's encoder) and
+    3 decode steps on the cached memory launch each planned layer as
+    planned, and the logits equal those of the plain versions
+    (``reference=True``) bit for bit."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (frontend_rows, kv_cache_for,
+                                          plan_mapping_execution)
+    from repro_torch.launch.train import emit_static_mapping
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.reduce_for_smoke(cfgbase.get(arch))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = T.init_lm(gen, cfg)
+    if "cross" in cfg.pattern:
+        params["units"][cfg.pattern.index("cross")]["gate"].fill_(1.0)
+    art = emit_static_mapping(params, cfg, "diana", tmp_path / "m.json",
+                              max_cout=64, act_log_scale=2.0)
+    plan, backend = plan_mapping_execution(params, art)
+    assert not backend.unbound
+    cfg = kv_cache_for(cfg, art)
+    prompts = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                            generator=gen)
+    rows = frontend_rows(cfg, 2, gen)
+
+    def run():
+        caches = T.init_cache(cfg, 2, 48, device=cuda)
+        with _backend.use(backend):
+            out = [T.prefill(params, cfg, prompts, caches,
+                             cross_source=rows)[0]]
+            for i in range(3):
+                tok = out[-1].argmax(-1)
+                out.append(T.decode_step(params, cfg, tok, caches,
+                                         40 + i)[0])
+        torch.cuda.synchronize()
+        return out
+    # a decode step runs neither the encoder nor the cross wk / wv: the
+    # memory is cached
+    kind = "cross" if "cross" in cfg.pattern else "dec"
+    sub = f"units/{cfg.pattern.index(kind)}/" + \
+        ("attn" if kind == "cross" else "xattn")
+    want = dict.fromkeys(plan.kernel_histogram(), 0)
+    for lp in plan.layers:
+        prefill_only = lp.name.startswith(("enc_units/", f"{sub}/wk@",
+                                           f"{sub}/wv@"))
+        want[lp.kernel] += 1 if prefill_only else 4
+    before = {k: getattr(ops, k).launches for k in want}
+    got = run()
+    assert {k: getattr(ops, k).launches - before[k] for k in want} == want
+    backend.reference = True
+    want = run()
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("m,n", [(16, 17024), (512, 512)])
 @pytest.mark.parametrize("first", ["quant_matmul", "ternary_matmul"])
 def test_decode_gemm_libraries_keep_their_own_launch_state(cuda, first, m,
