@@ -470,7 +470,28 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    engine reruns the encoder over every slot's rows at each chunk, as the
    JAX package does; 192 + 1 per decode forward); the legs of phase 16,
    and the encoder's time over the 4 slots' rows (M 4096).
-18. one JSON line of kernel records, the nvidia-smi line, and the contract
+18. train: the training entry point (``repro_torch.launch.train.main``)
+   on zamba2-1.2b at full width and depth (random weights from --seed,
+   bf16, float32 AdamW moments; the token task at batch 8 x 512, remat
+   on), legs (a) `TRAIN_STEPS` (6) steps, (b) `TRAIN_RESUME_AT` (3) steps
+   into an atomic checkpoint under ``build/chip_smoke/train_ckpt``, (c)
+   ``--resume`` to step 6 with ``--emit-mapping`` on diana, (d) 3 steps
+   with ``--compress-grads``: every loss and grad norm finite, from the
+   second step on no gradient leaf all zero (AdamW's input read through a
+   shim), (c)'s losses equal to (a)'s steps 3-5 within `TRAIN_RTOL`; step
+   ms, tokens/s, peak GiB, the checkpoint's snapshot / write / restore
+   times; then the step-6 checkpoint restored onto the card (hashes
+   verified), the trained mapping lowered by ``repro_torch.runtime.lower
+   .main --arch`` (72 quant_matmul layers: every projection is wider than
+   the CLI's max_cout 512) and served at the fixed batch (`fixed_batch`:
+   107 launches per forward, every call bit-identical, tokens and prefill
+   logits identical to the plain run's), the checkpoint deleted; then
+   ResNet20 at full width trained 40 steps at batch 128 with
+   ``--emit-mapping`` (the mean loss of the last 5 steps below the first
+   5's), its mapping lowered and served through ``launch.serve.main
+   --require-full-coverage`` at batch 256, every call held against its
+   plain version (`checking_cnn_calls`), launches the plan's.
+19. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -986,6 +1007,24 @@ SEARCH_LAMS = (5e-7, 1e-9)
 SEARCH_STEPS = dict(pretrain_steps=75, search_steps=100,
                     finetune_steps=75)
 SEARCH_DEPLOY_BATCH = 256
+#: the training phase (18): zamba2-1.2b at full width and depth through
+#: ``repro_torch.launch.train.main``, the token task at batch 8 x 512
+#: tokens (under 2048: no flash under autograd), (a) `TRAIN_STEPS`
+#: uninterrupted steps, (b) `TRAIN_RESUME_AT` steps into a checkpoint,
+#: (c) a resume to `TRAIN_STEPS`, (d) `TRAIN_RESUME_AT` steps with int8
+#: gradient compression.  The warmup covers (b)'s steps, so their learning
+#: rates do not depend on the run's length and (c) continues (a)'s run.
+#: (c) emits the diana mapping at the CLI's default max_cout 512, where
+#: every zamba2 projection is wider: 107 quant_matmul per forward (72
+#: plan layers: the shared block's seven serve its 6 uses)
+TRAIN_SHAPE = dict(batch=8, seq=512)
+TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_WARMUP = 6, 3, 3
+TRAIN_RTOL = 2e-4                  # tests/test_elastic.py's resume tolerance
+TRAIN_ZAMBA_PLAN = {"quant_matmul": 72}
+TRAIN_ZAMBA_HIST = {"quant_matmul": 107}
+#: ResNet20 at full width on the image task, then served at batch 256
+TRAIN_CNN = dict(name="resnet20", steps=40, batch=128, lr=1e-3, warmup=5,
+                 serve_batch=256)
 #: the paged_update call (0-based, 96 per forward: k and v of 48 layers)
 #: whose inputs each paged leg holds against the CPU: layer 5's k in the
 #: third forward
@@ -5854,6 +5893,325 @@ def phase_search(torch, seed, smi, device="cuda"):
     return rec
 
 
+def watching_train(torch, rec):
+    """Context: the trainer observed through shims on the module functions
+    it calls.  Each AdamW update records its gradient norm and how many
+    gradient leaves are all zero; each step's time is the one the trainer
+    hands `StragglerPolicy`; `AsyncCheckpointer.save` (the host snapshot),
+    `checkpoint.save` (the write, on the background thread) and
+    `checkpoint.restore` are timed."""
+    import contextlib
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import tree as T
+    from repro_torch.launch import train as TRN
+    from repro_torch.optim import adamw
+    rec.update(gnorms=[], zero_leaves=[], leaves=0, step_s=[], snapshot_s=[],
+               save_s=[], restore_s=[])
+    orig = {"update": adamw.update, "save": ckpt.save,
+            "restore": ckpt.restore, "async": ckpt.AsyncCheckpointer.save,
+            "policy": TRN.StragglerPolicy}
+
+    def update(grads, *args, **kw):
+        leaves = T.leaves(grads)
+        rec["leaves"] = len(leaves)
+        nonzero = torch.stack([g.ne(0).any() for g in leaves])
+        rec["zero_leaves"].append(int((~nonzero).sum()))
+        out = orig["update"](grads, *args, **kw)
+        rec["gnorms"].append(float(out[2]))
+        return out
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if key == "restore_s":
+                torch.cuda.synchronize()
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    class Policy(orig["policy"]):
+        def observe(self, step, dt):
+            rec["step_s"].append(dt)
+            return super().observe(step, dt)
+
+    @contextlib.contextmanager
+    def ctx():
+        adamw.update = update
+        ckpt.save = timed(orig["save"], "save_s")
+        ckpt.restore = timed(orig["restore"], "restore_s")
+        ckpt.AsyncCheckpointer.save = timed(orig["async"], "snapshot_s")
+        TRN.StragglerPolicy = Policy
+        try:
+            yield
+        finally:
+            adamw.update, ckpt.save, ckpt.restore = \
+                orig["update"], orig["save"], orig["restore"]
+            ckpt.AsyncCheckpointer.save = orig["async"]
+            TRN.StragglerPolicy = orig["policy"]
+    return ctx()
+
+
+def check_train_leg(tag, rec, steps, first):
+    """A training leg's gates: ``steps`` logged losses (a skipped step
+    would drop one), every loss and gradient norm finite, and from update
+    ``first`` on (1: after the trainer's first step) no gradient leaf all
+    zero (a detached path gives zeros)."""
+    import math
+    if len(rec["losses"]) != steps or len(rec["gnorms"]) != steps:
+        raise AssertionError(f"{tag}: {len(rec['losses'])} losses and "
+                             f"{len(rec['gnorms'])} updates, expected "
+                             f"{steps}")
+    if not all(map(math.isfinite, rec["losses"] + rec["gnorms"])):
+        raise AssertionError(f"{tag}: losses {rec['losses']} or grad norms "
+                             f"{rec['gnorms']} not finite")
+    if any(rec["zero_leaves"][first:]):
+        raise AssertionError(f"{tag}: all-zero gradient leaves per step "
+                             f"{rec['zero_leaves']} of {rec['leaves']}")
+
+
+def profiled_train_step(torch, seed, smi, device):
+    """Where a zamba2 training step's time goes: one warm step of
+    ``launch.train.make_step`` (leg a's shape and optimiser) under the
+    profiler; returns {wall_ms, busy_ms, idle_share}."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data.pipeline import ShardedLoader, TokenTaskConfig
+    from repro_torch.launch import train as TRN
+    from repro_torch.models import transformer as TR
+    from repro_torch.optim import adamw
+    cfg = cfgbase.get(ZAMBA)
+    dev = torch.device(device)
+    ocfg = adamw.AdamWConfig(lr=3e-4, weight_decay=0.01)
+    state = [TR.init_lm(torch.Generator(device=dev).manual_seed(seed), cfg)]
+    state.append(adamw.init(state[0], ocfg))
+    tokens, targets = ShardedLoader(
+        "token", TokenTaskConfig(vocab=cfg.vocab), TRAIN_SHAPE["batch"],
+        TRAIN_SHAPE["seq"], device=dev).get(0)
+    batch = {"tokens": tokens, "targets": targets}
+    step_fn = TRN.make_step(cfg, ocfg, False)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, metrics = step_fn(state[0], state[1], None, batch,
+                                          1e-4)
+        float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        state[:] = [params, opt]
+        return (time.perf_counter() - t0) * 1e3
+    run()
+    busy = profile_device(torch, f"train:{ZAMBA}", run)
+    wall = run()
+    # where the step's peak falls: the gradient pass, then the update
+    gib = 2**30
+    resident = torch.cuda.memory_allocated() / gib
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = TRN.value_and_grad(
+        lambda p: TR.lm_loss(p, cfg, batch, remat=True), state[0])
+    grad_peak = torch.cuda.max_memory_allocated() / gib
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        adamw.update(grads, state[1], state[0], ocfg, lr=1e-4)
+    update_peak = torch.cuda.max_memory_allocated() / gib
+    del state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[profile:train:{ZAMBA}] device busy {busy:.3f} ms of a warm "
+          f"step's {wall:.3f} ms: idle share {1.0 - busy / wall:.3f}; "
+          f"memory: params + AdamW state {resident:.2f} GiB, peak of the "
+          f"gradient pass {grad_peak:.2f} GiB, of the update "
+          f"{update_peak:.2f} GiB ({smi})")
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "resident_gib": resident, "grad_peak_gib": grad_peak,
+            "update_peak_gib": update_peak}
+
+
+def phase_train(torch, seed, smi, device="cuda"):
+    """Phase 18 (module docstring): zamba2-1.2b trained at full width and
+    depth through ``repro_torch.launch.train.main`` (legs a-d of
+    `TRAIN_STEPS` / `TRAIN_RESUME_AT`), its step `TRAIN_STEPS` checkpoint
+    restored, its trained mapping lowered by ``repro_torch.runtime.lower
+    .main --arch`` and served at the fixed batch with every planned call
+    checked; then ResNet20 trained with ``--emit-mapping`` and served
+    through ``launch.serve.main`` at batch 256 with every call checked.
+    Returns {leg: record}.  ``device`` "cpu" rehearses with the CUDA-only
+    calls stubbed by the caller."""
+    import shutil
+    from repro_torch.api import MappingArtifact
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TRN
+    from repro_torch.models import transformer as TR
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.lower import _MetaGenerator
+    from repro_torch.runtime.lower import main as lower_main
+    t_phase = time.perf_counter()
+
+    def at():
+        return f"{time.perf_counter() - t_phase:.1f} s into the phase"
+    dev = torch.device(device)
+    work = ROOT / "build" / "chip_smoke"
+    ck = work / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    art_path = work / f"{ZAMBA}_trained.json"
+    n, k = TRAIN_STEPS, TRAIN_RESUME_AT
+    B, S = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+    common = ["--arch", ZAMBA, "--batch", str(B), "--seq", str(S),
+              "--warmup", str(TRAIN_WARMUP), "--log-every", "1", "--seed",
+              str(seed), "--device", device]
+    ckpt_args = ["--ckpt-dir", str(ck), "--ckpt-every", str(10 * n)]
+    legs = {"a": (n, ["--steps", str(n)]),
+            "b": (k, ["--steps", str(k)] + ckpt_args),
+            "c": (n - k, ["--steps", str(n), "--resume", "--emit-mapping",
+                          str(art_path), "--platform", "diana",
+                          "--mapping-act-scale", "2.0"] + ckpt_args),
+            "d": (k, ["--steps", str(k), "--compress-grads"])}
+    what = {"a": f"{n} steps", "b": f"{k} steps into a checkpoint",
+            "c": f"resumed at step {k} to {n}, mapping emitted",
+            "d": f"{k} steps with int8 gradient compression"}
+    out = {}
+    for leg, (steps, extra) in legs.items():
+        tag = f"train:{ZAMBA}:{leg}"
+        rec = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with watching_train(torch, rec):
+            rec["losses"] = TRN.main(common + extra)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        check_train_leg(tag, rec, steps, first=0 if leg == "c" else 1)
+        warm = rec["step_s"][1:] or rec["step_s"]
+        rec["step_ms"] = median(warm) * 1e3
+        rec["tokens_per_s"] = B * S / median(warm)
+        ck_line = ""
+        if rec["save_s"] or rec["restore_s"]:
+            ck_line = (f"; checkpoint snapshot {sum(rec['snapshot_s']):.2f} "
+                       f"s, write {sum(rec['save_s']):.2f} s, restore "
+                       f"{sum(rec['restore_s']):.2f} s (hashes verified)")
+        print(f"[{tag}] {what[leg]}: losses "
+              f"{[round(x, 4) for x in rec['losses']]}, grad norms "
+              f"{[round(x, 3) for x in rec['gnorms']]}; all-zero gradient "
+              f"leaves per step {rec['zero_leaves']} of {rec['leaves']}; "
+              f"step {rec['step_ms']:.1f} ms (median of {len(warm)}; first "
+              f"{rec['step_s'][0] * 1e3:.1f}), {rec['tokens_per_s']:.0f} "
+              f"tokens/s, peak {rec['peak_gib']:.2f} GiB{ck_line}; wall "
+              f"{rec['wall_s']:.1f} s ({smi})")
+        out[leg] = rec
+    out["profile"] = profiled_train_step(torch, seed, smi, device)
+    ref = out["a"]["losses"][k:]
+    dist = max(abs(c - a) / abs(a) for c, a in zip(out["c"]["losses"], ref))
+    if dist > TRAIN_RTOL:
+        raise AssertionError(
+            f"train:{ZAMBA}: resumed losses {out['c']['losses']} against the "
+            f"uninterrupted run's {ref}: relative {dist:.3g} > {TRAIN_RTOL}")
+    out["resume_rel_dist"] = dist
+    print(f"[train:{ZAMBA}] the resumed run's losses equal the uninterrupted "
+          f"run's steps {k}..{n - 1} within relative {dist:.3g} (rtol "
+          f"{TRAIN_RTOL}) ({at()})")
+
+    # the step-n checkpoint back on the card, its mapping lowered and served
+    cfg = cfgbase.get(ZAMBA)
+    meta = TR.init_lm(_MetaGenerator(), cfg)
+    like = (meta, adamw.init(meta, adamw.AdamWConfig()))
+    step = ckpt.latest_step(ck)
+    ck_bytes = (ck / f"step_{step:08d}" / "arrays.npz").stat().st_size
+    t0 = time.perf_counter()
+    params, _ = ckpt.restore(ck, step, like, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ck)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if step != n:
+        raise AssertionError(f"train:{ZAMBA}: latest committed step {step}")
+    plan = lower_main([str(art_path), "--arch", ZAMBA, "--out",
+                    str(work / f"{ZAMBA}_trained_plan.json")])
+    if plan.kernel_histogram() != TRAIN_ZAMBA_PLAN:
+        raise AssertionError(f"train:{ZAMBA}: lowered plan "
+                             f"{plan.kernel_histogram()}")
+    art = MappingArtifact.load(art_path)
+    _, backend = SV.plan_mapping_execution(params, art)
+    SV.check_coverage(f"train:{ZAMBA}", backend, require_full=True)
+    kcfg = SV.kv_cache_for(cfg, art)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device=dev)
+    forwards = -(-PROMPT_LEN // CHUNK) + GEN_LEN - 1
+    limits = {kn: v * forwards for kn, v in TRAIN_ZAMBA_HIST.items()}
+    out["serve"] = fixed_batch(torch, f"train:{ZAMBA}:serve", kcfg, params,
+                               backend, TRAIN_ZAMBA_HIST, prompts, limits)
+    check_no_weight_copies(f"train:{ZAMBA}:serve")
+    out["checkpoint_gb"] = ck_bytes / 1e9
+    out["restore_s"] = restore_s
+    print(f"[train:{ZAMBA}] step {step} checkpoint {ck_bytes / 1e9:.3f} GB "
+          f"(params + AdamW state) restored onto the card in {restore_s:.2f} "
+          f"s, hashes verified; the trained diana mapping lowered by "
+          f"runtime.lower.main --arch ({plan.kernel_histogram()}) and served "
+          f"at full depth: launches "
+          f"{ {kn: v for kn, v in out['serve']['launches'].items() if v} } "
+          f"({at()})")
+    del params, backend, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ResNet20: trained, its mapping emitted, lowered and served at B 256
+    c = TRAIN_CNN
+    tag = f"train:{c['name']}"
+    cart = work / f"{c['name']}_trained.json"
+    rec = {}
+    t0 = time.perf_counter()
+    with watching_train(torch, rec):
+        rec["losses"] = TRN.main(
+            ["--arch", f"cnn:{c['name']}", "--steps", str(c["steps"]),
+             "--batch", str(c["batch"]), "--lr", str(c["lr"]), "--warmup",
+             str(c["warmup"]), "--log-every", "10", "--seed", str(seed),
+             "--device", device, "--emit-mapping", str(cart), "--platform",
+             "diana"])
+    rec["wall_s"] = time.perf_counter() - t0
+    first5, last5 = (sum(rec["losses"][:5]) / 5, sum(rec["losses"][-5:]) / 5)
+    if not last5 < first5:
+        raise AssertionError(f"{tag}: the mean loss of the last 5 steps "
+                             f"{last5:.4f} is not below the first 5's "
+                             f"{first5:.4f}")
+    plan = lower_main([str(cart), "--out",
+                       str(work / f"{c['name']}_plan.json")])
+    hist = plan.kernel_histogram()
+    if hist != CNN_HIST[c["name"], "diana"]:
+        raise AssertionError(f"{tag}: lowered plan {hist}")
+    calls = {}
+    reset_launches()
+    with checking_cnn_calls(torch, calls):
+        logits, st = SV.main(["--arch", f"cnn:{c['name']}", "--mapping",
+                              str(cart), "--require-full-coverage",
+                              "--requests", str(c["serve_batch"]), "--seed",
+                              str(seed), "--device", device])
+    torch.cuda.synchronize()
+    launches = {kn: v for kn, v in kernel_launches().items() if v}
+    if launches != hist:
+        raise AssertionError(f"{tag}: served launches {launches}, the "
+                             f"plan's {hist}")
+    check_no_weight_copies(tag)
+    checked = sum(map(len, calls.values()))
+    rec.update(first5=first5, last5=last5, launches=launches,
+               calls_checked=checked, serve_forward_ms=st["forward_s"] * 1e3)
+    print(f"[{tag}] {c['steps']} steps at batch {c['batch']}: mean loss "
+          f"{first5:.4f} over the first 5, {last5:.4f} over the last 5 "
+          f"(losses {rec['losses'][0]:.4f} -> {rec['losses'][-1]:.4f}), "
+          f"{rec['wall_s'] / c['steps'] * 1e3:.1f} ms per step with the "
+          f"mapping emitted; served at B {c['serve_batch']} through "
+          f"launch.serve.main --require-full-coverage: launches {launches} "
+          f"(the plan's), {checked} kernel calls bit-identical to their "
+          f"plain versions, 0 weight copies, forward "
+          f"{rec['serve_forward_ms']:.1f} ms with the checks inline ({at()})")
+    out[c["name"]] = rec
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[train] phase {out['seconds']:.1f} s ({smi})")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6052,6 +6410,8 @@ def main(argv=None) -> int:
     for key in FRONTEND:
         serving[key] = phase_frontend(torch, key, args.seed, smi)
         mark(key)
+    serving["train"] = phase_train(torch, args.seed, smi)
+    mark("train")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

@@ -41,11 +41,6 @@ SEARCH_DATA_OFFSET = 10_000
 FINETUNE_DATA_OFFSET = 20_000
 EVAL_DATA_OFFSET = 90_000
 
-#: the roadmap item that brings stage checkpoints and resume
-CHECKPOINT_ITEM = ("ROADMAP.md Queue 1 item 7 (what is left of the search "
-                   "side: checkpoint/ and pipeline resume)")
-
-
 # --------------------------------------------------------------------------
 # Callbacks
 # --------------------------------------------------------------------------
@@ -395,8 +390,16 @@ class SearchPipeline:
         res = pipe.run()          # PipelineResult; res.artifact is JSON-able
 
     ``data_fn(step, batch) -> (x, labels)`` must give tensors on the
-    pipeline's device.  ``checkpoint_dir`` / ``resume_from`` (stage
-    checkpoints) are not ported yet (`CHECKPOINT_ITEM`).
+    pipeline's device.
+
+    Stage checkpoints: with ``checkpoint_dir`` set, the params are saved
+    (`repro_torch.checkpoint`: atomic, hash-verified) after every
+    `Pretrain` stage, the expensive prefix that every lambda point of a
+    Pareto sweep shares.  A later pipeline built with
+    ``resume_from=checkpoint_dir`` (same handle and stages) restores them
+    and restarts at the stage AFTER the checkpointed one (the paper's
+    flow: straight at `DNASSearch`), as an uninterrupted run would go on,
+    since the stages' data streams are offset-addressed.
     """
 
     def __init__(self, handle: ModelHandle, platform=None, *,
@@ -409,10 +412,6 @@ class SearchPipeline:
                  checkpoint_dir: str | None = None,
                  resume_from: str | None = None,
                  device="cuda"):
-        if checkpoint_dir is not None or resume_from is not None:
-            raise NotImplementedError(
-                f"SearchPipeline checkpoint_dir / resume_from wait for "
-                f"{CHECKPOINT_ITEM}")
         self.handle = handle
         plat = Platform.get(platform) if platform is not None else None
         self.platform_name = plat.name if plat is not None else None
@@ -433,6 +432,8 @@ class SearchPipeline:
         self.data_fn = data_fn
         self.stages = list(stages) if stages is not None else default_stages()
         self.callbacks = tuple(callbacks)
+        self.checkpoint_dir = checkpoint_dir
+        self.resume_from = resume_from
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SearchPipeline(device='cuda') needs a CUDA "
@@ -482,17 +483,32 @@ class SearchPipeline:
                                callbacks=self.callbacks, device=self.device)
 
     def run(self, init_params=None) -> PipelineResult:
+        from repro_torch.checkpoint import checkpoint as ckpt
         ctx = self._build_context()
         if init_params is None:
             gen = torch.Generator(device=self.device).manual_seed(
                 self.scfg.seed)
             init_params = self.handle.init(gen, self.spec)
         _check_device(init_params, self.device, "init_params")
+        stages = list(enumerate(self.stages))
+        if self.resume_from is not None:
+            step = ckpt.latest_step(self.resume_from)
+            if step is None:
+                raise FileNotFoundError(
+                    f"resume_from={self.resume_from!r}: no committed "
+                    f"pipeline checkpoint found")
+            extra = ckpt.restore_extra(self.resume_from, step)
+            init_params = ckpt.restore(self.resume_from, step, init_params)
+            stages = stages[int(extra["stage_index"]) + 1:]
         state = PipelineState(params=init_params)
-        for stage in self.stages:
+        for i, stage in stages:
             for cb in self.callbacks:
                 cb.on_stage_start(stage, state)
             stage.run(ctx, state)
+            if self.checkpoint_dir is not None and \
+                    isinstance(stage, Pretrain):
+                ckpt.save(self.checkpoint_dir, i + 1, state.params,
+                          extra={"stage": stage.name, "stage_index": i})
             for cb in self.callbacks:
                 cb.on_stage_end(stage, state)
         return PipelineResult(

@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -144,3 +146,17 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through kernel ``name``:
+    the hand-written kernels have no backward pass, and a result written
+    by a kernel carries no ``grad_fn``, so the gradient would vanish
+    silently.  Called on the card only: on the CPU the wrappers run their
+    plain versions, which autograd differentiates."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the {name} kernel has no "
+            f"backward pass; call it under torch.no_grad() or on detached "
+            f"tensors")

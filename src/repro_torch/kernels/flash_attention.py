@@ -162,6 +162,7 @@ def flash_attention(q, k, v, *, causal=True, kv_len=None, window=None,
         return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v, out)
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise TypeError(f"bf16 operands expected, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")

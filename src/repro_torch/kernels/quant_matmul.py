@@ -229,6 +229,7 @@ def quant_matmul(x_q, w_q, sx, sw):
         return quant_matmul_plain(x_q, w_q, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"no quant_matmul kernel for {x_q.device}")
+    _build.refuse_grad("quant_matmul", x_q, w_q, sx, sw)
     wk = _k_major(w_q)
     xq = _aligned(_pad_to(x_q, K_ALIGN, 1), 16)
     swc = _aligned(sw, 8)

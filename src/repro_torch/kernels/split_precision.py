@@ -171,6 +171,7 @@ def split_precision(x, x_q, sx, w_bf16, w_q, sw, boundary: int):
         return split_precision_plain(x, x_q, sx, w_bf16, w_q, sw, boundary)
     if x_q.device.type != "cuda":
         raise ValueError(f"no split_precision kernel for {x_q.device}")
+    _build.refuse_grad("split_precision", x, x_q, sx, w_bf16, w_q, sw)
     xb, xq, wb, wk, swp = kernel_operands(x, x_q, w_bf16, w_q, sw)
     sxc = sx.reshape(1).contiguous()
     n_pad, k_pad = wk.shape

@@ -95,6 +95,7 @@ def split_ternary(x_q, w_q, w_packed, sx, sw, boundary: int):
         return split_ternary_plain(x_q, w_q, w_packed, sx, sw, boundary)
     if x_q.device.type != "cuda":
         raise ValueError(f"no split_ternary kernel for {x_q.device}")
+    _build.refuse_grad("split_ternary", x_q, w_q, w_packed, sx, sw)
     if w_packed.device != x_q.device:
         raise ValueError(f"operands on {x_q.device} and {w_packed.device}")
     xq, wk, wp, swp = kernel_operands(x_q, w_q, w_packed, sw)

@@ -73,6 +73,7 @@ def ternary_matmul(x_q, w_t, sx, sw):
         return ternary_matmul_plain(x_q, w_t, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"no ternary_matmul kernel for {x_q.device}")
+    _build.refuse_grad("ternary_matmul", x_q, w_t, sx, sw)
     xq, wk = kernel_operands(x_q, w_t)
     swc = _aligned(sw, 8)
     sxc = sx.reshape(1).contiguous()

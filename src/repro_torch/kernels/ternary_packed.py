@@ -104,6 +104,7 @@ def ternary_packed_matmul(x_q, w_packed, sx, sw):
         return ternary_packed_plain(x_q, w_packed, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"no ternary_packed kernel for {x_q.device}")
+    _build.refuse_grad("ternary_packed", x_q, w_packed, sx, sw)
     xq, wp, swp = kernel_operands(x_q, w_packed, sw)
     sxc = sx.reshape(1).contiguous()
     n_pad = wp.shape[1]

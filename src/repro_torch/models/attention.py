@@ -161,12 +161,14 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
     ``kpos >= kv_len``.  ``min(q_chunk, Sq)`` must divide Sq and
     ``min(k_chunk, Sk)`` Sk on every device (the JAX package asserts it).
 
-    On the CPU it runs `chunked_attention_plain`.  On a CUDA tensor it
-    launches the flash-attention kernel on the model layout through
-    strides (no copy of q, k or v), with the sliding ``window`` when one
-    is given, or, when the installed matmul backend asks for its plain
-    versions (``reference=True``), runs `attention_plain`.  A per-slot
-    ``kv_len`` has no kernel yet and raises NotImplementedError there."""
+    On the CPU it runs `chunked_attention_plain`, which autograd
+    differentiates.  On a CUDA tensor it launches the flash-attention
+    kernel on the model layout through strides (no copy of q, k or v),
+    with the sliding ``window`` when one is given, or, when the installed
+    matmul backend asks for its plain versions (``reference=True``), runs
+    `attention_plain`.  The kernel has no backward pass: its wrapper
+    raises under autograd.  A per-slot ``kv_len`` has no kernel yet and
+    raises NotImplementedError there."""
     B, Sq, KVH, G, hd = q.shape
     Sk = k.shape[1]
     qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)

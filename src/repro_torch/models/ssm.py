@@ -128,8 +128,13 @@ def _ssd_chunked(xs, Bt, Ct, dt, la, h0, chunk=None):
         ca = torch.cumsum(la[:, c0:c0 + Q], dim=1)           # (B, Q, H)
         # intra-chunk: y_t += sum_{s<=t} exp(ca_t - ca_s) dt_s (C_t.B_s) x_s
         cb = torch.einsum("bqn,bsn->bqs", cc, bc)
-        decay = torch.exp(ca[:, :, None, :] - ca[:, None, :, :])
-        W = cb[..., None] * torch.where(tri, decay, 0.0)     # (B, Q, Q, H)
+        # masked in the exponent (the JAX package masks after the exp):
+        # above the diagonal exp(ca_t - ca_s) overflows once a chunk's
+        # decay passes float32's range, and the gradient of a masked inf
+        # is NaN; the forward is the same, bit for bit
+        diff = ca[:, :, None, :] - ca[:, None, :, :]
+        decay = torch.exp(torch.where(tri, diff, float("-inf")))
+        W = cb[..., None] * decay                            # (B, Q, Q, H)
         y = torch.einsum("bqsh,bshp->bqhp", W * dtc[:, None], xc)
         # inter-chunk: y_t += exp(ca_t) C_t . h0
         y = y + torch.einsum("bqn,bhpn->bqhp", cc, h) * \

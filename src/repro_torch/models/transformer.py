@@ -36,6 +36,9 @@ publishes the repeat index with `_backend.scan_slot`.
 Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
   params_from_jax(tree, device)                  -> params
+  lm_loss(params, cfg, batch, remat=)            -> scalar loss (training)
+  chunked_ce(h, w, targets)                      -> mean cross-entropy
+  backbone(params, cfg, x, positions, ...)       -> (hidden, caches, aux)
   prefill(params, cfg, tokens, caches, lengths=, variant=, cross_source=)
                                                  -> (last_logits, caches)
   prefill_chunk(params, cfg, tokens, caches, index, valid, pages,
@@ -77,12 +80,18 @@ paged one streams prompts into its page pool with `prefill_chunk` (full
 attention over each slot's gathered pages, never the chunked path, as in
 the JAX package; recurrent state carried across chunks) and decodes with
 ``decode_step(pages=)``.
+
+Training (`lm_loss`) runs the same blocks without caches: nothing is
+written in place, each repeat may be rematerialised (``remat``), the MoE
+blocks' load-balance aux is summed into the loss as in the JAX package,
+and the vocab projection runs per 512-position chunk (`chunked_ce`).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import _backend
@@ -304,7 +313,9 @@ def _repeat(tree, r: int):
 def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
                 cache_index=None, shared=None, name=None, chunked=False,
                 length_mask=None, pages=None, cross_kv=None):
-    """One block of ``kind``; returns (x, cache).  ``name`` is the block's
+    """One block of ``kind``; returns (x, cache, aux): ``aux`` is the MoE
+    FFN's Switch load-balance loss (0.0 in a block without one), as in
+    the JAX package.  ``name`` is the block's
     params path (``"units/3"``, ``"rem/0"``), threaded into every
     projection's backend call; the shared block's weights always use the
     fixed names ``"shared/attn"`` and ``"shared/ffn"`` (one copy, many
@@ -345,10 +356,10 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
         x = x + ao
         h2 = L.norm(p["norm2"], x, cfg.norm)
         if "moe" in p:
-            mo, _ = M.moe_ffn(p["moe"], h2, cfg.moe, name=_j(name, "moe"),
-                              length_mask=length_mask)
-            return x + mo, nc
-        return x + L.ffn(p["ffn"], h2, cfg.act, _j(name, "ffn")), nc
+            mo, ml = M.moe_ffn(p["moe"], h2, cfg.moe, name=_j(name, "moe"),
+                               length_mask=length_mask)
+            return x + mo, nc, ml["load_balance"]
+        return x + L.ffn(p["ffn"], h2, cfg.act, _j(name, "ffn")), nc, 0.0
     if kind in _RECURRENT:
         key, fn, kcfg = _RECURRENT[kind]
         mo, ns = fn(p[key], h, kcfg(cfg), state=cache, name=_j(name, key),
@@ -356,7 +367,7 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
         if cache is not None:
             for leaf, new in ns.items():
                 cache[leaf].copy_(new)
-        return x + mo, cache
+        return x + mo, cache, 0.0
     if kind == "shared_attn":
         p, attn_name, ffn_name = shared, "shared/attn", "shared/ffn"
     elif kind == "attn":
@@ -367,19 +378,19 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
                    cache_index=cache_index, name=attn_name, chunked=chunked,
                    pages=pages, write_mask=length_mask)
     if cfg.parallel_block and kind == "attn" and "ffn" in p:
-        return x + ao + L.ffn(p["ffn"], h, cfg.act, ffn_name), nc
+        return x + ao + L.ffn(p["ffn"], h, cfg.act, ffn_name), nc, 0.0
     x = x + ao
     if "moe" in p:
         h2 = L.norm(p.get("norm2", p["norm1"]), x, cfg.norm)
-        mo, _ = M.moe_ffn(p["moe"], h2, cfg.moe, name=_j(name, "moe"),
-                          length_mask=length_mask)
+        mo, ml = M.moe_ffn(p["moe"], h2, cfg.moe, name=_j(name, "moe"),
+                           length_mask=length_mask)
         if "ffn" in p:      # arctic's dense residual beside the MoE
             mo = mo + L.ffn(p["ffn"], h2, cfg.act, ffn_name)
-        return x + mo, nc
+        return x + mo, nc, ml["load_balance"]
     if "ffn" in p:
         x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
                       ffn_name)
-    return x, nc
+    return x, nc, 0.0
 
 
 def _cross_memory(cache, cross_kv):
@@ -419,7 +430,7 @@ def _cross_block(p, x, kind, cfg: ArchConfig, positions, *, cache,
         x = x + xo
     x = x + L.ffn(p["ffn"], L.norm(p["norm2"], x, cfg.norm), cfg.act,
                   _j(name, "ffn"))
-    return x, cache
+    return x, cache, 0.0
 
 
 def _frontend_kv(p_attn, cross_source, cfg: ArchConfig, name=None):
@@ -456,26 +467,34 @@ def encode(params, cfg: ArchConfig, frames):
 
 def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
              cache_index=None, chunked=False, length_mask=None, pages=None,
-             cross_source=None):
-    """Run all layers; returns (final-normed hidden, caches).  deepseek's
-    ``first_dense`` block first (unstacked, outside any repeat), then the
-    pattern's blocks once per repeat under `_backend.scan_slot`, then
-    zamba2's remainder blocks (``rem/{i}``).  ``chunked``: attention
-    through `attention.chunked_attention` (long prefill); ``length_mask``
-    / ``pages``: see `block_apply`.  ``cross_source`` (B, T, d_model):
-    the frontend rows or encoder memory, projected per ``cross`` / ``dec``
-    block and repeat (`_frontend_kv`, named ``units/{i}/attn`` or
-    ``units/{i}/xattn``); None reads the cached memory."""
+             cross_source=None, remat=False):
+    """Run all layers; returns (final-normed hidden, caches, aux), ``aux``
+    the sum of the blocks' MoE load-balance losses (JAX's order).
+    deepseek's ``first_dense`` block first (unstacked, outside any
+    repeat), then the pattern's blocks once per repeat under
+    `_backend.scan_slot`, then zamba2's remainder blocks (``rem/{i}``).
+    ``chunked``: attention through `attention.chunked_attention` (long
+    prefill); ``length_mask`` / ``pages``: see `block_apply`.
+    ``cross_source`` (B, T, d_model): the frontend rows or encoder
+    memory, projected per ``cross`` / ``dec`` block and repeat
+    (`_frontend_kv`, named ``units/{i}/attn`` or ``units/{i}/xattn``);
+    None reads the cached memory.  ``remat``: each repeat's blocks are
+    recomputed in the backward pass instead of keeping their activations
+    (``torch.utils.checkpoint``; the JAX package's ``jax.checkpoint`` of
+    its scan body)."""
     units, shared = params["units"], params.get("shared")
     unit_caches = caches["units"] if caches is not None else None
     repeats = units[0]["norm1"]["scale"].shape[0]
     kw = dict(cache_index=cache_index, shared=shared, chunked=chunked,
               length_mask=length_mask, pages=pages)
+    aux = 0.0
     if "first_dense" in params:
         c = caches["first"] if caches is not None else None
-        x, _ = block_apply(params["first_dense"], x, cfg.pattern[0], cfg,
-                           positions, cache=c, name="first_dense", **kw)
-    for r in range(repeats):
+        x, _, aux = block_apply(params["first_dense"], x, cfg.pattern[0],
+                                cfg, positions, cache=c, name="first_dense",
+                                **kw)
+
+    def unit(r, x, aux):
         # stacked layers are named by their base path ("units/0/attn/wq");
         # a name-keyed backend selects repeat r's prepared kernels
         with _backend.scan_slot(r):
@@ -487,13 +506,37 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
                     sub = "attn" if kind == "cross" else "xattn"
                     ckv = _frontend_kv(blk[sub], cross_source, cfg,
                                        name=f"units/{i}/{sub}")
-                x, _ = block_apply(blk, x, kind, cfg, positions, cache=c,
-                                   name=f"units/{i}", cross_kv=ckv, **kw)
+                x, _, a = block_apply(blk, x, kind, cfg, positions, cache=c,
+                                      name=f"units/{i}", cross_kv=ckv, **kw)
+                aux = aux + a
+        return x, aux
+
+    for r in range(repeats):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                unit, r, x, aux, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, aux = unit(r, x, aux)
     for i, blk in enumerate(params.get("rem", ())):
         c = caches["rem"][i] if caches is not None else None
-        x, _ = block_apply(blk, x, cfg.pattern[i % len(cfg.pattern)], cfg,
-                           positions, cache=c, name=f"rem/{i}", **kw)
-    return L.norm(params["final_norm"], x, cfg.norm), caches
+        x, _, a = block_apply(blk, x, cfg.pattern[i % len(cfg.pattern)], cfg,
+                              positions, cache=c, name=f"rem/{i}", **kw)
+        aux = aux + a
+    return L.norm(params["final_norm"], x, cfg.norm), caches, aux
+
+
+def _head_weight(params, cfg: ArchConfig):
+    """The vocab projection's (d_model, vocab) weight: ``emb.T`` for a
+    tied head, the dequantized codes of an int8 serving head, else the
+    head's ``w``."""
+    if cfg.tie_embeddings:
+        return params["emb"].T
+    h = params["head"]
+    if "w_q" in h:
+        dt = params["emb"].dtype
+        return h["w_q"].to(dt) * h["w_s"].to(dt)[..., None, :]
+    return h["w"]
 
 
 def _project_logits(params, cfg: ArchConfig, h):
@@ -754,7 +797,7 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=tokens.device)
             length_mask = steps < lengths[:, None]
-        h, caches = backbone(
+        h, caches, _ = backbone(
             params, cfg, x, steps, caches=caches, cache_index=0,
             chunked=Sq > CHUNKED_ABOVE, length_mask=length_mask,
             cross_source=_cross_source(params, cfg, cross_source))
@@ -802,7 +845,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
         steps = torch.arange(C, device=dev)[None, :]
         positions = index[:, None] + steps
         length_mask = steps < valid[:, None]
-        h, caches = backbone(
+        h, caches, _ = backbone(
             params, cfg, x, positions, caches=caches, cache_index=index,
             length_mask=length_mask, pages=pages,
             cross_source=_cross_source(params, cfg, cross_source))
@@ -834,7 +877,62 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
         else:
             positions = torch.full((B, 1), int(index), device=x.device)
         length_mask = None if active is None else active[:, None]
-        h, caches = backbone(params, cfg, x, positions, caches=caches,
-                             cache_index=index, length_mask=length_mask,
-                             pages=pages)
+        h, caches, _ = backbone(params, cfg, x, positions, caches=caches,
+                                cache_index=index, length_mask=length_mask,
+                                pages=pages)
         return _project_logits(params, cfg, h[:, -1]), caches
+
+
+# ---------------------------------------------------------------- training
+
+def _ce_chunk(hb, w, tb):
+    """Summed next-token cross-entropy of one sequence chunk."""
+    logp = torch.log_softmax(L.matmul(hb, w).to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, tb[..., None])[..., 0].sum()
+
+
+def chunked_ce(h, w, targets, chunk=512):
+    """Mean cross-entropy with the vocab projection computed per sequence
+    chunk of ``min(chunk, S)`` positions, each chunk recomputed in the
+    backward pass, so no (B, S, V) logits are kept.  As in the JAX
+    package, positions past the last whole chunk are left out."""
+    B, Sq, _ = h.shape
+    chunk = min(chunk, Sq)
+    n = Sq // chunk
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, n * chunk, chunk):
+        tot = tot + torch.utils.checkpoint.checkpoint(
+            _ce_chunk, h[:, c0:c0 + chunk], w, targets[:, c0:c0 + chunk],
+            use_reentrant=False, preserve_rng_state=False)
+    return tot / (B * n * chunk)
+
+
+def lm_loss(params, cfg: ArchConfig, batch, remat=False):
+    """``batch``: {"tokens", "targets" (B, S)[, "frontend"]} -> the scalar
+    training loss: `chunked_ce` of the final hidden states plus 0.01 x the
+    MoE load-balance aux.  A vision frontend's rows are attended as given,
+    an audio one's through `encode`; a sequence longer than 2048 tokens
+    takes the chunked attention, as in the JAX package.  On the card that
+    is the flash kernel, which has no backward pass: with gradients
+    enabled such a sequence raises NotImplementedError there."""
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    chunked = Sq > CHUNKED_ABOVE
+    if chunked and tokens.device.type == "cuda" and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"lm_loss at {Sq} > {CHUNKED_ABOVE} tokens on the card: the "
+            f"chunked attention there is the flash-attention kernel, which "
+            f"has no backward pass yet (a flash backward kernel is new "
+            f"work: the JAX package differentiates its jnp chunked "
+            f"attention and has no Pallas backward)")
+    x = params["emb"][tokens]
+    positions = torch.arange(Sq, device=tokens.device)[None, :]
+    cross_source = None
+    if cfg.frontend == "vision":
+        cross_source = batch["frontend"]
+    elif cfg.frontend == "audio":
+        cross_source = encode(params, cfg, batch["frontend"])
+    h, _, aux = backbone(params, cfg, x, positions, chunked=chunked,
+                         cross_source=cross_source, remat=remat)
+    loss = chunked_ce(h, _head_weight(params, cfg), batch["targets"])
+    return loss + 0.01 * aux

@@ -1,8 +1,11 @@
 """AdamW as plain tensor code with the JAX package's arithmetic
-(``repro.optim.adamw`` counterparts): global gradient-norm clipping, a
-float32 step count in the bias corrections, float32 moments.  The search
-pipeline uses no weight decay and clips at 1.0, so neither is an option
-here; ``torch.optim.AdamW`` places eps otherwise, so it is not used.
+(``repro.optim.adamw`` counterparts): global gradient-norm clipping at
+``clip_norm`` (None: none), a float32 step count in the bias
+corrections, moments kept in ``moment_dtype`` (float32, or bfloat16 to
+halve the optimiser state) and updated in float32, and the decoupled
+weight decay ``p - lr * (update + weight_decay * p)``.  The defaults
+(no decay, clipping at 1.0, float32 moments) are the search pipeline's.
+``torch.optim.AdamW`` places eps otherwise, so it is not used.
 
 Params, grads and moments are trees (`repro_torch.core.tree`), walked in
 JAX's leaf order; the leaves' updates run as ``torch._foreach_*`` ops, one
@@ -25,9 +28,9 @@ class AdamWConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-
-
-CLIP_NORM = 1.0
+    weight_decay: float = 0.0
+    clip_norm: float | None = 1.0
+    moment_dtype: torch.dtype = torch.float32
 
 
 class AdamWState(NamedTuple):
@@ -37,7 +40,7 @@ class AdamWState(NamedTuple):
 
 
 def init(params, cfg: AdamWConfig) -> AdamWState:
-    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.moment_dtype)
     leaves = T.leaves(params)
     dev = leaves[0].device if leaves else "cpu"
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -55,13 +58,20 @@ def global_norm(tree) -> torch.Tensor:
 def clip_by_global_norm(grads, max_norm: float):
     gn = global_norm(grads)
     scale = torch.minimum(torch.ones_like(gn), max_norm / (gn + 1e-9))
-    return T.unflatten(grads, torch._foreach_mul(T.leaves(grads), scale)), gn
+    # JAX's promotion: a bfloat16 gradient times the float32 scale is
+    # float32 (torch would keep the bfloat16)
+    leaves = [g.to(torch.promote_types(g.dtype, scale.dtype))
+              for g in T.leaves(grads)]
+    return T.unflatten(grads, torch._foreach_mul(leaves, scale)), gn
 
 
 def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr=None):
     """Returns (new_params, new_state, grad_norm)."""
     lr = cfg.lr if lr is None else lr
-    grads, gn = clip_by_global_norm(grads, CLIP_NORM)
+    if cfg.clip_norm is not None:
+        grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gn = global_norm(grads)
     step = state.step + 1
     f32 = torch.float32
     stepf = step.to(f32)
@@ -70,7 +80,8 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr=None):
 
     p32 = [p.to(f32) for p in T.leaves(params)]
     g = [x.to(f32) for x in T.leaves(grads)]
-    m, v = T.leaves(state.mu), T.leaves(state.nu)
+    m = [x.to(f32) for x in T.leaves(state.mu)]
+    v = [x.to(f32) for x in T.leaves(state.nu)]
     fe = torch
     m = fe._foreach_add(fe._foreach_mul(m, cfg.b1),
                         fe._foreach_mul(g, 1 - cfg.b1))
@@ -79,12 +90,15 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig, lr=None):
     num = fe._foreach_div(m, b1c)
     den = fe._foreach_add(fe._foreach_sqrt(fe._foreach_div(v, b2c)), cfg.eps)
     upd = fe._foreach_div(num, den)
+    if cfg.weight_decay:
+        upd = fe._foreach_add(upd, fe._foreach_mul(p32, cfg.weight_decay))
     new_p = fe._foreach_sub(p32, fe._foreach_mul(upd, lr))
     dtypes = [p.dtype for p in T.leaves(params)]
     new_p = [x.to(d) for x, d in zip(new_p, dtypes)]
+    md = cfg.moment_dtype
     return (T.unflatten(params, new_p),
-            AdamWState(step, T.unflatten(state.mu, m),
-                       T.unflatten(state.nu, v)),
+            AdamWState(step, T.unflatten(state.mu, [x.to(md) for x in m]),
+                       T.unflatten(state.nu, [x.to(md) for x in v])),
             gn)
 
 

@@ -275,3 +275,64 @@ def lower(artifact, params=None, handle=None, *, block_n: int = 128,
     return ExecutionPlan(model=art.get("model", "unknown"), domains=domains,
                          layers=layers, platform=art.get("platform"),
                          block_n=block_n)
+
+
+# --------------------------------------------------------------------------
+# CLI: mapping.json -> plan.json
+# --------------------------------------------------------------------------
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device, so that
+    ``init_lm`` builds shape-only params (no storage, no draws)."""
+    device = torch.device("meta")
+
+
+def _lm_param_shapes(arch: str, reduce: bool):
+    """An LM's params as ``meta`` tensors: shapes and dtypes only."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models import transformer as T
+    cfg = cfgbase.get(arch)
+    if reduce:
+        cfg = cfgbase.reduce_for_smoke(cfg)
+    return T.init_lm(_MetaGenerator(), cfg)
+
+
+def main(argv=None):
+    """``python -m repro_torch.runtime ARTIFACT [--out PLAN] [--arch A
+    [--reduce]] [--block-n N] [--strict]``: print the plan's summary and
+    one line per layer; exit 2 on a `LoweringError`.  Needs no device."""
+    import argparse
+    import json
+    import sys
+    from pathlib import Path
+
+    ap = argparse.ArgumentParser(
+        description="lower a mapping artifact to an execution plan")
+    ap.add_argument("artifact", help="mapping artifact JSON")
+    ap.add_argument("--out", default=None, help="plan JSON output path")
+    ap.add_argument("--arch", default=None,
+                    help="validate against this LM arch's weight shapes")
+    ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--block-n", type=int, default=128)
+    ap.add_argument("--strict", action="store_true",
+                    help="fail on fp capability fallbacks")
+    args = ap.parse_args(argv)
+
+    artifact = json.loads(Path(args.artifact).read_text())
+    params = (_lm_param_shapes(args.arch, args.reduce)
+              if args.arch else None)
+    try:
+        plan = lower(artifact, params=params, block_n=args.block_n,
+                     strict=args.strict)
+    except LoweringError as e:
+        print(f"[lower] ERROR: {e}", file=sys.stderr)
+        sys.exit(2)
+    print(f"[lower] {plan.summary()}")
+    for lp in plan.layers:
+        extra = f"  ({lp.note})" if lp.note else ""
+        print(f"[lower]   {lp.name}: {lp.kernel} counts={lp.counts} "
+              f"aligned={lp.aligned_boundaries}{extra}")
+    if args.out:
+        plan.save(args.out)
+        print(f"[lower] wrote {args.out}")
+    return plan

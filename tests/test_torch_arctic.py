@@ -178,7 +178,7 @@ def test_dense_residual_runs_beside_the_moe():
     x = torch.randn((B, 6, cfg.d_model), generator=torch.Generator()
                     .manual_seed(3))
     pos = torch.arange(6)[None, :]
-    got, _ = T.block_apply(blk, x, "attn", cfg, pos)
+    got, _, _ = T.block_apply(blk, x, "attn", cfg, pos)
     ao, _ = T.A.gqa(blk["attn"], L.norm(blk["norm1"], x), pos,
                     T._attn_cfg(cfg))
     h = x + ao

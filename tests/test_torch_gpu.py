@@ -1486,3 +1486,77 @@ def test_search_train_steps_on_the_card_match_the_cpu(cuda, no_tf32, dtype):
               f"update relative L2 by leaf group "
               f"{ {k: f'{v:.3g}' for k, v in rel.items()} }")
         assert max(rel.values()) < upd_tol, (i, rel)
+
+
+def _train_cfg(arch):
+    import dataclasses
+    from repro_torch.configs import base as cfgbase
+    return dataclasses.replace(cfgbase.reduce_for_smoke(cfgbase.get(arch)),
+                               param_dtype="float32")
+
+
+def test_train_lm_loss_and_grads_on_the_card_match_the_cpu(cuda, no_tf32):
+    """Reduced float32 zamba2 (Mamba2 blocks, the shared attention block):
+    the loss within 1e-5 relative and every gradient leaf within 1e-4 of
+    the leaf's largest CPU gradient (+ 1e-6), remat on; no leaf's
+    gradient all zero."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import transformer as TR
+    cfg = _train_cfg("zamba2-1.2b")
+    params = TR.init_lm(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+             for k in ("tokens", "targets")}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = T.tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        got[dev] = value_and_grad(
+            lambda q: TR.lm_loss(q, cfg, b, remat=True), p)
+    (lc, gc), (lg, gg) = got["cpu"], got["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for (path, c), g in zip(T.leaves_with_paths(gc), T.leaves(gg)):
+        g = g.cpu()
+        assert bool(g.ne(0).any()), path
+        assert float((g - c).abs().max()) <= \
+            1e-4 * float(c.abs().max()) + 1e-6, path
+
+
+def test_train_kernel_wrappers_refuse_autograd(cuda):
+    """Each hand-written kernel's wrapper raises on an input that
+    requires grad under grad mode (the kernels have no backward pass), and
+    launches under torch.no_grad()."""
+    x, w, t, sx, sw = _operands(8, 256, 128, 0, cuda)
+    packed = pack_ternary(t)
+    sxg = sx.clone().requires_grad_(True)
+    xb = torch.randn((8, 256), device=cuda, dtype=torch.bfloat16)
+    wb = torch.randn((256, 128), device=cuda, dtype=torch.bfloat16)
+    q = torch.randn((1, 4, 128, 128), device=cuda, dtype=torch.bfloat16)
+    calls = {
+        "quant_matmul": lambda s: quant_matmul(x, w, s, sw),
+        "ternary_matmul": lambda s: ternary_matmul(x, t, s, sw),
+        "split_ternary": lambda s: split_ternary(x, w, packed, s, sw, 64),
+        "ternary_packed": lambda s: ternary_packed_matmul(x, packed, s, sw),
+        "split_precision": lambda s: split_precision(xb, x, s, wb, w, sw, 64),
+        "flash_attention": lambda s: flash_attention(
+            q.requires_grad_(s.requires_grad), q, q),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
+            call(sxg)
+        with torch.no_grad():
+            call(sxg)
+        call(sx)
+
+
+def test_train_lm_loss_past_2048_tokens_raises_on_the_card(cuda):
+    """Above 2048 tokens lm_loss takes the chunked attention, the flash
+    kernel on the card, which has no backward pass: under autograd that
+    is a NotImplementedError naming it, not a silent detach."""
+    from repro_torch.models import transformer as TR
+    cfg = _train_cfg("yi-9b")
+    params = TR.init_lm(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tok = torch.zeros((1, 3072), dtype=torch.long, device=cuda)
+    with pytest.raises(NotImplementedError, match="flash"):
+        TR.lm_loss(params, cfg, {"tokens": tok, "targets": tok})

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+``chip_smoke.py`` imports JAX, the JAX package ``repro`` or ``ml_dtypes``
+(which the machine with the card lacks)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(path: Path):

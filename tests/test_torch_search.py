@@ -539,19 +539,16 @@ def test_platform_registry_matches_jax():
             dataclasses.astuple(jp.spec())[1:]
 
 
-def test_pipeline_device_and_checkpoint_contract():
+def test_pipeline_device_and_checkpoint_contract(tmp_path):
     th = A.mlp_handle(in_dim=48, widths=(8,), n_classes=10)
     task = ImageTaskConfig(n_classes=10, img_hw=(4, 4))
     data = lambda s, b: image_batch(task, s, b, device="cpu")  # noqa: E731
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             A.SearchPipeline(th, "diana", data_fn=data)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(FileNotFoundError, match="no committed"):
         A.SearchPipeline(th, "diana", data_fn=data, device="cpu",
-                         checkpoint_dir="ck")
-    with pytest.raises(NotImplementedError, match="resume"):
-        A.SearchPipeline(th, "diana", data_fn=data, device="cpu",
-                         resume_from="ck")
+                         resume_from=str(tmp_path / "ck")).run()
     meta = T.tree_map(lambda t: t.to("meta"), th.init(
         torch.Generator().manual_seed(0), A.Platform.get("diana").spec()))
     with pytest.raises(ValueError, match="init_params"):

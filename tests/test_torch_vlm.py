@@ -321,7 +321,7 @@ def test_blocks_match_jax_on_jax_inputs(planned, tmp):
                         jb, jnp.asarray(h), kind, jcfg,
                         jnp.asarray(positions), cache=jcc, cache_index=pos,
                         cross_kv=jkv, name=f"units/{i}")
-                    to, _ = T.block_apply(
+                    to, _, _ = T.block_apply(
                         tb, _t(h).clone(), kind, cfg, _t(positions),
                         cache=tcc, cache_index=pos, cross_kv=tkv,
                         name=f"units/{i}")
