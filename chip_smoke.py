@@ -491,7 +491,23 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    5's), its mapping lowered and served through ``launch.serve.main
    --require-full-coverage`` at batch 256, every call held against its
    plain version (`checking_cnn_calls`), launches the plan's.
-19. one JSON line of kernel records, the nvidia-smi line, and the contract
+19. dryrun: the dry run (``repro_torch.launch.dryrun.run_cell``) on the
+   card's (1, 1) mesh (`DRY_OVER`, `DRY_FIT`): fake tensors on the card,
+   nothing allocated or launched; yi-9b x decode_32k (with ``mapping=``
+   phase 5's diana artifact, the report's lines printed) and x
+   prefill_32k must need more than the card's 80 GiB; then the roofline
+   table of the records at the H100 constants.  Each cell that fits
+   (xlstm-1.3b, zamba2-1.2b, h2o-danube-3-4b x long_500k, and xlstm's
+   kvwq8) runs for real at full width and depth (`dry_real_step`: params
+   from --seed, caches zeroed at 1 x 524,288, one token at 524,287):
+   FLOPs and argument bytes equal to the dry run's, the temp within 10 %
+   or 256 MiB, the warm step against the roofline's memory term; each
+   base cell is then served once planned on diana at that cache length
+   (`dry_planned_step`, the plans of phases 10, 12 and 14 at full depth:
+   every call bit for bit against its plain version, the launches the
+   plan's); the partition plan of yi-9b's diana artifact at tp 8 on the
+   DIANA cost model (host only).
+20. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -6044,7 +6060,6 @@ def phase_train(torch, seed, smi, device="cuda"):
     from repro_torch.launch import train as TRN
     from repro_torch.models import transformer as TR
     from repro_torch.optim import adamw
-    from repro_torch.runtime.lower import _MetaGenerator
     from repro_torch.runtime.lower import main as lower_main
     t_phase = time.perf_counter()
 
@@ -6114,7 +6129,7 @@ def phase_train(torch, seed, smi, device="cuda"):
 
     # the step-n checkpoint back on the card, its mapping lowered and served
     cfg = cfgbase.get(ZAMBA)
-    meta = TR.init_lm(_MetaGenerator(), cfg)
+    meta = TR.param_shapes(cfg)
     like = (meta, adamw.init(meta, adamw.AdamWConfig()))
     step = ckpt.latest_step(ck)
     ck_bytes = (ck / f"step_{step:08d}" / "arrays.npz").stat().st_size
@@ -6209,6 +6224,266 @@ def phase_train(torch, seed, smi, device="cuda"):
     out[c["name"]] = rec
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[train] phase {out['seconds']:.1f} s ({smi})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 19: the dry run (`repro_torch.launch.dryrun`) held against real steps
+# --------------------------------------------------------------------------
+
+#: (arch, shape, variant) dry-run cells that fit the card, each also run
+#: for real at full width and depth
+DRY_FIT = [(XLSTM, "long_500k", "base"), (ZAMBA, "long_500k", "base"),
+           (DANUBE, "long_500k", "base"), (XLSTM, "long_500k", "kvwq8")]
+#: dry-run cells that do not fit; the first one also with ``mapping=``
+DRY_OVER = [("yi-9b", "decode_32k", "base"), ("yi-9b", "prefill_32k", "base")]
+CARD_GIB = 80
+#: the real step's max_memory_allocated less its arguments' bytes against
+#: the dry run's temp: within 10 % or 256 MiB
+DRY_TEMP_RTOL, DRY_TEMP_ATOL = 0.10, 256 * 2**20
+DRY_TIMED = 5
+#: each base cell's diana plan at full depth, as phases 10, 12 and 14
+#: lower theirs: (max_cout, plan histogram, launches per forward, raw
+#: boundaries, the plan layers that hold them)
+DRY_PLANNED = {
+    XLSTM: (XLSTM_MAX_COUT, {"quant_matmul": 1, "split_ternary": 138},
+            {"quant_matmul": 1, "split_ternary": 138}, XLSTM_RAW,
+            XLSTM_NAMES),
+    ZAMBA: (ZAMBA_MAX_COUT, ZAMBA_PLAN_HIST, ZAMBA_LONG_HIST, ZAMBA_RAW,
+            ("units/0/mamba/in_proj@0", "rem/0/mamba/out_proj",
+             "shared/attn/wq", "shared/ffn/gate", "shared/ffn/down")),
+    DANUBE: (DANUBE_MAX_COUT, DANUBE_HIST, DANUBE_HIST, DANUBE_RAW, None),
+}
+PARTITION_TP = 8
+
+
+def dry_real_step(torch, tag, cfg, shape, rec, seed, smi, device="cuda"):
+    """The dry run's cell ``rec`` for real on the card: params drawn from
+    ``seed`` (`dryrun.concrete_args`: bf16, `quantize_for_serve` for wq8),
+    caches zeroed, one token at index seq - 1.  The step's FLOPs
+    (``FlopCounterMode``) must equal the dry run's, the arguments' bytes
+    too, and max_memory_allocated less the arguments' bytes lie within 10 %
+    or 256 MiB of the dry run's temp (what was allocated before the step
+    is printed beside it); then the warm step is timed with CUDA events
+    (median of `DRY_TIMED`) against the roofline's memory term.  Returns
+    (record, params)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.roofline import analysis as RA
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    step, _ = D.cell_step(cfg, shape)
+    args = D.concrete_args(cfg, shape, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mem = rec["memory_analysis"]
+    arg_bytes = D.tree_bytes(args)
+    if arg_bytes != mem["argument_size_in_bytes"]:
+        raise AssertionError(f"{tag}: arguments {arg_bytes} B on the card, "
+                             f"{mem['argument_size_in_bytes']} B in the dry "
+                             f"run")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        logits, _ = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = fc.get_total_flops()
+    if flops != rec["cost_analysis"]["flops"]:
+        raise AssertionError(f"{tag}: the step counted {flops} FLOPs, the "
+                             f"dry run {rec['cost_analysis']['flops']}")
+    temp, dry_temp = peak - before, mem["temp_size_in_bytes"]
+    if abs(peak - arg_bytes - dry_temp) > max(DRY_TEMP_RTOL * dry_temp,
+                                              DRY_TEMP_ATOL):
+        raise AssertionError(f"{tag}: max_memory_allocated less the "
+                             f"arguments {peak - arg_bytes} B on the card, "
+                             f"temp {dry_temp} B in the dry run")
+    if tuple(logits.shape) != (SP.SHAPES[shape]["batch"], cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: logits {tuple(logits.shape)} not "
+                             f"finite or of the wrong shape")
+    times = []
+    for _ in range(DRY_TIMED):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        step(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = median(times)
+    bound_ms = RA.hlo_bytes(cfg, shape) / RA.HBM_BW * 1e3
+    print(f"[dryrun:{tag}] real step on the card: FLOPs {flops:.6e} = the "
+          f"dry run's; arguments {arg_bytes / 2**30:.3f} GiB = the dry "
+          f"run's; max_memory_allocated {peak / 2**30:.3f} GiB, less the "
+          f"arguments {(peak - arg_bytes) / 2**30:.3f} GiB, less what was "
+          f"allocated before the step {temp / 2**30:.3f} GiB against the "
+          f"dry run's temp {dry_temp / 2**30:.3f} GiB; warm step "
+          f"{ms:.3f} ms (median of {DRY_TIMED}, {min(times):.3f}-"
+          f"{max(times):.3f}) against the roofline's memory term "
+          f"{bound_ms:.3f} ms (hlo_bytes / 3.35 TB/s): {bound_ms / ms:.3f} "
+          f"of it; params and caches drawn in {init_s:.1f} s ({smi})")
+    out = {"flops": flops, "argument_bytes": arg_bytes, "peak_bytes": peak,
+           "temp_bytes": temp, "dry_temp_bytes": dry_temp, "ms": ms,
+           "min_ms": min(times), "max_ms": max(times),
+           "memory_term_ms": bound_ms, "share_of_memory_term": bound_ms / ms}
+    params = args[0]
+    del args, logits
+    return out, params
+
+
+def dry_planned_step(torch, tag, cfg, params, shape, seed, smi,
+                     device="cuda"):
+    """The base cell served once more on diana at its `DRY_PLANNED`
+    max_cout (`plan_dense`: the plan phases 10, 12 and 14 lower, at full
+    depth): one decode step at the cell's cache length, every planned
+    call held bit for bit against its plain version as it is made, the
+    launches per forward the plan's, the logits finite."""
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import _backend
+    from repro_torch.models import transformer as T
+    max_cout, plan_hist, hist, raws, names = DRY_PLANNED[cfg.name]
+    t0 = time.perf_counter()
+    _, plan, backend, kcfg = plan_dense(torch, f"dryrun:{tag}:diana", cfg,
+                                        params, max_cout, plan_hist, raws,
+                                        names=names)
+    meta = SP.SHAPES[shape]
+    B, S = meta["batch"], meta["seq"]
+    caches = T.init_cache(kcfg, B, S, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    token = torch.randint(0, cfg.vocab, (B,), generator=gen, device=device)
+    checked = {}
+    reset_launches()
+    with checking_matmuls(checked, dict(hist)), _backend.use(backend), \
+            torch.no_grad():
+        logits, _ = T.decode_step(params, kcfg, token, caches, S - 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernel_launches().items() if v}
+    if got != hist:
+        raise AssertionError(f"{tag}: launches {got} per forward, the plan "
+                             f"gives {hist}")
+    if {k: n for k, (n, _) in checked.items() if n} != hist:
+        raise AssertionError(f"{tag}: calls checked {checked}")
+    check_no_weight_copies(tag)
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: planned logits not finite")
+    cache_gib = sum(t.numel() * t.element_size()
+                    for t in T.tree_leaves(caches)) / 2**30
+    print(f"[dryrun:{tag}:diana] one decode step at cache {S} (kv "
+          f"{kcfg.kv_cache_dtype}, {cache_gib:.2f} GiB): launches {got} per "
+          f"forward, every call bit-identical to its plain version "
+          + ", ".join(f"({n} {k}, largest M {m})"
+                      for k, (n, m) in checked.items() if n)
+          + f"; logits finite; weights copied per call 0 "
+          f"({time.perf_counter() - t0:.1f} s with the lowering; {smi})")
+    out = {"launches": got, "calls_checked": {k: n for k, (n, _) in
+                                              checked.items()},
+           "kv_cache_dtype": kcfg.kv_cache_dtype, "cache_gib": cache_gib}
+    del plan, backend, caches, logits
+    return out
+
+
+def dry_partition(art_path):
+    """The yi-9b diana artifact's per-layer counts planned over a
+    tensor-parallel group of `PARTITION_TP` with the DIANA cost model
+    (`core.partition.plan_network`), each plan checked.  Host only."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import partition as P
+    from repro_torch.core.cost_models import DianaCostModel, LayerGeometry
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import lower
+    t0 = time.perf_counter()
+    cfg = cfgbase.get("yi-9b")
+    plan = lower(json.loads(Path(art_path).read_text()),
+                 params=T.param_shapes(cfg))
+    geoms = [LayerGeometry(c_in=lp.c_in, c_out=lp.c_out)
+             for lp in plan.layers]
+    counts = [lp.counts for lp in plan.layers]
+    plans = P.plan_network(DianaCostModel(), geoms, counts, PARTITION_TP)
+    for p in plans:
+        p.check(PARTITION_TP)
+    for lp, p in list(zip(plan.layers, plans))[:4]:
+        print(f"[dryrun:partition] {lp.name} ({lp.c_in} x {lp.c_out}, "
+              f"counts {lp.counts}): " + ", ".join(
+                  f"domain {s.domain} {s.devices} devices cols "
+                  f"[{s.col_start}, {s.col_end})" for s in p.shards))
+    devs = {}
+    for p in plans:
+        key = tuple(s.devices for s in p.shards)
+        devs[key] = devs.get(key, 0) + 1
+    print(f"[dryrun:partition] {len(plans)} layers of yi-9b's diana "
+          f"artifact over tp {PARTITION_TP}, every plan checked (tiling, "
+          f"device count); devices per (digital, aimc): {devs} "
+          f"({time.perf_counter() - t0:.1f} s, host only)")
+    return {"layers": len(plans), "devices": {str(k): v for k, v in
+                                              devs.items()}}
+
+
+def phase_dryrun(torch, seed, smi, device="cuda"):
+    """Phase 19 (module docstring): (a) the dry run on the card's (1, 1)
+    mesh of `DRY_FIT` and `DRY_OVER` (yi-9b x decode_32k also with
+    ``mapping=`` yi-9b's diana artifact), the roofline table of their
+    records at the H100 constants; (b) each fitting cell run for real
+    (`dry_real_step`); (c) each base cell planned on diana at that size
+    (`dry_planned_step`); (d) the partition plan (`dry_partition`).
+    Returns the phase's record.  ``device`` "cpu" runs a rehearsal on the
+    CPU's (1, 1) mesh, with the configs reduced and the CUDA-only calls
+    stubbed by the caller."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import single_gpu_mesh, smoke_mesh
+    from repro_torch.roofline import analysis as RA
+    t_phase = time.perf_counter()
+    mesh = single_gpu_mesh() if device == "cuda" else smoke_mesh()
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun_torch"
+    art = ROOT / "build" / "chip_smoke" / "yi-9b_diana.json"
+    out, recs = {}, []
+    for arch, shape, variant in DRY_OVER:
+        rec = D.run_cell(arch, shape, mesh, out_dir, variant=variant,
+                         mapping=(str(art) if shape == "decode_32k"
+                                  else None))
+        if "error" in rec.get("mapping_plan", {}):
+            raise AssertionError(f"dryrun: {art} does not lower onto {arch}")
+        need = rec["memory_analysis"]["peak_bytes"] / 2**30
+        if need <= CARD_GIB:
+            raise AssertionError(f"dryrun {arch} x {shape}: {need:.1f} GiB "
+                                 f"fits {CARD_GIB}")
+        print(f"[dryrun] {arch} x {shape}: needs {need:.1f} GiB against the "
+              f"card's {CARD_GIB} (arguments "
+              f"{rec['memory_analysis']['argument_size_in_bytes'] / 2**30:.1f}"
+              f" GiB); record {json.dumps(rec)[:400]}")
+        out[f"{arch}:{shape}"] = rec
+        recs.append(rec)
+    for arch, shape, variant in DRY_FIT:
+        tag = f"{arch}:{shape}:{variant}"
+        cfg = D.cell_config(arch, variant)
+        rec = D.run_cell(arch, shape, mesh, out_dir, variant=variant)
+        need = rec["memory_analysis"]["peak_bytes"] / 2**30
+        if need > CARD_GIB:
+            raise AssertionError(f"dryrun {tag}: {need:.1f} GiB")
+        print(f"[dryrun:{tag}] record {json.dumps(rec)}")
+        real, params = dry_real_step(torch, tag, cfg, shape, rec, seed, smi,
+                                     device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if variant == "base":
+            real["planned"] = dry_planned_step(torch, tag, cfg, params,
+                                               shape, seed, smi, device)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = {"record": rec, "real": real}
+        recs.append(rec)
+    print("[dryrun] roofline of the records at the H100 SXM constants "
+          f"({RA.PEAK_BF16:.3g} FLOP/s bf16, {RA.HBM_BW:.3g} B/s, "
+          f"{RA.LINK_BW:.3g} B/s; this card: {smi}):")
+    for line in RA.markdown_table([RA.analyze_cell(r) for r in recs]) \
+            .splitlines():
+        print(f"[dryrun] {line}")
+    out["partition"] = dry_partition(art)
+    torch.distributed.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[dryrun] phase {out['seconds']:.1f} s ({smi})")
     return out
 
 
@@ -6412,6 +6687,8 @@ def main(argv=None) -> int:
         mark(key)
     serving["train"] = phase_train(torch, args.seed, smi)
     mark("train")
+    serving["dryrun"] = phase_dryrun(torch, args.seed, smi)
+    mark("dryrun")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

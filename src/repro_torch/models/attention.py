@@ -377,12 +377,18 @@ def _absorbed(p, q_nope, q_rope, latent, k_rope, kv_len, cfg: MLAConfig,
     """The ABSORBED decode (DeepSeek-V2, appendix): ``kv_b``'s weight folded
     into the query and output sides, so one query row attends over the
     compressed latent cache directly.  It reads ``p["kv_b"]["w"]`` (the
-    weight itself, as the JAX package does, under a planned backend too),
+    weight itself, as the JAX package does, under a planned backend too;
+    the int8 serving domain's ``w_q`` codes dequantized in ``dtype``),
     scores in float32 with the per-slot ``kv_len`` mask; returns (B, 1, H *
     v_head_dim)."""
     B, S, H, nd = q_nope.shape
     r, vd = cfg.kv_lora_rank, cfg.v_head_dim
-    w_kvb = p["kv_b"]["w"].reshape(r, H, nd + vd)
+    kvb = p["kv_b"]
+    if "w_q" in kvb:
+        w_flat = kvb["w_q"].to(dtype) * kvb["w_s"].to(dtype)[..., None, :]
+    else:
+        w_flat = kvb["w"]
+    w_kvb = w_flat.reshape(r, H, nd + vd)
     w_uk, w_uv = w_kvb[..., :nd], w_kvb[..., nd:]
     q_abs = L.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
     f32 = torch.float32

@@ -41,13 +41,20 @@ def init_dense(gen: torch.Generator, d_in, d_out, dtype=torch.bfloat16,
 
 def dense(p, x, name=None):
     """``name`` is the layer's params path, forwarded to the pluggable
-    matmul backend; None skips backend dispatch."""
+    matmul backend; None skips backend dispatch.  Params of the int8
+    serving domain (`transformer.quantize_for_serve`: ``w_q`` codes and
+    per-output-channel ``w_s`` scales) are dequantized in ``x``'s dtype
+    and multiplied as the JAX package's are."""
     be = _backend.current()
     if be is not None:
         y = be(name, p, x)
         if y is not None:
             return y  # planned kernel output, bias applied by the backend
-    y = matmul(x, p["w"])
+    if "w_q" in p:
+        w = p["w_q"].to(x.dtype) * p["w_s"].to(x.dtype)[..., None, :]
+        y = matmul(x, w)
+    else:
+        y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models._backend import join as _j
 
@@ -136,15 +137,17 @@ def moe_ffn(p, x, cfg: MoEConfig, n_groups=None, name=None,
         keep[..., None].to(x.dtype)
     comb = torch.einsum("gtke,gtkc->gtec", onehot.to(x.dtype),
                         pos_oh * topv[..., None].to(x.dtype))
-    disp = (comb > 0).to(x.dtype)
-    ein = torch.einsum("gtec,gtd->gecd", disp, xt)
+    comb = constrain(comb, "moe_grouped")
+    disp = constrain((comb > 0).to(x.dtype), "moe_grouped")
+    ein = constrain(torch.einsum("gtec,gtd->gecd", disp, xt), "moe_expert")
     a = L.act_fn(cfg.act)
     if cfg.gated:
         h = a(L.einsum("gecd,edf->gecf", ein, p["gate"])) * \
             L.einsum("gecd,edf->gecf", ein, p["up"])
     else:
         h = a(L.einsum("gecd,edf->gecf", ein, p["up"]))
-    eout = L.einsum("gecf,efd->gecd", h, p["down"])
+    h = constrain(h, "moe_expert")
+    eout = constrain(L.einsum("gecf,efd->gecd", h, p["down"]), "moe_expert")
     y = L.einsum("gtec,gecd->gtd", comb, eout).reshape(B, S, D)
     if cfg.n_shared:
         y = y + L.ffn(p["shared"], x, cfg.act, _j(name, "shared"))

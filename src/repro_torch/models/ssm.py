@@ -21,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models._backend import join as _j
 
@@ -127,14 +128,14 @@ def _ssd_chunked(xs, Bt, Ct, dt, la, h0, chunk=None):
         dtc = dt[:, c0:c0 + Q]
         ca = torch.cumsum(la[:, c0:c0 + Q], dim=1)           # (B, Q, H)
         # intra-chunk: y_t += sum_{s<=t} exp(ca_t - ca_s) dt_s (C_t.B_s) x_s
-        cb = torch.einsum("bqn,bsn->bqs", cc, bc)
+        cb = constrain(torch.einsum("bqn,bsn->bqs", cc, bc), "act")
         # masked in the exponent (the JAX package masks after the exp):
         # above the diagonal exp(ca_t - ca_s) overflows once a chunk's
         # decay passes float32's range, and the gradient of a masked inf
         # is NaN; the forward is the same, bit for bit
         diff = ca[:, :, None, :] - ca[:, None, :, :]
         decay = torch.exp(torch.where(tri, diff, float("-inf")))
-        W = cb[..., None] * decay                            # (B, Q, Q, H)
+        W = constrain(cb[..., None] * decay, "act")          # (B, Q, Q, H)
         y = torch.einsum("bqsh,bshp->bqhp", W * dtc[:, None], xc)
         # inter-chunk: y_t += exp(ca_t) C_t . h0
         y = y + torch.einsum("bqn,bhpn->bqhp", cc, h) * \
@@ -177,10 +178,10 @@ def mamba2(p, x, cfg: Mamba2Config, state=None, name=None,
     lengths = (length_mask.to(torch.int64).sum(dim=-1)
                if length_mask is not None else None)
     conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state,
-                                 lengths=lengths)
+    xbc, new_conv = _causal_conv(constrain(xbc, "act"), p["conv_w"],
+                                 p["conv_b"], conv_state, lengths=lengths)
     xbc = F.silu(xbc)
-    xs = xbc[..., :di].reshape(B, S, H, hd)
+    xs = constrain(xbc[..., :di].reshape(B, S, H, hd), "act")
     Bt = xbc[..., di:di + N]                                  # (B, S, N)
     Ct = xbc[..., di + N:]                                    # (B, S, N)
 
@@ -302,7 +303,7 @@ def _mlstm_chunked(q, k, v, ig, fg, state, chunk=None):
         Mt = torch.maximum(torch.cummax(u, dim=1).values, m0[:, None, :])
         # intra-chunk scores, gated: exp(a_t - a_s + i_s - m_t)
         # = exp(u_s - M_t) (a_t cancels)
-        qk = torch.einsum("bqhd,bshd->bhqs", qt, kt)
+        qk = constrain(torch.einsum("bqhd,bshd->bhqs", qt, kt), "act")
         g = torch.exp(u.transpose(1, 2)[:, :, None, :] -
                       Mt.transpose(1, 2)[:, :, :, None])     # (B, H, t, s)
         w = torch.where(tri, qk * g, 0.0)
@@ -367,11 +368,12 @@ def mlstm(p, x, cfg: XLSTMConfig, state=None, name=None, length_mask=None):
     conv_state = state["conv"] if state is not None else None
     uc, new_conv = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state,
                                 lengths=lengths)
-    uc = F.silu(uc)
+    uc = constrain(F.silu(uc), "act")
     uh = uc.reshape(B, S, H, hd)
-    q = L.einsum("bshd,hdk->bshk", uh, p["wq_bd"])
-    k = L.einsum("bshd,hdk->bshk", uh, p["wk_bd"]) * hd ** -0.5
-    v = L.einsum("bshd,hdk->bshk", uh, p["wv_bd"])
+    q = constrain(L.einsum("bshd,hdk->bshk", uh, p["wq_bd"]), "act")
+    k = constrain(L.einsum("bshd,hdk->bshk", uh, p["wk_bd"]), "act") * \
+        hd ** -0.5
+    v = constrain(L.einsum("bshd,hdk->bshk", uh, p["wv_bd"]), "act")
     gates = L.dense(p["w_if"], uc, _j(name, "w_if")).to(f32)  # (B, S, 2H)
     ig, fg = gates[..., :H], gates[..., H:]
     if length_mask is not None:

@@ -35,6 +35,7 @@ publishes the repeat index with `_backend.scan_slot`.
 
 Public API:
   init_lm(gen, cfg)                              -> params (on gen.device)
+  param_shapes(cfg)                              -> params as meta tensors
   params_from_jax(tree, device)                  -> params
   lm_loss(params, cfg, batch, remat=)            -> scalar loss (training)
   chunked_ce(h, w, targets)                      -> mean cross-entropy
@@ -55,6 +56,7 @@ Public API:
   cache_batch_axes(caches)                       -> batch axis per leaf
   scatter_cache(caches, sub, slots)              -> caches (in place)
   copy_pages(caches, src, dst, kv_axes)          -> caches (in place)
+  quantize_for_serve(params, cfg)                -> int8 serving params
 
 Caches are updated in place (see `repro_torch.models.attention`): the
 attention KV (dense per slot, or paged) and the recurrent blocks' per-slot
@@ -94,6 +96,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import _backend
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -284,6 +287,17 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
                                           repeats=cfg.encoder_layers),)
         params["enc_norm"] = L.init_norm(d, dt, device=dev, kind=cfg.norm)
     return params
+
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device, so that `init_lm`
+    builds shape-only params (no storage, no draws)."""
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ArchConfig):
+    """`init_lm`'s params as ``meta`` tensors: shapes and dtypes only."""
+    return init_lm(MetaGenerator(), cfg)
 
 
 def params_from_jax(tree, device="cuda"):
@@ -509,7 +523,7 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
                 x, _, a = block_apply(blk, x, kind, cfg, positions, cache=c,
                                       name=f"units/{i}", cross_kv=ckv, **kw)
                 aux = aux + a
-        return x, aux
+        return constrain(x, "act"), aux
 
     for r in range(repeats):
         if remat:
@@ -555,7 +569,7 @@ def _project_logits(params, cfg: ArchConfig, h):
         if y is not None:
             finite = torch.isfinite(h).all(dim=-1, keepdim=True)
             return torch.where(finite, y.to(torch.float32), float("nan"))
-    return L.matmul(h, params["head"]["w"]).to(torch.float32)
+    return L.matmul(h, _head_weight(params, cfg)).to(torch.float32)
 
 
 def _tree_map(fn, *trees):
@@ -936,3 +950,44 @@ def lm_loss(params, cfg: ArchConfig, batch, remat=False):
                          cross_source=cross_source, remat=remat)
     loss = chunked_ce(h, _head_weight(params, cfg), batch["targets"])
     return loss + 0.01 * aux
+
+
+# ------------------------------------------------- serve-time quantization
+
+def quantize_for_serve(params, cfg: ArchConfig):
+    """Under ``cfg.serve_weight_dtype == "int8"``, replace every projection
+    weight (a ``{"w"}`` of two or more dims) by int8 codes ``w_q`` and
+    float32 per-output-channel scales ``w_s`` (stacked weights ``(R, in,
+    out)`` keep their leading axes: ``w_s`` is ``(*lead, out)``), with the
+    JAX package's arithmetic: ``s = max(max |w|, 1e-8) / 127`` over the
+    input axis, ``w_q = clip(round(w / s), -127, 127)``.  The embedding
+    (and so a tied head), norms and the MoE experts' raw tensors stay as
+    they are; the embedding is put last, as the JAX package does.  Works
+    on concrete params and on ``meta`` params alike (the dry run's): the
+    same ops give ``meta`` codes and scales.  Any other config returns
+    ``params`` unchanged."""
+    if cfg.serve_weight_dtype != "int8":
+        return params
+    f32 = torch.float32
+
+    def walk(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.dim() >= 2:
+                rest = {k: walk(v) for k, v in node.items() if k != "w"}
+                s = torch.clamp_min(torch.amax(torch.abs(w.to(f32)), dim=-2),
+                                    1e-8) / 127.0
+                rest["w_q"] = torch.clamp(torch.round(w.to(f32) /
+                                                      s[..., None, :]),
+                                          -127, 127).to(torch.int8)
+                rest["w_s"] = s
+                return rest
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    # keep the embedding (and a tied head) as it is: vocab-gather accuracy
+    out = walk({k: v for k, v in params.items() if k != "emb"})
+    out["emb"] = params["emb"]
+    return out

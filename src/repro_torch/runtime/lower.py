@@ -281,12 +281,6 @@ def lower(artifact, params=None, handle=None, *, block_n: int = 128,
 # CLI: mapping.json -> plan.json
 # --------------------------------------------------------------------------
 
-class _MetaGenerator(torch.Generator):
-    """A CPU generator that reports the ``meta`` device, so that
-    ``init_lm`` builds shape-only params (no storage, no draws)."""
-    device = torch.device("meta")
-
-
 def _lm_param_shapes(arch: str, reduce: bool):
     """An LM's params as ``meta`` tensors: shapes and dtypes only."""
     from repro_torch.configs import base as cfgbase
@@ -294,7 +288,7 @@ def _lm_param_shapes(arch: str, reduce: bool):
     cfg = cfgbase.get(arch)
     if reduce:
         cfg = cfgbase.reduce_for_smoke(cfg)
-    return T.init_lm(_MetaGenerator(), cfg)
+    return T.param_shapes(cfg)
 
 
 def main(argv=None):

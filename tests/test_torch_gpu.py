@@ -1560,3 +1560,57 @@ def test_train_lm_loss_past_2048_tokens_raises_on_the_card(cuda):
     tok = torch.zeros((1, 3072), dtype=torch.long, device=cuda)
     with pytest.raises(NotImplementedError, match="flash"):
         TR.lm_loss(params, cfg, {"tokens": tok, "targets": tok})
+
+
+# ---------------------------------------------------------------- dry run
+
+DRY_TINY = {"tiny_decode": dict(kind="decode", seq=256, batch=2),
+            "tiny_prefill": dict(kind="prefill", seq=128, batch=2),
+            "tiny_train": dict(kind="train", seq=64, batch=2)}
+
+
+@pytest.mark.parametrize("arch,shape,variant", [
+    ("yi-9b", "tiny_decode", "base"), ("yi-9b", "tiny_prefill", "kvwq8"),
+    ("zamba2-1.2b", "tiny_decode", "kvwq8"), ("xlstm-1.3b", "tiny_decode",
+                                              "base"),
+    ("deepseek-v2-lite-16b", "tiny_decode", "wq8"),
+    ("h2o-danube-3-4b", "tiny_train", "base")])
+def test_dryrun_on_the_card_equals_a_real_run(cuda, monkeypatch, tmp_path,
+                                               arch, shape, variant):
+    """`run_cell` on the card's (1, 1) mesh (fake tensors, nothing
+    launched) against the same step run for real on the card on a reduced
+    config: FLOPs and argument bytes equal, the real peak less the
+    arguments within 10 % or 256 MiB of the dry run's temp."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as SP
+    for k, v in DRY_TINY.items():
+        monkeypatch.setitem(SP.SHAPES, k, v)
+    red = cfgbase.reduce_for_smoke(cfgbase.get(arch))
+    name = f"tiny-{arch}"
+    monkeypatch.setitem(cfgbase._REGISTRY, name,
+                        dataclasses.replace(red, name=name))
+    rec = D.run_cell(name, shape, M.single_gpu_mesh(), tmp_path,
+                     variant=variant)
+    assert rec["status"] == "ok" and rec["device"] == \
+        torch.cuda.get_device_name(0)
+    cfg = D.cell_config(name, variant)
+    step, _ = D.cell_step(cfg, shape)
+    args = D.concrete_args(cfg, shape,
+                           torch.Generator(device=cuda).manual_seed(0))
+    mem = rec["memory_analysis"]
+    assert D.tree_bytes(args) == mem["argument_size_in_bytes"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - before
+    assert fc.get_total_flops() == rec["cost_analysis"]["flops"] > 0
+    assert abs(temp - mem["temp_size_in_bytes"]) <= max(
+        0.1 * mem["temp_size_in_bytes"], 256 * 2**20)
+    del out
