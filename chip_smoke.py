@@ -507,7 +507,32 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    every call bit for bit against its plain version, the launches the
    plan's); the partition plan of yi-9b's diana artifact at tp 8 on the
    DIANA cost model (host only).
-20. one JSON line of kernel records, the nvidia-smi line, and the contract
+20. paper: the paper's deployment and experiments (`phase_paper`).  (a)
+   ``ops.odimo_deployed_dense`` (the Fig. 3 reorg: a stable sort of the
+   columns by domain on the host, int8 quantization of x and w at
+   per-tensor scales, the split_precision kernel, the inverse
+   permutation) at yi-9b's widths (`PAPER_KN`: (4096, 4096) and (4096,
+   11008)) x M {4, 128, 512} (`PAPER_MS`), each with a seeded random
+   assignment (about half the columns bf16, the raw boundary off the
+   128-column block), an all-int8 and an all-bf16 one (`PAPER_KINDS`):
+   the launch counts reset just before each call and read just after (one
+   split_precision, no weight copy), the output held against the plain
+   version in the ORIGINAL column order (the columns the aligned boundary
+   runs int8 bit for bit, the others within the float32 summation bound);
+   the random assignment timed in ROUNDS rounds of CUDA-graph replays
+   (the op's device half, its kernel, the library's two calls), beside the
+   kernel's bound and the whole op's eager time.  (b)
+   ``examples/torch_quickstart.py --fast`` on the card: search on diana,
+   artifact round trip, the head deployed through the op (one
+   split_precision launch), ``quickstart OK``.  (c) the experiments script
+   (``examples/torch_paper_experiments.py``) on full-geometry ResNet20 at
+   `PAPER_PRESET` (the medium preset's model, cut steps):
+   `PAPER_BASELINE` and one lambda per objective on diana, then Table I;
+   every record has the JAX script's keys, the baseline's latency and
+   energy equal the port's cost model on its counts, and each Table I
+   row's digital + AIMC utilization is at least 1 (the domains run in
+   parallel).
+21. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -6487,6 +6512,301 @@ def phase_dryrun(torch, seed, smi, device="cuda"):
     return out
 
 
+
+# ------------------------------------------------------------------ phase 20
+#: the deploy op (`ops.odimo_deployed_dense`) at yi-9b's widths and the
+#: served M (decode, a paged chunk, the prefill), each at `PAPER_KINDS`:
+#: a seeded random assignment with about half the columns bf16 and an int8
+#: count off the 128-column block, all int8, all bf16; the random one is
+#: timed
+PAPER_KN = [(4096, 4096), (4096, 11008)]
+PAPER_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
+PAPER_KINDS = ("random", "int8", "bf16")
+#: the experiments script (``examples/torch_paper_experiments.py``) on
+#: full-geometry ResNet20, the medium preset's model, at a cut step count:
+#: one baseline and one lambda per objective, then its Table I
+PAPER_PRESET = dict(pretrain=20, search=30, finetune=20, batch=48, evalb=2,
+                    lambdas=(1e-6,), models=("resnet20",))
+PAPER_BASELINE = "min_cost_lat"
+#: the JAX script's record keys, by kind (``benchmarks/
+#: paper_experiments.py``)
+PAPER_RECORD_KEYS = {
+    "baseline": {"kind", "model", "name", "accuracy", "latency", "energy",
+                 "aimc_ch", "wall_s"},
+    "odimo_diana": {"kind", "model", "objective", "lam", "accuracy",
+                    "latency", "energy", "aimc_ch", "counts", "wall_s"},
+    "table1": {"kind", "model", "objective", "lam", "acc", "lat_ms",
+               "energy", "dig_util", "aimc_util", "aimc_ch"},
+}
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def deploy_assignment(n, kind, rng):
+    """All int8, all bf16, or a random half bf16 whose int8 count (the
+    raw boundary) is off the 128-column block."""
+    import numpy as np
+    if kind in ("int8", "bf16"):
+        return np.full(n, int(kind == "bf16"), np.int64)
+    a = np.ones(n, np.int64)
+    a[rng.choice(n, n // 2 + 37, replace=False)] = 0
+    return a
+
+
+def check_deploy(torch, tag, x, w, assign, wls, xls, got):
+    """One deployed call against the plain version in the ORIGINAL column
+    order: the columns the aligned boundary runs int8 bit for bit against
+    `quant_matmul_plain` of the codes, the others within `bf16_error_bound`
+    of the bf16 product in float64.  Returns (int8 columns, max bf16
+    error / bound)."""
+    import numpy as np
+    from repro_torch.core import quant
+    from repro_torch.kernels.quant_matmul import quant_matmul_plain
+    from repro_torch.kernels.split_precision import bf16_error_bound
+    n = w.shape[1]
+    perm = np.argsort(assign, kind="stable")
+    b_al = aligned(int((assign == 0).sum()), n)
+    int8 = torch.from_numpy(np.argsort(perm) < b_al).to(got.device)
+    levels = quant.qlevels(8)
+    sx = (torch.exp(xls) / levels).reshape(1)
+    sw = (torch.exp(wls) / levels).reshape(1).expand(n)
+    lo = quant_matmul_plain(quant.quantize_int(x, xls, 8),
+                            quant.quantize_int(w, wls, 8), sx, sw)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    hi = (xb.double() @ wb.double()).float()
+    torch.cuda.synchronize()
+    if tuple(got.shape) != (x.shape[0], n) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: output {tuple(got.shape)} not finite "
+                             f"or of the wrong shape")
+    if not torch.equal(got[:, int8], lo[:, int8]):
+        raise AssertionError(f"{tag}: int8 columns differ from the plain "
+                             f"version by "
+                             f"{float((got - lo)[:, int8].abs().max())}")
+    ratio = 0.0
+    if not bool(int8.all()):
+        err = (got.double() - hi.double()).abs()[:, ~int8]
+        bound = bf16_error_bound(xb, wb, hi)[:, ~int8]
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{tag}: bf16 columns outside the "
+                                 f"summation bound")
+        ratio = float((err / bound.clamp_min(1e-300)).max())
+    return int(int8.sum()), ratio
+
+
+def deploy_times(torch, m, k, n, x, w, assign, wls, xls, call):
+    """Times of one deployed call at (M, K, N) in ROUNDS interleaved rounds
+    of CUDA-graph replays: the op's device half (`ops.deploy_dense`, which
+    quantizes x and the permuted weight per call; graph "deploy_ms"), its
+    split_precision kernel on the operands it made (``call``, "ms"), and
+    the library's two calls on those operands (``torch._int_mm`` + the
+    epilogue on the int8 columns, row-major and K-major, and a bf16
+    ``torch.matmul`` on the rest); the plain version and the whole op
+    (host sort included) eagerly.  Each timed call reads the next of
+    several weight copies, over twice the L2 in all."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.split_precision import split_precision_plain
+    (xb, x_q, sx, w_b, w_q, sw, boundary), kw, _ = call
+    plan = ops.deploy_plan(assign, x.device)
+    b_al = aligned(boundary, n)
+    wbytes = k * b_al + 2 * k * (n - b_al)
+    lo = w_q[:, :b_al].contiguous()
+    weights = (w_b, w_q, lo, w_b[:, b_al:].contiguous(),
+               lo.t().contiguous().t())
+    copies = -(-2 * L2_BYTES // wbytes)
+    ring = itertools.cycle([weights] + [tuple(t.clone() for t in weights)
+                                        for _ in range(copies - 1)])
+    w_copies = -(-2 * L2_BYTES // (4 * k * n))
+    w_ring = itertools.cycle([w] + [w.clone() for _ in range(w_copies - 1)])
+    x_lib = (torch.cat([x_q, x_q.new_zeros(32 - m, k)]) if m <= 16
+             else x_q)
+
+    def lib(t, i):
+        lo = torch._int_mm(x_lib, t[i])[:m].to(torch.float32) * sx * \
+            sw[None, :b_al]
+        return lo, torch.matmul(xb, t[3]).to(torch.float32)
+    iters = 20
+    rounds = graph_rounds(
+        {"deploy_ms": lambda: ops.deploy_dense(x, next(w_ring), plan, wls,
+                                               xls),
+         "ms": lambda: ops.split_precision_op(
+             xb, x_q, sx, *next(ring)[:2], sw, boundary, **kw),
+         "library_row_ms": lambda: lib(next(ring), 2),
+         "library_col_ms": lambda: lib(next(ring), 4)},
+        max(iters, copies, w_copies))
+    rec = {"plain_ms": cuda_ms(lambda: split_precision_plain(
+               xb, x_q, sx, *next(ring)[:2], sw, b_al), 5),
+           "eager_ms": cuda_ms(lambda: ops.odimo_deployed_dense(
+               x, next(w_ring), assign, wls, xls), iters)}
+    for key, xs in rounds.items():
+        spread(rec, key, xs)
+    lib_key = min(("library_row_ms", "library_col_ms"),
+                  key=lambda key: rec[key])
+    spread(rec, "library_ms", rounds[lib_key])
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        m, k, n, wbytes, int8_cols=b_al, bf16_cols=n - b_al)
+    # the deploy's own inputs and output: float32 x, w and y, two steps
+    t_bytes = (4 * m * k + 4 * k * n + 4 * m * n + 8) / HBM_BYTES_PER_S * 1e3
+    rec["deploy_bound_ms"] = max(t_bytes, rec["bound_ms"])
+    return rec
+
+
+def phase_paper(torch, seed, smi, device="cuda"):
+    """Phase 20 (module docstring): the paper's deployment and experiments
+    on the card.  (a) `ops.odimo_deployed_dense` at `PAPER_KN` x
+    `PAPER_MS` x `PAPER_KINDS`: each call with the counts reset just
+    before and read just after (one split_precision launch, no weight
+    copy), held against the plain version in the original column order
+    (`check_deploy`), the random assignment timed (`deploy_times`); (b)
+    ``examples/torch_quickstart.py --fast`` on the card (prints
+    ``quickstart OK``; one split_precision launch, its head deploy); (c)
+    the experiments script on full-geometry ResNet20 at `PAPER_PRESET`:
+    `PAPER_BASELINE` and one lambda per objective on diana, then its
+    Table I: JAX's record keys, the baseline's latency and energy equal to
+    the port's cost model on its counts, each Table I row's digital +
+    AIMC utilization at least 1.  Returns the phase's record."""
+    import contextlib
+    import io
+    import numpy as np
+    from repro_torch.api import Platform, cnn_handle
+    from repro_torch.core import losses, quant
+    from repro_torch.core.baselines import counts_from_assignments
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    out = {"deploy": {}}
+    for k, n in PAPER_KN:
+        w = torch.randn((k, n), generator=gen, device=device) * 0.02
+        wls = quant.init_log_scale(w)
+        for m in PAPER_MS:
+            x = torch.randn((m, k), generator=gen, device=device)
+            xls = quant.init_log_scale(x)
+            for kind in PAPER_KINDS:
+                tag = f"paper:deploy:M{m}:K{k}:N{n}:{kind}"
+                assign = deploy_assignment(n, kind, rng)
+                calls = []
+                reset_launches()
+                with recording_split_precision(calls, 1):
+                    got = ops.odimo_deployed_dense(x, w, assign, wls, xls)
+                torch.cuda.synchronize()
+                launches = {kk: v for kk, v in kernel_launches().items()
+                            if v}
+                if launches != {"split_precision": 1}:
+                    raise AssertionError(f"{tag}: launches {launches}")
+                check_no_weight_copies(tag)
+                int8_cols, ratio = check_deploy(torch, tag, x, w, assign,
+                                                wls, xls, got)
+                rec = {"launches": launches, "boundary":
+                       int((assign == 0).sum()), "int8_columns": int8_cols,
+                       "bf16_err_over_bound": ratio}
+                line = (f"[{tag}] raw boundary {rec['boundary']}, "
+                        f"{int8_cols} of {n} columns int8 bit-identical to "
+                        f"the plain version, the rest within the bound "
+                        f"(max err / bound {ratio:.3g}); original column "
+                        f"order; launches split_precision 1, 0 weight "
+                        f"copies")
+                if kind == "random":
+                    rec.update(deploy_times(torch, m, k, n, x, w, assign,
+                                            wls, xls, calls[0]))
+                    line += (
+                        f"; kernel {rec['ms']:.4f} ms ({rec['min_ms']:.4f}-"
+                        f"{rec['max_ms']:.4f}), deploy (device half: "
+                        f"quantize x and w, permute, kernel, unpermute) "
+                        f"{rec['deploy_ms']:.4f} ms, whole op eager "
+                        f"{rec['eager_ms']:.4f} ms, plain "
+                        f"{rec['plain_ms']:.4f} ms, two calls "
+                        f"{rec['library_ms']:.4f} ms (int8 weight row-major "
+                        f"{rec['library_row_ms']:.4f}, K-major "
+                        f"{rec['library_col_ms']:.4f}), bound "
+                        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                        f"deploy bound {rec['deploy_bound_ms']:.4f} ms; "
+                        f"{smi}")
+                print(line)
+                out["deploy"][tag] = rec
+                del got, calls
+            del x
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    deploy_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    qs = load_example("torch_quickstart")
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        qs.main(["--fast", "--device", device, "--artifact",
+                 str(ROOT / "build" / "chip_smoke" /
+                     "torch_quickstart_mapping.json")])
+    torch.cuda.synchronize()
+    launches = {kk: v for kk, v in kernel_launches().items() if v}
+    for line in buf.getvalue().splitlines():
+        print(f"[paper:quickstart] {line}")
+    if not buf.getvalue().rstrip().endswith("quickstart OK"):
+        raise AssertionError("paper:quickstart: no 'quickstart OK'")
+    if launches != {"split_precision": 1}:
+        raise AssertionError(f"paper:quickstart: launches {launches}")
+    out["quickstart"] = {"launches": launches,
+                         "seconds": time.perf_counter() - t0}
+    print(f"[paper:quickstart] launches split_precision 1 (the head's "
+          f"deploy); {out['quickstart']['seconds']:.1f} s")
+
+    t0 = time.perf_counter()
+    drv = load_example("torch_paper_experiments")
+    drv.PRESETS["chip_smoke"] = dict(PAPER_PRESET)
+    recs, stages = [], []
+    model = PAPER_PRESET["models"][0]
+    drv.run_baselines(model, "chip_smoke", "diana", recs,
+                      names=(PAPER_BASELINE,), device=device, stages=stages)
+    for obj in ("latency", "energy"):
+        drv.run_odimo_sweep(model, "chip_smoke", "diana", obj, recs,
+                            tag="diana", device=device, stages=stages)
+    drv.table1(recs)
+    for rec in recs:
+        if set(rec) != PAPER_RECORD_KEYS[rec["kind"]]:
+            raise AssertionError(f"paper:experiments: {rec['kind']} record "
+                                 f"keys {sorted(rec)}")
+    base = recs[0]
+    cm = Platform.get("diana").cost_model()
+    geoms = cnn_handle(drv.MODEL_CFGS[model]).geometries()
+    counts = counts_from_assignments(
+        drv.baseline_assignments(model, "diana", (PAPER_BASELINE,))
+        [PAPER_BASELINE], 2)
+    lat = float(losses.exact_latency(cm, geoms, counts))
+    en = float(losses.exact_energy(cm, geoms, counts))
+    if not (np.isclose(base["latency"], lat, rtol=1e-6, atol=0) and
+            np.isclose(base["energy"], en, rtol=1e-6, atol=0)):
+        raise AssertionError(f"paper:experiments: baseline latency / energy "
+                             f"{base['latency']} / {base['energy']} against "
+                             f"the cost model's {lat} / {en}")
+    rows = [r for r in recs if r["kind"] == "table1"]
+    if len(rows) != 2 or any(r["dig_util"] + r["aimc_util"] < 1.0
+                             for r in rows):
+        raise AssertionError(f"paper:experiments: Table I rows {rows}")
+    for rec, st in zip(recs, stages):
+        stages = " ".join(f"{name} {s['steps']} x {s['ms_per_step']:.1f} ms"
+                          for name, s in st["stages"].items()
+                          if "ms_per_step" in s)
+        print(f"[paper:experiments] {json.dumps(rec)[:300]}; stages {stages}")
+    for row in rows:
+        print(f"[paper:experiments] {json.dumps(row)}")
+    out["experiments"] = {"records": recs, "stages": stages,
+                     "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[paper] phase {out['seconds']:.1f} s (deploy {deploy_s:.1f} s, "
+          f"quickstart {out['quickstart']['seconds']:.1f} s, experiments "
+          f"{out['experiments']['seconds']:.1f} s; {smi})")
+    return out
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6689,6 +7009,8 @@ def main(argv=None) -> int:
     mark("train")
     serving["dryrun"] = phase_dryrun(torch, args.seed, smi)
     mark("dryrun")
+    serving["paper"] = phase_paper(torch, args.seed, smi)
+    mark("paper")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

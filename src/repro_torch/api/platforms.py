@@ -86,6 +86,10 @@ class Platform:
     def names() -> Sequence[str]:
         return sorted(_REGISTRY)
 
+    @staticmethod
+    def unregister(name: str) -> None:
+        _REGISTRY.pop(name, None)
+
 
 Platform.register(Platform(
     name="diana",

@@ -66,6 +66,9 @@ class LayerGeometry:
         return (self.c_in // self.groups) * self.fx * self.fy * self.ox * \
             self.oy
 
+    def macs(self, c_out: float) -> float:
+        return self.macs_per_out_channel * c_out
+
 
 class CostModel:
     """Interface: latency per domain + active/idle powers per domain."""
@@ -130,6 +133,16 @@ class DianaCostModel(CostModel):
 
     def p_idle(self) -> torch.Tensor:
         return self._p_idle
+
+    def cycles_to_ms(self, cycles) -> torch.Tensor:
+        return torch.as_tensor(cycles, dtype=_F) / self.FREQ_HZ * 1e3
+
+    def energy_uj(self, lat_cycles, layer_max) -> torch.Tensor:
+        """Eq. 4 for one layer, cycles + mW -> uJ."""
+        t = _counts(lat_cycles) / self.FREQ_HZ
+        tm = _counts(layer_max).to(t.device) / self.FREQ_HZ
+        return torch.sum(self._p_act.to(t.device) * t +
+                         self._p_idle.to(t.device) * (tm - t)) * 1e3
 
 
 class AbstractCostModel(CostModel):

@@ -108,6 +108,10 @@ class PrecisionDomain:
     weight_bits: int          # 2 => ternary, 8 => int8, >=16 => identity
     act_bits: int = 8
 
+    @property
+    def is_identity(self) -> bool:
+        return self.weight_bits >= 16
+
 
 # The DIANA SoC of the paper (Sec. II-A / III-B).
 DIANA_DIGITAL = PrecisionDomain("digital", weight_bits=8, act_bits=8)

@@ -1,8 +1,13 @@
 """Public kernel entry points with the JAX ops' boundary and padding
 contract (``repro.kernels.ops``): the N-block clamp ``min(bn, max(128,
 n))`` and the boundary rounded up to that block.  The kernel wrappers pad
-K (and the packed stream's K) to a multiple of 4 themselves."""
+K (and the packed stream's K) to a multiple of 4 themselves.  Also the
+ODiMO deployment helper, `odimo_deployed_dense`, which runs a discretized
+layer through the fused split_precision kernel."""
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import _pad_to, quant_matmul
@@ -64,3 +69,56 @@ def flash_attention_op(q, k, v, causal=True, bq=256, bk=512):
     out = flash_attention(_pad_to(q, bq_, 2), _pad_to(k, bk_, 2),
                           _pad_to(v, bk_, 2), causal=causal, kv_len=Sk)
     return out[:, :, :Sq, :]
+
+
+def deploy_plan(assign, device):
+    """The paper's Fig. 3 reorg of a layer with per-column domains
+    ``assign`` (0 = int8, 1 = bf16), made on the host: ``(perm, inv,
+    boundary)``, the stable sort of the columns by domain (ties keep their
+    order) and its inverse as index tensors on ``device``, and the count
+    of int8 columns."""
+    if torch.is_tensor(assign):
+        assign = assign.cpu()
+    assign = np.asarray(assign)
+    perm = np.argsort(assign, kind="stable")
+    return (torch.as_tensor(perm, device=device),
+            torch.as_tensor(np.argsort(perm), device=device),
+            int((assign == 0).sum()))
+
+
+def deploy_dense(x, w, plan, w_log_scale, x_log_scale):
+    """The device half of `odimo_deployed_dense` for a `deploy_plan`:
+    quantizes x and the permuted w at the int8 domain's per-tensor
+    log-scales, runs the fused two-domain matmul (`split_precision_op`:
+    the columns in ``[boundary, aligned)`` run int8) and undoes the
+    permutation.  The int8 codes go to the kernel K-major, the bf16 weight
+    row-major: no per-call weight copy.  It makes no host transfer, so a
+    CUDA graph can capture it."""
+    from repro_torch.core import quant
+    perm, inv, boundary = plan
+    dev = x.device
+    levels = quant.qlevels(8)
+    xls = torch.as_tensor(x_log_scale, dtype=torch.float32, device=dev)
+    wls = torch.as_tensor(w_log_scale, dtype=torch.float32, device=dev)
+    wp = w.index_select(1, perm)
+    sx = (torch.exp(xls) / levels).reshape(1)
+    sw = (torch.exp(wls) / levels).reshape(1).expand(w.shape[1]).contiguous()
+    x_q = quant.quantize_int(x, xls, 8)
+    w_q = quant.quantize_int(wp.t().contiguous(), wls, 8).t()
+    out = split_precision_op(x.to(torch.bfloat16), x_q, sx,
+                             wp.to(torch.bfloat16), w_q, sw, boundary)
+    return out.index_select(1, inv)
+
+
+def odimo_deployed_dense(x, w, assign, w_log_scale, x_log_scale):
+    """Run an ODiMO-discretized Dense layer through the fused kernel, on
+    the device of ``x``.
+
+    x (M, K) float; w (K, N) float; assign (N,) domain per column (0 =
+    int8, 1 = bf16); w_log_scale / x_log_scale: the int8 domain's
+    per-tensor quantization log-scales.  Performs the paper's Fig. 3 reorg
+    (`deploy_plan`), the fused two-domain matmul and the inverse
+    permutation (`deploy_dense`), so the output is in the ORIGINAL column
+    order."""
+    return deploy_dense(x, w, deploy_plan(assign, x.device), w_log_scale,
+                        x_log_scale)

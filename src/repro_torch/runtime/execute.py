@@ -88,6 +88,10 @@ class PreparedLayer:
     k_pad: int = 0                       # k_in padded to K_ALIGN
 
     @property
+    def kernel(self) -> str:
+        return self.plan.kernel
+
+    @property
     def conv_groups(self) -> int:
         return self.plan.groups
 

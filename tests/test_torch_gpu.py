@@ -1614,3 +1614,53 @@ def test_dryrun_on_the_card_equals_a_real_run(cuda, monkeypatch, tmp_path,
     assert abs(temp - mem["temp_size_in_bytes"]) <= max(
         0.1 * mem["temp_size_in_bytes"], 256 * 2**20)
     del out
+
+
+def _deploy_assignment(n, kind, rng):
+    """All int8, all bf16, or a random half bf16 whose int8 count is off
+    the 128-column block (the sort's boundary is not a multiple of 128)."""
+    if kind in ("int8", "bf16"):
+        return np.full(n, int(kind == "bf16"), np.int64)
+    a = np.ones(n, np.int64)
+    a[rng.choice(n, n // 2 + 37, replace=False)] = 0
+    return a
+
+
+@pytest.mark.parametrize("kind", ["random", "int8", "bf16"])
+@pytest.mark.parametrize("m", [4, 128, 512])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008)])
+def test_odimo_deployed_dense_on_the_card(cuda, k, n, m, kind):
+    """`ops.odimo_deployed_dense` at yi-9b's widths: one split_precision
+    launch and no weight copy per call; against the plain version in the
+    ORIGINAL column order, the columns the aligned boundary runs int8 bit
+    for bit, the others within `bf16_error_bound`."""
+    from repro_torch.core import quant
+    rng = np.random.default_rng(m + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.02)
+                         .astype(np.float32))
+    assign = _deploy_assignment(n, kind, rng)
+    x, w = x.to(cuda), w.to(cuda)
+    wls, xls = quant.init_log_scale(w), quant.init_log_scale(x)
+    launches = split_precision.launches
+    copies = split_precision.transposed_copies
+    got = ops.odimo_deployed_dense(x, w, assign, wls, xls)
+    torch.cuda.synchronize()
+    assert split_precision.launches == launches + 1
+    assert split_precision.transposed_copies == copies
+    perm = np.argsort(assign, kind="stable")
+    b_al = min(ops.align_boundary(int((assign == 0).sum()), 128), n)
+    int8 = torch.from_numpy(np.argsort(perm) < b_al).to(cuda)
+    if kind == "random":
+        assert 0 < int(int8.sum()) < n and (assign == 0).sum() % 128
+    levels = quant.qlevels(8)
+    sx = (torch.exp(xls) / levels).reshape(1)
+    sw = (torch.exp(wls) / levels).reshape(1).expand(n)
+    lo = quant_matmul_plain(quant.quantize_int(x, xls, 8),
+                            quant.quantize_int(w, wls, 8), sx, sw)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    hi = (xb.double() @ wb.double()).float()
+    assert torch.equal(got[:, int8], lo[:, int8])
+    err = (got.double() - hi.double()).abs()
+    bound = bf16_error_bound(xb, wb, hi)
+    assert bool((err <= bound)[:, ~int8].all())

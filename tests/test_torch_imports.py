@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, the JAX package ``repro`` or ``ml_dtypes``
-(which the machine with the card lacks)."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports JAX, the JAX
+package ``repro`` or ``ml_dtypes`` (which the machine with the card
+lacks)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
