@@ -532,7 +532,20 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    energy equal the port's cost model on its counts, and each Table I
    row's digital + AIMC utilization is at least 1 (the domains run in
    parallel).
-21. one JSON line of kernel records, the nvidia-smi line, and the contract
+21. partitioned: the dry run's partitioned step on the production mesh
+   (`phase_partitioned`): ``python -m repro_torch.launch.dryrun --mesh
+   production --device cuda`` in subprocesses of its own, all started
+   together (its fake process group of 256 / 512 ranks never meets phase
+   19's NCCL group), for `PART_CELLS`: yi-9b x decode_32k on the (16, 16)
+   and (2, 16, 16) meshes, deepseek-v2-lite-16b x prefill_32k (MoE, the
+   flash stand-in at D 192 / Dv 128) and zamba2-1.2b x long_500k.  Each
+   record is ``status`` "ok" over 256 / 512 devices with per-device
+   FLOPs, temp, peak and collectives; its argument bytes equal the
+   specs-only record's (`run_cell` on the mesh shape); zamba2's per-device
+   FLOPs are below its phase-19 (1, 1) record's and at least that over
+   the device count; then the roofline table of the records with their
+   collective term.
+22. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
@@ -6513,6 +6526,98 @@ def phase_dryrun(torch, seed, smi, device="cuda"):
 
 
 
+# ------------------------------------------------------------------ phase 21
+#: the partitioned dry run's cells: (arch, shape, multi-pod)
+PART_CELLS = [("yi-9b", "decode_32k", False), ("yi-9b", "decode_32k", True),
+              ("deepseek-v2-lite-16b", "prefill_32k", False),
+              (ZAMBA, "long_500k", False)]
+PART_TIMEOUT = 240
+
+
+def phase_partitioned(torch, seed, smi, single, device="cuda"):
+    """Phase 21 (module docstring): `PART_CELLS` through ``python -m
+    repro_torch.launch.dryrun --mesh production --device DEVICE``, one
+    subprocess per cell, all started together; each record against its
+    specs-only record, zamba2's FLOPs against ``single`` (phase 19's
+    (1, 1) record of the cell), and the roofline table of the records.
+    Returns the phase's record."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import production_shape
+    from repro_torch.roofline import analysis as RA
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun_production"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mp in PART_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+               "production", "--device", device, "--arch", arch, "--shape",
+               shape, "--out", str(out_dir)] + (["--multi-pod"] if mp else [])
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=PART_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    result, recs = {}, []
+    for (arch, shape, mp), p, log in zip(PART_CELLS, procs, logs):
+        tag = f"{arch}:{shape}:{'mp' if mp else 'sp'}"
+        if p.returncode != 0:
+            raise AssertionError(f"partitioned {tag}: exit {p.returncode}: "
+                                 f"{log[-2000:]}")
+        path = out_dir / f"{arch}__{shape}__{'mp' if mp else 'sp'}.json"
+        rec = json.loads(path.read_text())
+        mem = rec["memory_analysis"]
+        if rec["status"] != "ok" or rec["n_devices"] != (512 if mp else 256):
+            raise AssertionError(f"partitioned {tag}: {rec['status']} on "
+                                 f"{rec.get('n_devices')} devices")
+        if None in (rec["cost_analysis"]["flops"], mem["temp_size_in_bytes"],
+                    mem["peak_bytes"]) or not rec["collectives"]:
+            raise AssertionError(f"partitioned {tag}: a null count")
+        spec = D.run_cell(arch, shape, production_shape(multi_pod=mp),
+                          ROOT / "build" / "chip_smoke" / "dryrun_specs")
+        want = spec["memory_analysis"]["argument_size_in_bytes"]
+        if mem["argument_size_in_bytes"] != want:
+            raise AssertionError(
+                f"partitioned {tag}: argument bytes "
+                f"{mem['argument_size_in_bytes']} against the specs' {want}")
+        counts = {op: s["top"] for op, s in
+                  rec["collectives"]["counts"].items()}
+        sent = {op: s["top"] for op, s in rec["collectives"]["bytes"].items()}
+        print(f"[partitioned:{tag}] {rec['n_devices']} devices, trace "
+              f"{rec['trace_s']:.1f} s; per device: flops "
+              f"{rec['cost_analysis']['flops']:.4e}, args "
+              f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB (= specs), "
+              f"temp {mem['temp_size_in_bytes'] / 2**30:.3f} GiB, peak "
+              f"{mem['peak_bytes'] / 2**30:.3f} GiB; collectives {counts}, "
+              f"bytes {sent}")
+        key = f"{arch}:{shape}:base"
+        if key in single:
+            whole = single[key]["record"]["cost_analysis"]["flops"]
+            per = rec["cost_analysis"]["flops"]
+            if not per < whole <= per * rec["n_devices"]:
+                raise AssertionError(
+                    f"partitioned {tag}: per-device flops {per:.4e} against "
+                    f"the (1, 1) record's {whole:.4e}")
+            print(f"[partitioned:{tag}] per-device flops {per:.4e} x "
+                  f"{rec['n_devices']} = {per * rec['n_devices']:.4e} >= "
+                  f"the (1, 1) record's {whole:.4e} (phase 19)")
+        result[tag] = rec
+        recs.append(rec)
+    print("[partitioned] roofline of the records at the H100 SXM constants "
+          f"({RA.PEAK_BF16:.3g} FLOP/s bf16, {RA.HBM_BW:.3g} B/s, "
+          f"{RA.LINK_BW:.3g} B/s link; this card: {smi}):")
+    for line in RA.markdown_table([RA.analyze_cell(r) for r in recs]) \
+            .splitlines():
+        print(f"[partitioned] {line}")
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[partitioned] phase {result['seconds']:.1f} s ({smi})")
+    return result
+
+
 # ------------------------------------------------------------------ phase 20
 #: the deploy op (`ops.odimo_deployed_dense`) at yi-9b's widths and the
 #: served M (decode, a paged chunk, the prefill), each at `PAPER_KINDS`:
@@ -7011,6 +7116,9 @@ def main(argv=None) -> int:
     mark("dryrun")
     serving["paper"] = phase_paper(torch, args.seed, smi)
     mark("paper")
+    serving["partitioned"] = phase_partitioned(torch, args.seed, smi,
+                                               serving["dryrun"])
+    mark("partitioned")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers
                  for key in ("ms", "min_ms", "max_ms", "plain_ms",

@@ -26,12 +26,24 @@ mesh's specs can be computed on one host.  `shardings_for_params` /
 without importing mesh machinery: with no axes configured, or on a tensor
 that is not a DTensor, `constrain` returns its input, so the same model
 code runs unsharded.
+
+Where DTensor, which propagates layouts as they come where XLA chooses
+them, cannot run the models' ops as written, the models call the layout
+helpers below at that point; each is the plain op on a plain tensor:
+`splittable` (a dim split into heads that its shards do not divide is
+gathered), `merged` (heads merged back, inner shards gathered),
+`attention_shards` (attention on each device's batch and head shards),
+`per_batch_shard` (a sequential scan on each batch shard), `write_slice`
+(a cache write into a sequence-sharded buffer, per shard) and
+`elementwise` (an op DTensor has no strategy for, on the local shard).
 """
 from __future__ import annotations
 
 import math
 import re
 from typing import NamedTuple, Tuple
+
+import torch
 
 from repro_torch.core import tree as _tree
 
@@ -121,7 +133,253 @@ def constrain(x, kind: str):
     mesh = x.device_mesh
     spec = tuple(a if _divides(mesh, a, d) and d > 1 else None
                  for a, d in zip(spec, x.shape))
-    return x.redistribute(mesh, placements(mesh, P(*spec)))
+    return _reduced(x).redistribute(mesh, placements(mesh, P(*spec)))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicated(x):
+    """DTensor ``x`` whole on every device; any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return _replicated(x, list(range(x.device_mesh.ndim)))
+
+
+def contiguous(x):
+    """``x`` contiguous; a DTensor with a contiguous local shard (DTensor's
+    own ``contiguous`` reads the global strides, which a shard left
+    strided by a collective may not share)."""
+    if not is_dtensor(x):
+        return x.contiguous()
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local().contiguous(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=_contiguous(x.shape))
+
+
+def settled(x):
+    """DTensor ``x`` with its pending sums reduced; any other tensor as it
+    is.  A projection's output is settled so that no later op asks for a
+    shard to become a pending sum, which DTensor does not do in every
+    version."""
+    return _reduced(x) if is_dtensor(x) else x
+
+
+def _reduced(x):
+    """DTensor ``x`` with its pending sums reduced (replicated): the
+    backward of a redistribution from a sum to a shard goes from the
+    shard to a sum, which DTensor does not do in every version."""
+    from torch.distributed.tensor import Partial
+    return _replicated(x, [i for i, p in enumerate(x.placements)
+                           if isinstance(p, Partial)])
+
+
+def _replicated(x, mesh_dims):
+    """DTensor ``x`` with the mesh dims ``mesh_dims`` replicated."""
+    from torch.distributed.tensor import Replicate
+    if not mesh_dims:
+        return x
+    pl = list(x.placements)
+    for i in mesh_dims:
+        pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
+
+
+def splittable(x, n: int, dim: int = -1):
+    """``x`` ready for its dim ``dim`` to be split into ``(n, -1)``
+    (heads): a DTensor whose ``dim`` is sharded over mesh dims whose sizes
+    do not divide ``n`` gets those mesh dims replicated first, since
+    DTensor refuses to split such a shard (XLA's partitioner gathers there
+    too); any other tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    dims = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+    if n % math.prod(x.device_mesh.size(i) for i in dims) == 0:
+        return x
+    return _replicated(x, dims)
+
+
+def merged(x, shape, n: int):
+    """``x.reshape(shape)``, which merges x's trailing dims, the first of
+    them of size ``n`` (heads), into its last.  On a DTensor, the mesh
+    dims that shard an inner merged dim are replicated first (DTensor
+    either refuses that merge or makes a strided shard of it, whose every
+    redistribution it plans by a search that costs seconds on a 3-D
+    mesh), and in the backward pass the gradient gets `splittable`
+    (``n``), so that the reshape's own backward can split it again.  Any
+    other tensor: ``x.reshape(shape)``."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    first = len(shape) - 1
+    x = _replicated(x, [i for i, p in enumerate(x.placements)
+                        if isinstance(p, Shard) and p.dim > first])
+    y = x.reshape(shape)
+    return _SplittableGrad.apply(y, n) if y.requires_grad else y
+
+
+class _SplittableGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient `splittable`."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return splittable(g, ctx.n), None
+
+
+def attention_shards(fn, q, k, v):
+    """``fn(q, k, v)`` of an attention that runs per (batch, query head)
+    on whole sequences and head dims: q (B, Sq, KVH, G, D), k, v (B, Sk,
+    KVH, D) -> (B, Sq, KVH, G, Dv).  On DTensors, each mesh dim shards
+    the batch where it divides, else the KV heads of all three where they
+    divide, else q's groups G (k and v replicated); a mesh dim that
+    divides neither but the KVH x G heads into blocks inside one KV head
+    (yi-9b's 4 x 8 over 16) gives each device its block of heads, with
+    the KV head that block reads, and gathers the outputs.  ``fn`` runs on each device's shards (a
+    chunk loop or a kernel on plain tensors).  Plain tensors: ``fn(q, k,
+    v)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    B, Sq, KVH, G, D = q.shape
+    left = {0: B, 2: KVH, 3: G}
+    qpl, kvpl, block = [], [], None
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        # the batch first: a replicated q (a decode step's) slices for free
+        want = [0] if isinstance(p, Shard) and p.dim == 0 else [0, 2, 3]
+        dim = next((d for d in want if left[d] % n == 0), None)
+        if dim is None and len(want) > 1 and block is None and \
+                left[2] == KVH and left[3] == G and KVH * G % n == 0 and \
+                G % (KVH * G // n) == 0:
+            block = i
+        if dim is not None:
+            left[dim] //= n
+        qpl.append(Replicate() if dim is None else Shard(dim))
+        kvpl.append(Shard(dim) if dim in (0, 2) else Replicate())
+    q = _reduced(q).redistribute(mesh, qpl)
+    k, v = (_reduced(t).redistribute(mesh, kvpl) for t in (k, v))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if block is None:
+        out = fn(ql, kl, vl).contiguous()
+        shape = tuple(q.shape[:-1]) + (v.shape[-1],)
+        return DTensor.from_local(out, mesh, qpl, run_check=False,
+                                  shape=shape, stride=_contiguous(shape))
+    # this device's block of h heads of the flattened KVH x G, inside one
+    # KV head (G is a multiple of h: the mesh dim divides neither KVH nor
+    # G)
+    h = KVH * G // mesh.size(block)
+    h0 = mesh.get_coordinate()[block] * h
+    kv = slice(h0 // G, h0 // G + 1)
+    out = fn(ql[:, :, kv, h0 % G:h0 % G + h], kl[:, :, kv], vl[:, :, kv])
+    out = out.reshape(out.shape[0], Sq, h, out.shape[-1]).contiguous()
+    pl = list(qpl)
+    pl[block] = Shard(2)
+    shape = (B, Sq, KVH * G, out.shape[-1])
+    out = DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                             stride=_contiguous(shape))
+    return _replicated(out, [block]).reshape(B, Sq, KVH, G, shape[-1])
+
+
+def write_slice(buf, dim: int, start: int, val):
+    """``buf.narrow(dim, start, n).copy_(val)`` (n ``val``'s size on
+    ``dim``), in place.  On a DTensor ``buf`` each device writes the part
+    of ``val`` that falls in its own shard of ``dim``, with ``val`` laid
+    out as ``buf`` on every other dim: DTensor itself would gather a
+    sliced shard and write into the copy.  Returns ``buf``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    n = val.shape[dim]
+    if not isinstance(buf, DTensor):
+        buf.narrow(dim, start, n).copy_(val)
+        return buf
+    mesh = buf.device_mesh
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    val = _reduced(val).redistribute(mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in buf.placements]).to_local()
+    # this device's range of ``dim``: the shards of the mesh dims that
+    # split it, in mesh-dim order (even: the specs divide their dims)
+    size, offset, coord = buf.shape[dim], 0, mesh.get_coordinate()
+    for i, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(i)
+            offset += coord[i] * size
+    lo, hi = max(start, offset), min(start + n, offset + size)
+    if hi > lo:
+        buf.to_local().narrow(dim, lo - offset, hi - lo).copy_(
+            val.narrow(dim, lo - start, hi - lo))
+    return buf
+
+
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, ``fn`` of its
+    local shard under the same placements (for ops DTensor has no
+    strategy for, e.g. ``log_sigmoid``; a pending sum is reduced first).
+    Any other tensor: ``fn(x)``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return fn(x)
+    x = _reduced(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def per_batch_shard(fn, batched, shared=()):
+    """``fn(batched, shared)``: ``batched`` a tuple of tensors with the
+    batch on dim 0, ``shared`` one of tensors without.  When ``batched``
+    holds a DTensor, every batched tensor is laid out on dim 0 as the
+    first DTensor is (replicated elsewhere), every shared one replicated,
+    and ``fn`` runs on the local shards: a sequential scan then runs as
+    plain ops on each device, not step by step as DTensor ops (each costs
+    milliseconds of host time).  ``fn`` returns a tuple of batch-first
+    tensors, rewrapped as DTensors of the batch's placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lead = next((t for t in batched if isinstance(t, DTensor)), None)
+    if lead is None:
+        return fn(batched, shared)
+    mesh = lead.device_mesh
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in lead.placements]
+    rep = [Replicate()] * mesh.ndim
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        return _reduced(t).redistribute(mesh, placements).to_local()
+    outs = fn(tuple(local(t, batch) for t in batched),
+              tuple(local(t, rep) for t in shared))
+    n = math.prod(mesh.size(i) for i, p in enumerate(batch)
+                  if isinstance(p, Shard))
+
+    def wrap(o):
+        shape = (o.shape[0] * n,) + tuple(o.shape[1:])
+        return DTensor.from_local(o.contiguous(), mesh, batch,
+                                  run_check=False,
+                                  shape=shape, stride=_contiguous(shape))
+    return tuple(wrap(o) for o in outs)
+
+
+def _contiguous(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    strides, n = [], 1
+    for d in reversed(shape):
+        strides.append(n)
+        n *= d
+    return tuple(reversed(strides))
 
 
 # ------------------------------------------------------------- param rules
@@ -243,16 +501,22 @@ def shardings_for_tree(mesh, tree, spec_fn):
         lambda leaf: placements(mesh, spec_fn(tuple(leaf.shape))), tree)
 
 
-def local_bytes(mesh, leaf, spec: PartitionSpec) -> int:
-    """Bytes of one device's shard of ``leaf`` under ``spec`` (each
-    sharded dim divided by the product of its axes' sizes; `param_spec`
+def local_shape(mesh, shape, spec: PartitionSpec) -> tuple:
+    """One device's shard of a tensor of ``shape`` under ``spec``: each
+    sharded dim divided by the product of its axes' sizes (`param_spec`
     and its siblings only shard dims their axes divide)."""
     sizes = _sizes(mesh)
-    n = 1
-    for d, dim in enumerate(leaf.shape):
+    out = []
+    for d, dim in enumerate(shape):
         axes = spec[d] if d < len(spec) else None
         if axes is not None:
             names = (axes,) if isinstance(axes, str) else tuple(axes)
             dim //= math.prod(sizes[a] for a in names)
-        n *= dim
-    return n * leaf.element_size()
+        out.append(dim)
+    return tuple(out)
+
+
+def local_bytes(mesh, leaf, spec: PartitionSpec) -> int:
+    """Bytes of one device's shard of ``leaf`` under ``spec``."""
+    return math.prod(local_shape(mesh, tuple(leaf.shape), spec)) * \
+        leaf.element_size()

@@ -6,7 +6,8 @@ collectives, before anything is allocated.
         --shape decode_32k [--variant kvwq8] [--mapping m.json] \\
         [--mesh single|production] [--multi-pod] [--device cuda|cpu] \\
         [--out build/dryrun_torch/<mesh>]
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+        [--mesh production] [--arch yi-9b]
 
 On a one-device mesh (`mesh.single_gpu_mesh`, or `mesh.smoke_mesh` on
 the CPU) `run_cell` builds the cell's step as the JAX package does (the
@@ -14,26 +15,37 @@ variant, `quantize_for_serve` for ``wq8``, the train / prefill / decode
 step, no planned backend), materialises the params, the optimiser state,
 the inputs and the caches as fake tensors on the mesh's device
 (``FakeTensorMode``: no storage, no launch) and runs the step once under
-``FlopCounterMode``, a memory tracker of this module's own
-(`PeakTracker`: the live bytes of every storage an op creates, at op
-granularity, as the caching allocator's ``memory_allocated`` counts them)
-and ``CommDebugMode``.  The JAX package parses collectives out of XLA's
-HLO text; the port has none, and counts the collectives that run
-(``CommDebugMode``'s counts, `PeakTracker`'s bytes of their outputs), all
-at top level: the port runs each repeat eagerly, with no scan.  There is
-no "bytes accessed" (the record's ``note`` says so); `repro_torch.
+`PeakTracker`: FLOPs by ``torch.utils.flop_counter``'s formulas, the live
+bytes of every storage an op creates, at op granularity, as the caching
+allocator's ``memory_allocated`` counts them, and the collectives.
+
+On the production mesh (`mesh.fake_production_mesh`: (16, 16) or (2, 16,
+16) over a ``"fake"`` process group of 256 / 512 ranks) the step is
+partitioned as the JAX package's ``jit`` with ``in_shardings``
+partitions it: every argument is a DTensor of fake local shards under
+the JAX package's specs (`arg_specs`), `sharding.constrain` lays out the
+activations as ``with_sharding_constraint`` does, and `PeakTracker`
+counts one device's program (rank 0's): the local ops DTensor runs, at
+local shapes, and the collectives of its redistributions.  The JAX
+package parses collectives out of XLA's HLO text; the port has none, and
+counts the collectives that run (count and output bytes per JAX op name),
+all at top level: the port runs each repeat eagerly, with no scan.
+There is no "bytes accessed" (the record's ``note`` says so); `repro_torch.
 roofline.analysis.hlo_bytes` is the analytic count.  A decode step's
-``index`` is the int ``seq - 1`` (the port's `decode_step` takes an int).
-On the card a prefill or train step past 2048 tokens reaches the flash
+``index`` is the int ``seq - 1`` (the port's `decode_step` takes an int;
+the production record counts JAX's int32 argument, `INDEX_BYTES`).  On
+the card a prefill or train step past 2048 tokens reaches the flash
 kernel, which cannot run on fake tensors: there it runs a stand-in
 (`_flash_op`) that writes the kernel's output in place, allocates nothing
 else, and counts the full masked square of scores and PV products, as
-the roofline enumerator does.
+the roofline enumerator does; on the CPU it runs the chunked plain
+attention.
 
 On a production mesh shape (`mesh.production_shape`, a
 `sharding.MeshShape` with no devices) the record is ``status:
 "specs_only"``: the per-device argument bytes from the sharding specs
-(each leaf's local shard), FLOPs, temp and collectives null.
+(each leaf's local shard), FLOPs, temp and collectives null: the
+traced record's cross-check.
 """
 from __future__ import annotations
 
@@ -69,6 +81,7 @@ _COLLECTIVE_OPS = {
     "reduce_scatter_": "reduce-scatter",
     "_reduce_scatter_base_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
     "alltoall_base_": "all-to-all", "send": "collective-permute",
     "recv_": "collective-permute", "permute_tensor": "collective-permute",
 }
@@ -76,7 +89,8 @@ _COLLECTIVE_OPS = {
 NO_BYTES_ACCESSED = ("no 'bytes accessed': the port has no compiled program "
                      "to read it from; roofline.analysis.hlo_bytes is the "
                      "analytic count")
-SPECS_ONLY_REASON = "needs a partitioned step over 256 / 512 devices"
+SPECS_ONLY_REASON = ("specs only: the partitioned step over 256 / 512 "
+                     "devices is traced on mesh.fake_production_mesh")
 
 
 def scanned_repeats(cfg) -> int:
@@ -197,34 +211,53 @@ def concrete_args(cfg, shape: str, gen: torch.Generator):
             tuple(draw(m) for m in meta_args[3:]))
 
 
+def _local(t):
+    """The local shard of a DTensor (one device's storage), else ``t``."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _storages(tree):
-    """{id: storage} of the tensors of ``tree``, each storage once."""
+    """{id: storage} of the (local) tensors of ``tree``, each storage
+    once."""
     out = {}
     for leaf in _tree.leaves(tree):
         if isinstance(leaf, torch.Tensor):
-            st = leaf.untyped_storage()
+            st = _local(leaf).untyped_storage()
             out[id(st)] = st
     return out
 
 
 def tree_bytes(tree) -> int:
-    """Bytes of the distinct storages of ``tree``'s tensors."""
+    """Bytes of the distinct storages of ``tree``'s tensors (of each
+    DTensor, its local shard)."""
     return sum(st.nbytes() for st in _storages(tree).values())
 
 
 class PeakTracker(TorchDispatchMode):
-    """The live bytes of storages at op granularity, and their peak: every
-    storage an op creates counts from that op until it is freed.  `track`
-    adds storages that exist already (the arguments).  The bytes of the
-    collectives' outputs are summed per JAX op name in ``collective_bytes``
-    (all top-level: no scan)."""
+    """One device's program, op by op: its FLOPs (``torch.utils.
+    flop_counter``'s formulas, with ``FlopCounterMode``'s decompositions),
+    the live bytes of storages and their peak (every storage an op creates
+    counts from that op until it is freed; `track` adds storages that
+    exist already, the arguments) and the collectives by JAX op name
+    (count and output bytes; all top level: no scan).
+
+    An op on DTensors is deferred (``NotImplemented``): DTensor then runs
+    the op's local version on each shard, and a redistribution's
+    ``_c10d_functional`` collectives, which come back here at local
+    shapes.  The ops that DTensor's sharding propagator runs at global
+    shapes to infer an output's metadata are not counted (`counting`
+    marks them)."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
+        self.flops = 0
         self._seen = {}
+        self._paused = 0
         self.collective_bytes = {c: 0 for c in COLLECTIVES}
+        self.collective_counts = {c: 0 for c in COLLECTIVES}
 
     def _add(self, st):
         key = id(st)
@@ -243,13 +276,80 @@ class PeakTracker(TorchDispatchMode):
         for st in _storages(tree).values():
             self._add(st)
 
+    def _uncounted(self, fn, real=False):
+        """``fn`` with counting paused (and, ``real``, fake tensors off)."""
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        def run(*args, **kwargs):
+            self._paused += 1
+            try:
+                with (unset_fake_temporarily() if real
+                      else contextlib.nullcontext()):
+                    return fn(*args, **kwargs)
+            finally:
+                self._paused -= 1
+        return run
+
+    @contextlib.contextmanager
+    def counting(self):
+        """This mode on, with DTensor's own bookkeeping left out of every
+        count: the sharding propagator's shape inference (each op run once
+        at global shapes) and a strided shard's offsets (index tensors,
+        computed on real ones: fake tensors cannot be read back).  A
+        shard-to-shard redistribution on a CPU mesh runs the all-to-all
+        that NCCL runs, not gloo's all-gather and chunk (which would count
+        the whole gathered tensor)."""
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import placement_types
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator as SP_
+
+        def all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
+            return torch.ops._dtensor.shard_dim_alltoall(
+                input, gather_dim, shard_dim,
+                funcol._resolve_group_name((mesh, mesh_dim)))
+        strided = placement_types._StridedShard
+        patched = [
+            (SP_, "_propagate_tensor_meta_non_cached",
+             lambda fn: self._uncounted(fn)),
+            (strided, "local_shard_size_and_offset",
+             lambda fn: self._uncounted(fn, real=True)),
+            (placement_types, "shard_dim_alltoall", lambda fn: all_to_all)]
+        saved = [getattr(owner, name) for owner, name, _ in patched]
+        for (owner, name, wrap), fn in zip(patched, saved):
+            setattr(owner, name, wrap(fn))
+        try:
+            with self:
+                yield self
+        finally:
+            for (owner, name, _), fn in zip(patched, saved):
+                setattr(owner, name, fn)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if self._paused:
+            return func(*args, **kwargs)
+        if func is not torch.ops.prim.device.default:
+            # FlopCounterMode's rule: count an op's decomposition if it
+            # has one
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         outs = [t for t in _tree.leaves(out) if isinstance(t, torch.Tensor)]
         for t in outs:
             self._add(t.untyped_storage())
-        coll = _COLLECTIVE_OPS.get(func._overloadpacket.__name__)
+        coll = _COLLECTIVE_OPS.get(packet.__name__)
         if coll is not None:
+            self.collective_counts[coll] += 1
             self.collective_bytes[coll] += sum(
                 t.untyped_storage().nbytes() for t in outs)
         return out
@@ -264,7 +364,9 @@ def _flash_op():
     kernel does not) and counts the full masked square of scores and PV
     products, ``2 B H Sq Sk (D + Dv)``: what the roofline enumerator and
     the kernel's plain version count (the kernel itself skips the tiles
-    that the causal mask or the window leave empty)."""
+    that the causal mask or the window leave empty).  On DTensors,
+    `chunked_attention` calls it on each device's shards
+    (`sharding.attention_shards`): it counts the local B and H."""
     if not _FLASH_OP:
         from torch.utils.flop_counter import register_flop_formula
 
@@ -283,6 +385,7 @@ def _flash_op():
         def _(q_shape, k_shape, v_shape, out_shape_arg, **kwargs):
             B, H, Sq, D = q_shape
             return 2 * B * H * Sq * k_shape[2] * (D + v_shape[-1])
+
         _FLASH_OP.append(flash)
     return _FLASH_OP[0]
 
@@ -307,39 +410,29 @@ def _flash_stand_in():
         A.flash_attention = kernel
 
 
-def _fake_like(m, device):
-    return torch.empty(m.shape, dtype=m.dtype, device=device)
-
-
-def trace_step(step, meta_args, device) -> dict:
-    """Run ``step`` once on fake tensors of ``meta_args`` on ``device``
-    (the flash kernel through `_flash_stand_in`); returns the FLOPs, the
-    memory record, the collectives and the host time of the step."""
+def trace_step(step, make_args) -> dict:
+    """Run ``step`` once on the fake tensors that ``make_args()`` builds
+    (plain ones on one device, or DTensors of one shard each), the flash
+    kernel through `_flash_stand_in` and plain tensors that meet DTensors
+    taken as replicated; returns one device's FLOPs, memory record and
+    collectives (`PeakTracker`) and the host time of the step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.utils.flop_counter import FlopCounterMode
+    from torch.distributed.tensor.experimental import implicit_replication
     with FakeTensorMode():
-        args = tuple(_tree.tree_map(lambda m: _fake_like(m, device), a)
-                     for a in meta_args)
+        args = make_args()
         arg_bytes = tree_bytes(args)
         tracker = PeakTracker()
         tracker.track(args)
-        counter = FlopCounterMode(display=False)
         t0 = time.perf_counter()
-        with _flash_stand_in(), CommDebugMode() as comm, counter, tracker:
+        with _flash_stand_in(), implicit_replication(), tracker.counting():
             out = step(*args)
         trace_s = time.perf_counter() - t0
         outs, ins = _storages(out), _storages(args)
         out_bytes = sum(st.nbytes() for st in outs.values())
         alias = sum(st.nbytes() for k, st in outs.items() if k in ins)
         del out, outs
-    counts = {c: 0 for c in COLLECTIVES}
-    for op, n in comm.get_comm_counts().items():
-        coll = _COLLECTIVE_OPS.get(getattr(op, "__name__", str(op)))
-        if coll is not None:
-            counts[coll] += n
     return {
-        "flops": float(counter.get_total_flops()),
+        "flops": float(tracker.flops),
         "memory_analysis": {
             "argument_size_in_bytes": arg_bytes,
             "output_size_in_bytes": out_bytes,
@@ -349,47 +442,99 @@ def trace_step(step, meta_args, device) -> dict:
         "collectives": {
             "bytes": {c: {"top": tracker.collective_bytes[c], "loop": 0}
                       for c in COLLECTIVES},
-            "counts": {c: {"top": counts[c], "loop": 0}
+            "counts": {c: {"top": tracker.collective_counts[c], "loop": 0}
                        for c in COLLECTIVES}},
         "trace_s": trace_s,
     }
 
 
-def _specs_only_bytes(mesh, shape, meta_args, dp, tp) -> int:
-    """Per-device argument bytes on a mesh shape with no devices: each
-    leaf's local shard under the JAX package's specs."""
+def arg_specs(mesh, shape, meta_args, dp, tp) -> list:
+    """The spec of each leaf of ``meta_args`` (in `_tree.leaves` order)
+    on ``mesh``, the JAX package's ``in_shardings``: params
+    `sharding.param_spec`; the AdamW moments the param specs (the path's
+    first key skipped), the step counter replicated; batch, tokens and
+    frontend rows `sharding.batch_spec`; caches `sharding.cache_leaf_spec`."""
     kind = SP.SHAPES[shape]["kind"]
 
-    def param_bytes(tree, skip=0):
-        return sum(sh.local_bytes(mesh, leaf, sh.param_spec(
-            mesh, sh._path_str(path[skip:]), tuple(leaf.shape), dp, tp)
-            if leaf.dim() > 1 else sh.P())
-            for path, leaf in _tree.leaves_with_paths(tree))
+    def params(tree, skip=0):
+        return [sh.param_spec(mesh, sh._path_str(path[skip:]),
+                              tuple(leaf.shape), dp, tp)
+                for path, leaf in _tree.leaves_with_paths(tree)]
 
-    def spec_bytes(tree, fn):
-        return sum(sh.local_bytes(mesh, leaf, fn(tuple(leaf.shape)))
-                   for leaf in _tree.leaves(tree))
+    def each(tree, fn):
+        return [fn(tuple(leaf.shape)) for leaf in _tree.leaves(tree)]
     batch = lambda s: sh.batch_spec(mesh, s, dp)
     cache = lambda s: sh.cache_leaf_spec(mesh, s, dp, tp)
-    total = param_bytes(meta_args[0])
+    specs = params(meta_args[0])
     if kind == "train":
-        # moments share the param specs; step counter replicated
-        return total + param_bytes(meta_args[1], skip=1) + \
-            spec_bytes(meta_args[2], batch)
-    total += spec_bytes(meta_args[1], batch) + spec_bytes(meta_args[2], cache)
-    if len(meta_args) > 3:
-        total += spec_bytes(meta_args[3], batch)
-    if kind == "decode":
-        total += 4      # the int32 index, replicated
-    return total
+        return specs + params(meta_args[1], skip=1) + each(meta_args[2],
+                                                           batch)
+    specs += each(meta_args[1], batch) + each(meta_args[2], cache)
+    for extra in meta_args[3:]:
+        specs += each(extra, batch)
+    return specs
+
+
+#: the decode step's int32 ``index``, replicated: an argument of the JAX
+#: package's step (the port's `decode_step` takes an int)
+INDEX_BYTES = 4
+
+
+def _specs_only_bytes(mesh, shape, meta_args, dp, tp) -> int:
+    """Per-device argument bytes on a mesh shape with no devices: each
+    leaf's local shard under `arg_specs`."""
+    specs = arg_specs(mesh, shape, meta_args, dp, tp)
+    total = sum(sh.local_bytes(mesh, leaf, spec)
+                for leaf, spec in zip(_tree.leaves(meta_args), specs))
+    return total + (INDEX_BYTES if SP.SHAPES[shape]["kind"] == "decode"
+                    else 0)
+
+
+def _traced_mesh(mesh, device_type: str):
+    """The mesh the step is traced on, of ``device_type``: the multi-pod
+    mesh (pod, data, model) with its pod and data axes flattened into one
+    data axis of pod x data ranks, in the same rank order, so that each
+    argument's local shard is the same.  XLA runs a collective over
+    ("pod", "data") as one collective of that group; DTensor would run it
+    as one per mesh axis, and plans each redistribution on a 3-D mesh by
+    a search that costs seconds per op.  Any other mesh: itself, on
+    ``device_type``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, names = tuple(mesh.shape), tuple(mesh.mesh_dim_names)
+    if mesh.ndim == 3:
+        shape, names = (shape[0] * shape[1], shape[2]), ("data", "model")
+    if shape == tuple(mesh.shape) and device_type == mesh.device_type:
+        return mesh
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def partitioned_args(mesh, shape, meta_args, dp, tp):
+    """``meta_args`` as DTensors on ``mesh`` under `arg_specs`, each an
+    uninitialised local shard on the mesh's device (called under
+    ``FakeTensorMode``: fake shards)."""
+    from torch.distributed.tensor import DTensor
+    dev = torch.device(mesh.device_type)
+
+    def shard(m, spec):
+        local = torch.empty(sh.local_shape(mesh, tuple(m.shape), spec),
+                            dtype=m.dtype, device=dev)
+        return DTensor.from_local(local, mesh, sh.placements(mesh, spec),
+                                  run_check=False, shape=m.shape,
+                                  stride=m.stride())
+    return _tree.unflatten(meta_args, [
+        shard(m, spec) for m, spec in zip(
+            _tree.leaves(meta_args), arg_specs(mesh, shape, meta_args, dp,
+                                               tp))])
 
 
 def run_cell(arch: str, shape: str, mesh, out_dir: Path,
              variant: str = "base", mapping: str | None = None) -> dict:
     """The cell's record, written to ``out_dir`` (`_write`).  ``mesh``: a
-    one-device ``DeviceMesh`` (the step traced on fake tensors on its
-    device) or a `sharding.MeshShape` of the production mesh (specs
-    only)."""
+    ``DeviceMesh``, of one device (the step traced on fake tensors on its
+    device) or the production mesh of `mesh.fake_production_mesh` (the
+    partitioned step traced on DTensors of fake shards, one device's
+    program counted), or a `sharding.MeshShape` of the production mesh
+    (specs only)."""
     cfg = cell_config(arch, variant)
     names = getattr(mesh, "mesh_dim_names", None) or mesh.names
     multi_pod = "pod" in names
@@ -425,13 +570,30 @@ def run_cell(arch: str, shape: str, mesh, out_dir: Path,
         _write(out_dir, rec)
         return rec
 
-    sh.set_mesh_axes(dp, tp, mesh)
+    # a train step past 2048 tokens reaches the flash kernel on the card,
+    # which has no backward: train cells trace on CPU fake tensors, whose
+    # chunked plain attention autograd differentiates (as the JAX package
+    # differentiates its jnp chunked attention)
+    kind = SP.SHAPES[shape]["kind"]
+    device = torch.device("cpu" if kind == "train" else mesh.device_type)
+    traced_mesh = _traced_mesh(mesh, device.type)
+    dp = mesh_axes(traced_mesh)[0]
+    if mesh.size() > 1:
+        make_args = lambda: partitioned_args(traced_mesh, shape, meta_args,
+                                             dp, tp)
+    else:
+        make_args = lambda: tuple(_tree.tree_map(
+            lambda m: torch.empty(m.shape, dtype=m.dtype, device=device), a)
+            for a in meta_args)
+    sh.set_mesh_axes(dp, tp, traced_mesh)
     try:
-        device = torch.device(mesh.device_type)
-        traced = trace_step(step, meta_args, device)
+        traced = trace_step(step, make_args)
     finally:
         sh.clear_mesh_axes()
     mem = traced["memory_analysis"]
+    if mesh.size() > 1 and kind == "decode":
+        mem["argument_size_in_bytes"] += INDEX_BYTES
+        mem["peak_bytes"] += INDEX_BYTES
     rec.update({
         "status": "ok",
         "mesh": list(tuple(mesh.shape)),
@@ -471,7 +633,7 @@ def _write(out_dir: Path, rec: dict):
 def _mesh_for(kind: str, multi_pod: bool, device: str):
     from repro_torch.launch import mesh as M
     if kind == "production":
-        return production_shape(multi_pod=multi_pod)
+        return M.fake_production_mesh(multi_pod=multi_pod, device_type=device)
     if multi_pod:
         raise SystemExit("--multi-pod needs --mesh production")
     return M.single_gpu_mesh() if device == "cuda" else M.smoke_mesh()
@@ -480,40 +642,43 @@ def _mesh_for(kind: str, multi_pod: bool, device: str):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="dry run of an (arch x shape) cell: FLOPs, memory and "
-                    "collectives of one step, nothing allocated")
-    ap.add_argument("--arch", default=None)
+                    "collectives of one device's step, nothing allocated")
+    ap.add_argument("--arch", default=None,
+                    help="the arch (with --all: only this arch's cells)")
     ap.add_argument("--shape", default=None, choices=list(SP.SHAPES) + [None])
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every (arch x shape) cell; on the production "
+                         "mesh both the single- and the multi-pod one")
     ap.add_argument("--variant", default="base", choices=list(VARIANTS))
     ap.add_argument("--mesh", default="single",
                     choices=("single", "production"),
                     help="single: the step traced on one device; "
-                         "production: the (16, 16) / (2, 16, 16) mesh's "
-                         "specs only")
+                         "production: the partitioned step on the (16, 16) "
+                         "/ (2, 16, 16) mesh of a fake process group")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="the single mesh's device")
+                    help="the mesh's device (fake tensors on it)")
     ap.add_argument("--out", default=None,
                     help="record directory (build/dryrun_torch/<mesh>)")
     ap.add_argument("--mapping", default=None,
                     help="mapping artifact JSON: report the per-layer "
                          "kernel selection the runtime would execute")
     args = ap.parse_args(argv)
-    if args.mesh == "single" and args.device == "cuda" and \
-            not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("[dryrun] ERROR: no CUDA device (pass --device cpu for the "
-              "CPU's single mesh)", file=sys.stderr)
+              "CPU's mesh)", file=sys.stderr)
         sys.exit(2)
     out = Path(args.out or f"build/dryrun_torch/{args.mesh}")
 
     cfgbase.load_all()
     if args.all:
-        for arch in cfgbase.names():
-            for shape in SP.SHAPES:
-                for mp in ((False, True) if args.mesh == "production"
-                           else (False,)):
-                    run_cell(arch, shape,
-                             _mesh_for(args.mesh, mp, args.device), out)
+        archs = [args.arch] if args.arch else cfgbase.names()
+        for mp in ((False, True) if args.mesh == "production"
+                   else (False,)):
+            mesh = _mesh_for(args.mesh, mp, args.device)
+            for arch in archs:
+                for shape in SP.SHAPES:
+                    run_cell(arch, shape, mesh, out)
         return
     if not args.arch or not args.shape:
         ap.error("--arch and --shape (or --all) are needed")

@@ -6,9 +6,12 @@ inside the functions, and only when none is running.  The one-device
 meshes start a world-size-1 group from an in-process store; the
 production mesh needs a group of 256 (512) ranks started by the caller
 (e.g. ``torchrun``, one rank per card), and raises otherwise.
-`production_shape` gives the production mesh's axes and sizes without
-devices (`repro_torch.distributed.sharding.MeshShape`), which the spec
-functions read.
+`fake_production_mesh` builds the production mesh on one process over a
+``"fake"`` process group of 256 (512) ranks, whose collectives move
+nothing: the dry run's partitioned step traces one device's program on
+it.  `production_shape` gives the production mesh's axes and sizes
+without devices (`repro_torch.distributed.sharding.MeshShape`), which the
+spec functions read.
 """
 from __future__ import annotations
 
@@ -54,6 +57,39 @@ def make_production_mesh(*, multi_pod: bool = False):
             f"rank per card (e.g. torchrun --nproc-per-node ... with "
             f"WORLD_SIZE={need}) before building it")
     return init_device_mesh("cuda", ms.sizes, mesh_dim_names=ms.names)
+
+
+def fake_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh (`production_shape`) on this one process:
+    rank 0 of a ``"fake"`` default process group of 256 (512) ranks
+    (``torch.testing._internal.distributed.fake_pg``), whose collectives
+    run no communication.  DTensors on it hold one device's shards, for
+    the dry run's partitioned trace (on fake tensors).  A fake group
+    already running is reused, or replaced by one of the other size; a
+    group of another backend refuses: the production dry run then needs a
+    process of its own (as the JAX package's dry run does, whose device
+    count is fixed when JAX starts)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    ms = production_shape(multi_pod=multi_pod)
+    need = math.prod(ms.sizes)
+    if dist.is_initialized():
+        backend = dist.get_backend()
+        if backend != "fake":
+            raise RuntimeError(
+                f"fake_production_mesh: a {backend} process group of "
+                f"{dist.get_world_size()} ranks is running; run the "
+                f"production dry run in a process of its own (python -m "
+                f"repro_torch.launch.dryrun --mesh production)")
+        if dist.get_world_size() == need:
+            return init_device_mesh(device_type, ms.sizes,
+                                    mesh_dim_names=ms.names)
+        dist.destroy_process_group()        # the other pod count's
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=need)
+    return init_device_mesh(device_type, ms.sizes, mesh_dim_names=ms.names)
 
 
 def mesh_axes(mesh) -> tuple:

@@ -20,6 +20,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import (attention_shards, constrain,
+                                              merged, splittable,
+                                              write_slice)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                 flash_attention_plain)
 from repro_torch.models import _backend
@@ -168,31 +171,37 @@ def chunked_attention(q, k, v, *, causal=True, window=None,
     matmul backend asks for its plain versions (``reference=True``), runs
     `attention_plain`.  The kernel has no backward pass: its wrapper
     raises under autograd.  A per-slot ``kv_len`` has no kernel yet and
-    raises NotImplementedError there."""
-    B, Sq, KVH, G, hd = q.shape
-    Sk = k.shape[1]
+    raises NotImplementedError there.  On DTensors it runs on each
+    device's batch and KV-head shards (`sharding.attention_shards`)."""
+    Sq, Sk = q.shape[1], k.shape[1]
     qc, kc = min(q_chunk, Sq), min(k_chunk, Sk)
     if Sq % qc or Sk % kc:
         raise ValueError(f"chunked_attention: Sq={Sq} is not a multiple of "
                          f"{qc} or Sk={Sk} of {kc}")
     if q.device.type == "cpu":
-        return chunked_attention_plain(q, k, v, causal=causal, window=window,
-                                       q_chunk=qc, k_chunk=kc, kv_len=kv_len)
+        return attention_shards(
+            lambda q, k, v: chunked_attention_plain(
+                q, k, v, causal=causal, window=window, q_chunk=qc,
+                k_chunk=kc, kv_len=kv_len), q, k, v)
     if isinstance(kv_len, torch.Tensor):
         raise NotImplementedError(
-            "chunked_attention on the card: a per-slot kv_len waits for a "
-            "later slice of the port")
+            "chunked_attention on the card: the flash kernel takes one "
+            "kv_len for the batch, not a per-slot one")
     if getattr(_backend.current(), "reference", False):
         return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                window=window)
-    H = KVH * G
-    out = torch.empty((B, Sq, KVH, G, v.shape[-1]), dtype=q.dtype,
-                      device=q.device)
-    flash_attention(q.reshape(B, Sq, H, hd).transpose(1, 2),
-                    k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                    kv_len=kv_len, window=window,
-                    out=out.view(B, Sq, H, -1).transpose(1, 2))
-    return out
+
+    def flash(q, k, v):
+        B, Sq, KVH, G, hd = q.shape
+        H = KVH * G
+        out = torch.empty((B, Sq, KVH, G, v.shape[-1]), dtype=q.dtype,
+                          device=q.device)
+        flash_attention(q.reshape(B, Sq, H, hd).transpose(1, 2),
+                        k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                        kv_len=kv_len, window=window,
+                        out=out.view(B, Sq, H, -1).transpose(1, 2))
+        return out
+    return attention_shards(flash, q, k, v)
 
 
 def cache_update(buf, val, index):
@@ -206,7 +215,7 @@ def cache_update(buf, val, index):
         rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
         buf[rows, pos] = val
     else:
-        buf[:, index:index + S] = val
+        write_slice(buf, 1, index, val)
     return buf
 
 
@@ -289,10 +298,14 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
     B, S, D = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KVH
-    q = L.dense(p["wq"], x, _j(name, "wq")).reshape(B, S, H, hd)
+    # `splittable`: on DTensors, the heads split where the shards allow
+    q = splittable(L.dense(p["wq"], x, _j(name, "wq")), H).reshape(
+        B, S, H, hd)
     if kv_override is None:
-        k = L.dense(p["wk"], x, _j(name, "wk")).reshape(B, S, KVH, hd)
-        v = L.dense(p["wv"], x, _j(name, "wv")).reshape(B, S, KVH, hd)
+        k = splittable(L.dense(p["wk"], x, _j(name, "wk")), KVH).reshape(
+            B, S, KVH, hd)
+        v = splittable(L.dense(p["wv"], x, _j(name, "wv")), KVH).reshape(
+            B, S, KVH, hd)
         if cfg.rotary:
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
@@ -324,16 +337,19 @@ def gqa(p, x, positions, cfg: AttnConfig, *, cache=None, cache_index=None,
             v = view(upd(cache["v"], v))
         kv_len = cache_index + S
 
-    qg = q.reshape(B, S, KVH, G, hd)
+    qg = splittable(q, KVH, dim=2).reshape(B, S, KVH, G, hd)
     if chunked and S > 1:
         out = chunked_attention(qg, k, v, causal=cfg.causal,
                                 window=cfg.sliding_window, kv_len=kv_len)
     else:
         q_pos0 = cache_index if cache is not None else 0
-        out = full_attention(qg, k, v, causal=cfg.causal,
-                             window=cfg.sliding_window, q_pos0=q_pos0,
-                             kv_len=kv_len)
-    out = out.reshape(B, S, H * hd)
+        # on DTensors, on each device's batch and head shards: the scores'
+        # einsum would flatten a sequence-sharded cache
+        out = attention_shards(
+            lambda q, k, v: full_attention(
+                q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                q_pos0=q_pos0, kv_len=kv_len), qg, k, v)
+    out = merged(out, (B, S, H * hd), KVH)
     y = L.dense(p["wo"], out, _j(name, "wo"))
     if pages is not None:
         # a planned wo quantizes ``out`` to int8, which maps NaN (read from
@@ -388,7 +404,7 @@ def _absorbed(p, q_nope, q_rope, latent, k_rope, kv_len, cfg: MLAConfig,
         w_flat = kvb["w_q"].to(dtype) * kvb["w_s"].to(dtype)[..., None, :]
     else:
         w_flat = kvb["w"]
-    w_kvb = w_flat.reshape(r, H, nd + vd)
+    w_kvb = splittable(w_flat, H).reshape(r, H, nd + vd)
     w_uk, w_uv = w_kvb[..., :nd], w_kvb[..., nd:]
     q_abs = L.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
     f32 = torch.float32
@@ -402,7 +418,7 @@ def _absorbed(p, q_nope, q_rope, latent, k_rope, kv_len, cfg: MLAConfig,
     pw = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
     o_lat = torch.einsum("bhqs,bsr->bqhr", pw, latent.to(f32))
     out = L.einsum("bqhr,rhv->bqhv", o_lat.to(dtype), w_uv)
-    return out.reshape(B, S, H * vd)
+    return merged(out, (B, S, H * vd), H)
 
 
 def mla(p, x, positions, cfg: MLAConfig, *, cache=None, cache_index=None,
@@ -421,7 +437,8 @@ def mla(p, x, positions, cfg: MLAConfig, *, cache=None, cache_index=None,
     B, S, D = x.shape
     H, r = cfg.n_heads, cfg.kv_lora_rank
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = L.dense(p["wq"], x, _j(name, "wq")).reshape(B, S, H, nd + rd)
+    q = splittable(L.dense(p["wq"], x, _j(name, "wq")), H).reshape(
+        B, S, H, nd + rd)
     q_nope = q[..., :nd]
     q_rope = L.rope(q[..., nd:], positions, cfg.rope_theta)
     kv = L.dense(p["kv_a"], x, _j(name, "kv_a"))
@@ -449,8 +466,11 @@ def mla(p, x, positions, cfg: MLAConfig, *, cache=None, cache_index=None,
                         x.dtype)
     else:
         Sk = latent.shape[1]
-        kvb = L.dense(p["kv_b"], latent,
-                      _j(name, "kv_b")).reshape(B, Sk, H, nd + vd)
+        # a cached latent comes sharded as the cache is (on its sequence
+        # for a DTensor); the expansion needs its rows whole
+        latent = constrain(latent, "act")
+        kvb = splittable(L.dense(p["kv_b"], latent, _j(name, "kv_b")),
+                         H).reshape(B, Sk, H, nd + vd)
         k_nope, v = kvb[..., :nd], kvb[..., nd:]
         k = torch.cat([k_nope, k_rope[:, :, None, :].to(k_nope.dtype)
                        .expand(B, Sk, H, rd)], dim=-1)
@@ -461,7 +481,7 @@ def mla(p, x, positions, cfg: MLAConfig, *, cache=None, cache_index=None,
             q_pos0 = cache_index if cache is not None else 0
             out = full_attention(qg, k, v, causal=True, q_pos0=q_pos0,
                                  kv_len=kv_len)
-        out = out.reshape(B, S, H * vd)
+        out = merged(out, (B, S, H * vd), H)
     y = L.dense(p["wo"], out, _j(name, "wo"))
     if pages is not None:
         # as in `gqa`: a row read from a non-finite page stays non-finite

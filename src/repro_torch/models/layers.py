@@ -6,19 +6,45 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (contiguous, is_dtensor,
+                                              replicated, settled)
 from repro_torch.models import _backend
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with JAX's type promotion (mixed bf16/f32 -> f32)."""
+def _operands(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in their promoted dtype (JAX's promotion: mixed
+    bf16/f32 -> f32).  DTensor operands are made contiguous too: the
+    reshapes inside a matmul or an einsum take the view DTensor plans
+    from the global strides, which a local shard left strided by a
+    redistribution may not allow."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    a, b = a.to(dt), b.to(dt)
+    if is_dtensor(a) or is_dtensor(b):
+        a, b = contiguous(a), contiguous(b)
+    return a, b
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's type promotion (`_operands`)."""
+    a, b = _operands(a, b)
+    return a @ b
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` with JAX's type promotion of the two operands."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    """``torch.einsum`` with JAX's type promotion (`_operands`)."""
+    return torch.einsum(eq, *_operands(a, b))
+
+
+def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows ``emb[tokens]``; on a DTensor table through
+    ``F.embedding``, whose DTensor strategy and backward are those of a
+    vocab-parallel embedding (indexing's backward, an ``index_put``, has
+    none that every DTensor version places)."""
+    if is_dtensor(emb):
+        # tokens whole on every device: the vocab-parallel output's mask
+        # is of the tokens' local shape
+        return F.embedding(replicated(tokens), emb)
+    return emb[tokens]
 
 
 def init_dense(gen: torch.Generator, d_in, d_out, dtype=torch.bfloat16,
@@ -57,7 +83,7 @@ def dense(p, x, name=None):
         y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
-    return y
+    return settled(y)
 
 
 def init_norm(d, dtype=torch.bfloat16, repeats=None, device=None,

@@ -21,7 +21,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (constrain, elementwise, merged,
+                                              per_batch_shard, splittable)
 from repro_torch.models import layers as L
 from repro_torch.models._backend import join as _j
 
@@ -148,6 +149,18 @@ def _ssd_chunked(xs, Bt, Ct, dt, la, h0, chunk=None):
     return h, torch.cat(ys, dim=1)[:, :S]
 
 
+def _on_batch_shards(scan, inputs, state):
+    """``scan(*inputs, state) -> (new state, outputs)`` on each device's
+    batch shard (`sharding.per_batch_shard`: a chunk loop of plain ops
+    rather than of DTensor ops); every input and state tensor has the
+    batch first."""
+    def run(batched, _):
+        new, out = scan(*batched[:len(inputs)], tuple(batched[len(inputs):]))
+        return (*((new,) if isinstance(new, torch.Tensor) else new), out)
+    *new, out = per_batch_shard(run, tuple(inputs) + tuple(state))
+    return tuple(new), out
+
+
 def _ssd_step(xs, Bt, Ct, dt, la, h0):
     """One step of the SSM recurrence (S = 1), shapes as `_ssd_chunked`'s:
     h' = exp(la) h0 + dt B x, y = C . h', summed in h0's dtype.  Returns
@@ -194,11 +207,15 @@ def mamba2(p, x, cfg: Mamba2Config, state=None, name=None,
 
     la = dt * A                                               # <= 0
     if S > 1:
-        hT, y = _ssd_chunked(xs, Bt, Ct, dt, la, h0)
+        (hT,), y = _on_batch_shards(
+            lambda *a: _ssd_chunked(*a[:5], *a[5]), (xs, Bt, Ct, dt, la),
+            (h0,))
     else:
-        hT, y = _ssd_step(xs, Bt, Ct, dt, la, h0)
+        (hT,), y = _on_batch_shards(
+            lambda *a: _ssd_step(*a[:5], *a[5]), (xs, Bt, Ct, dt, la),
+            (h0,))
     y = y + p["D"][None, None, :, None] * xs.to(f32)
-    y = y.reshape(B, S, di).to(x.dtype) * F.silu(z)
+    y = merged(y, (B, S, di), H).to(x.dtype) * F.silu(z)
     y = L.norm(p["norm"], y)
     out = L.dense(p["out_proj"], y, _j(name, "out_proj"))
     return out, {"ssm": hT, "conv": new_conv}
@@ -335,7 +352,7 @@ def _mlstm_step(q, k, v, ig, fg, state):
     C, n, m = state
     f32 = C.dtype
     i_t, f_t = ig[:, 0], fg[:, 0]
-    logf = F.logsigmoid(f_t)
+    logf = elementwise(F.logsigmoid, f_t)
     m_new = torch.maximum(logf + m, i_t)
     fs = torch.exp(logf + m - m_new)
     is_ = torch.exp(i_t - m_new)
@@ -369,7 +386,7 @@ def mlstm(p, x, cfg: XLSTMConfig, state=None, name=None, length_mask=None):
     uc, new_conv = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state,
                                 lengths=lengths)
     uc = constrain(F.silu(uc), "act")
-    uh = uc.reshape(B, S, H, hd)
+    uh = splittable(uc, H).reshape(B, S, H, hd)
     q = constrain(L.einsum("bshd,hdk->bshk", uh, p["wq_bd"]), "act")
     k = constrain(L.einsum("bshd,hdk->bshk", uh, p["wk_bd"]), "act") * \
         hd ** -0.5
@@ -387,10 +404,11 @@ def mlstm(p, x, cfg: XLSTMConfig, state=None, name=None, length_mask=None):
     else:
         carry = (state["C"], state["n"], state["m"])
     if S > 1:
-        (CT, nT, mT), hs = _mlstm_chunked(q, k, v, ig, fg, carry)
+        (CT, nT, mT), hs = _on_batch_shards(_mlstm_chunked,
+                                            (q, k, v, ig, fg), carry)
     else:
         (CT, nT, mT), hs = _mlstm_step(q, k, v, ig, fg, carry)
-    h = hs.reshape(B, S, di).to(x.dtype)
+    h = merged(hs, (B, S, di), H).to(x.dtype)
     h = L.norm(p["norm"], h) * F.silu(z)
     out = L.dense(p["down"], h, _j(name, "down"))
     return out, {"C": CT, "n": nT, "m": mT, "conv": new_conv}
@@ -436,16 +454,33 @@ def slstm(p, x, cfg: XLSTMConfig, state=None, name=None, length_mask=None):
     B, S, _ = x.shape
     di, H, hd = cfg.d_inner, cfg.n_heads, cfg.head_dim
     f32 = torch.float32
-    pre = L.dense(p["w_in"], x, _j(name, "w_in")).reshape(B, S, H, 4 * hd)
+    pre = splittable(L.dense(p["w_in"], x, _j(name, "w_in")), H).reshape(
+        B, S, H, 4 * hd)
     if state is None:
         z = lambda *s: torch.zeros(s, dtype=f32, device=x.device)
         c, n, h, m = z(B, H, hd), z(B, H, hd), z(B, H, hd), z(B, H)
     else:
         c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-    r = p["r"].to(f32)
+    mask = () if length_mask is None else (length_mask,)
+    # the scan runs on each batch shard's plain tensors (`per_batch_shard`)
+    ys, c, n, h, m = per_batch_shard(_slstm_scan, (pre, c, n, h, m) + mask,
+                                     (p["r"].to(f32),))
+    y = merged(ys, (B, S, di), H).to(x.dtype)
+    out = L.dense(p["down"], L.norm(p["norm"], y), _j(name, "down"))
+    return out, {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm_scan(batched, shared):
+    """`slstm`'s recurrence, one step at a time: ``batched`` (pre (B, S,
+    H, 4 hd), c, n, h, m[, length_mask]), ``shared`` (r,); returns (the
+    outputs (B, S, H, hd), c, n, h, m)."""
+    pre, c, n, h, m, *mask = batched
+    (r,) = shared
+    length_mask = mask[0] if mask else None
+    hd = pre.shape[-1] // 4
     hs = []
-    for t in range(S):
-        g = pre[:, t].to(f32) + torch.einsum("bhk,hkj->bhj", h, r)
+    for t in range(pre.shape[1]):
+        g = pre[:, t].to(r.dtype) + torch.einsum("bhk,hkj->bhj", h, r)
         i_t, f_t, z_t, o_t = torch.split(g, hd, dim=-1)
         i_t, f_t = i_t.mean(-1), f_t.mean(-1)       # scalar gates per head
         logf = F.logsigmoid(f_t)
@@ -464,9 +499,7 @@ def slstm(p, x, cfg: XLSTMConfig, state=None, name=None, length_mask=None):
             n = torch.where(live[:, None, None], n_new, n)
             h = torch.where(live[:, None, None], h_new, h)
             m = torch.where(live[:, None], m_new, m)
-    y = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype)
-    out = L.dense(p["down"], L.norm(p["norm"], y), _j(name, "down"))
-    return out, {"c": c, "n": n, "h": h, "m": m}
+    return (torch.stack(hs, dim=1), c, n, h, m)
 
 
 def slstm_init_state(B, cfg: XLSTMConfig, device="cuda"):

@@ -96,7 +96,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (constrain, settled,
+                                              splittable)
 from repro_torch.models import _backend
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -106,29 +107,26 @@ from repro_torch.models import ssm as S
 _j = _backend.join
 
 
-#: the block patterns the port serves: attention blocks (dense, or with a
-#: MoE FFN), zamba2's hybrid (five Mamba2 blocks, then the shared
-#: attention block), xlstm's (seven mLSTM blocks, then one sLSTM block),
-#: deepseek's MLA + MoE blocks, llama-vision's (a gated cross-attention
-#: block fourth of five) and seamless's encoder-decoder blocks
-SUPPORTED_PATTERNS = (("attn",), ("mamba",) * 5 + ("shared_attn",),
-                      ("mlstm",) * 7 + ("slstm",), ("mla",),
-                      ("attn", "attn", "attn", "cross", "attn"), ("dec",))
+#: the block kinds a pattern is made of, each built and run on its own
+#: (the JAX package's `init_block` / `block_apply`): attention blocks
+#: (dense, or with a MoE FFN), MLA + MoE, gated cross-attention,
+#: encoder-decoder, Mamba2, mLSTM, sLSTM and zamba2's shared attention
+BLOCK_KINDS = ("attn", "mla", "cross", "dec", "mamba", "mlstm", "slstm",
+               "shared_attn")
 
 
 def _check_supported(cfg: ArchConfig):
-    mla = cfg.pattern == ("mla",)
-    why = None
-    if cfg.pattern not in SUPPORTED_PATTERNS:
-        why = f"the pattern {cfg.pattern} waits for later slices"
-    elif mla != (cfg.mla is not None) or (mla and cfg.moe is None):
-        why = "MLA without MoE blocks waits for later slices"
-    if why:
+    """Refuse what the JAX package refuses: a block kind it does not know,
+    and an ``mla`` block without ``cfg.moe`` (its MoE FFN reads it)."""
+    unknown = [k for k in cfg.pattern if k not in BLOCK_KINDS]
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kind(s) {unknown}; "
+                         f"a pattern is made of {BLOCK_KINDS}")
+    if "mla" in cfg.pattern and cfg.moe is None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention blocks (dense or MoE), "
-            f"zamba2's hybrid pattern, xLSTM's mLSTM / sLSTM pattern, "
-            f"deepseek's ('mla',) MoE blocks, llama-vision's cross blocks "
-            f"and seamless's ('dec',) blocks; {why}")
+            f"{cfg.name}: MLA without MoE blocks: an mla block holds a MoE "
+            f"FFN (past its first dense layer), which needs cfg.moe, as "
+            f"in the JAX package")
 
 
 def _attn_cfg(cfg: ArchConfig, causal=True, cross=False) -> A.AttnConfig:
@@ -380,7 +378,7 @@ def block_apply(p, x, kind, cfg: ArchConfig, positions, *, cache=None,
                     length_mask=length_mask)
         if cache is not None:
             for leaf, new in ns.items():
-                cache[leaf].copy_(new)
+                cache[leaf].copy_(settled(new))
         return x + mo, cache, 0.0
     if kind == "shared_attn":
         p, attn_name, ffn_name = shared, "shared/attn", "shared/ffn"
@@ -455,7 +453,8 @@ def _frontend_kv(p_attn, cross_source, cfg: ArchConfig, name=None):
     KVH, hd = cfg.n_kv_heads, cfg.hd
     k = L.dense(p_attn["wk"], cross_source, _j(name, "wk"))
     v = L.dense(p_attn["wv"], cross_source, _j(name, "wv"))
-    return k.reshape(B, T, KVH, hd), v.reshape(B, T, KVH, hd)
+    return (splittable(k, KVH).reshape(B, T, KVH, hd),
+            splittable(v, KVH).reshape(B, T, KVH, hd))
 
 
 def encode(params, cfg: ArchConfig, frames):
@@ -496,6 +495,9 @@ def backbone(params, cfg: ArchConfig, x, positions, *, caches=None,
     recomputed in the backward pass instead of keeping their activations
     (``torch.utils.checkpoint``; the JAX package's ``jax.checkpoint`` of
     its scan body)."""
+    # the embedding gather leaves DTensor rows sharded as the table's
+    # columns: lay them out as every repeat's output is
+    x = constrain(x, "act")
     units, shared = params["units"], params.get("shared")
     unit_caches = caches["units"] if caches is not None else None
     repeats = units[0]["norm1"]["scale"].shape[0]
@@ -805,7 +807,7 @@ def prefill(params, cfg: ArchConfig, tokens, caches, lengths=None,
     through `encode` first)."""
     with _backend.plan_variant(variant):
         B, Sq = tokens.shape
-        x = params["emb"][tokens]
+        x = L.embed(params["emb"], tokens)
         steps = torch.arange(Sq, device=tokens.device)[None, :]
         length_mask = None
         if lengths is not None:
@@ -855,7 +857,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, caches, index, valid,
     with _backend.plan_variant(variant):
         B, C = tokens.shape
         dev = tokens.device
-        x = params["emb"][tokens]
+        x = L.embed(params["emb"], tokens)
         steps = torch.arange(C, device=dev)[None, :]
         positions = index[:, None] + steps
         length_mask = steps < valid[:, None]
@@ -884,7 +886,7 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, active=None,
     The cross-attention memory is read from the caches (written at
     prefill), never from a frontend."""
     with _backend.plan_variant(variant):
-        x = params["emb"][token][:, None, :]
+        x = L.embed(params["emb"], token)[:, None, :]
         B = x.shape[0]
         if isinstance(index, torch.Tensor) and index.dim() == 1:
             positions = index[:, None]
@@ -939,7 +941,7 @@ def lm_loss(params, cfg: ArchConfig, batch, remat=False):
             f"has no backward pass yet (a flash backward kernel is new "
             f"work: the JAX package differentiates its jnp chunked "
             f"attention and has no Pallas backward)")
-    x = params["emb"][tokens]
+    x = L.embed(params["emb"], tokens)
     positions = torch.arange(Sq, device=tokens.device)[None, :]
     cross_source = None
     if cfg.frontend == "vision":

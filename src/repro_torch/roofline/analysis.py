@@ -341,17 +341,47 @@ def markdown_table(rooflines, records_by_key=None) -> str:
     return "\n".join(lines)
 
 
+def records_table(recs) -> str:
+    """One row per dry-run record: its status, trace s, and per device
+    FLOPs, temp GiB and collective GiB, with the roofline's dominant
+    term (a skipped cell: its reason)."""
+    lines = ["| arch | shape | mesh | status | trace s | FLOPs / device | "
+             "temp GiB / device | collective GiB / device | dominant |",
+             "|---|---|---|---|---|---|---|---|---|"]
+    for rec in recs:
+        mesh = "x".join(map(str, rec.get("mesh") or
+                            ([2, 16, 16] if rec["multi_pod"] else [16, 16])))
+        if rec.get("status") != "ok":
+            lines.append(f"| {rec['arch']} | {rec['shape']} | {mesh} | "
+                         f"{rec['status']} | — | — | — | — | "
+                         f"{rec.get('reason', '')[:50]} |")
+            continue
+        mem = rec["memory_analysis"]
+        lines.append(
+            f"| {rec['arch']} | {rec['shape']} | {mesh} | ok | "
+            f"{rec['trace_s']:.1f} | {rec['cost_analysis']['flops']:.4e} | "
+            f"{mem['temp_size_in_bytes'] / 2**30:.3f} | "
+            f"{collective_bytes_from_record(rec) / 2**30:.3f} | "
+            f"{analyze_cell(rec).dominant} |")
+    return "\n".join(lines)
+
+
 def main(argv=None):
     """``python -m repro_torch.roofline.analysis [--dryrun-dir D] [--tag
-    T]``: the table of the dry-run records in D (the single mesh's,
-    ``build/dryrun_torch/single``, by default) at the H100 constants."""
+    T] [--records]``: the table of the dry-run records in D (the single
+    mesh's, ``build/dryrun_torch/single``, by default) at the H100
+    constants; ``--records`` the records' own table (`records_table`)."""
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--dryrun-dir", default="build/dryrun_torch/single")
     ap.add_argument("--tag", default="sp")
+    ap.add_argument("--records", action="store_true")
     args = ap.parse_args(argv)
     from repro_torch.configs import base as cfgbase
     cfgbase.load_all()
+    if args.records:
+        print(records_table(load_records(args.dryrun_dir, args.tag)))
+        return
     out = []
     for rec in load_records(args.dryrun_dir, args.tag):
         if rec.get("status") != "ok":

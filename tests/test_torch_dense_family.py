@@ -175,10 +175,13 @@ def test_init_check_refuses_only_the_families_still_missing():
                  dict(tie_embeddings=True), dict(sliding_window=8)):
         T.init_lm(torch.Generator().manual_seed(0),
                   dataclasses.replace(cfg, **over))
-    for over in (dict(pattern=("mlstm", "slstm")),):
-        with pytest.raises(NotImplementedError, match="later slices"):
-            T.init_lm(torch.Generator().manual_seed(0),
-                      dataclasses.replace(cfg, **over))
+    # every pattern of known block kinds runs (tests/test_torch_patterns.py
+    # holds two against JAX); only a kind JAX does not know is refused
+    T.init_lm(torch.Generator().manual_seed(0),
+              dataclasses.replace(cfg, pattern=("mlstm", "slstm")))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        T.init_lm(torch.Generator().manual_seed(0),
+                  dataclasses.replace(cfg, pattern=("attn", "ffn")))
 
 
 # --- logits ----------------------------------------------------------------
