@@ -13,9 +13,8 @@ mkdir -p "$O/logs"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 python -c 'import torch; print(torch.__version__)'
 S0=$(date +%s)
-for a in arctic-480b command-r-35b deepseek-v2-lite-16b h2o-danube-3-4b \
-        llama-3.2-vision-11b nemotron-4-15b seamless-m4t-large-v2 yi-9b \
-        zamba2-1.2b; do
+for a in $(python -m repro_torch.launch.dryrun --list-archs \
+           | grep -vx xlstm-1.3b); do
   (s=$(date +%s)
    timeout 3200 python -m repro_torch.launch.dryrun --all --mesh production \
        --arch $a --out "$O" > "$O/logs/$a.txt" 2>&1

@@ -374,19 +374,23 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    build/chip_smoke/resnet20_searched.json --require-full-coverage`` must
    exit 0.
 12. the rest of the dense family, each model freed before the next:
-     danube     h2o-danube-3-4b at full width and depth (24 layers, head
-                dim 120, window 4096, 3.96 B random bf16 params from
-                --seed, int8 KV), emitted on diana at ``max_cout=10240``
-                (every projection but the head mixed: `DANUBE_HIST` = 168
-                split_ternary + 1 quant_matmul per forward); legs fixed
+     danube     h2o-danube-3-4b at full width (24 layers, head dim
+                120, window 4096, 3.96 B random bf16 params from --seed,
+                int8 KV), emitted on diana at ``max_cout=10240`` (every
+                projection but the head mixed: `DANUBE_HIST` = 168
+                split_ternary + 1 quant_matmul per forward); the legs but
+                the long one at its first `DANUBE_LAYERS` (6) layers
+                (`cut_depth`: `DANUBE_CUT_HIST` = 42 split_ternary + 1);
+                legs fixed
                 (serve_batch 4 x 128 + 16: launches = 19 x the histogram,
                 the first forward's calls checked as made, tokens and
                 prefill logits identical to the plain run's),
                 engine_paged_mixed (prefix cache on; `DANUBE_MIXED`:
                 engine_mixed's trace cut to 4 requests, against its plain
                 run by the margin rule), and long (`DANUBE_LONG`: 1 x 8192
-                + 8 in a 9216-slot cache, one dense prefill at M 8192: 24
-                flash calls at D 120 with the window, each within the bound
+                + 8 in a 9216-slot cache at all 24 layers, one dense
+                prefill at M 8192: 24 flash calls at D 120 with the
+                window, each within the bound
                 on its own inputs; the prefill logits within
                 SENSITIVITY_FACTOR x the float64-attention plain run's
                 distance, tokens by the margin rule; the window's controls,
@@ -533,18 +537,22 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
    row's digital + AIMC utilization is at least 1 (the domains run in
    parallel).
 21. partitioned: the dry run's partitioned step on the production mesh
-   (`phase_partitioned`): ``python -m repro_torch.launch.dryrun --mesh
-   production --device cuda`` in subprocesses of its own, all started
-   together (its fake process group of 256 / 512 ranks never meets phase
-   19's NCCL group), for `PART_CELLS`: yi-9b x decode_32k on the (16, 16)
-   and (2, 16, 16) meshes, deepseek-v2-lite-16b x prefill_32k (MoE, the
-   flash stand-in at D 192 / Dv 128) and zamba2-1.2b x long_500k.  Each
-   record is ``status`` "ok" over 256 / 512 devices with per-device
-   FLOPs, temp, peak and collectives; its argument bytes equal the
-   specs-only record's (`run_cell` on the mesh shape); zamba2's per-device
+   (`start_partitioned`, `phase_partitioned`): ``python -m
+   repro_torch.launch.dryrun --mesh production --device cuda`` in
+   subprocesses of its own, all started together before phase 19 and read
+   after phase 20 (host work on fake tensors, which runs beside those
+   phases for the script's time limit; its fake process group of 256 /
+   512 ranks never meets phase 19's NCCL group), for `PART_CELLS`: yi-9b x
+   decode_32k on the (16, 16) and (2, 16, 16) meshes,
+   deepseek-v2-lite-16b x prefill_32k (MoE, the flash stand-in at D 192 /
+   Dv 128) and zamba2-1.2b x long_500k.  Each record is ``status`` "ok"
+   over 256 / 512 devices with per-device FLOPs, temp, peak and
+   collectives; its argument bytes (each shard of the shape DTensor
+   computes for the rank) equal the specs-only record's (`run_cell` on the
+   mesh shape: `sharding.local_shape` of the specs); zamba2's per-device
    FLOPs are below its phase-19 (1, 1) record's and at least that over
    the device count; then the roofline table of the records with their
-   collective term.
+   collective term (one device's bytes over the link rate).
 22. one JSON line of kernel records, the nvidia-smi line, and the contract
    line ``{"ok": true, "device": {...}}`` last.
 """
@@ -809,6 +817,11 @@ DANUBE_RAW = {(3840, 3840): 60, (3840, 960): 15, (3840, 10240): 150,
               (10240, 3840): 60}
 DANUBE_HEAD = (3840, 32000)
 DANUBE_HIST = {"quant_matmul": 1, "split_ternary": 168}
+#: the fixed and engine legs at this many of the 24 layers (`cut_depth`;
+#: the script's time limit: at full depth they took 53 s of the phase's
+#: 79.5 in a call of 1140.2 s of 1200), the long leg at all 24
+DANUBE_LAYERS = 6
+DANUBE_CUT_HIST = {"quant_matmul": 1, "split_ternary": 7 * DANUBE_LAYERS}
 #: split_ternary / quant_matmul checked at these M: decode, a paged chunk
 #: (4 x 32) and the fixed batch's 512
 DANUBE_MS = (DECODE_M, REQUESTS * CHUNK, PREFILL_M)
@@ -5053,11 +5066,14 @@ def plan_dense(torch, tag, cfg, params, max_cout, hist, raws, names=None):
 
 
 def phase_danube(torch, seed, smi, device="cuda"):
-    """h2o-danube-3-4b at full width and depth (module docstring, phase
-    12): legs fixed, engine_paged_mixed, engine_mixed and long; returns
+    """h2o-danube-3-4b at full width (module docstring, phase 12): legs
+    fixed and engine_paged_mixed at `DANUBE_LAYERS` layers, long at full
+    depth; returns
     {leg: record}.  ``device`` "cpu" serves a rehearsal, with the config
     reduced and the CUDA-only calls stubbed by the caller."""
     from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.serve import (check_coverage, kv_cache_for,
+                                          plan_mapping_execution)
     from repro_torch.models import transformer as T
     t_phase = time.perf_counter()
 
@@ -5074,18 +5090,37 @@ def phase_danube(torch, seed, smi, device="cuda"):
           f"{cfg.d_ff}, vocab {cfg.vocab}; params "
           f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B ({smi})")
     hist = DANUBE_HIST
-    _, plan, backend, kcfg = plan_dense(torch, "danube", cfg, params,
-                                        DANUBE_MAX_COUT, hist, DANUBE_RAW)
+    art, plan, backend, kcfg = plan_dense(torch, "danube", cfg, params,
+                                          DANUBE_MAX_COUT, hist, DANUBE_RAW)
+    # the fixed and engine legs at the first DANUBE_LAYERS layers
+    ccfg, cparams, cart = cut_depth(cfg, params, art, DANUBE_LAYERS)
+    chist = DANUBE_CUT_HIST
+    cplan, cbackend = plan_mapping_execution(cparams, cart)
+    check_coverage("danube", cbackend, require_full=True)
+    if cplan.kernel_histogram() != chist:
+        raise AssertionError(f"danube at {ccfg.n_layers} layers: kernel "
+                             f"histogram {cplan.kernel_histogram()}, "
+                             f"expected {chist}")
+    ckcfg = kv_cache_for(ccfg, cart)
+    print(f"[danube] legs fixed and engine_paged_mixed at {ccfg.n_layers} "
+          f"of {cfg.n_layers} layers (views of the stacked repeats): "
+          f"{cbackend.coverage()}, {sum(chist.values())} launches per "
+          f"forward {chist}; the long leg at all {cfg.n_layers}")
     prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
                             generator=gen, device=dev)
-    out = {"fixed": fixed_batch(torch, "danube:fixed", kcfg, params, backend,
-                                hist, prompts, dict(hist))}
+    out = {"fixed": fixed_batch(torch, "danube:fixed", ckcfg, cparams,
+                                cbackend, chist, prompts, dict(chist))}
     del prompts
     print(f"[danube] fixed done ({at()})")
 
-    out.update(mixed_legs(torch, "danube", kcfg, params, backend, hist,
+    # the captured paged_update: layer 5's k in the third forward, as at
+    # full depth
+    out.update(mixed_legs(torch, "danube", ckcfg, cparams, cbackend, chist,
                           seed, smi, DANUBE_MIXED, prefix_cache=True,
-                          dense=False))
+                          dense=False, capture=2 * 2 * DANUBE_LAYERS + 10))
+    out.update(layers=ccfg.n_layers, layers_in_config=cfg.n_layers)
+    del cplan, cbackend, cparams
+    gc.collect()
     print(f"[danube] engine legs done ({at()})")
     # long: one dense admission group of 2 x 8192 tokens; each layer's
     # attention through flash at D 120 with the window
@@ -6531,37 +6566,60 @@ def phase_dryrun(torch, seed, smi, device="cuda"):
 PART_CELLS = [("yi-9b", "decode_32k", False), ("yi-9b", "decode_32k", True),
               ("deepseek-v2-lite-16b", "prefill_32k", False),
               (ZAMBA, "long_500k", False)]
-PART_TIMEOUT = 240
+PART_TIMEOUT = 300
 
 
-def phase_partitioned(torch, seed, smi, single, device="cuda"):
-    """Phase 21 (module docstring): `PART_CELLS` through ``python -m
-    repro_torch.launch.dryrun --mesh production --device DEVICE``, one
-    subprocess per cell, all started together; each record against its
-    specs-only record, zamba2's FLOPs against ``single`` (phase 19's
-    (1, 1) record of the cell), and the roofline table of the records.
-    Returns the phase's record."""
-    from repro_torch.launch import dryrun as D
-    from repro_torch.launch.mesh import production_shape
-    from repro_torch.roofline import analysis as RA
-    t_phase = time.perf_counter()
-    out_dir = ROOT / "build" / "chip_smoke" / "dryrun_production"
+#: where phase 21's subprocesses write their records
+PART_OUT = ROOT / "build" / "chip_smoke" / "dryrun_production"
+
+
+def start_partitioned(device="cuda"):
+    """Phase 21's subprocesses (module docstring), one per `PART_CELLS`
+    cell of ``python -m repro_torch.launch.dryrun --mesh production
+    --device DEVICE``, all started now; `phase_partitioned` reads them.
+    Returns (the processes, their start time)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    PART_OUT.mkdir(parents=True, exist_ok=True)
     procs = []
     for arch, shape, mp in PART_CELLS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
                "production", "--device", device, "--arch", arch, "--shape",
-               shape, "--out", str(out_dir)] + (["--multi-pod"] if mp else [])
-        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
+               shape, "--out", str(PART_OUT)] + (["--multi-pod"] if mp
+                                                 else [])
+        # each log to a file: a pipe nobody reads until phase 21 would
+        # fill and stall the trace
+        with open(PART_OUT / f"{arch}__{shape}__{'mp' if mp else 'sp'}.log",
+                  "w") as log:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    return procs, time.perf_counter()
+
+
+def phase_partitioned(torch, seed, smi, single, started):
+    """Phase 21 (module docstring): the records of ``started`` (from
+    `start_partitioned`), each against its specs-only record, zamba2's
+    FLOPs against ``single`` (phase 19's (1, 1) record of the cell), and
+    the roofline table of the records.  Returns the phase's record."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import production_shape
+    from repro_torch.roofline import analysis as RA
+    t_phase = time.perf_counter()
+    procs, t_start = started
+    out_dir = PART_OUT
     try:
-        logs = [p.communicate(timeout=PART_TIMEOUT)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=max(
+                1.0, PART_TIMEOUT - (time.perf_counter() - t_start)))
+        logs = [(out_dir / f"{arch}__{shape}__{'mp' if mp else 'sp'}.log")
+                .read_text() for arch, shape, mp in PART_CELLS]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    print(f"[partitioned] subprocesses done {time.perf_counter() - t_start:.1f}"
+          f" s after their start ({t_phase - t_start:.1f} s of it beside "
+          f"phases 19 and 20)")
     result, recs = {}, []
     for (arch, shape, mp), p, log in zip(PART_CELLS, procs, logs):
         tag = f"{arch}:{shape}:{'mp' if mp else 'sp'}"
@@ -6614,7 +6672,8 @@ def phase_partitioned(torch, seed, smi, single, device="cuda"):
             .splitlines():
         print(f"[partitioned] {line}")
     result["seconds"] = time.perf_counter() - t_phase
-    print(f"[partitioned] phase {result['seconds']:.1f} s ({smi})")
+    print(f"[partitioned] phase {result['seconds']:.1f} s after phase 20 "
+          f"({smi})")
     return result
 
 
@@ -7112,12 +7171,20 @@ def main(argv=None) -> int:
         mark(key)
     serving["train"] = phase_train(torch, args.seed, smi)
     mark("train")
-    serving["dryrun"] = phase_dryrun(torch, args.seed, smi)
-    mark("dryrun")
-    serving["paper"] = phase_paper(torch, args.seed, smi)
-    mark("paper")
+    # phase 21's host-only traces run beside phases 19 and 20
+    started = start_partitioned()
+    try:
+        serving["dryrun"] = phase_dryrun(torch, args.seed, smi)
+        mark("dryrun")
+        serving["paper"] = phase_paper(torch, args.seed, smi)
+        mark("paper")
+    except BaseException:
+        for p in started[0]:
+            p.kill()
+            p.wait()
+        raise
     serving["partitioned"] = phase_partitioned(torch, args.seed, smi,
-                                               serving["dryrun"])
+                                               serving["dryrun"], started)
     mark("partitioned")
     # one prefill forward of diana_long makes one flash call per layer
     flash_mix = {key: flash_rec[key] * cfg.n_layers

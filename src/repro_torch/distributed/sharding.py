@@ -44,6 +44,7 @@ import re
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import tree as _tree
 
@@ -123,7 +124,6 @@ def constrain(x, kind: str):
     tensor, ``x`` is returned as it is."""
     if not axes_configured():
         return x
-    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     spec = _ACTIVATION_SPECS[kind](_AXES["dp"], _AXES["tp"])
@@ -137,7 +137,6 @@ def constrain(x, kind: str):
 
 
 def is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
 
 
@@ -154,7 +153,6 @@ def contiguous(x):
     strided by a collective may not share)."""
     if not is_dtensor(x):
         return x.contiguous()
-    from torch.distributed.tensor import DTensor
     return DTensor.from_local(x.to_local().contiguous(), x.device_mesh,
                               x.placements, run_check=False, shape=x.shape,
                               stride=_contiguous(x.shape))
@@ -172,14 +170,12 @@ def _reduced(x):
     """DTensor ``x`` with its pending sums reduced (replicated): the
     backward of a redistribution from a sum to a shard goes from the
     shard to a sum, which DTensor does not do in every version."""
-    from torch.distributed.tensor import Partial
     return _replicated(x, [i for i, p in enumerate(x.placements)
                            if isinstance(p, Partial)])
 
 
 def _replicated(x, mesh_dims):
     """DTensor ``x`` with the mesh dims ``mesh_dims`` replicated."""
-    from torch.distributed.tensor import Replicate
     if not mesh_dims:
         return x
     pl = list(x.placements)
@@ -194,7 +190,6 @@ def splittable(x, n: int, dim: int = -1):
     do not divide ``n`` gets those mesh dims replicated first, since
     DTensor refuses to split such a shard (XLA's partitioner gathers there
     too); any other tensor is returned as it is."""
-    from torch.distributed.tensor import DTensor, Shard
     if not isinstance(x, DTensor):
         return x
     dim %= x.ndim
@@ -214,7 +209,6 @@ def merged(x, shape, n: int):
     mesh), and in the backward pass the gradient gets `splittable`
     (``n``), so that the reshape's own backward can split it again.  Any
     other tensor: ``x.reshape(shape)``."""
-    from torch.distributed.tensor import DTensor, Shard
     if not isinstance(x, DTensor):
         return x.reshape(shape)
     first = len(shape) - 1
@@ -248,7 +242,6 @@ def attention_shards(fn, q, k, v):
     the KV head that block reads, and gathers the outputs.  ``fn`` runs on each device's shards (a
     chunk loop or a kernel on plain tensors).  Plain tensors: ``fn(q, k,
     v)``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(q, DTensor):
         return fn(q, k, v)
     mesh = q.device_mesh
@@ -298,7 +291,6 @@ def write_slice(buf, dim: int, start: int, val):
     of ``val`` that falls in its own shard of ``dim``, with ``val`` laid
     out as ``buf`` on every other dim: DTensor itself would gather a
     sliced shard and write into the copy.  Returns ``buf``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     n = val.shape[dim]
     if not isinstance(buf, DTensor):
         buf.narrow(dim, start, n).copy_(val)
@@ -329,7 +321,6 @@ def elementwise(fn, x):
     local shard under the same placements (for ops DTensor has no
     strategy for, e.g. ``log_sigmoid``; a pending sum is reduced first).
     Any other tensor: ``fn(x)``."""
-    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return fn(x)
     x = _reduced(x)
@@ -347,7 +338,6 @@ def per_batch_shard(fn, batched, shared=()):
     plain ops on each device, not step by step as DTensor ops (each costs
     milliseconds of host time).  ``fn`` returns a tuple of batch-first
     tensors, rewrapped as DTensors of the batch's placements."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     lead = next((t for t in batched if isinstance(t, DTensor)), None)
     if lead is None:
         return fn(batched, shared)
@@ -441,7 +431,6 @@ def placements(mesh, spec: PartitionSpec) -> tuple:
     """The DTensor placements of ``spec`` on ``mesh``: per mesh dim,
     ``Shard(d)`` where tensor dim d names that axis, else
     ``Replicate()``."""
-    from torch.distributed.tensor import Replicate, Shard
     out = []
     for name in mesh.mesh_dim_names:
         dims = [d for d, axes in enumerate(spec) if axes is not None and

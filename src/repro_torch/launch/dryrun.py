@@ -60,7 +60,9 @@ import weakref
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.core import tree as _tree
@@ -213,7 +215,6 @@ def concrete_args(cfg, shape: str, gen: torch.Generator):
 
 def _local(t):
     """The local shard of a DTensor (one device's storage), else ``t``."""
-    from torch.distributed.tensor import DTensor
     return t.to_local() if isinstance(t, DTensor) else t
 
 
@@ -326,8 +327,6 @@ class PeakTracker(TorchDispatchMode):
                 setattr(owner, name, fn)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-        from torch.utils.flop_counter import flop_registry
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
@@ -408,6 +407,13 @@ def _flash_stand_in():
         yield
     finally:
         A.flash_attention = kernel
+
+
+def long_attention(device_type: str) -> str:
+    """The path of an attention past 2048 tokens on ``device_type``: the
+    flash kernel (in a trace, `_flash_stand_in`) on the card, the chunked
+    plain attention on the CPU."""
+    return "flash" if device_type == "cuda" else "chunked plain"
 
 
 def trace_step(step, make_args) -> dict:
@@ -511,16 +517,22 @@ def _traced_mesh(mesh, device_type: str):
 def partitioned_args(mesh, shape, meta_args, dp, tp):
     """``meta_args`` as DTensors on ``mesh`` under `arg_specs`, each an
     uninitialised local shard on the mesh's device (called under
-    ``FakeTensorMode``: fake shards)."""
-    from torch.distributed.tensor import DTensor
+    ``FakeTensorMode``: fake shards) of the shape DTensor itself gives
+    this rank: the specs-only record's `sharding.local_shape` is the
+    independent count that the traced argument bytes are held to."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
     dev = torch.device(mesh.device_type)
 
     def shard(m, spec):
-        local = torch.empty(sh.local_shape(mesh, tuple(m.shape), spec),
-                            dtype=m.dtype, device=dev)
-        return DTensor.from_local(local, mesh, sh.placements(mesh, spec),
-                                  run_check=False, shape=m.shape,
-                                  stride=m.stride())
+        pl = sh.placements(mesh, spec)
+        with unset_fake_temporarily():      # it computes offsets on tensors
+            shape = compute_local_shape_and_global_offset(m.shape, mesh,
+                                                          pl)[0]
+        local = torch.empty(shape, dtype=m.dtype, device=dev)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=m.shape, stride=m.stride())
     return _tree.unflatten(meta_args, [
         shard(m, spec) for m, spec in zip(
             _tree.leaves(meta_args), arg_specs(mesh, shape, meta_args, dp,
@@ -573,9 +585,15 @@ def run_cell(arch: str, shape: str, mesh, out_dir: Path,
     # a train step past 2048 tokens reaches the flash kernel on the card,
     # which has no backward: train cells trace on CPU fake tensors, whose
     # chunked plain attention autograd differentiates (as the JAX package
-    # differentiates its jnp chunked attention)
+    # differentiates its jnp chunked attention).  Their temp and peak
+    # bytes are that path's (its scores kept for the backward), which the
+    # card never runs; the record names the device and the path
     kind = SP.SHAPES[shape]["kind"]
     device = torch.device("cpu" if kind == "train" else mesh.device_type)
+    if kind == "train" and mesh.device_type == "cuda":
+        print(f"[dryrun] {arch} x {shape}: a train cell, traced on CPU fake "
+              f"tensors through the chunked plain attention (the flash "
+              f"kernel has no backward)")
     traced_mesh = _traced_mesh(mesh, device.type)
     dp = mesh_axes(traced_mesh)[0]
     if mesh.size() > 1:
@@ -600,6 +618,7 @@ def run_cell(arch: str, shape: str, mesh, out_dir: Path,
         "n_devices": mesh.size(),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "long_attention": long_attention(device.type),
         "memory_analysis": mem,
         "cost_analysis": {"flops": traced["flops"]},
         "collectives": traced["collectives"],
@@ -663,7 +682,13 @@ def main(argv=None):
     ap.add_argument("--mapping", default=None,
                     help="mapping artifact JSON: report the per-layer "
                          "kernel selection the runtime would execute")
+    ap.add_argument("--list-archs", action="store_true",
+                    help="print the archs of --all, one per line, and exit")
     args = ap.parse_args(argv)
+    if args.list_archs:
+        cfgbase.load_all()
+        print("\n".join(cfgbase.names()))
+        return
     if args.device == "cuda" and not torch.cuda.is_available():
         print("[dryrun] ERROR: no CUDA device (pass --device cpu for the "
               "CPU's mesh)", file=sys.stderr)

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tree as _tree
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -104,8 +105,7 @@ def make_train_step(cfg: ArchConfig, grad_shardings=None):
     ocfg = opt_config(cfg)
 
     def pin(g, placements):
-        from torch.distributed.tensor import DTensor
-        if isinstance(g, DTensor):
+        if is_dtensor(g):
             return g.redistribute(g.device_mesh, placements)
         return g
 

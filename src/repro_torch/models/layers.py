@@ -36,15 +36,12 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The rows ``emb[tokens]``; on a DTensor table through
-    ``F.embedding``, whose DTensor strategy and backward are those of a
-    vocab-parallel embedding (indexing's backward, an ``index_put``, has
-    none that every DTensor version places)."""
-    if is_dtensor(emb):
-        # tokens whole on every device: the vocab-parallel output's mask
-        # is of the tokens' local shape
-        return F.embedding(replicated(tokens), emb)
-    return emb[tokens]
+    """The rows ``emb[tokens]``, through ``F.embedding``: on a DTensor
+    table its strategy and backward are those of a vocab-parallel
+    embedding (indexing's backward, an ``index_put``, has none that every
+    DTensor version places), with the tokens whole on every device (the
+    vocab-parallel output's mask is of the tokens' local shape)."""
+    return F.embedding(replicated(tokens), emb)
 
 
 def init_dense(gen: torch.Generator, d_in, d_out, dtype=torch.bfloat16,

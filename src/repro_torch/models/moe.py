@@ -21,7 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, is_dtensor
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models._backend import join as _j
 
@@ -148,15 +148,11 @@ def moe_ffn(p, x, cfg: MoEConfig, n_groups=None, name=None,
         h = a(L.einsum("gecd,edf->gecf", ein, p["up"]))
     h = constrain(h, "moe_expert")
     eout = constrain(L.einsum("gecf,efd->gecd", h, p["down"]), "moe_expert")
-    if is_dtensor(eout):
-        # the combine as one batched product over (e, c) flattened with
-        # the expert-sharded e outermost, which every DTensor version
-        # places (einsum's own order of the two is not)
-        Ge, E_, C, _ = eout.shape
-        y = L.matmul(comb.reshape(Ge, Tg, E_ * C),
-                     eout.reshape(Ge, E_ * C, D)).reshape(B, S, D)
-    else:
-        y = L.einsum("gtec,gecd->gtd", comb, eout).reshape(B, S, D)
+    # the combine "gtec,gecd->gtd" as one batched product over (e, c)
+    # flattened with the expert-sharded e outermost, which every DTensor
+    # version places (einsum's own order of the two is not)
+    y = L.matmul(comb.reshape(G, Tg, E * C),
+                 eout.reshape(G, E * C, D)).reshape(B, S, D)
     if cfg.n_shared:
         y = y + L.ffn(p["shared"], x, cfg.act, _j(name, "shared"))
     # on DTensors the combine leaves a pending sum over the experts: lay

@@ -3,7 +3,7 @@ per (arch x shape x mesh) cell,
 
     compute term    = FLOPs / (devices * peak)
     memory term     = bytes / (devices * HBM_bw)
-    collective term = collective_bytes / (devices * link_bw)
+    collective term = collective_bytes / link_bw
 
 FLOPs and HBM bytes come from an exact ANALYTIC enumerator over the
 architecture's tensor ops, as implemented (full-square masked attention,
@@ -15,7 +15,11 @@ arch's decode keys to the window, although both packages' decode masks
 the whole cache rather than slicing it: the count is lower than what runs
 (h2o-danube-3-4b at long_500k).  Collective bytes come from the dry-run
 record (`repro_torch.launch.dryrun`), loop-scope bytes times the scan
-repeats; a record of the port has them all at top level.
+repeats; a record of the port has them all at top level.  They are one
+device's (the bytes its collectives bring in), so each device's link
+carries them: the collective term divides them by the link rate only.
+The JAX package divides them by the device count as well, which makes
+its term 256 / 512 times smaller on the production meshes.
 
 MODEL_FLOPS: 6*N*D (dense) / 6*N_active*D (MoE) for training; 2*N_active
 per generated token for decode.  MODEL_FLOPS / FLOPs measures how much of
@@ -300,7 +304,7 @@ def analyze_cell(rec: dict, peak=PEAK_BF16, hbm=HBM_BW, link=LINK_BW):
     cb = collective_bytes_from_record(rec)
     t_c = fl["total"] / (chips * peak)
     t_m = by / (chips * hbm)
-    t_l = cb / (chips * link)
+    t_l = cb / link
     dom = max((("compute", t_c), ("memory", t_m), ("collective", t_l)),
               key=lambda kv: kv[1])[0]
     return Roofline(
@@ -344,21 +348,29 @@ def markdown_table(rooflines, records_by_key=None) -> str:
 def records_table(recs) -> str:
     """One row per dry-run record: its status, trace s, and per device
     FLOPs, temp GiB and collective GiB, with the roofline's dominant
-    term (a skipped cell: its reason)."""
-    lines = ["| arch | shape | mesh | status | trace s | FLOPs / device | "
-             "temp GiB / device | collective GiB / device | dominant |",
-             "|---|---|---|---|---|---|---|---|---|"]
+    term (a skipped cell: its reason), and the device the step was traced
+    on with its long attention's path (a train cell's memory is that of
+    the chunked plain attention on CPU fake tensors)."""
+    from repro_torch.launch.dryrun import long_attention
+    lines = ["| arch | shape | mesh | status | traced on | trace s | "
+             "FLOPs / device | temp GiB / device | collective GiB / device "
+             "| dominant |",
+             "|---|---|---|---|---|---|---|---|---|---|"]
     for rec in recs:
         mesh = "x".join(map(str, rec.get("mesh") or
                             ([2, 16, 16] if rec["multi_pod"] else [16, 16])))
         if rec.get("status") != "ok":
             lines.append(f"| {rec['arch']} | {rec['shape']} | {mesh} | "
-                         f"{rec['status']} | — | — | — | — | "
+                         f"{rec['status']} | — | — | — | — | — | "
                          f"{rec.get('reason', '')[:50]} |")
             continue
         mem = rec["memory_analysis"]
+        dev = rec.get("device", "cpu")
+        path = rec.get("long_attention") or long_attention(
+            "cpu" if dev == "cpu" else "cuda")
         lines.append(
             f"| {rec['arch']} | {rec['shape']} | {mesh} | ok | "
+            f"{'cpu' if dev == 'cpu' else 'cuda'}, {path} | "
             f"{rec['trace_s']:.1f} | {rec['cost_analysis']['flops']:.4e} | "
             f"{mem['temp_size_in_bytes'] / 2**30:.3f} | "
             f"{collective_bytes_from_record(rec) / 2**30:.3f} | "

@@ -12,15 +12,18 @@ devices, argument bytes equal to the specs-only record's and, bit for
 bit, to JAX's record of the same cell (JAX on 512 host devices; its train
 step fails in ``with_sharding_constraint`` under this JAX, so the train
 cell is held to the specs only), per-device FLOPs below the (1, 1) mesh
-record's and at least it times the devices, collectives where JAX has
-them.  One sharded matmul counted at its local product, the propagator's
+record's and at least it times the devices, per-device FLOPs and temp
+bytes within stated ratios of JAX's (`FLOPS_RATIO`, `TEMP_RATIO`),
+collectives where JAX has them.  The traced argument shards take the
+shape DTensor computes for the rank; the specs-only record counts them
+with `sharding.local_shape`.  One sharded matmul counted at its local product, the propagator's
 global-shape call left out.  A (2, 2) mesh of 4 gloo ranks runs reduced
 yi-9b and zamba2 prefill and decode partitioned, and a (1, 4) mesh a
 2560-token prefill through the chunked attention on blocks of query
 heads, each within 1e-4 of the unpartitioned step (float32, caches
-included).  `fake_production_mesh`
-refuses beside a gloo group, and `analyze_cell` reads a production
-record."""
+included).  `fake_production_mesh` refuses beside a gloo group, and
+`analyze_cell` reads a production record, its collective term one
+device's bytes over the link rate."""
 import json
 import os
 import socket
@@ -46,6 +49,29 @@ CELLS = (("yi-9b", "tiny_decode", "base"),
          ("xlstm-1.3b", "tiny_prefill", "base"),
          ("yi-9b", "tiny_train", "base"))
 KEYS = [f"{a}:{s}:{v}:{m}" for m in ("sp", "mp") for a, s, v in CELLS]
+SERVING = [k for k in KEYS if ":tiny_train:" not in k]
+#: per-device FLOPs, the port's over JAX's compiled ``cost_analysis``:
+#: XLA counts each ``lax.scan`` body once (the layer scan's 2 repeats
+#: here) and the port every iteration, and the two partitions differ
+#: (DTensor gathers heads that the 16 model ranks do not divide; JAX's
+#: MoE dispatches by one-hot products).  Readings (CPU, torch 2.13, JAX
+#: on 512 host devices), 16x16 / 2x16x16: yi decode 2.007 / 1.747,
+#: deepseek prefill kvwq8 0.455 / 0.449, zamba2 decode wq8 0.694 / 0.560.
+#: A factor 3 either way fails a 10x miscount in any of them (counting
+#: the whole batch's attention on yi decode is ~30x).  xlstm's prefill
+#: runs its sLSTM / mLSTM scans over time, which XLA also counts once:
+#: 5.580 / 5.442, held to [1, 8] (the port counts every step)
+FLOPS_RATIO = {"xlstm-1.3b": (1.0, 8.0)}
+FLOPS_RATIO_DEFAULT = (1 / 3, 3.0)
+#: temp bytes, the port's over JAX's: readings yi 3.849 / 2.536,
+#: deepseek 0.413 / 0.412, xlstm 2.336 / 1.255; zamba2 wq8 decode 39.90 /
+#: 44.52: its two remainder Mamba2 blocks hold unstacked (B, H, hd, N)
+#: states, which the cache rule (JAX's) leaves unsharded on the batch and
+#: shards over the model ranks on hd, and the port's scan on batch
+#: shards gathers each over the 16 model ranks (a 1 MiB buffer per block
+#: on one device; XLA's partition keeps it sharded)
+TEMP_RATIO = {"zamba2-1.2b": (8.0, 64.0)}
+TEMP_RATIO_DEFAULT = (1 / 4, 8.0)
 TOL = 1e-4                  # the (2, 2) step, float32 (seen: ~6e-6)
 TIMEOUT = 240
 
@@ -139,6 +165,8 @@ def test_traced_record_on_the_production_mesh(runs, single, key):
     for op, n in rec["counts"].items():
         assert (n > 0) == (rec["bytes"][op] > 0)
     full = got["record"]
+    assert full["device"] == "cpu"
+    assert full["long_attention"] == "chunked plain"
     assert full["memory_analysis"]["peak_bytes"] >= rec["args"]
     assert set(full) >= {"arch", "shape", "multi_pod", "variant", "status",
                          "mesh", "n_devices", "memory_analysis",
@@ -162,6 +190,18 @@ def test_argument_bytes_equal_jax_compiled_record(runs, key):
     for op in ("all-gather", "all-reduce"):
         if theirs["counts"][op]:
             assert ours["counts"][op] > 0, op
+
+
+@pytest.mark.parametrize("key", SERVING)
+def test_flops_and_temp_against_jax_compiled_record(runs, key):
+    ours, theirs = runs["port"][key]["traced"], runs["jax"][key]
+    arch = key.split(":")[0]
+    for field, bands, default in (
+            ("flops", FLOPS_RATIO, FLOPS_RATIO_DEFAULT),
+            ("temp", TEMP_RATIO, TEMP_RATIO_DEFAULT)):
+        lo, hi = bands.get(arch, default)
+        ratio = ours[field] / theirs[field]
+        assert lo <= ratio <= hi, (field, ours[field], theirs[field], ratio)
 
 
 def test_sharded_matmul_counts_the_local_product(runs):
@@ -205,8 +245,11 @@ def test_analyze_cell_reads_a_production_record(runs):
                arch="yi-9b", shape="decode_32k")
     roof = RA.analyze_cell(rec)
     assert roof.chips == 256 and roof.collective_bytes > 0
-    assert roof.t_collective > 0 and roof.t_compute > 0
+    assert roof.t_compute > 0
+    # one device's bytes over its link, not over 256 links
+    assert roof.t_collective == roof.collective_bytes / RA.LINK_BW
     table = RA.markdown_table([roof])
     assert "| yi-9b | decode_32k |" in table
     rows = RA.records_table([rec]).splitlines()
-    assert rows[2].startswith("| yi-9b | decode_32k | 16x16 | ok |")
+    assert rows[2].startswith(
+        "| yi-9b | decode_32k | 16x16 | ok | cpu, chunked plain |")

@@ -1,7 +1,8 @@
 """The port's roofline enumerator (`repro_torch.roofline.analysis`) against
 the JAX package's: parameter counts of all ten archs, the analytic FLOPs
 and bytes of every runnable (arch, shape, variant) cell, `analyze_cell`'s
-terms at JAX's constants, `markdown_table`'s text; the enumerator against
+terms at JAX's constants (the collective term the devices times JAX's: the
+port divides one device's bytes by the link rate only), `markdown_table`'s text; the enumerator against
 ``FlopCounterMode`` on one full-width block on ``meta`` (the bands of
 ``tests/test_roofline_crosscheck.py``), and the gap of the window clamp on
 h2o-danube's decode, exactly the attention past the window.
@@ -132,9 +133,12 @@ def test_analyze_cell_and_table_equal_jax(memo_counts):
         a = RA.analyze_cell(rec, peak=JRA.PEAK_BF16, hbm=JRA.HBM_BW,
                             link=JRA.LINK_BW)
         b = JRA.analyze_cell(rec)
-        assert a.dominant == b.dominant
+        # the record's collective bytes are one device's: the port divides
+        # them by the link rate, JAX by the device count as well
+        want = dict(b.terms, collective=b.t_collective * rec["n_devices"])
         for k, v in a.terms.items():
-            assert v == pytest.approx(b.terms[k], rel=1e-12), (arch, k)
+            assert v == pytest.approx(want[k], rel=1e-12), (arch, k)
+        assert a.dominant == max(want, key=want.get)
         for k in ("model_flops", "hlo_flops", "useful_ratio",
                   "collective_bytes"):
             assert getattr(a, k) == pytest.approx(getattr(b, k), rel=1e-12)
